@@ -1,11 +1,17 @@
-"""BERT blocks for the text embeddings and the cross-modal fusion encoder,
-forward only (counterpart of ``empirical_mvm_tpu/models/bert.py``).
+"""BERT blocks for the text embeddings, the cross-modal fusion encoder and
+the MLM head (counterpart of ``empirical_mvm_tpu/models/bert.py``).
 
 Module and parameter names are HF BERT's (``attention.self.query``,
-``attention.output.LayerNorm``, ``intermediate.dense``, ...), the names of
-the reference checkpoints. Attention runs through
-:func:`lane_self_attention` on one fused qkv product, and every LayerNorm
-through :func:`fused_layer_norm`.
+``attention.output.LayerNorm``, ``intermediate.dense``,
+``predictions.transform.dense``, ...), the names of the reference
+checkpoints. Attention runs through :func:`lane_self_attention` on one fused
+qkv product, and every LayerNorm through :func:`fused_layer_norm`.
+
+Training: a generator passed to ``forward`` turns on hidden dropout at the
+JAX package's sites (after the embeddings' LayerNorm, after the attention
+output projection, after the layer's output projection) and the
+attention-probability dropout inside the attention kernel. No generator is
+the deterministic pass.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from empirical_mvm_torch.core.config import BertConfig
-from empirical_mvm_torch.models.common import Linear
+from empirical_mvm_torch.models.common import Linear, dropout
 from empirical_mvm_torch.ops.layernorm import FusedLayerNorm
 from empirical_mvm_torch.ops.window_attention import lane_self_attention
 
@@ -41,6 +47,7 @@ class BertEmbeddings(nn.Module):
     def __init__(self, cfg: BertConfig, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.p_drop = cfg.hidden_dropout_prob
         self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings,
                                                 cfg.hidden_size)
@@ -48,12 +55,12 @@ class BertEmbeddings(nn.Module):
                                                   cfg.hidden_size)
         self.LayerNorm = FusedLayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, generator=None):
         ids = input_ids.long()
         pos = torch.arange(ids.shape[1], device=ids.device)[None]
         x = (self.word_embeddings(ids) + self.position_embeddings(pos)
              + self.token_type_embeddings(torch.zeros_like(ids)))
-        return self.LayerNorm(x).to(self.dtype)
+        return dropout(self.LayerNorm(x), self.p_drop, generator).to(self.dtype)
 
 
 class _QKV(nn.Module):
@@ -67,15 +74,17 @@ class _QKV(nn.Module):
 
 
 class _Output(nn.Module):
-    """HF ``*.output``: dense, then LayerNorm of (dense + residual)."""
+    """HF ``*.output``: dense, hidden dropout, then LayerNorm of
+    (dense + residual)."""
 
-    def __init__(self, d_in: int, d: int, eps: float, dtype):
+    def __init__(self, d_in: int, d: int, eps: float, dtype, p_drop: float):
         super().__init__()
+        self.p_drop = p_drop
         self.dense = Linear(d_in, d, compute_dtype=dtype)
         self.LayerNorm = FusedLayerNorm(d, eps)
 
-    def forward(self, h, residual):
-        return self.LayerNorm(self.dense(h) + residual)
+    def forward(self, h, residual, generator=None):
+        return self.LayerNorm(dropout(self.dense(h), self.p_drop, generator) + residual)
 
 
 class BertSelfAttention(nn.Module):
@@ -88,19 +97,22 @@ class BertSelfAttention(nn.Module):
         super().__init__()
         d = cfg.hidden_size
         self.num_heads = cfg.num_attention_heads
+        self.p_attn = cfg.attention_probs_dropout_prob
         self.dtype = dtype
         self.self = _QKV(d, dtype)
-        self.output = _Output(d, d, cfg.layer_norm_eps, dtype)
+        self.output = _Output(d, d, cfg.layer_norm_eps, dtype, cfg.hidden_dropout_prob)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, generator=None):
         """x (B, L, D); mask (B, L, L) fp32 additive (may be a broadcast view)."""
         s, dt = self.self, self.dtype
         w3 = torch.cat([s.query.weight, s.key.weight, s.value.weight]).to(dt)
         b3 = torch.cat([s.query.bias, s.key.bias, s.value.bias]).to(dt)
         qkv = F.linear(x.to(dt), w3, b3)                         # (B, L, 3D)
         hd = x.shape[-1] // self.num_heads
-        ctx = lane_self_attention(qkv, mask, self.num_heads, hd ** -0.5)
-        return self.output(ctx, x)
+        ctx = lane_self_attention(qkv, mask, self.num_heads, hd ** -0.5,
+                                  self.p_attn if generator is not None else 0.0,
+                                  generator)
+        return self.output(ctx, x, generator)
 
 
 class BertLayer(nn.Module):
@@ -113,11 +125,11 @@ class BertLayer(nn.Module):
         self.intermediate.dense = Linear(cfg.hidden_size, cfg.intermediate_size,
                                          compute_dtype=dtype)
         self.output = _Output(cfg.intermediate_size, cfg.hidden_size,
-                              cfg.layer_norm_eps, dtype)
+                              cfg.layer_norm_eps, dtype, cfg.hidden_dropout_prob)
 
-    def forward(self, x, mask):
-        x = self.attention(x, mask)
-        return self.output(F.gelu(self.intermediate.dense(x)), x)
+    def forward(self, x, mask, generator=None):
+        x = self.attention(x, mask, generator)
+        return self.output(F.gelu(self.intermediate.dense(x)), x, generator)
 
 
 class BertEncoder(nn.Module):
@@ -128,7 +140,7 @@ class BertEncoder(nn.Module):
         self.layer = nn.ModuleList([BertLayer(cfg, dtype)
                                     for _ in range(cfg.num_hidden_layers)])
 
-    def forward(self, x, attn_bias=None):
+    def forward(self, x, attn_bias=None, generator=None):
         """attn_bias: additive (B, 1, 1 or L, L) fp32 from
         :func:`extended_attention_mask`, or None."""
         b, l = x.shape[:2]
@@ -137,5 +149,24 @@ class BertEncoder(nn.Module):
         else:
             mask = attn_bias.float().reshape(b, *attn_bias.shape[2:]).expand(b, l, l)
         for layer in self.layer:
-            x = layer(x, mask)
+            x = layer(x, mask, generator)
         return x
+
+
+class BertMLMHead(nn.Module):
+    """HF ``BertOnlyMLMHead``: transform dense, exact GELU, LayerNorm, vocab
+    decoder (JAX ``BertMLMHead``; the reference's ``fc_mtm``,
+    main_pretrain.py:148-150)."""
+
+    def __init__(self, cfg: BertConfig, dtype=torch.float32):
+        super().__init__()
+        d = cfg.hidden_size
+        self.predictions = nn.Module()
+        self.predictions.transform = nn.Module()
+        self.predictions.transform.dense = Linear(d, d, compute_dtype=dtype)
+        self.predictions.transform.LayerNorm = FusedLayerNorm(d, cfg.layer_norm_eps)
+        self.predictions.decoder = Linear(d, cfg.vocab_size, compute_dtype=dtype)
+
+    def forward(self, x):
+        t = self.predictions.transform
+        return self.predictions.decoder(t.LayerNorm(F.gelu(t.dense(x))))

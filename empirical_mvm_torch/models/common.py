@@ -25,6 +25,17 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), b)
 
 
+def dropout(x: torch.Tensor, p: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout drawn from ``generator`` (flax ``nn.Dropout``: keep
+    with probability 1 - p, kept values divided by 1 - p in x's dtype). No
+    generator, or p = 0, is the deterministic pass: x unchanged."""
+    if generator is None or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), x.new_zeros(()))
+
+
 def init_weights(module: nn.Module, generator: torch.Generator,
                  std: float = 0.02) -> None:
     """Seeded random init of every parameter: LayerNorm weights 1, biases 0,

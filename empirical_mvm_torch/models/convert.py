@@ -2,9 +2,9 @@
 
 :func:`state_dict_from_flax` is the exact inverse of the JAX package's
 ``models/torch_import.violet_params_from_torch``: it takes the flax param
-tree of a ``VioletRetrieval`` (nested dicts of arrays) and returns the
-reference-named torch ``state_dict`` the port's :class:`VioletRetrieval`
-loads. Dense kernels (in, out) become Linear weights (out, in); the patch
+tree of a ``VioletRetrieval`` or ``VioletPretrain`` (nested dicts of arrays)
+and returns the reference-named torch ``state_dict`` the port's model of the
+same name loads. Dense kernels (in, out) become Linear weights (out, in); the patch
 kernel (kd, kh, kw, C, E) becomes the Conv3d weight (E, C, kd, kh, kw);
 LayerNorm ``scale`` becomes ``weight``; embeddings' ``embedding`` becomes
 ``weight``. This module imports nothing of JAX: the tree holds numpy arrays
@@ -24,7 +24,7 @@ Tree = Mapping[str, Any]
 
 
 def _put(sd: dict, key: str, value) -> None:
-    sd[key] = torch.from_numpy(np.ascontiguousarray(np.asarray(value, np.float32)))
+    sd[key] = torch.from_numpy(np.array(value, np.float32, order="C"))
 
 
 def _linear(sd: dict, torch_prefix: str, tree: Tree, bias: bool = True) -> None:
@@ -96,9 +96,10 @@ def bert_encoder_state_dict(tree: Tree, num_layers: int, prefix: str = "") -> di
 
 def state_dict_from_flax(params: Tree, cfg: ModelConfig,
                          heads: Mapping[str, str] | None = None) -> dict:
-    """JAX ``VioletBase``/``VioletRetrieval`` params -> the port's
-    ``state_dict``. ``heads`` maps head names to kinds as in
-    ``violet_params_from_torch``; only ``"score_head"`` is ported."""
+    """JAX ``VioletBase``/``VioletRetrieval``/``VioletPretrain`` params ->
+    the port's ``state_dict``. ``heads`` maps head names to kinds as in
+    ``violet_params_from_torch``: ``"score_head"``, ``"mlm_head"`` or
+    ``"linear"``."""
     img = params["enc_img"]
     sd = swin3d_state_dict(img["swin"], cfg.swin.depths, "enc_img.swin.")
     if "fc" in img:
@@ -111,8 +112,18 @@ def state_dict_from_flax(params: Tree, cfg: ModelConfig,
     sd.update(bert_encoder_state_dict(params["trsfr"], cfg.fusion.num_hidden_layers,
                                       "trsfr."))
     for name, kind in (heads or {}).items():
-        if kind != "score_head":
+        tree = params[name]
+        if kind == "score_head":
+            _linear(sd, f"{name}.1", tree["fc1"])
+            _linear(sd, f"{name}.3", tree["fc2"])
+        elif kind == "mlm_head":
+            # inverse of bert_mlm_head_params_from_torch: HF BertOnlyMLMHead
+            # names, the decoder bias as predictions.decoder.bias
+            _linear(sd, f"{name}.predictions.transform.dense", tree["transform"])
+            _layernorm(sd, f"{name}.predictions.transform.LayerNorm", tree["LayerNorm"])
+            _linear(sd, f"{name}.predictions.decoder", tree["decoder"])
+        elif kind == "linear":
+            _linear(sd, name, tree)
+        else:
             raise NotImplementedError(f"head kind {kind!r} is not ported")
-        _linear(sd, f"{name}.1", params[name]["fc1"])
-        _linear(sd, f"{name}.3", params[name]["fc2"])
     return sd

@@ -1,4 +1,4 @@
-"""Video Swin Transformer 3D, forward only (counterpart of
+"""Video Swin Transformer 3D (counterpart of
 ``empirical_mvm_tpu/models/video_swin.py``).
 
 Channel-last ``(B, T, H, W, C)`` end to end, as in the JAX package, with the
@@ -14,7 +14,14 @@ stage (the temporal window clamps to T). LayerNorms here are the plain
 :class:`LayerNorm`, as the JAX package keeps flax ``nn.LayerNorm`` in trained
 swins. Parameter names are the reference checkpoint's
 (``layers.0.blocks.0.attn.qkv.weight``, ``patch_embed.proj.weight``, ...).
-Stochastic depth, scan and remat are training features and are left out.
+Training: stochastic depth at the reference's rates
+(``np.linspace(0, drop_path_rate, sum(depths))``), drawn from the generator
+passed to ``forward`` (none: the deterministic pass). The relative-position
+bias table gets its gradient through autograd of the index gather (the JAX
+package's ``rel_pos_bias`` custom VJP is an XLA op). Dropout inside the
+blocks (``drop_rate``, ``attn_drop_rate``) is not ported: every reference
+config sets both to 0, and the direct attention kernel needs
+``attn_drop_rate == 0``. Scan and remat are not ported.
 """
 
 from __future__ import annotations
@@ -88,6 +95,19 @@ def _shift_attn_mask(dims: tuple[int, int, int],
     return np.where(attn_mask != 0, -100.0, 0.0).astype(np.float32)
 
 
+def drop_path(x: torch.Tensor, rate: float,
+              generator: torch.Generator | None) -> torch.Tensor:
+    """Stochastic depth (JAX ``drop_path``, ref: visbackbone/video_swin.py:46-63):
+    each sample's residual branch is kept with probability 1 - rate and then
+    divided by it."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, x.new_zeros(()))
+
+
 class Mlp(nn.Module):
     """fc1 -> exact GELU -> fc2 (ref: visbackbone/video_swin.py:65-81)."""
 
@@ -142,8 +162,10 @@ class SwinTransformerBlock3D(nn.Module):
     """Windowed MSA + MLP with cyclic shift (ref: visbackbone/video_swin.py:175-263)."""
 
     def __init__(self, dim, num_heads, window_size, shift_size, mlp_ratio=4.0,
-                 qkv_bias=True, qk_scale=None, dtype=torch.float32):
+                 qkv_bias=True, qk_scale=None, dtype=torch.float32,
+                 drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         self.window_size = tuple(window_size)
         self.shift_size = tuple(shift_size)
         self.norm1 = LayerNorm(dim)
@@ -152,7 +174,7 @@ class SwinTransformerBlock3D(nn.Module):
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
 
-    def forward(self, x, attn_mask):
+    def forward(self, x, attn_mask, generator=None):
         b, d, h, w, c = x.shape
         window, shift = get_window_size((d, h, w), self.window_size,
                                         self.shift_size)
@@ -168,8 +190,9 @@ class SwinTransformerBlock3D(nn.Module):
         x = self.attn(x, attn_mask if shifted else None, window)
         if shifted:
             x = torch.roll(x, shifts=shift, dims=(1, 2, 3))
-        x = shortcut + x[:, :d, :h, :w, :]
-        return x + self.mlp(self.norm2(x))
+        rate = self.drop_path_rate
+        x = shortcut + drop_path(x[:, :d, :h, :w, :], rate, generator)
+        return x + drop_path(self.mlp(self.norm2(x)), rate, generator)
 
 
 class PatchMerging(nn.Module):
@@ -194,14 +217,15 @@ class BasicLayer(nn.Module):
 
     def __init__(self, dim, depth, num_heads, window_size, mlp_ratio=4.0,
                  qkv_bias=True, qk_scale=None, downsample=False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, drop_path_rates: Sequence[float] = ()):
         super().__init__()
         self.window_size = tuple(window_size)
         half = tuple(s // 2 for s in self.window_size)
+        rates = list(drop_path_rates) or [0.0] * depth
         self.blocks = nn.ModuleList([
             SwinTransformerBlock3D(dim, num_heads, self.window_size,
                                    (0, 0, 0) if i % 2 == 0 else half,
-                                   mlp_ratio, qkv_bias, qk_scale, dtype)
+                                   mlp_ratio, qkv_bias, qk_scale, dtype, rates[i])
             for i in range(depth)])
         self.downsample = PatchMerging(dim, dtype) if downsample else None
         self._masks: dict = {}      # shift masks on the device, by shape
@@ -213,14 +237,14 @@ class BasicLayer(nn.Module):
                 _shift_attn_mask(dims, window, shift)).to(device)
         return self._masks[key]
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         b, d, h, w, c = x.shape
         window, shift = get_window_size(
             (d, h, w), self.window_size, tuple(s // 2 for s in self.window_size))
         dims = tuple(-(-s // ws) * ws for s, ws in zip((d, h, w), window))
         mask = self._shift_mask(dims, window, shift, x.device)
         for blk in self.blocks:
-            x = blk(x, mask)
+            x = blk(x, mask, generator)
         if self.downsample is not None:
             x = self.downsample(x)
         return x
@@ -253,18 +277,25 @@ class SwinTransformer3D(nn.Module):
 
     def __init__(self, cfg: SwinConfig, dtype=torch.float32):
         super().__init__()
+        if cfg.drop_rate or cfg.attn_drop_rate:
+            raise NotImplementedError("swin drop_rate / attn_drop_rate are not ported")
         self.patch_embed = PatchEmbed3D(cfg.patch_size, 3, cfg.embed_dim,
                                         cfg.patch_norm, dtype)
         n = len(cfg.depths)
+        dpr = np.linspace(0, cfg.drop_path_rate, sum(cfg.depths)).tolist()
+        starts = np.cumsum((0,) + tuple(cfg.depths)).tolist()
         self.layers = nn.ModuleList([
             BasicLayer(cfg.embed_dim * 2 ** i, depth, cfg.num_heads[i],
                        cfg.window_size, cfg.mlp_ratio, cfg.qkv_bias,
-                       cfg.qk_scale, downsample=i < n - 1, dtype=dtype)
+                       cfg.qk_scale, downsample=i < n - 1, dtype=dtype,
+                       drop_path_rates=dpr[starts[i]:starts[i] + depth])
             for i, depth in enumerate(cfg.depths)])
         self.norm = LayerNorm(cfg.num_features) if cfg.final_norm else None
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        """``generator`` drives stochastic depth; None is the deterministic
+        pass."""
         x = self.patch_embed(x)
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, generator)
         return x if self.norm is None else self.norm(x)

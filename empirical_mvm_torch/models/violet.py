@@ -1,11 +1,15 @@
-"""VIOLET trunk, forward only (counterpart of
-``empirical_mvm_tpu/models/violet.py``): video encoder, text embeddings,
-cross-modal fusion, and the score head.
+"""VIOLET trunk (counterpart of ``empirical_mvm_tpu/models/violet.py``):
+video encoder, text embeddings, cross-modal fusion, and the score head.
 
-Covers what the retrieval eval runs: the ``vidswin`` backbone, the
-embeddings-only text encoder, and the ``full`` joint attention mask. Names
-are the reference checkpoint's (``enc_img.swin.*``, ``enc_img.emb_pos``,
-``enc_txt.emb_txt.*``, ``trsfr.layer.*``).
+Covers what the retrieval eval and the pretrain step run: the ``vidswin``
+backbone, the embeddings-only text encoder, and the ``full`` joint attention
+mask. Names are the reference checkpoint's (``enc_img.swin.*``,
+``enc_img.emb_pos``, ``enc_txt.emb_txt.*``, ``trsfr.layer.*``).
+
+``go_feat``, ``go_cross`` and :class:`ScoreHead` take a ``generator``: with
+one they run the training pass (stochastic depth, dropout, attention
+dropout, all drawn from it), without one the deterministic pass, the JAX
+package's ``deterministic`` switch.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from torch import nn
 from empirical_mvm_torch.core.config import ModelConfig
 from empirical_mvm_torch.models.bert import (BertEmbeddings, BertEncoder,
                                              extended_attention_mask)
-from empirical_mvm_torch.models.common import Linear
+from empirical_mvm_torch.models.common import Linear, dropout
 from empirical_mvm_torch.models.video_swin import SwinTransformer3D
 from empirical_mvm_torch.ops.layernorm import FusedLayerNorm
 from empirical_mvm_torch.ops.preprocess import maybe_normalize
@@ -48,11 +52,11 @@ class EncVideo(nn.Module):
         self.emb_odr = nn.Parameter(torch.zeros(1, 1, 1, d))
         self.norm = FusedLayerNorm(d, 1e-5)
 
-    def forward(self, img):
+    def forward(self, img, generator=None):
         img = maybe_normalize(img)
         b, t, hh, ww, _ = img.shape
         hw = (hh // 32) * (ww // 32)
-        f = self.swin(img).reshape(b, t, hw, self.latent)
+        f = self.swin(img, generator).reshape(b, t, hw, self.latent)
         if self.fc is not None:
             f = self.fc(f)
         d = f.shape[-1]
@@ -76,8 +80,8 @@ class EncTxt(nn.Module):
                                       "txt_backbone_embed_only must be true")
         self.emb_txt = BertEmbeddings(cfg.text, dtype)
 
-    def forward(self, txt):
-        return self.emb_txt(txt)
+    def forward(self, txt, generator=None):
+        return self.emb_txt(txt, generator)
 
 
 def joint_attn_bias(mask_img: torch.Tensor, mask_txt: torch.Tensor) -> torch.Tensor:
@@ -89,13 +93,14 @@ def joint_attn_bias(mask_img: torch.Tensor, mask_txt: torch.Tensor) -> torch.Ten
 class ScoreHead(nn.Sequential):
     """Dropout -> Linear(D, 2D) -> ReLU -> Linear(2D, out), the reference's
     ``nn.Sequential`` (names ``fc.1``, ``fc.3``; ref: main_retrieval.py:61).
-    Dropout is inactive: the port runs inference."""
+    The dropout (``self[0].p``) acts only when a generator is passed."""
 
     def __init__(self, hidden: int, out: int = 1, dtype=torch.float32):
         super().__init__(nn.Dropout(0.1), Linear(hidden, 2 * hidden, compute_dtype=dtype),
                          nn.ReLU(), Linear(2 * hidden, out, compute_dtype=dtype))
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        x = dropout(x, self[0].p, generator)
         return self[3](torch.relu(self[1](x)))
 
 
@@ -113,12 +118,12 @@ class VioletBase(nn.Module):
         self.enc_txt = EncTxt(cfg, dtype)
         self.trsfr = BertEncoder(cfg.fusion, dtype)
 
-    def go_feat(self, img, txt, mask):
+    def go_feat(self, img, txt, mask, generator=None):
         """(ref: model.py:174-178)"""
-        feat_img, mask_img = self.enc_img(img)
-        return feat_img, mask_img, self.enc_txt(txt), mask
+        feat_img, mask_img = self.enc_img(img, generator)
+        return feat_img, mask_img, self.enc_txt(txt, generator), mask
 
-    def go_cross(self, feat_img, mask_img, feat_txt, mask_txt):
+    def go_cross(self, feat_img, mask_img, feat_txt, mask_txt, generator=None):
         """(ref: model.py:204-214)"""
         feat = torch.cat([feat_img.to(self.dtype), feat_txt.to(self.dtype)], dim=1)
-        return self.trsfr(feat, joint_attn_bias(mask_img, mask_txt))
+        return self.trsfr(feat, joint_attn_bias(mask_img, mask_txt), generator)

@@ -12,7 +12,9 @@ exception.
 
 ``launch_counts`` counts kernel launches by wrapper name. A wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that it
-went through the kernels.
+went through the kernels. A backward entry point that runs a second, small
+kernel (a fixed-order sum of per-block partials, or the columns half of an
+attention backward) counts as one launch.
 """
 
 from __future__ import annotations
@@ -42,14 +44,24 @@ _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_U, _SZ = ctypes.c_uint, ctypes.c_size_t
 _SIGNATURES = {
     # name: (argtypes, restype)
     "emvm_layer_norm_fwd": ((_I, _P, _P, _P, _P, _LL, _I, _F, _P), _I),
+    "emvm_layer_norm_bwd": ((_I, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _P), _I),
+    "emvm_layer_norm_bwd_scratch": ((_LL, _I), _LL),
     "emvm_direct_window_attention_fwd": (
         (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P), _I),
+    "emvm_direct_window_attention_bwd": (
+        (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P), _I),
+    "emvm_direct_window_attention_bwd_scratch": ((_I, _I, _I, _I, _I, _I, _I), _LL),
+    "emvm_direct_window_attention_bwd_smem_bytes": ((_I, _I, _I), _SZ),
     "emvm_lane_self_attention_fwd": (
-        (_I, _P, _P, _LL, _LL, _P, _I, _I, _I, _I, _F, _P), _I),
-    "emvm_attention_smem_bytes": ((_I, _I, _I), ctypes.c_size_t),
+        (_I, _P, _P, _LL, _LL, _P, _I, _I, _I, _I, _F, _P, _U, _F, _P), _I),
+    "emvm_lane_self_attention_bwd": (
+        (_I, _P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _U, _F, _P), _I),
+    "emvm_lane_self_attention_bwd_smem_bytes": ((_I, _I, _I), _SZ),
+    "emvm_attention_smem_bytes": ((_I, _I, _I), _SZ),
     "emvm_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -153,6 +165,14 @@ def check_tensors(*tensors: torch.Tensor) -> torch.device:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_smem(nbytes: int, what: str) -> None:
+    """Refuse a launch whose block would need more shared memory than one
+    H100 block may have."""
+    if nbytes > MAX_SMEM_BYTES:
+        raise ValueError(f"{what} needs {nbytes} bytes of shared memory, above "
+                         f"{MAX_SMEM_BYTES}")
 
 
 def dtype_code(dtype: torch.dtype) -> int:

@@ -1,12 +1,16 @@
-"""LayerNorm: the fused CUDA kernel, its plain PyTorch version, and modules.
+"""LayerNorm: the fused CUDA kernels, their plain PyTorch versions, and modules.
 
-Counterpart of ``empirical_mvm_tpu/ops/layernorm.py`` (forward only). The
-kernel (``csrc/layer_norm.cu``) replaces the Pallas ``_ln_fwd_kernel``; it
-runs the BERT/fusion LayerNorms and the ``EncVideo`` norm. The trained video
-swin keeps a plain LayerNorm, as the JAX package does (``LayerNorm`` below).
+Counterpart of ``empirical_mvm_tpu/ops/layernorm.py``. The kernels
+(``csrc/layer_norm.cu``) replace the Pallas ``_ln_fwd_kernel`` and
+``_ln_bwd_kernel``; :func:`fused_layer_norm` is a ``torch.autograd.Function``
+over them and runs the BERT/fusion LayerNorms, the MLM head's and the
+``EncVideo`` norm. The trained video swin keeps a plain LayerNorm with plain
+autograd, as the JAX package keeps flax ``nn.LayerNorm`` there
+(``LayerNorm`` below).
 
 Numerics of both versions: fp32 mean and two-pass variance, fp32 affine
-transform with fp32 gamma/beta, output in the input's dtype.
+transform with fp32 gamma/beta, output in the input's dtype. The backward
+recomputes mean and rstd from x.
 """
 
 from __future__ import annotations
@@ -28,24 +32,35 @@ def layer_norm_reference(x: torch.Tensor, weight: torch.Tensor,
     return y.to(x.dtype)
 
 
-def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                     eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis. x (..., C) float32 or bfloat16;
-    weight, bias (C,) float32. Returns x's dtype.
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
-    """
+def layer_norm_backward_reference(x: torch.Tensor, weight: torch.Tensor,
+                                  dy: torch.Tensor, eps: float):
+    """Plain backward with the kernel's algebra (JAX ``_ln_bwd_kernel``):
+    recompute mean and rstd, then with xhat = (x - mean) * rstd and
+    dxhat = dy * gamma,
+    ``dx = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat))``;
+    dgamma = sum(dy * xhat), dbeta = sum(dy) over all rows, fp32.
+    Returns dx in x's dtype, dgamma, dbeta."""
     c = x.shape[-1]
-    if weight.shape != (c,) or bias.shape != (c,):
-        raise ValueError(f"weight/bias must be ({c},), got {tuple(weight.shape)}"
-                         f" and {tuple(bias.shape)}")
-    if x.device.type == "cpu":
-        return layer_norm_reference(x, weight, bias, eps)
+    xf = x.float().reshape(-1, c)
+    dyf = dy.float().reshape(-1, c)
+    mean = xf.mean(-1, keepdim=True)
+    xc = xf - mean
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    dxhat = dyf * weight.float()
+    m1 = dxhat.sum(-1, keepdim=True) / c
+    m2 = (dxhat * xhat).sum(-1, keepdim=True) / c
+    dx = rstd * (dxhat - m1 - xhat * m2)
+    return (dx.reshape(x.shape).to(x.dtype), (dyf * xhat).sum(0), dyf.sum(0))
+
+
+def _ln_fwd(x, weight, bias, eps):
     if weight.dtype != torch.float32 or bias.dtype != torch.float32:
         raise TypeError("fused_layer_norm takes float32 weight and bias")
     dev = _build.check_tensors(x, weight, bias)
     code = _build.dtype_code(x.dtype)
     y = torch.empty_like(x)
+    c = x.shape[-1]
     rows = x.numel() // c
     if rows == 0:
         return y
@@ -55,6 +70,65 @@ def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             code, x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
             rows, c, float(eps), _build.stream_ptr(dev)), "fused_layer_norm")
     return y
+
+
+def _ln_bwd(x, weight, dy, eps):
+    dev = _build.check_tensors(x, weight, dy)
+    if dy.dtype != x.dtype:
+        raise TypeError(f"dy is {dy.dtype}, x {x.dtype}")
+    code = _build.dtype_code(x.dtype)
+    c = x.shape[-1]
+    rows = x.numel() // c
+    dx = torch.empty_like(x)
+    dgb = torch.zeros((2, c), dtype=torch.float32, device=dev)
+    if rows == 0:
+        return dx, dgb[0], dgb[1]
+    # one block holds 8 warps' fp32 (dgamma, dbeta) rows of C
+    _build.check_smem(8 * 2 * c * 4, f"the LayerNorm backward over C={c}")
+    lib = _build.library()
+    part = torch.empty(lib.emvm_layer_norm_bwd_scratch(rows, c), dtype=torch.float32,
+                       device=dev)
+    with torch.cuda.device(dev):
+        _build.record_launch(lib.emvm_layer_norm_bwd(
+            code, x.data_ptr(), weight.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            dgb.data_ptr(), part.data_ptr(), rows, c, float(eps), _build.stream_ptr(dev)),
+            "fused_layer_norm_bwd")
+    return dx, dgb[0], dgb[1]
+
+
+class _FusedLayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        if x.device.type == "cpu":
+            return layer_norm_reference(x, weight, bias, eps)
+        return _ln_fwd(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        if x.device.type == "cpu":
+            dx, dg, db = layer_norm_backward_reference(x, weight, dy, ctx.eps)
+        else:
+            dx, dg, db = _ln_bwd(x, weight, dy.contiguous(), ctx.eps)
+        return dx, dg, db, None
+
+
+def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis, differentiable in x, weight and bias.
+    x (..., C) float32 or bfloat16; weight, bias (C,) float32. Returns x's
+    dtype.
+
+    A CPU tensor takes the plain versions; a CUDA tensor launches the
+    kernels.
+    """
+    c = x.shape[-1]
+    if weight.shape != (c,) or bias.shape != (c,):
+        raise ValueError(f"weight/bias must be ({c},), got {tuple(weight.shape)}"
+                         f" and {tuple(bias.shape)}")
+    return _FusedLayerNorm.apply(x, weight, bias, float(eps))
 
 
 class LayerNorm(nn.Module):
