@@ -21,8 +21,11 @@ before the final line, if any phase failed:
    ``dropout_p`` for the dropout rows, its backward through autograd;
    ``F.layer_norm`` and its backward) are timed with CUDA events in the
    main path's dtype. The forward kernels are checked and timed at the
-   eval's shapes and at the train step's. Prints one ``kernel_shapes`` line with the per-shape
-   numbers and, at the end, one ``kernels`` JSON line.
+   eval's shapes and at the train step's; ``lane_window_attention`` and the
+   LayerNorm at the frozen 2D teacher's shapes of the 2d_feature step.
+   Prints one
+   ``kernel_shapes`` line with the per-shape numbers and, at the end, one
+   ``kernels`` JSON line.
 4. The retrieval eval at full width: VioletRetrieval at
    configs/msrvtt-retrieval.json (Swin-base, 5 frames of 224^2, 25 text
    tokens, 12-layer BERT-base fusion), seeded random weights, bf16, runs
@@ -44,13 +47,23 @@ before the final line, if any phase failed:
    Launch counts are zeroed just before the first timed step and read just
    after it: every kernel of the step, backward kernels included, must
    have launched as often as its sites in the model. Every loss must be
-   finite and every parameter that gets a gradient must have changed.
+   finite and every parameter that gets a gradient must have changed (the
+   VTM score head's output bias may instead have an all-zero gradient).
 7. Whole train step: one step of a depth-cut copy (swin depths (2,2,2,2),
    2 fusion layers, full widths) on the card in fp32 against the same step
    on the CPU in fp32 (plain versions), with the same injected masks and
    negatives and every dropout and drop-path rate at 0; losses and every
    parameter's gradient held to ``WHOLE_STEP_TOL``, the differences printed.
-8. The last line is ``{"ok": true, "device": {...}}``.
+8. The pretrain train step for the 2d_feature MVM target, as phase 6 with
+   ``train.mvm_target`` replaced by ("2d_feature",) (as bench.py builds
+   it): the frozen 2D Swin-base teacher runs forward on the unmasked clip
+   (the ``lane_window_attention`` kernel in its 24 blocks, kernel
+   LayerNorms at its 52 sites), and 4-group AdamW leaves it out. Launches of
+   one step held to ``TRAIN_2D_LAUNCHES``; the teacher gets no gradient and
+   stays bit-unchanged; every other parameter with a gradient changes.
+9. Whole 2d_feature train step: phase 7 for the run of phase 8 (the
+   student cut, the teacher at full depth).
+10. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -93,23 +106,35 @@ EVAL_REPEATS = 7
 # negatives of L = 4 * (1 + 49) + 32 = 232.
 TRAIN_STEPS, TRAIN_MAX_ITER, TRAIN_SEED = 10, 1000, 0
 TRAIN_B, TRAIN_T, TRAIN_L, P_ATTN = 20, 4, 232, 0.1
-# LayerNorm sites (label, rows, eps, dtype). Eval: fusion layers (CHUNK x
-# 275 rows), EncVideo.norm (32 clips x 250), text embeddings (ITEMS x 25,
+# LayerNorm sites (label, rows, C, eps, dtype). Eval: fusion layers (CHUNK
+# x 275 rows), EncVideo.norm (32 clips x 250), text embeddings (ITEMS x 25,
 # fp32: the embedding sum stays fp32). Train step: fusion (80 x 232),
-# EncVideo (20 x 4 x 50), text embeddings and MLM head (20 x 32).
-EVAL_LN = (("fusion", CHUNK * 275, 1e-12, torch.bfloat16),
-           ("enc_video", ITEMS * CLIPS * 250, 1e-5, torch.bfloat16),
-           ("embeddings", ITEMS * 25, 1e-12, torch.float32))
-TRAIN_LN = (("fusion", 80 * 232, 1e-12, torch.bfloat16),
-            ("enc_video", 20 * 4 * 50, 1e-5, torch.bfloat16),
-            ("embeddings", 20 * 32, 1e-12, torch.float32),
-            ("mlm_head", 20 * 32, 1e-12, torch.bfloat16))
+# EncVideo (20 x 4 x 50), text embeddings and MLM head (20 x 32). The frozen
+# 2D teacher of the 2d_feature step (20 clips x 4 frames at 224^2, its
+# grid 56 >> stage): the patch norm and the stage blocks' norm1/norm2, and
+# the merge norms over 4C.
+EVAL_LN = (("fusion", CHUNK * 275, 768, 1e-12, torch.bfloat16),
+           ("enc_video", ITEMS * CLIPS * 250, 768, 1e-5, torch.bfloat16),
+           ("embeddings", ITEMS * 25, 768, 1e-12, torch.float32))
+TRAIN_LN = (("fusion", 80 * 232, 768, 1e-12, torch.bfloat16),
+            ("enc_video", 20 * 4 * 50, 768, 1e-5, torch.bfloat16),
+            ("embeddings", 20 * 32, 768, 1e-12, torch.float32),
+            ("mlm_head", 20 * 32, 768, 1e-12, torch.bfloat16))
+TEACHER_LN = tuple((f"teacher stage{s} norms", 80 * (56 >> s) ** 2, 128 << s, 1e-5,
+                    torch.bfloat16) for s in range(4)) + tuple(
+    (f"teacher merge{s}", 80 * (28 >> s) ** 2, 512 << s, 1e-5, torch.bfloat16)
+    for s in range(3))
 # launches of one train step: LayerNorm at 24 fusion sites + EncVideo +
 # embeddings + MLM head; a swin attention in each of the 24 blocks; one
 # fusion attention in each of the 12 layers
 TRAIN_LAUNCHES = {"fused_layer_norm": 27, "fused_layer_norm_bwd": 27,
                   "direct_window_attention": 24, "direct_window_attention_bwd": 24,
                   "lane_self_attention_dropout": 12, "lane_self_attention_bwd": 12}
+# the 2d_feature step adds the frozen 2D Swin-base teacher, forward only: a
+# lane window attention in each of its 24 blocks, and the kernel
+# LayerNorm at its 52 sites (patch norm, 2 x 24 block norms, 3 merge norms)
+TRAIN_2D_LAUNCHES = {**TRAIN_LAUNCHES, "fused_layer_norm": 27 + 52,
+                     "lane_window_attention": 24}
 EVAL_KERNELS = ("fused_layer_norm", "direct_window_attention", "lane_self_attention")
 
 # Limits. A tolerance is dict(atol=..., rtol=..., scale=...): an element may
@@ -206,6 +231,9 @@ KERNELS = {
     "lane_self_attention_bwd": dict(
         source="empirical_mvm_torch/csrc/self_attention.cu",
         replaces="empirical_mvm_tpu/ops/window_attention.py:1129"),
+    "lane_window_attention": dict(
+        source="empirical_mvm_torch/csrc/lane_window_attention.cu",
+        replaces="empirical_mvm_tpu/ops/window_attention.py:810"),
 }
 
 
@@ -398,10 +426,10 @@ def lane_case(dev, gen):
 
 
 def ln_cases(dev, gen, sites, path):
-    """The LayerNorm sites of a path: ``EVAL_LN`` or ``TRAIN_LN``."""
-    c = 768
+    """The LayerNorm sites of a path: ``EVAL_LN``, ``TRAIN_LN`` or
+    ``TEACHER_LN``."""
     recs = []
-    for label, rows, eps, work in sites:
+    for label, rows, c, eps, work in sites:
         x = torch.randn(rows, c, device=dev, generator=gen) * 2.0 + 0.5
         g = 1.0 + 0.1 * torch.randn(c, device=dev, generator=gen)
         bt = 0.1 * torch.randn(c, device=dev, generator=gen)
@@ -412,7 +440,7 @@ def ln_cases(dev, gen, sites, path):
         def plain(a, g=g, bt=bt, eps=eps):
             return ln.layer_norm_reference(a, g, bt, eps)
 
-        def library(a, g=g, bt=bt, eps=eps):
+        def library(a, g=g, bt=bt, eps=eps, c=c):
             gw, bw = g.to(a.dtype), bt.to(a.dtype)
             return lambda: F.layer_norm(a, (c,), gw, bw, eps)
 
@@ -543,11 +571,58 @@ def lane_train_cases(dev, gen):
     return [fwd, bwd]
 
 
+def lane_window_cases(dev, gen):
+    """The frozen 2D teacher's window attention in the 2d_feature step: 20
+    clips of 4 frames at 224^2, window (1, 7, 7) (n = 49, hd = 32: each
+    frame's windows on their own), at every Swin-base stage, unshifted and
+    shifted with the 4-frame mask (stage 3 clamps to one unshifted 7 x 7
+    window). SDPA, the yardstick, runs on (clips, nW * nH, 49, 32), a clip's
+    windows and heads on one axis, with bias + mask as a (1, nW * nH, 49,
+    49) ``attn_mask`` that broadcasts over the clips."""
+    b, n, hd = TRAIN_B, 49, 32
+    recs = []
+    for stage in range(4):
+        hw, c, nh = 56 >> stage, 128 << stage, 4 << stage
+        win, shift = get_window_size((TRAIN_T, hw, hw), (1, 7, 7), (0, 3, 3))
+        nw = TRAIN_T * (hw // 7) ** 2                     # windows of one clip
+        x3 = torch.randn(b * nw, n, 3 * c, device=dev, generator=gen) * 0.5
+        bias = torch.randn(nh, n, n, device=dev, generator=gen) * 0.02
+        masks = [None]
+        if any(shift):
+            masks.append(torch.from_numpy(
+                _shift_attn_mask((TRAIN_T, hw, hw), win, shift)).to(dev))
+        scale = hd ** -0.5
+        for mk in masks:
+            n_w = nw if mk is not None else 1
+
+            def kernel(a, bias=bias, mk=mk, n_w=n_w, nh=nh):
+                return wa.lane_window_attention(a, bias, mk, n_w, nh, scale)
+
+            def plain(a, bias=bias, mk=mk, n_w=n_w, nh=nh):
+                return wa.lane_window_attention_reference(a, bias, mk, n_w, nh, scale)
+
+            def library(a, bias=bias, mk=mk, nh=nh, nw=nw):
+                qkv = a.reshape(b, nw, n, 3, nh, hd).permute(3, 0, 1, 4, 2, 5)
+                q, k, v = qkv.reshape(3, b, nw * nh, n, hd).unbind(0)
+                m = bias[None] if mk is None else bias[None] + mk[:, None]
+                m = m.expand(nw, nh, n, n).reshape(1, nw * nh, n, n).to(a.dtype)
+                return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                                              scale=scale)
+
+            label = f"teacher stage{stage} x3=({b * nw},{n},{3 * c}) nH={nh} " + (
+                "unshifted" if mk is None else f"shifted nW={n_w}")
+            ops = 4 * b * nw * nh * n * n * hd
+            nbytes = x3.numel() * 2 + b * nw * n * c * 2 + bias.numel() * 4 + (
+                0 if mk is None else mk.numel() * 4)
+            recs.append(measure("lane_window_attention", label, x3, kernel, plain, library,
+                                torch.bfloat16, "attention", ops, "bf16_tensor", nbytes))
+    return recs
+
+
 def ln_bwd_cases(dev, gen):
     """The LayerNorm backward at the four sites of the train step."""
-    c = 768
     recs = []
-    for label, rows, eps, work in TRAIN_LN:
+    for label, rows, c, eps, work in TRAIN_LN:
         x = torch.randn(rows, c, device=dev, generator=gen) * 2.0 + 0.5
         dy = _bf16_values(torch.randn(rows, c, device=dev, generator=gen))
         g = 1.0 + 0.1 * torch.randn(c, device=dev, generator=gen)
@@ -558,7 +633,7 @@ def ln_bwd_cases(dev, gen):
         def plain(a, g=g, dy=dy, eps=eps):
             return ln.layer_norm_backward_reference(a, g, dy.to(a.dtype), eps)
 
-        def library(a, g=g, dy=dy, eps=eps):
+        def library(a, g=g, dy=dy, eps=eps, c=c):
             xl = a.detach().requires_grad_(True)
             gw = g.to(a.dtype).requires_grad_(True)
             bw = torch.zeros_like(gw, requires_grad=True)
@@ -623,9 +698,23 @@ def build_optimizer(model, run):
                  backbone_lr_mul=t.vis_backbone_lr_mul)
 
 
-def train_phase(dev, run):
-    """Phase 6: the pretrain train step at full width. Returns the launch
-    counts of the first timed step."""
+def with_mvm_target(run, target):
+    """``run`` with ``train.mvm_target`` replaced, as bench.py builds the
+    2d_feature model from configs/pretrain.json."""
+    return dataclasses.replace(run, train=dataclasses.replace(run.train, mvm_target=target))
+
+
+def _teacher(name):
+    return name.startswith("feature_model.")
+
+
+VTM_OUT_BIAS = "fc.3.bias"
+
+
+def train_phase(dev, run, want_launches):
+    """Phases 6 and 8: the pretrain train step at full width for the
+    run's MVM target. Returns the launch counts of the first timed step,
+    which must equal ``want_launches``."""
     cfg = run.model
     b = run.train.size_batch
     model = VioletPretrain.from_run_config(run, dtype=torch.bfloat16, device=dev,
@@ -654,36 +743,50 @@ def train_phase(dev, run):
         losses.append({k: v.item() for k, v in ls.items()})
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     clips_s = [b / t for t in secs]
-    print(f"train-step launch counts: {launches}", flush=True)
+    target = run.train.mvm_target
+    print(f"train-step {target} launch counts: {launches}", flush=True)
     print(json.dumps({
-        "slice": "pretrain_train_step", "config": PRETRAIN_CONFIG.name, "dtype": "bfloat16",
+        "slice": "pretrain_train_step", "config": PRETRAIN_CONFIG.name,
+        "mvm_target": list(target), "dtype": "bfloat16",
         "batch": b, "frames": cfg.size_frame, "size_img": cfg.size_img,
         "size_txt": cfg.size_txt, "steps": TRAIN_STEPS, "warmup_step_s": warm_s,
         "clips_per_s": float(np.median(clips_s)), "clips_per_s_range": [min(clips_s),
                                                                           max(clips_s)],
         "step_ms_median": float(np.median(secs)) * 1e3, "step_s_each": secs,
         "peak_mem_gib": peak, "losses_each_step": losses}), flush=True)
-    for name, want in TRAIN_LAUNCHES.items():
-        require(launches.get(name, 0) == want,
-                f"{name} launched {launches.get(name, 0)} times in a train step, not {want}")
-    require(launches.get("lane_self_attention", 0) == 0,
-            "the train step ran attention without dropout")
+    require(launches == want_launches,
+            f"launches of one {target} train step {launches}, not {want_launches}")
     for i, step_ls in enumerate(losses):
         require(all(np.isfinite(v) for v in step_ls.values()),
                 f"non-finite loss at step {i}: {step_ls}")
+    # no gradient: the frame-order embedding, which the pretrain forward does
+    # not use, and the frozen teacher, which must also be bit-unchanged
+    teacher = {n for n in state.params if _teacher(n)}
+    require(bool(teacher) == ("2d_feature" in target), f"teacher parameters: {len(teacher)}")
     no_grad = {n for n, p in state.params.items() if p.grad is None}
-    require(no_grad == {"enc_img.emb_odr"},
-            f"parameters without a gradient: {sorted(no_grad)} (expected only the "
-            f"frame-order embedding, which the pretrain forward does not use)")
+    require(no_grad == teacher | {"enc_img.emb_odr"},
+            f"parameters without a gradient: {sorted(no_grad - teacher)} and "
+            f"{len(no_grad & teacher)} of the {len(teacher)} teacher parameters")
+    moved = [n for n in teacher if not torch.equal(before[n], state.params[n].detach())]
+    require(not moved, f"frozen teacher parameters changed: {moved}")
+    # The VTM score head's output bias has a gradient that is zero in exact
+    # arithmetic (the softmax over the options is shift-invariant); in bf16
+    # it may round to exactly 0 in every step, and Adam then leaves the bias
+    # as it was. It alone may end with an all-zero gradient; every other
+    # parameter with a gradient must have moved.
+    zero = {n for n, p in state.params.items() if n not in no_grad and not p.grad.any()}
+    print(f"parameters whose last gradient is exactly 0: {sorted(zero)}", flush=True)
+    require(zero <= {VTM_OUT_BIAS}, f"all-zero last gradients: {sorted(zero - {VTM_OUT_BIAS})}")
     unchanged = [n for n, p in state.params.items()
-                 if n not in no_grad and torch.equal(before[n], p.detach())]
+                 if n not in no_grad | zero and torch.equal(before[n], p.detach())]
     require(not unchanged, f"parameters unchanged after {TRAIN_STEPS + 1} steps: {unchanged}")
     return launches
 
 
 def whole_step_phase(dev, run):
-    """Phase 7: one train step of a depth-cut copy, card fp32 (kernels)
-    against CPU fp32 (plain versions)."""
+    """Phases 7 and 9: one train step of a depth-cut copy (the student; a
+    2D teacher keeps its full depth), card fp32 (kernels) against CPU fp32
+    (plain versions)."""
     cfg = run.model
     cut = dataclasses.replace(
         cfg, swin_custom=dataclasses.replace(cfg.swin, depths=(2, 2, 2, 2),
@@ -707,7 +810,9 @@ def whole_step_phase(dev, run):
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
     results, secs = {}, {}
     for name, model, device in (("card", card, dev), ("cpu", cpu, torch.device("cpu"))):
-        model.fc[0].p = 0.0                 # the score head's dropout, fixed at 0.1
+        model.fc[0].p = 0.0                 # the score heads' dropout, fixed at 0.1
+        if hasattr(model, "fc_mvm"):
+            model.fc_mvm[0].p = 0.0
         opt = build_optimizer(model, run)
         step = make_pretrain_train_step(model, opt)
         on_dev = {k: (type(v)(*(t.to(device) for t in v)) if k == "draws" else v.to(device))
@@ -736,6 +841,7 @@ def whole_step_phase(dev, run):
             fails.append(f"loss {k}: card {ls_c[k]} cpu {ls_r[k]}")
     worst.sort(reverse=True)
     print(json.dumps({"whole_step_vs_cpu": {
+        "mvm_target": list(run.train.mvm_target),
         "swin_depths": list(cut.swin.depths), "fusion_layers": cut.fusion.num_hidden_layers,
         "batch": b, "losses_card": ls_c, "losses_cpu": ls_r, "loss_abs_diff": loss_diff,
         "grad_global_max": g_all, "params": len(g_r), "step_s": secs,
@@ -775,7 +881,8 @@ def main() -> None:
             + direct_cases(dev, gen, TRAIN_B, TRAIN_T, "train")
             + ln_cases(dev, gen, TRAIN_LN, "train")
             + direct_bwd_cases(dev, gen) + lane_train_cases(dev, gen)
-            + ln_bwd_cases(dev, gen))
+            + ln_bwd_cases(dev, gen)
+            + lane_window_cases(dev, gen) + ln_cases(dev, gen, TEACHER_LN, "train teacher"))
     failures = [f for r in recs for f in r.pop("failures")]
     print(json.dumps({"kernel_shapes": recs}), flush=True)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s; "
@@ -856,19 +963,30 @@ def main() -> None:
     del cpu, card, ref
     torch.cuda.empty_cache()
 
-    # 6. the pretrain train step at full width
+    # 6. the pretrain train step at full width, MVM-pixel
     run = load_run_config(str(PRETRAIN_CONFIG))
-    train_launches = train_phase(dev, run)
+    train_launches = train_phase(dev, run, TRAIN_LAUNCHES)
     torch.cuda.empty_cache()
 
-    # 7. the whole train step, card fp32 against CPU fp32
+    # 7. the whole pixel train step, card fp32 against CPU fp32
     whole_step_phase(dev, run)
+    torch.cuda.empty_cache()
+
+    # 8. the pretrain train step at full width, MVM-2d_feature (the frozen
+    # 2D Swin-base teacher in the loop)
+    run_2d = with_mvm_target(run, ("2d_feature",))
+    train_2d_launches = train_phase(dev, run_2d, TRAIN_2D_LAUNCHES)
+    torch.cuda.empty_cache()
+
+    # 9. the whole 2d_feature train step, card fp32 against CPU fp32
+    whole_step_phase(dev, run_2d)
 
     require(not failures, "kernel checks failed:\n" + "\n".join(failures))
 
     # kernels line: per kernel, times summed over its main-path shapes (one
-    # call of each), the largest fp32 error, and the launches of one train
-    # step (one eval for the kernels the train step does not run)
+    # call of each), the largest errors over every shape checked, and the
+    # launches of one train step (the 2d_feature step's, else the pixel
+    # step's, else one eval's)
     line = []
     for name, meta in KERNELS.items():
         mine = [r for r in recs if r["kernel"] == name]
@@ -877,7 +995,9 @@ def main() -> None:
         bf16 = {k: max(r[k] for r in mine) for k in mine[0]
                 if k.startswith(("max_abs_err_bf16", "mismatch_bf16"))}
         line.append({"name": name, "route": "cuda", **meta,
-                     "launches": train_launches.get(name) or eval_launches.get(name, 0),
+                     "launches": (train_2d_launches.get(name) or train_launches.get(name)
+                                  or eval_launches.get(name, 0)),
+                     "launches_train_step_2d_feature": train_2d_launches.get(name, 0),
                      "launches_train_step": train_launches.get(name, 0),
                      "launches_eval": eval_launches.get(name, 0),
                      "max_abs_err": max(r["max_abs_err"] for r in mine), **bf16,

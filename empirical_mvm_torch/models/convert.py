@@ -7,8 +7,11 @@ and returns the reference-named torch ``state_dict`` the port's model of the
 same name loads. Dense kernels (in, out) become Linear weights (out, in); the patch
 kernel (kd, kh, kw, C, E) becomes the Conv3d weight (E, C, kd, kh, kw);
 LayerNorm ``scale`` becomes ``weight``; embeddings' ``embedding`` becomes
-``weight``. This module imports nothing of JAX: the tree holds numpy arrays
-(or anything ``np.asarray`` takes).
+``weight``. A pretrain tree's frozen ``feature_model`` teacher is carried
+too. :func:`swin2d_state_dict_from_hf` loads a HF ``SwinModel`` checkpoint
+(the 2D teacher's real weights) into the same names. This module imports
+nothing of JAX: the tree holds numpy arrays (or anything ``np.asarray``
+takes).
 """
 
 from __future__ import annotations
@@ -68,6 +71,56 @@ def swin3d_state_dict(tree: Tree, depths, prefix: str = "") -> dict:
     return sd
 
 
+def swin_depths(tree: Tree) -> tuple[int, ...]:
+    """Blocks per stage of a swin param tree (``layers_i.blocks_j``)."""
+    stages = sorted((k for k in tree if k.startswith("layers_")), key=lambda k: int(k[7:]))
+    return tuple(sum(1 for k in tree[s] if k.startswith("blocks_")) for s in stages)
+
+
+# HF SwinLayer module -> the port's block module, for those mapped one to one
+_HF_SWIN_BLOCK = {"layernorm_before": "norm1", "layernorm_after": "norm2",
+                  "attention.output.dense": "attn.proj", "intermediate.dense": "mlp.fc1",
+                  "output.dense": "mlp.fc2"}
+
+
+def swin2d_state_dict_from_hf(hf: Mapping[str, Any], depths, prefix: str = "") -> dict:
+    """HF ``transformers.SwinModel`` state_dict -> the port's
+    ``SwinTransformer3D`` names at ``swin2d_config`` geometry, under
+    ``prefix`` (``"feature_model."`` for the teacher): the counterpart of the JAX
+    ``swin2d_params_from_hf``. A 2D Swin is the 3D module one frame deep:
+    the (E, 3, 4, 4) patch kernel gains a unit temporal axis, and the
+    (169, nH) bias table and its index coincide with the 3D ones at wd = 1.
+    HF's separate query/key/value concatenate into ``qkv``. The final
+    ``layernorm`` is not mapped: the reference consumes
+    ``hidden_states[-1]``, which is taken before it (visbackbone/swin.py:75).
+    """
+    p = prefix
+    sd: dict = {}
+    _put(sd, f"{p}patch_embed.proj.weight",
+         np.asarray(hf["embeddings.patch_embeddings.projection.weight"])[:, :, None])
+    _put(sd, f"{p}patch_embed.proj.bias", hf["embeddings.patch_embeddings.projection.bias"])
+    for leaf in ("weight", "bias"):
+        _put(sd, f"{p}patch_embed.norm.{leaf}", hf[f"embeddings.norm.{leaf}"])
+    for i, depth in enumerate(depths):
+        for j in range(depth):
+            hb, tb = f"encoder.layers.{i}.blocks.{j}", f"{p}layers.{i}.blocks.{j}"
+            for hn, tn in _HF_SWIN_BLOCK.items():
+                for leaf in ("weight", "bias"):
+                    _put(sd, f"{tb}.{tn}.{leaf}", hf[f"{hb}.{hn}.{leaf}"])
+            _put(sd, f"{tb}.attn.relative_position_bias_table",
+                 hf[f"{hb}.attention.self.relative_position_bias_table"])
+            for leaf in ("weight", "bias"):
+                _put(sd, f"{tb}.attn.qkv.{leaf}", np.concatenate(
+                    [np.asarray(hf[f"{hb}.attention.self.{qkv}.{leaf}"])
+                     for qkv in ("query", "key", "value")], 0))
+        hd, td = f"encoder.layers.{i}.downsample", f"{p}layers.{i}.downsample"
+        if f"{hd}.norm.weight" in hf:
+            for leaf in ("weight", "bias"):
+                _put(sd, f"{td}.norm.{leaf}", hf[f"{hd}.norm.{leaf}"])
+            _put(sd, f"{td}.reduction.weight", hf[f"{hd}.reduction.weight"])
+    return sd
+
+
 def bert_embeddings_state_dict(tree: Tree, prefix: str = "") -> dict:
     """Inverse of ``bert_embeddings_params_from_torch``."""
     sd: dict = {}
@@ -98,8 +151,10 @@ def state_dict_from_flax(params: Tree, cfg: ModelConfig,
                          heads: Mapping[str, str] | None = None) -> dict:
     """JAX ``VioletBase``/``VioletRetrieval``/``VioletPretrain`` params ->
     the port's ``state_dict``. ``heads`` maps head names to kinds as in
-    ``violet_params_from_torch``: ``"score_head"``, ``"mlm_head"`` or
-    ``"linear"``."""
+    ``violet_params_from_torch``: ``"score_head"`` (``fc``, ``fc_mvm``),
+    ``"mlm_head"`` or ``"linear"``. A frozen ``feature_model`` teacher in
+    the tree is carried under ``feature_model.`` (its depths read from the
+    tree; a 2D teacher has no final norm)."""
     img = params["enc_img"]
     sd = swin3d_state_dict(img["swin"], cfg.swin.depths, "enc_img.swin.")
     if "fc" in img:
@@ -111,6 +166,9 @@ def state_dict_from_flax(params: Tree, cfg: ModelConfig,
                                          "enc_txt.emb_txt."))
     sd.update(bert_encoder_state_dict(params["trsfr"], cfg.fusion.num_hidden_layers,
                                       "trsfr."))
+    if "feature_model" in params:
+        teacher = params["feature_model"]
+        sd.update(swin3d_state_dict(teacher, swin_depths(teacher), "feature_model."))
     for name, kind in (heads or {}).items():
         tree = params[name]
         if kind == "score_head":

@@ -1,12 +1,16 @@
-"""VIOLET pretraining model for the pixel MVM target: MTM + VTM + MVM-pixel
-(counterpart of ``empirical_mvm_tpu/models/pretrain.py``; ref:
+"""VIOLET pretraining model for the pixel and 2d_feature MVM targets: MTM +
+VTM + MVM (counterpart of ``empirical_mvm_tpu/models/pretrain.py``; ref:
 main_pretrain.py:140-267).
 
 As in the JAX package, the VTM negatives are vectorised: each row pairs its
 video with its own caption (the positive, read from the MTM pass) and O-1
 other captions, and the B*(O-1) negative pairs ride one ``go_cross`` call
 with the B masked pairs. The pixel decoder is a Linear on the fused patch
-tokens followed by the channel-major pixel shuffle.
+tokens followed by the channel-major pixel shuffle. The 2d_feature target
+regresses, through the ``fc_mvm`` score head, the features of a frozen 2D
+Swin-base teacher (``feature_model``, run frame by frame on the unmasked
+clip under no_grad, its LayerNorms through the kernel; ref:
+main_pretrain.py:164-174, 527-545).
 
 The other MVM targets, ``smtm`` and ``am`` masking are not ported.
 """
@@ -19,6 +23,8 @@ from empirical_mvm_torch.core.config import ModelConfig, RunConfig
 from empirical_mvm_torch.data.masking import MaskDraws, apply_masking, draw_masks
 from empirical_mvm_torch.models.bert import BertMLMHead
 from empirical_mvm_torch.models.common import Linear, init_weights
+from empirical_mvm_torch.models.encoders2d import swin2d_config
+from empirical_mvm_torch.models.video_swin import SwinTransformer3D
 from empirical_mvm_torch.models.violet import ScoreHead, VioletBase
 from empirical_mvm_torch.ops.preprocess import maybe_normalize
 from empirical_mvm_torch.train.losses import cross_entropy_ignore, masked_l1
@@ -51,13 +57,15 @@ class VioletPretrain(VioletBase):
     special_token_ids = (101, 102, 0)     # [CLS], [SEP], [PAD] of bert-base
     mask_token_id = 103
     num_options = 4                       # VTM: 1 positive + 3 in-batch negatives
+    mvm_targets_ported = ("pixel", "2d_feature")
 
     def __init__(self, config: ModelConfig, *, mvm_target=("pixel",),
                  pretrain_tasks=("mtm", "vtm", "mvm"), pretrain_masks=("bm", "rm"),
-                 p_mask: float = 0.15, temp: float = 0.05, dtype=torch.float32,
-                 device="cuda", seed: int = 0):
-        if tuple(mvm_target) != ("pixel",):
-            raise NotImplementedError(f"mvm_target {tuple(mvm_target)}: only pixel is ported")
+                 p_mask: float = 0.15, temp: float = 0.05,
+                 dtype=torch.float32, device="cuda", seed: int = 0):
+        if not set(mvm_target) <= set(self.mvm_targets_ported):
+            raise NotImplementedError(f"mvm_target {tuple(mvm_target)}: only "
+                                      f"{self.mvm_targets_ported} are ported")
         if not set(pretrain_tasks) <= {"mtm", "vtm", "mvm"}:
             raise NotImplementedError(f"pretrain_tasks {tuple(pretrain_tasks)}: "
                                       "smtm is not ported")
@@ -67,7 +75,14 @@ class VioletPretrain(VioletBase):
             d, ps = config.hidden_size, config.size_patch
             self.fc = ScoreHead(d, dtype=dtype)
             self.fc_mtm = BertMLMHead(config.fusion, dtype)
-            self.decoder_pixel = Linear(d, ps * ps * 3, compute_dtype=dtype)
+            if "pixel" in mvm_target:
+                self.decoder_pixel = Linear(d, ps * ps * 3, compute_dtype=dtype)
+            if "2d_feature" in mvm_target:
+                teacher = swin2d_config("base")
+                self.fc_mvm = ScoreHead(d, teacher.num_features, dtype)
+                self.feature_model = SwinTransformer3D(teacher, dtype, fused_norms=True)
+                self.feature_model.requires_grad_(False)
+        self.mvm_target = tuple(mvm_target)
         self.pretrain_tasks = tuple(pretrain_tasks)
         self.pretrain_masks = tuple(pretrain_masks)
         self.p_mask, self.temp = p_mask, temp
@@ -146,7 +161,14 @@ class VioletPretrain(VioletBase):
                                           torch.zeros(b, dtype=torch.int64,
                                                       device=img.device))}
         if "mvm" in self.pretrain_tasks:
-            pred = self.decode_pixel(self.patch_tokens(out["out_mvm"], t, h, w))
-            ls["mvm_pixel"] = masked_l1(pred, img, mb.mvm_mask, channel_div=3.0)
+            grid = self.patch_tokens(out["out_mvm"], t, h, w)
+            if "pixel" in self.mvm_target:
+                ls["mvm_pixel"] = masked_l1(self.decode_pixel(grid), img, mb.mvm_mask,
+                                            channel_div=3.0)
+            if "2d_feature" in self.mvm_target:
+                with torch.no_grad():               # the frozen teacher, unmasked clip
+                    target = self.feature_model(img)
+                ls["mvm_2d_feature"] = masked_l1(self.fc_mvm(grid, generator), target,
+                                                 mb.cov[..., None], channel_div=3.0)
         ls["total"] = sum(ls.values())
         return ls

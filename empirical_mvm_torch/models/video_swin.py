@@ -7,12 +7,19 @@ window clamped per stage to the input extent with zero shift on clamped
 dims, and the relative-position index built for the full window and sliced
 ``[:N, :N]`` (ref: visbackbone/video_swin.py:95-108,155,384-398).
 
-Window attention runs through :func:`direct_window_attention` on the padded,
-rolled 5D map: the CUDA kernel on the card, its plain version on the CPU.
-That path needs one temporal window (D == wd), which holds for every student
-stage (the temporal window clamps to T). LayerNorms here are the plain
-:class:`LayerNorm`, as the JAX package keeps flax ``nn.LayerNorm`` in trained
-swins. Parameter names are the reference checkpoint's
+Window attention picks its kernel from the geometry alone: with one
+temporal window (D == wd, every student stage: the temporal window clamps
+to T) :func:`direct_window_attention` on the padded, rolled 5D map;
+otherwise (the per-frame 2D Swin teacher, wd == 1 < D) the windows are
+partitioned and :func:`lane_window_attention` runs them. The JAX
+``WindowAttention3D`` folds 4 or 2 frames into one window there for the
+TPU's block shapes and runs the t-sliced lane kernel; the CUDA kernel does
+the same work on the frames' own windows. The CUDA kernels run on the card,
+their plain versions on the CPU.
+LayerNorms are the plain :class:`LayerNorm`, as the JAX package keeps flax
+``nn.LayerNorm`` in trained swins; a frozen teacher passes
+``fused_norms=True`` and runs them through :class:`FusedLayerNorm` (the JAX
+``use_pallas_layernorm=True``). Parameter names are the reference checkpoint's
 (``layers.0.blocks.0.attn.qkv.weight``, ``patch_embed.proj.weight``, ...).
 Training: stochastic depth at the reference's rates
 (``np.linspace(0, drop_path_rate, sum(depths))``), drawn from the generator
@@ -27,7 +34,6 @@ config sets both to 0, and the direct attention kernel needs
 from __future__ import annotations
 
 import functools
-import math
 from typing import Sequence
 
 import numpy as np
@@ -37,9 +43,11 @@ from torch import nn
 
 from empirical_mvm_torch.core.config import SwinConfig
 from empirical_mvm_torch.models.common import Linear
-from empirical_mvm_torch.ops.layernorm import LayerNorm
+from empirical_mvm_torch.ops.layernorm import FusedLayerNorm, LayerNorm
 from empirical_mvm_torch.ops.patch_embed import patch_embed_3d
-from empirical_mvm_torch.ops.window_attention import direct_window_attention
+from empirical_mvm_torch.ops.window_attention import (direct_window_attention,
+                                                      lane_window_attention,
+                                                      window_partition, window_reverse)
 
 
 def get_window_size(x_size: Sequence[int], window_size: Sequence[int],
@@ -150,12 +158,19 @@ class WindowAttention3D(nn.Module):
         return bias.permute(2, 0, 1).float().contiguous()
 
     def forward(self, x, mask, window_eff):
-        """x (B, Dp, Hp, Wp, C); mask (nW, N, N) fp32 or None."""
-        n = math.prod(window_eff)
-        qkv = self.qkv(x)
-        x = direct_window_attention(qkv, self.rel_pos_bias(n), mask, window_eff,
-                                    self.num_heads, float(self.scale))
-        return self.proj(x)
+        """x (B, Dp, Hp, Wp, C) padded and rolled; mask (nW, N, N) fp32 over
+        all (Dp/wd) * nW_hw windows, or None."""
+        b, dp, hp, wp, _ = x.shape
+        wd, wh, ww = window_eff
+        n = wd * wh * ww
+        bias, scale = self.rel_pos_bias(n), float(self.scale)
+        if dp == wd:
+            return self.proj(direct_window_attention(self.qkv(x), bias, mask, window_eff,
+                                                     self.num_heads, scale))
+        xw = self.qkv(window_partition(x, window_eff))              # (B_, N, 3C)
+        out = lane_window_attention(xw, bias, mask, 1 if mask is None else mask.shape[0],
+                                    self.num_heads, scale)
+        return window_reverse(self.proj(out), window_eff, b, dp, hp, wp)
 
 
 class SwinTransformerBlock3D(nn.Module):
@@ -163,15 +178,15 @@ class SwinTransformerBlock3D(nn.Module):
 
     def __init__(self, dim, num_heads, window_size, shift_size, mlp_ratio=4.0,
                  qkv_bias=True, qk_scale=None, dtype=torch.float32,
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, norm=LayerNorm):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.window_size = tuple(window_size)
         self.shift_size = tuple(shift_size)
-        self.norm1 = LayerNorm(dim)
+        self.norm1 = norm(dim)
         self.attn = WindowAttention3D(dim, self.window_size, num_heads,
                                       qkv_bias, qk_scale, dtype)
-        self.norm2 = LayerNorm(dim)
+        self.norm2 = norm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
 
     def forward(self, x, attn_mask, generator=None):
@@ -198,9 +213,9 @@ class SwinTransformerBlock3D(nn.Module):
 class PatchMerging(nn.Module):
     """2x2 spatial merge between stages (ref: visbackbone/video_swin.py:266-289)."""
 
-    def __init__(self, dim: int, dtype=torch.float32):
+    def __init__(self, dim: int, dtype=torch.float32, norm=LayerNorm):
         super().__init__()
-        self.norm = LayerNorm(4 * dim)
+        self.norm = norm(4 * dim)
         self.reduction = Linear(4 * dim, 2 * dim, bias=False, compute_dtype=dtype)
 
     def forward(self, x):
@@ -217,7 +232,8 @@ class BasicLayer(nn.Module):
 
     def __init__(self, dim, depth, num_heads, window_size, mlp_ratio=4.0,
                  qkv_bias=True, qk_scale=None, downsample=False,
-                 dtype=torch.float32, drop_path_rates: Sequence[float] = ()):
+                 dtype=torch.float32, drop_path_rates: Sequence[float] = (),
+                 norm=LayerNorm):
         super().__init__()
         self.window_size = tuple(window_size)
         half = tuple(s // 2 for s in self.window_size)
@@ -225,9 +241,9 @@ class BasicLayer(nn.Module):
         self.blocks = nn.ModuleList([
             SwinTransformerBlock3D(dim, num_heads, self.window_size,
                                    (0, 0, 0) if i % 2 == 0 else half,
-                                   mlp_ratio, qkv_bias, qk_scale, dtype, rates[i])
+                                   mlp_ratio, qkv_bias, qk_scale, dtype, rates[i], norm)
             for i in range(depth)])
-        self.downsample = PatchMerging(dim, dtype) if downsample else None
+        self.downsample = PatchMerging(dim, dtype, norm) if downsample else None
         self._masks: dict = {}      # shift masks on the device, by shape
 
     def _shift_mask(self, dims, window, shift, device) -> torch.Tensor:
@@ -254,13 +270,13 @@ class PatchEmbed3D(nn.Module):
     """Holds the reference's ``patch_embed.proj`` (Conv3d weight, OIDHW) and
     ``patch_embed.norm``; computes through :func:`patch_embed_3d`."""
 
-    def __init__(self, patch_size, in_chans, embed_dim, patch_norm, dtype):
+    def __init__(self, patch_size, in_chans, embed_dim, patch_norm, dtype, norm=LayerNorm):
         super().__init__()
         self.patch_size = tuple(patch_size)
         self.dtype = dtype
         self.proj = nn.Conv3d(in_chans, embed_dim, kernel_size=self.patch_size,
                               stride=(1, *self.patch_size[1:]))
-        self.norm = LayerNorm(embed_dim) if patch_norm else None
+        self.norm = norm(embed_dim) if patch_norm else None
 
     def forward(self, x):
         x = patch_embed_3d(x, self.proj.weight, self.proj.bias,
@@ -272,15 +288,19 @@ class SwinTransformer3D(nn.Module):
     """Full backbone (ref: visbackbone/video_swin.py:410-482).
 
     Input ``(B, T, H, W, 3)`` channel-last, normalized; output
-    ``(B, T, H/32, W/32, num_features)`` after the final LayerNorm.
+    ``(B, T, H/32, W/32, num_features)``, after the final LayerNorm when the
+    config has one. ``fused_norms=True`` runs every LayerNorm through the
+    kernel (:class:`FusedLayerNorm`), as the JAX package does for frozen
+    teachers.
     """
 
-    def __init__(self, cfg: SwinConfig, dtype=torch.float32):
+    def __init__(self, cfg: SwinConfig, dtype=torch.float32, fused_norms: bool = False):
         super().__init__()
         if cfg.drop_rate or cfg.attn_drop_rate:
             raise NotImplementedError("swin drop_rate / attn_drop_rate are not ported")
+        norm = FusedLayerNorm if fused_norms else LayerNorm
         self.patch_embed = PatchEmbed3D(cfg.patch_size, 3, cfg.embed_dim,
-                                        cfg.patch_norm, dtype)
+                                        cfg.patch_norm, dtype, norm)
         n = len(cfg.depths)
         dpr = np.linspace(0, cfg.drop_path_rate, sum(cfg.depths)).tolist()
         starts = np.cumsum((0,) + tuple(cfg.depths)).tolist()
@@ -288,9 +308,9 @@ class SwinTransformer3D(nn.Module):
             BasicLayer(cfg.embed_dim * 2 ** i, depth, cfg.num_heads[i],
                        cfg.window_size, cfg.mlp_ratio, cfg.qkv_bias,
                        cfg.qk_scale, downsample=i < n - 1, dtype=dtype,
-                       drop_path_rates=dpr[starts[i]:starts[i] + depth])
+                       drop_path_rates=dpr[starts[i]:starts[i] + depth], norm=norm)
             for i, depth in enumerate(cfg.depths)])
-        self.norm = LayerNorm(cfg.num_features) if cfg.final_norm else None
+        self.norm = norm(cfg.num_features) if cfg.final_norm else None
 
     def forward(self, x, generator=None):
         """``generator`` drives stochastic depth; None is the deterministic

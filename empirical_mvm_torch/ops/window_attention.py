@@ -12,6 +12,11 @@ kernels the retrieval eval and the pretrain step run:
   Pallas ``_lane_sa_fwd_kernel`` (with its in-kernel attention-probability
   dropout) and ``_lane_sa_bwd_kernel``: BERT attention read straight from
   the fused qkv output (every fusion layer).
+* :func:`lane_window_attention` (``csrc/lane_window_attention.cu``) replaces
+  the Pallas ``_lane_fwd_kernel``: window attention on partitioned windows
+  (the frozen 2D Swin teacher's per-frame windows, which the TPU kernel
+  takes in its t-sliced form). Forward only: its backward
+  (``_lane_bwd_kernel``) is not ported yet.
 
 Each is a ``torch.autograd.Function``. A CPU tensor takes the plain versions
 (forward and backward); a CUDA tensor launches the kernels or raises. The
@@ -38,7 +43,8 @@ def window_partition(x: torch.Tensor, window_size: Sequence[int]) -> torch.Tenso
     b, d, h, w, c = x.shape
     wd, wh, ww = window_size
     x = x.reshape(b, d // wd, wd, h // wh, wh, w // ww, ww, c)
-    return x.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(-1, wd * wh * ww, c)
+    x = x.permute(0, 1, 3, 5, 2, 4, 6, 7)
+    return x.reshape(-1, wd * wh * ww, c)
 
 
 def window_reverse(windows: torch.Tensor, window_size: Sequence[int], b: int,
@@ -481,3 +487,90 @@ def lane_self_attention(x3: torch.Tensor, mask: torch.Tensor, n_heads: int,
             raise ValueError("attention dropout needs a generator")
         seed = draw_dropout_seed(generator)
     return _LaneSelfAttention.apply(x3, mask, seed, n_heads, scale, float(p_drop))
+
+
+# ---------------------------------------------------------------------------
+# lane_window_attention
+# ---------------------------------------------------------------------------
+
+def _check_lane_window(x3, bias, mask, n_windows, n_heads):
+    if x3.dim() != 3:
+        raise ValueError(f"x3 must be (B_, n, 3C), got {tuple(x3.shape)}")
+    b_, n, c3 = x3.shape
+    if c3 % 3 or (c3 // 3) % n_heads:
+        raise ValueError(f"last axis {c3} is not (3, {n_heads}, hd)")
+    if bias.shape != (n_heads, n, n):
+        raise ValueError(f"bias must be {(n_heads, n, n)}, got {tuple(bias.shape)}")
+    if n_windows < 1 or b_ % n_windows:
+        raise ValueError(f"{b_} windows are not a multiple of n_windows={n_windows}")
+    if mask is not None and mask.shape != (n_windows, n, n):
+        raise ValueError(f"mask must be {(n_windows, n, n)}, got {tuple(mask.shape)}")
+
+
+def lane_window_attention_reference(x3, bias, mask, n_windows, n_heads, scale):
+    """Plain version of :func:`lane_window_attention`, with the kernel's
+    roundings: q * scale in the input dtype, fp32 scores, bias, mask and
+    softmax, probabilities cast to v's dtype before P.V."""
+    _check_lane_window(x3, bias, mask, n_windows, n_heads)
+    b_, n, c3 = x3.shape
+    nw = n_windows if mask is not None else 1
+    # (3, B_/nW, nW, nH, n, hd): window b_ = (period, b_ % nW)
+    q, k, v = x3.reshape(b_ // nw, nw, n, 3, n_heads, c3 // 3 // n_heads).permute(
+        3, 0, 1, 4, 2, 5)
+    adds = [bias] if mask is None else [bias, mask[:, None]]
+    o = _attend(q, k, v, adds, scale)
+    return o.transpose(-2, -3).reshape(b_, n, c3 // 3)
+
+
+def _lane_window_fwd(x3, bias, mask, n_windows, n_heads, scale):
+    tensors = (x3, bias) if mask is None else (x3, bias, mask)
+    if any(t.dtype != torch.float32 for t in tensors[1:]):
+        raise TypeError("bias and mask must be float32")
+    dev = _build.check_tensors(*tensors)
+    code = _build.dtype_code(x3.dtype)
+    b_, n, c3 = x3.shape
+    c = c3 // 3
+    lib = _build.library()
+    _build.check_smem(lib.emvm_attention_smem_bytes(code, n, c // n_heads),
+                      f"a window of {n} tokens")
+    out = torch.empty((b_, n, c), dtype=x3.dtype, device=dev)
+    with torch.cuda.device(dev):
+        _build.record_launch(lib.emvm_lane_window_attention_fwd(
+            code, x3.data_ptr(), bias.data_ptr(), None if mask is None else mask.data_ptr(),
+            out.data_ptr(), b_, n, c, n_heads, n_windows,
+            _scale_in(x3.dtype, scale), _build.stream_ptr(dev)), "lane_window_attention")
+    return out
+
+
+class _LaneWindowAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x3, bias, mask, n_windows, n_heads, scale):
+        _check_lane_window(x3, bias, mask, n_windows, n_heads)
+        if x3.device.type == "cpu":
+            return lane_window_attention_reference(x3, bias, mask, n_windows, n_heads, scale)
+        return _lane_window_fwd(x3, bias, mask, n_windows, n_heads, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        raise NotImplementedError(
+            "the backward of lane_window_attention (the TPU `_lane_bwd_kernel`, row 8 "
+            "of PERF.md's kernel table) is not ported: run it under torch.no_grad()")
+
+
+def lane_window_attention(x3: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor | None,
+                          n_windows: int, n_heads: int, scale: float) -> torch.Tensor:
+    """Window attention on partitioned windows (JAX ``lane_window_attention``),
+    forward only. The JAX ``t_slices=f`` form, f frames folded into one
+    window that each attend only within themselves, is this function on the
+    frames' own windows (partitioned with a window one frame deep).
+
+    Args:
+      x3:   (B_, n, 3C) qkv output of the partitioned windows, last axis
+            ordered (3, nH, hd).
+      bias: (nH, n, n) fp32 relative-position bias.
+      mask: (nW, n, n) fp32 shift mask, window b_ taking ``mask[b_ % nW]``,
+            or None for an unshifted block.
+    Returns:
+      (B_, n, C) in x3's dtype.
+    """
+    return _LaneWindowAttention.apply(x3, bias, mask, int(n_windows), n_heads, float(scale))

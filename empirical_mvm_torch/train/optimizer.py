@@ -16,10 +16,17 @@ schedule and global-norm clipping: the update of the JAX package's
 * AdamW as ``optax.adamw``: bias-corrected moments, ``eps`` outside the
   square root, decoupled weight decay added to the update before the
   learning rate scales it.
+* A fifth label, ``frozen`` (the JAX ``optax.set_to_zero`` group): every
+  parameter with ``requires_grad`` off, which the model sets on its frozen
+  MVM teacher (the JAX package matches the teachers by name, having no
+  such flag). A frozen parameter has no moments and is never changed; the
+  global-norm clip sees only the other parameters' gradients (the teacher
+  runs under no_grad, so its gradients are zero in the JAX step and add
+  nothing to the JAX norm).
 
 Parameters and moments are updated in place (``torch._foreach_*`` over each
-group), which saves a copy of both; a parameter that received no gradient
-is updated as with a zero gradient, as under ``jax.grad``.
+group), which saves a copy of both; a trained parameter that received no
+gradient is updated as with a zero gradient, as under ``jax.grad``.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from torch import nn
 from empirical_mvm_torch.ops.layernorm import LayerNorm
 
 GROUPS = ("swin_decay", "swin_nodecay", "other_decay", "other_nodecay")
+FROZEN = "frozen"
 EPS = 1e-8          # Adam's epsilon in the JAX build_optimizer
 
 
@@ -56,10 +64,14 @@ def warmup_linear_schedule(base_lr: float, max_iter: int, warmup_ratio: float = 
 
 
 def group_labels(model: nn.Module) -> dict[str, str]:
-    """Parameter name -> group, by the rule of ``default_group_fn``."""
+    """Parameter name -> group, by the rule of ``default_group_fn``, or
+    ``frozen`` where ``requires_grad`` is off."""
     norm_weights = {id(m.weight) for m in model.modules() if isinstance(m, LayerNorm)}
     labels = {}
     for name, p in model.named_parameters():
+        if not p.requires_grad:
+            labels[name] = FROZEN
+            continue
         no_decay = "bias" in name.rsplit(".", 1)[-1] or id(p) in norm_weights
         labels[name] = (f"{'swin' if 'swin' in name else 'other'}_"
                         f"{'nodecay' if no_decay else 'decay'}")
@@ -69,9 +81,9 @@ def group_labels(model: nn.Module) -> dict[str, str]:
 class AdamW:
     """The optimizer of ``build_optimizer`` over a model's parameters.
 
-    ``init(params)`` returns the state (step count and both moments);
-    ``update(params, grads, state)`` clips, updates moments and parameters
-    in place and returns the state.
+    ``init(params)`` returns the state (step count and both moments of
+    every parameter that is not frozen); ``update(params, grads, state)``
+    clips, updates moments and parameters in place and returns the state.
     """
 
     def __init__(self, model: nn.Module, lr: float, max_iter: int,
@@ -87,14 +99,15 @@ class AdamW:
                              for g in GROUPS}
 
     def init(self, params: dict[str, torch.Tensor]) -> dict:
+        trained = {n: p for n, p in params.items() if self.labels[n] != FROZEN}
         return {"count": 0,
-                "mu": {n: torch.zeros_like(p) for n, p in params.items()},
-                "nu": {n: torch.zeros_like(p) for n, p in params.items()}}
+                "mu": {n: torch.zeros_like(p) for n, p in trained.items()},
+                "nu": {n: torch.zeros_like(p) for n, p in trained.items()}}
 
     @torch.no_grad()
     def update(self, params: dict[str, torch.Tensor],
                grads: dict[str, torch.Tensor | None], state: dict) -> dict:
-        names = list(params)
+        names = [n for n in params if self.labels[n] != FROZEN]
         g = [grads[n] if grads[n] is not None else torch.zeros_like(params[n])
              for n in names]
         if self.max_grad_norm > 0:

@@ -142,6 +142,30 @@ def test_direct_window_attention_bwd_kernel(cuda, dtype, shape):
     assert torch.isfinite(xg.grad.float()).all() and torch.isfinite(bg.grad).all()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b_,nh,c,nw", [
+    # the teacher's stage 0 in small: 2 clips of 4 frames x 4 windows of
+    # 7 x 7 (hd = 32) with the 4-frame mask, and a mask period of 6
+    (32, 4, 128, 16),
+    (12, 4, 128, 6),
+])
+def test_lane_window_attention_kernel(cuda, dtype, b_, nh, c, nw):
+    rs = np.random.RandomState(7)
+    n = 49
+    x3 = _randn(rs, b_, n, 3 * c, scale=0.5).to(cuda)
+    bias = _randn(rs, nh, n, n, scale=0.1).to(cuda)
+    mask = torch.from_numpy(np.where(rs.rand(nw, n, n) < 0.3, -100.0, 0.0)
+                            .astype(np.float32)).to(cuda)
+    scale = (c // nh) ** -0.5
+    before = _build.launch_counts["lane_window_attention"]
+    for m, w in ((mask, nw), (None, 1)):
+        _check(lambda a: twa.lane_window_attention(a, bias, m, w, nh, scale),
+               lambda a: twa.lane_window_attention_reference(a, bias, m, w, nh, scale),
+               x3, dtype, "attention")
+    assert _build.launch_counts["lane_window_attention"] == before + 2
+
+
 def _lane_setup(rs, cuda, b, l, c):
     x3 = _randn(rs, b, l, 3 * c, scale=0.5).to(cuda)
     do = _randn(rs, b, l, c).to(cuda).to(torch.bfloat16).float()
@@ -231,6 +255,9 @@ PLANTED = {
 # scale is 0.125, so q * scale is exact in bf16 and q_scaled_in_fp32 is no
 # fault there
 LANE_FAULTS = {"probabilities_not_rounded"}
+# faults that change the lane window kernel (its rows run attend_row too) at
+# the 2D teacher's shape, hd = 32
+WINDOW_FAULTS = {"probabilities_not_rounded", "q_scaled_in_fp32", "scale_not_rounded"}
 
 
 @pytest.mark.cuda
@@ -238,8 +265,9 @@ LANE_FAULTS = {"probabilities_not_rounded"}
 def test_bf16_check_catches_planted_faults(cuda, tmp_path, monkeypatch, fault):
     """Each planted fault, built from a copy of the sources, fails the bf16
     limits at a main-path shape (swin stage 2, shifted: N = 245, hd = 32)
-    and, for LANE_FAULTS, at the fusion shape. The readings are printed (run
-    with -s)."""
+    and, for LANE_FAULTS, at the fusion shape; for WINDOW_FAULTS at the 2D
+    teacher's stage 2 (4 frames of 4 windows of 49 tokens, shifted). The
+    readings are printed (run with -s)."""
     if fault in PLANTED:
         name, good, bad = PLANTED[fault]
         src = tmp_path / "csrc"
@@ -284,6 +312,26 @@ def test_bf16_check_catches_planted_faults(cuda, tmp_path, monkeypatch, fault):
             lambda a: twa.lane_self_attention(a, lmask, lh, (d // lh) ** -0.5),
             lambda a: twa.lane_self_attention_plain(a, lmask, lh, (d // lh) ** -0.5),
             xl, "attention")
+    if fault in WINDOW_FAULTS:
+        wb, wn = 64, 49                              # stage 2 of the teacher: nW = 4 x 4
+        wmask = torch.from_numpy(_shift_attn_mask((4, hp, hp), (1, 7, 7), (0, 3, 3))
+                                 ).to(cuda)
+        xw = torch.randn(wb, wn, 3 * c, device=cuda, generator=gen) * 0.5
+        wbias = torch.randn(nh, wn, wn, device=cuda, generator=gen) * 0.02
+
+        def window(a):
+            lib = _build.library()
+            out = torch.empty(a.shape[:-1] + (c,), dtype=a.dtype, device=cuda)
+            _build.record_launch(lib.emvm_lane_window_attention_fwd(
+                _build.dtype_code(a.dtype), a.data_ptr(), wbias.data_ptr(),
+                wmask.data_ptr(), out.data_ptr(), wb, wn, c, nh, 16,
+                scale_for(a, scale), _build.stream_ptr(cuda)), "lane_window_attention")
+            return out
+
+        cases["window"] = bf16_check(
+            window, lambda a: twa.lane_window_attention_reference(a, wbias, wmask, 16, nh,
+                                                                  scale),
+            xw, "attention")
     for case, (readings, failures) in cases.items():
         print(f"planted {fault} [{case}]: {readings} failures={failures}")
         assert failures, f"planted fault {fault} passes the bf16 limits at {case}"

@@ -159,4 +159,5 @@ def test_kernel_library_name_follows_the_sources():
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert path == _build.library_path()
     assert {p.name for p in _build._sources()} >= {
-        "layer_norm.cu", "window_attention.cu", "self_attention.cu"}
+        "layer_norm.cu", "window_attention.cu", "self_attention.cu",
+        "lane_window_attention.cu"}
