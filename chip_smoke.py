@@ -14,15 +14,17 @@ before the final line, if any phase failed:
    fp32 with TF32 off (limits ``FP32_*`` below), and bf16 against the plain
    version on the same bf16 inputs, run in fp32 and run in bf16 (limits
    ``BF16_*``). The backward kernels (LayerNorm, direct window attention,
-   lane self-attention) and the lane forward with dropout (same Philox seed
-   as its plain version, compared element by element) are checked the same
-   way. Each kernel, its plain version and one PyTorch library call
+   lane self-attention, lane window attention) and the lane forward with
+   dropout (same Philox seed as its plain version, compared element by
+   element) are checked the same way. Each kernel, its plain version and one PyTorch library call
    computing the same function (SDPA with bias + mask as ``attn_mask``, and
    ``dropout_p`` for the dropout rows, its backward through autograd;
    ``F.layer_norm`` and its backward) are timed with CUDA events in the
    main path's dtype. The forward kernels are checked and timed at the
    eval's shapes and at the train step's; ``lane_window_attention`` and the
-   LayerNorm at the frozen 2D teacher's shapes of the 2d_feature step.
+   LayerNorm at the frozen 2D teacher's shapes of the 2d_feature step, and
+   ``lane_window_attention_bwd`` at the trained 2D swin's shapes of the
+   swin2d step (the same seven (window, head) shapes).
    Prints one
    ``kernel_shapes`` line with the per-shape numbers and, at the end, one
    ``kernels`` JSON line.
@@ -63,7 +65,15 @@ before the final line, if any phase failed:
    stays bit-unchanged; every other parameter with a gradient changes.
 9. Whole 2d_feature train step: phase 7 for the run of phase 8 (the
    student cut, the teacher at full depth).
-10. The last line is ``{"ok": true, "device": {...}}``.
+10. The pretrain train step on the trained 2D Swin-base backbone, as phase 6
+   with ``model.vis_backbone`` = "swin2d" and ``model.temporal_fusion`` =
+   "concat" replaced in code (pixel MVM): the per-frame 2D swin runs the
+   lane window kernel forward and backward in its 24 blocks, then
+   ``swin2bert`` and the ``EncImgSwin`` embeddings. Launches of one step
+   held to ``TRAIN_SWIN2D_LAUNCHES``.
+11. Whole swin2d train step: phase 7 for the run of phase 10 (swin depths
+   (2, 2, 2, 2) at the 2D geometry).
+12. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -80,6 +90,7 @@ import torch.nn.functional as F
 
 from empirical_mvm_torch.core.config import SwinConfig, load_run_config
 from empirical_mvm_torch.data.masking import draw_masks
+from empirical_mvm_torch.models.encoders2d import swin2d_config
 from empirical_mvm_torch.models.pretrain import VioletPretrain, draw_negatives
 from empirical_mvm_torch.models.tasks import VioletRetrieval
 from empirical_mvm_torch.models.video_swin import _shift_attn_mask, get_window_size
@@ -135,6 +146,13 @@ TRAIN_LAUNCHES = {"fused_layer_norm": 27, "fused_layer_norm_bwd": 27,
 # LayerNorm at its 52 sites (patch norm, 2 x 24 block norms, 3 merge norms)
 TRAIN_2D_LAUNCHES = {**TRAIN_LAUNCHES, "fused_layer_norm": 27 + 52,
                      "lane_window_attention": 24}
+# the swin2d step (phase 10): the student's 24 blocks run the lane window
+# kernel forward and backward instead of the direct kernels; its LayerNorms
+# stay plain, and the kernel LayerNorm keeps its 27 sites (EncImgSwin's
+# embeddings norm in place of EncVideo's)
+TRAIN_SWIN2D_LAUNCHES = {"fused_layer_norm": 27, "fused_layer_norm_bwd": 27,
+                         "lane_window_attention": 24, "lane_window_attention_bwd": 24,
+                         "lane_self_attention_dropout": 12, "lane_self_attention_bwd": 12}
 EVAL_KERNELS = ("fused_layer_norm", "direct_window_attention", "lane_self_attention")
 
 # Limits. A tolerance is dict(atol=..., rtol=..., scale=...): an element may
@@ -234,6 +252,9 @@ KERNELS = {
     "lane_window_attention": dict(
         source="empirical_mvm_torch/csrc/lane_window_attention.cu",
         replaces="empirical_mvm_tpu/ops/window_attention.py:810"),
+    "lane_window_attention_bwd": dict(
+        source="empirical_mvm_torch/csrc/lane_window_attention.cu",
+        replaces="empirical_mvm_tpu/ops/window_attention.py:853"),
 }
 
 
@@ -571,51 +592,111 @@ def lane_train_cases(dev, gen):
     return [fwd, bwd]
 
 
-def lane_window_cases(dev, gen):
-    """The frozen 2D teacher's window attention in the 2d_feature step: 20
-    clips of 4 frames at 224^2, window (1, 7, 7) (n = 49, hd = 32: each
-    frame's windows on their own), at every Swin-base stage, unshifted and
-    shifted with the 4-frame mask (stage 3 clamps to one unshifted 7 x 7
-    window). SDPA, the yardstick, runs on (clips, nW * nH, 49, 32), a clip's
-    windows and heads on one axis, with bias + mask as a (1, nW * nH, 49,
-    49) ``attn_mask`` that broadcasts over the clips."""
-    b, n, hd = TRAIN_B, 49, 32
-    recs = []
-    for stage in range(4):
+def _window_shapes():
+    """(stage, windows of one clip, C, nH, mask or None, blocks of the shape)
+    of a 2D Swin-base on TRAIN_T frames of 224^2: window (1, 7, 7), n = 49,
+    hd = 32; blocks alternate unshifted and shifted, and stage 3 clamps to
+    one unshifted 7 x 7 window. The mask is the per-frame shift mask over
+    all TRAIN_T frames' windows, as BasicLayer builds it."""
+    for stage, depth in enumerate(swin2d_config("base").depths):
         hw, c, nh = 56 >> stage, 128 << stage, 4 << stage
         win, shift = get_window_size((TRAIN_T, hw, hw), (1, 7, 7), (0, 3, 3))
-        nw = TRAIN_T * (hw // 7) ** 2                     # windows of one clip
+        nw = TRAIN_T * (hw // 7) ** 2
+        if any(shift):
+            yield stage, nw, c, nh, None, (depth + 1) // 2
+            yield stage, nw, c, nh, _shift_attn_mask((TRAIN_T, hw, hw), win, shift), depth // 2
+        else:
+            yield stage, nw, c, nh, None, depth
+
+
+def _window_sdpa_mask(bias, mk, nw, dtype):
+    """bias + mask as a (1, nW * nH, 49, 49) ``attn_mask`` that broadcasts
+    over the clips, for SDPA on (clips, nW * nH, 49, hd)."""
+    nh, n, _ = bias.shape
+    m = bias[None] if mk is None else bias[None] + mk[:, None]
+    return m.expand(nw, nh, n, n).reshape(1, nw * nh, n, n).to(dtype)
+
+
+def lane_window_cases(dev, gen):
+    """The 2D swin's window attention (the frozen teacher of the 2d_feature
+    step; the student of the swin2d step): 20 clips of 4 frames at 224^2,
+    window (1, 7, 7) (n = 49, hd = 32: each frame's windows on their own),
+    at every Swin-base stage, unshifted and shifted with the 4-frame mask
+    (``_window_shapes``). SDPA, the yardstick, runs on (clips, nW * nH, 49,
+    32), a clip's windows and heads on one axis, with the broadcast
+    ``_window_sdpa_mask``. Each record carries its shape's launches in one
+    step's 24 blocks (``launches_per_step``)."""
+    b, n, hd = TRAIN_B, 49, 32
+    recs = []
+    for stage, nw, c, nh, mk, blocks in _window_shapes():
         x3 = torch.randn(b * nw, n, 3 * c, device=dev, generator=gen) * 0.5
         bias = torch.randn(nh, n, n, device=dev, generator=gen) * 0.02
-        masks = [None]
-        if any(shift):
-            masks.append(torch.from_numpy(
-                _shift_attn_mask((TRAIN_T, hw, hw), win, shift)).to(dev))
+        mk = None if mk is None else torch.from_numpy(mk).to(dev)
+        n_w = nw if mk is not None else 1
         scale = hd ** -0.5
-        for mk in masks:
-            n_w = nw if mk is not None else 1
 
-            def kernel(a, bias=bias, mk=mk, n_w=n_w, nh=nh):
-                return wa.lane_window_attention(a, bias, mk, n_w, nh, scale)
+        def kernel(a, bias=bias, mk=mk, n_w=n_w, nh=nh):
+            return wa.lane_window_attention(a, bias, mk, n_w, nh, scale)
 
-            def plain(a, bias=bias, mk=mk, n_w=n_w, nh=nh):
-                return wa.lane_window_attention_reference(a, bias, mk, n_w, nh, scale)
+        def plain(a, bias=bias, mk=mk, n_w=n_w, nh=nh):
+            return wa.lane_window_attention_reference(a, bias, mk, n_w, nh, scale)
 
-            def library(a, bias=bias, mk=mk, nh=nh, nw=nw):
-                qkv = a.reshape(b, nw, n, 3, nh, hd).permute(3, 0, 1, 4, 2, 5)
-                q, k, v = qkv.reshape(3, b, nw * nh, n, hd).unbind(0)
-                m = bias[None] if mk is None else bias[None] + mk[:, None]
-                m = m.expand(nw, nh, n, n).reshape(1, nw * nh, n, n).to(a.dtype)
-                return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m,
-                                                              scale=scale)
+        def library(a, bias=bias, mk=mk, nh=nh, nw=nw):
+            qkv = a.reshape(b, nw, n, 3, nh, hd).permute(3, 0, 1, 4, 2, 5)
+            q, k, v = qkv.reshape(3, b, nw * nh, n, hd).unbind(0)
+            m = _window_sdpa_mask(bias, mk, nw, a.dtype)
+            return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m, scale=scale)
 
-            label = f"teacher stage{stage} x3=({b * nw},{n},{3 * c}) nH={nh} " + (
-                "unshifted" if mk is None else f"shifted nW={n_w}")
-            ops = 4 * b * nw * nh * n * n * hd
-            nbytes = x3.numel() * 2 + b * nw * n * c * 2 + bias.numel() * 4 + (
-                0 if mk is None else mk.numel() * 4)
-            recs.append(measure("lane_window_attention", label, x3, kernel, plain, library,
-                                torch.bfloat16, "attention", ops, "bf16_tensor", nbytes))
+        label = f"2d swin stage{stage} x3=({b * nw},{n},{3 * c}) nH={nh} " + (
+            "unshifted" if mk is None else f"shifted nW={n_w}")
+        ops = 4 * b * nw * nh * n * n * hd
+        nbytes = x3.numel() * 2 + b * nw * n * c * 2 + bias.numel() * 4 + (
+            0 if mk is None else mk.numel() * 4)
+        recs.append(measure("lane_window_attention", label, x3, kernel, plain, library,
+                            torch.bfloat16, "attention", ops, "bf16_tensor", nbytes))
+        recs[-1]["launches_per_step"] = blocks
+    return recs
+
+
+def lane_window_bwd_cases(dev, gen):
+    """The trained 2D swin's window attention backward in the swin2d step:
+    the shapes of ``lane_window_cases``, do drawn once per shape. SDPA's
+    backward, the yardstick, runs on the layout and broadcast mask of the
+    forward's yardstick."""
+    b, n, hd = TRAIN_B, 49, 32
+    recs = []
+    for stage, nw, c, nh, mk, blocks in _window_shapes():
+        x3 = torch.randn(b * nw, n, 3 * c, device=dev, generator=gen) * 0.5
+        do = _bf16_values(torch.randn(b * nw, n, c, device=dev, generator=gen))
+        bias = torch.randn(nh, n, n, device=dev, generator=gen) * 0.02
+        mk = None if mk is None else torch.from_numpy(mk).to(dev)
+        n_w = nw if mk is not None else 1
+        scale = hd ** -0.5
+
+        def kernel(a, bias=bias, mk=mk, n_w=n_w, nh=nh, do=do):
+            return wa._lane_window_bwd(a, bias, mk, do.to(a.dtype), n_w, nh, scale)
+
+        def plain(a, bias=bias, mk=mk, n_w=n_w, nh=nh, do=do):
+            return wa.lane_window_attention_backward_plain(a, bias, mk, do.to(a.dtype), n_w,
+                                                           nh, scale)
+
+        def library(a, bias=bias, mk=mk, nh=nh, nw=nw, do=do, c=c):
+            qkv = a.reshape(b, nw, n, 3, nh, hd).permute(3, 0, 1, 4, 2, 5)
+            q, k, v = (u.detach().requires_grad_(True) for u in
+                       qkv.reshape(3, b, nw * nh, n, hd).contiguous().unbind(0))
+            m = _window_sdpa_mask(bias, mk, nw, a.dtype)
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=m, scale=scale)
+            dop = do.to(a.dtype).reshape(b, nw, n, nh, hd).permute(0, 1, 3, 2, 4)
+            return _grad_call(out, (q, k, v), dop.reshape(b, nw * nh, n, hd).contiguous())
+
+        label = f"2d swin stage{stage} x3=({b * nw},{n},{3 * c}) nH={nh} " + (
+            "unshifted" if mk is None else f"shifted nW={n_w}")
+        ops = 2.5 * 4 * b * nw * nh * n * n * hd
+        nbytes = (2 * x3.numel() + do.numel()) * 2 + 2 * bias.numel() * 4 + (
+            0 if mk is None else mk.numel() * 4)
+        recs.append(measure("lane_window_attention_bwd", label, x3, kernel, plain, library,
+                            torch.bfloat16, "attention_bwd", ops, "bf16_tensor", nbytes))
+        recs[-1]["launches_per_step"] = blocks
     return recs
 
 
@@ -704,6 +785,20 @@ def with_mvm_target(run, target):
     return dataclasses.replace(run, train=dataclasses.replace(run.train, mvm_target=target))
 
 
+def with_swin2d_backbone(run):
+    """``run`` with the trained 2D Swin backbone (``vis_backbone`` "swin2d",
+    concat fusion) in place of the Video Swin."""
+    return dataclasses.replace(run, model=dataclasses.replace(
+        run.model, vis_backbone="swin2d", temporal_fusion="concat"))
+
+
+def backbone_config(cfg):
+    """The SwinConfig the model's image encoder builds."""
+    if cfg.vis_backbone in ("swin", "swin2d") and cfg.swin_custom is None:
+        return swin2d_config(cfg.vis_backbone_size)
+    return cfg.swin
+
+
 def _teacher(name):
     return name.startswith("feature_model.")
 
@@ -712,8 +807,8 @@ VTM_OUT_BIAS = "fc.3.bias"
 
 
 def train_phase(dev, run, want_launches):
-    """Phases 6 and 8: the pretrain train step at full width for the
-    run's MVM target. Returns the launch counts of the first timed step,
+    """Phases 6, 8 and 10: the pretrain train step at full width for the
+    run's backbone and MVM target. Returns the launch counts of the first timed step,
     which must equal ``want_launches``."""
     cfg = run.model
     b = run.train.size_batch
@@ -744,10 +839,10 @@ def train_phase(dev, run, want_launches):
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     clips_s = [b / t for t in secs]
     target = run.train.mvm_target
-    print(f"train-step {target} launch counts: {launches}", flush=True)
+    print(f"train-step {cfg.vis_backbone} {target} launch counts: {launches}", flush=True)
     print(json.dumps({
         "slice": "pretrain_train_step", "config": PRETRAIN_CONFIG.name,
-        "mvm_target": list(target), "dtype": "bfloat16",
+        "vis_backbone": cfg.vis_backbone, "mvm_target": list(target), "dtype": "bfloat16",
         "batch": b, "frames": cfg.size_frame, "size_img": cfg.size_img,
         "size_txt": cfg.size_txt, "steps": TRAIN_STEPS, "warmup_step_s": warm_s,
         "clips_per_s": float(np.median(clips_s)), "clips_per_s_range": [min(clips_s),
@@ -755,7 +850,8 @@ def train_phase(dev, run, want_launches):
         "step_ms_median": float(np.median(secs)) * 1e3, "step_s_each": secs,
         "peak_mem_gib": peak, "losses_each_step": losses}), flush=True)
     require(launches == want_launches,
-            f"launches of one {target} train step {launches}, not {want_launches}")
+            f"launches of one {cfg.vis_backbone} {target} train step {launches}, "
+            f"not {want_launches}")
     for i, step_ls in enumerate(losses):
         require(all(np.isfinite(v) for v in step_ls.values()),
                 f"non-finite loss at step {i}: {step_ls}")
@@ -764,7 +860,8 @@ def train_phase(dev, run, want_launches):
     teacher = {n for n in state.params if _teacher(n)}
     require(bool(teacher) == ("2d_feature" in target), f"teacher parameters: {len(teacher)}")
     no_grad = {n for n, p in state.params.items() if p.grad is None}
-    require(no_grad == teacher | {"enc_img.emb_odr"},
+    odr = {n for n in state.params if n.endswith(".emb_odr")}
+    require(len(odr) == 1 and no_grad == teacher | odr,
             f"parameters without a gradient: {sorted(no_grad - teacher)} and "
             f"{len(no_grad & teacher)} of the {len(teacher)} teacher parameters")
     moved = [n for n in teacher if not torch.equal(before[n], state.params[n].detach())]
@@ -784,12 +881,12 @@ def train_phase(dev, run, want_launches):
 
 
 def whole_step_phase(dev, run):
-    """Phases 7 and 9: one train step of a depth-cut copy (the student; a
+    """Phases 7, 9 and 11: one train step of a depth-cut copy (the student; a
     2D teacher keeps its full depth), card fp32 (kernels) against CPU fp32
     (plain versions)."""
     cfg = run.model
     cut = dataclasses.replace(
-        cfg, swin_custom=dataclasses.replace(cfg.swin, depths=(2, 2, 2, 2),
+        cfg, swin_custom=dataclasses.replace(backbone_config(cfg), depths=(2, 2, 2, 2),
                                              drop_path_rate=0.0),
         fusion=dataclasses.replace(cfg.fusion, num_hidden_layers=2, hidden_dropout_prob=0.0,
                                    attention_probs_dropout_prob=0.0),
@@ -841,7 +938,7 @@ def whole_step_phase(dev, run):
             fails.append(f"loss {k}: card {ls_c[k]} cpu {ls_r[k]}")
     worst.sort(reverse=True)
     print(json.dumps({"whole_step_vs_cpu": {
-        "mvm_target": list(run.train.mvm_target),
+        "vis_backbone": cut.vis_backbone, "mvm_target": list(run.train.mvm_target),
         "swin_depths": list(cut.swin.depths), "fusion_layers": cut.fusion.num_hidden_layers,
         "batch": b, "losses_card": ls_c, "losses_cpu": ls_r, "loss_abs_diff": loss_diff,
         "grad_global_max": g_all, "params": len(g_r), "step_s": secs,
@@ -882,7 +979,8 @@ def main() -> None:
             + ln_cases(dev, gen, TRAIN_LN, "train")
             + direct_bwd_cases(dev, gen) + lane_train_cases(dev, gen)
             + ln_bwd_cases(dev, gen)
-            + lane_window_cases(dev, gen) + ln_cases(dev, gen, TEACHER_LN, "train teacher"))
+            + lane_window_cases(dev, gen) + ln_cases(dev, gen, TEACHER_LN, "train teacher")
+            + lane_window_bwd_cases(dev, gen))
     failures = [f for r in recs for f in r.pop("failures")]
     print(json.dumps({"kernel_shapes": recs}), flush=True)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s; "
@@ -980,13 +1078,23 @@ def main() -> None:
 
     # 9. the whole 2d_feature train step, card fp32 against CPU fp32
     whole_step_phase(dev, run_2d)
+    torch.cuda.empty_cache()
+
+    # 10. the pretrain train step at full width on the trained 2D Swin-base
+    # backbone (concat fusion), MVM-pixel
+    run_swin2d = with_swin2d_backbone(run)
+    train_swin2d_launches = train_phase(dev, run_swin2d, TRAIN_SWIN2D_LAUNCHES)
+    torch.cuda.empty_cache()
+
+    # 11. the whole swin2d train step, card fp32 against CPU fp32
+    whole_step_phase(dev, run_swin2d)
 
     require(not failures, "kernel checks failed:\n" + "\n".join(failures))
 
     # kernels line: per kernel, times summed over its main-path shapes (one
     # call of each), the largest errors over every shape checked, and the
     # launches of one train step (the 2d_feature step's, else the pixel
-    # step's, else one eval's)
+    # step's, else the swin2d step's, else one eval's)
     line = []
     for name, meta in KERNELS.items():
         mine = [r for r in recs if r["kernel"] == name]
@@ -994,17 +1102,22 @@ def main() -> None:
         ops_bound = sum(r["bound_ms"] for r in mine if r["bound_by"] == "operations")
         bf16 = {k: max(r[k] for r in mine) for k in mine[0]
                 if k.startswith(("max_abs_err_bf16", "mismatch_bf16"))}
+        # the lane window kernels: each shape weighted by its blocks in a step
+        step = {f"{k}_step": sum(r[k] * r["launches_per_step"] for r in mine)
+                for k in tot} if "launches_per_step" in mine[0] else {}
         line.append({"name": name, "route": "cuda", **meta,
                      "launches": (train_2d_launches.get(name) or train_launches.get(name)
+                                  or train_swin2d_launches.get(name)
                                   or eval_launches.get(name, 0)),
                      "launches_train_step_2d_feature": train_2d_launches.get(name, 0),
+                     "launches_train_step_swin2d": train_swin2d_launches.get(name, 0),
                      "launches_train_step": train_launches.get(name, 0),
                      "launches_eval": eval_launches.get(name, 0),
                      "max_abs_err": max(r["max_abs_err"] for r in mine), **bf16,
                      "ms": tot["ms"], "kernel_ms": tot["ms"], "plain_ms": tot["plain_ms"],
                      "bound_ms": tot["bound_ms"],
                      "bound_by": "operations" if ops_bound > tot["bound_ms"] / 2 else "bytes",
-                     "library_ms": tot["library_ms"], "shapes": len(mine)})
+                     "library_ms": tot["library_ms"], **step, "shapes": len(mine)})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -1,5 +1,5 @@
-// lane_window_attention forward: window attention read from the
-// partitioned qkv GEMM output.
+// lane_window_attention forward (here) and backward (below): window
+// attention read from the partitioned qkv GEMM output.
 //
 // Replaces: empirical_mvm_tpu/ops/window_attention.py `_lane_fwd_kernel`
 // over the grid `_lane_fwd` gives it (`_lane_specs`; the mask add is
@@ -27,6 +27,7 @@
 // kernel: q * scale rounded to the storage type, fp32 scores, bias, mask
 // and softmax, probabilities rounded before P.V. Every loop bounds itself
 // by n (49 is not a power of two).
+#include "attention_bwd.cuh"
 #include "common.cuh"
 
 namespace emvm {
@@ -83,6 +84,77 @@ int launch(const void* x3, const void* bias, const void* mask, void* out, long l
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Backward.
+//
+// Replaces: empirical_mvm_tpu/ops/window_attention.py `_lane_bwd_kernel`
+// over the grid `_lane_bwd` gives it (t-sliced or not). Same algebra and
+// roundings as the direct backward (attention_bwd.cuh): dx3 (B_, n, 3C) in
+// x3's dtype, dbias (nH, n, n) fp32 summed over all B_ windows (the TPU
+// kernel's sum over windows and t-slices). The TPU wrapper's packed
+// fallback (`_packed_bwd` when the VMEM budget is exceeded) has no
+// counterpart: this kernel covers every shape itself.
+//
+// Bound on the H100: memory. At the trained 2D swin's shapes (n = 49,
+// hd = 32, bf16) one (window, head) does about 10 * n^2 * hd = 0.77 MFLOP on
+// 14 * n * hd = 22 KB of x3, do and dx3, about 35 operations per byte
+// against the card's ~295.
+//
+// Design (first, simple version): the body of the direct backward,
+// `attention_bwd_block`, on blocks (head, mask slot, chunk of periods):
+// window b_ is row b_ of x3 and takes mask[b_ % nW], so the block of slot s
+// walks the windows p * nW + s of the periods p of its chunk. Chunks fill the
+// card about twice over (`attention_bwd_chunks`); each block adds into its
+// own dbias slice and a second kernel sums the chunks * nW slices of every
+// head in a fixed order (no atomics). The stage-0 shifted block of a
+// 4-frame clip has nW = 4 x 64 = 256 slots: 1,024 blocks of one chunk, and
+// 9.8 MB of slices.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kAttnThreads)
+    lane_window_attention_bwd_kernel(const T* __restrict__ x3,
+                                     const float* __restrict__ bias,
+                                     const float* __restrict__ mask,
+                                     const T* __restrict__ dout, T* __restrict__ dx3,
+                                     float* __restrict__ dbias_part, int periods, int n, int c,
+                                     int nh, float scale_t, float scale_f) {
+  const int h = blockIdx.x, slot = blockIdx.y, chunk = blockIdx.z, nchunk = gridDim.z;
+  const int nw = gridDim.y;
+  // row of token t of window (period p, slot) in the (B_ * n) rows
+  auto token_row = [=](int p, int t) -> size_t {
+    return (size_t(p) * nw + slot) * n + t;
+  };
+  attention_bwd_block<T>(x3, bias + size_t(h) * n * n,
+                         mask ? mask + size_t(slot) * n * n : nullptr, dout, dx3,
+                         dbias_part + ((size_t(chunk) * nw + slot) * nh + h) * n * n, n, c,
+                         c / nh, h, chunk, periods, nchunk, token_row, scale_t, scale_f);
+}
+
+template <typename T>
+int launch_bwd(const void* x3, const void* bias, const void* mask, const void* dout, void* dx3,
+               void* dbias, void* part, long long windows, int n, int c, int nh, int nw,
+               float scale_t, float scale_f, cudaStream_t stream) {
+  if (!mask) nw = 1;
+  if (windows < 1 || nw < 1 || windows % nw || windows / nw > 0x7fffffffLL || nw > 65535)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int periods = static_cast<int>(windows / nw);
+  const size_t smem = attention_bwd_smem_bytes<T>(n, c / nh);
+  auto kernel = lane_window_attention_bwd_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int chunks = attention_bwd_chunks(periods, nh, nw);
+  kernel<<<dim3(nh, nw, chunks), kAttnThreads, smem, stream>>>(
+      static_cast<const T*>(x3), static_cast<const float*>(bias),
+      static_cast<const float*>(mask), static_cast<const T*>(dout), static_cast<T*>(dx3),
+      static_cast<float*>(part), periods, n, c, nh, scale_t, scale_f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_sum_slices(static_cast<const float*>(part), static_cast<float*>(dbias),
+                           chunks * nw, static_cast<long long>(nh) * n * n, stream);
+}
+
 }  // namespace
 }  // namespace emvm
 
@@ -102,4 +174,40 @@ extern "C" int emvm_lane_window_attention_fwd(int dtype, const void* x3, const v
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Backward: dx3 (x3's shape and dtype) and dbias (nH, n, n) fp32. nw is the
+// mask's window count (taken as 1 when mask is null). part is fp32 scratch
+// of emvm_lane_window_attention_bwd_scratch(...) floats. scale_t is the
+// softmax scale rounded to the storage dtype (for q * scale), scale_f the
+// fp32 scale (for dq).
+extern "C" int emvm_lane_window_attention_bwd(int dtype, const void* x3, const void* bias,
+                                              const void* mask, const void* dout, void* dx3,
+                                              void* dbias, void* part, long long windows, int n,
+                                              int c, int nh, int nw, float scale_t,
+                                              float scale_f, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case emvm::kFloat32:
+      return emvm::launch_bwd<float>(x3, bias, mask, dout, dx3, dbias, part, windows, n, c, nh,
+                                     nw, scale_t, scale_f, s);
+    case emvm::kBFloat16:
+      return emvm::launch_bwd<__nv_bfloat16>(x3, bias, mask, dout, dx3, dbias, part, windows,
+                                             n, c, nh, nw, scale_t, scale_f, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// nw as for emvm_lane_window_attention_bwd: 1 for an unshifted block.
+extern "C" long long emvm_lane_window_attention_bwd_scratch(long long windows, int n, int nh,
+                                                            int nw) {
+  if (nw < 1 || windows < nw) return 0;
+  const int periods = static_cast<int>(windows / nw);
+  return static_cast<long long>(emvm::attention_bwd_chunks(periods, nh, nw)) * nw * nh * n * n;
+}
+
+extern "C" size_t emvm_lane_window_attention_bwd_smem_bytes(int dtype, int n, int hd) {
+  return dtype == emvm::kFloat32 ? emvm::attention_bwd_smem_bytes<float>(n, hd)
+                                 : emvm::attention_bwd_smem_bytes<__nv_bfloat16>(n, hd);
 }

@@ -24,6 +24,7 @@
 // walks query rows, doing the dot products, the fp32 softmax and P.V on the
 // CUDA cores. N is not a power of two; every loop bounds itself by N.
 // Tensor cores (mma/wgmma over 64-row tiles) are later work.
+#include "attention_bwd.cuh"
 #include "common.cuh"
 
 namespace emvm {
@@ -105,26 +106,11 @@ int launch(const void* x3, const void* bias, const void* mask, void* out, int b,
 // ~295, so the floor is the bytes over 3.35 TB/s; this version, on CUDA
 // cores, is far above it.
 //
-// Design: one 256-thread block per (head, window, batch chunk). The block
-// walks the batches of its chunk; per batch it stages qs, k, v and do of its
-// (window, head) in shared memory (rows padded by one word), then
-//   pass 1, one warp per query row i: the score row, softmax (its max, sum
-//     and rowsum(dp * p) kept in shared memory), ds, and dq_i;
-//   pass 2, one warp per key column j, lanes over the query rows: p_ij and
-//     ds_ij recomputed bit for bit as pass 1 computed them (same fma chain,
-//     the stored max and sum), then dv_j and dk_j.
-// dbias: the TPU kernel carries it across its sequential grid. Blocks here
-// run in no order, so each block adds its ds rows into its own fp32 slice
-// of a partial buffer (chunk, window, head, N, N), in its fixed batch order,
-// and a second kernel sums the slices in a fixed order. No atomics: a step is
-// bit-identical from run to run.
+// Design: one 256-thread block per (head, window, batch chunk), running
+// `attention_bwd_block` (attention_bwd.cuh, shared with the lane window
+// backward) over the batches of its chunk, each token's 5D address computed
+// in place; dbias from per-block fp32 slices summed in a fixed order.
 // ---------------------------------------------------------------------------
-
-template <typename T>
-__host__ __device__ inline size_t direct_bwd_smem_bytes(int n, int hd) {
-  return 4 * align16(size_t(n) * k_row_stride<T>(hd) * sizeof(T)) +
-         align16(3 * size_t(n) * sizeof(float)) + 2 * size_t(kAttnWarps) * n * sizeof(float);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kAttnThreads)
@@ -135,158 +121,20 @@ __global__ void __launch_bounds__(kAttnThreads)
                                        float* __restrict__ dbias_part, int bsz, int d, int hp,
                                        int wp, int c, int nh, int wh, int ww, float scale_t,
                                        float scale_f) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int h = blockIdx.x, w = blockIdx.y, chunk = blockIdx.z, nchunk = gridDim.z;
   const int nw = gridDim.y;
-  const int hd = c / nh;
   const int hw = wh * ww;
   const int n = d * hw;
   const int strip = w / (wp / ww), col = w % (wp / ww);
-  const int ks = k_row_stride<T>(hd);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-
-  const size_t mat = align16(size_t(n) * ks * sizeof(T));
-  T* qs = reinterpret_cast<T*>(smem_raw);
-  T* kk = reinterpret_cast<T*>(smem_raw + mat);
-  T* vv = reinterpret_cast<T*>(smem_raw + 2 * mat);
-  T* dd = reinterpret_cast<T*>(smem_raw + 3 * mat);
-  float* row_max = reinterpret_cast<float*>(smem_raw + 4 * mat);
-  float* row_sum = row_max + n;
-  float* row_dp = row_sum + n;
-  float* ra = reinterpret_cast<float*>(smem_raw + 4 * mat + align16(3 * size_t(n) * sizeof(float))) +
-              size_t(warp) * 2 * n;
-  float* rb = ra + n;
-
-  const float* bias_h = bias + size_t(h) * n * n;
-  const float* mask_w = mask ? mask + size_t(w) * n * n : nullptr;
-  float* part = dbias_part + ((size_t(chunk) * nw + w) * nh + h) * n * n;
-  const size_t c3 = size_t(3) * c;
-
-  for (int b = chunk; b < bsz; b += nchunk) {
-    const bool first = b == chunk;
-    auto token_row = [&](int t) -> size_t {
-      const int tt = t / hw, r = t % hw;
-      return ((size_t(b) * d + tt) * hp + strip * wh + r / ww) * size_t(wp) + col * ww + r % ww;
-    };
-    __syncthreads();  // the previous batch is done with shared memory
-    for (int idx = threadIdx.x; idx < n * hd; idx += blockDim.x) {
-      const int t = idx / hd, e = idx % hd;
-      const size_t r = token_row(t);
-      const T* src = x3 + r * c3 + h * hd + e;
-      qs[t * ks + e] = from_float<T>(to_float(src[0]) * scale_t);
-      kk[t * ks + e] = src[c];
-      vv[t * ks + e] = src[2 * c];
-      dd[t * ks + e] = dout[r * c + h * hd + e];
-    }
-    __syncthreads();
-
-    // pass 1: query rows -> softmax statistics, ds rows, dq, the dbias slice
-    for (int i = warp; i < n; i += kAttnWarps) {
-      const T* qi = qs + i * ks;
-      const T* di = dd + i * ks;
-      const float* brow = bias_h + size_t(i) * n;
-      const float* mrow = mask_w ? mask_w + size_t(i) * n : nullptr;
-      float mx = -CUDART_INF_F;
-      for (int j = lane; j < n; j += 32) {
-        const T* kj = kk + j * ks;
-        float acc = 0.f;
-        for (int e = 0; e < hd; ++e) acc = fmaf(to_float(qi[e]), to_float(kj[e]), acc);
-        acc += brow[j];
-        if (mrow) acc += mrow[j];
-        ra[j] = acc;
-        mx = fmaxf(mx, acc);
-      }
-      mx = warp_max(mx);
-      float sum = 0.f;
-      for (int j = lane; j < n; j += 32) {
-        const float ex = expf(ra[j] - mx);
-        ra[j] = ex;
-        sum += ex;
-      }
-      sum = warp_sum(sum);
-      float dsum = 0.f;
-      for (int j = lane; j < n; j += 32) {
-        const float p = ra[j] / sum;
-        const T* vj = vv + j * ks;
-        float dp = 0.f;
-        for (int e = 0; e < hd; ++e) dp = fmaf(to_float(di[e]), to_float(vj[e]), dp);
-        ra[j] = p;
-        rb[j] = dp;
-        dsum += dp * p;
-      }
-      dsum = warp_sum(dsum);
-      float* prow = part + size_t(i) * n;
-      for (int j = lane; j < n; j += 32) {
-        const float ds = ra[j] * (rb[j] - dsum);
-        prow[j] = first ? ds : prow[j] + ds;
-        rb[j] = to_float(from_float<T>(ds));
-      }
-      if (lane == 0) {
-        row_max[i] = mx;
-        row_sum[i] = sum;
-        row_dp[i] = dsum;
-      }
-      __syncwarp();
-      T* dq = dx3 + token_row(i) * c3 + h * hd;
-      for (int e = lane; e < hd; e += 32) {
-        float acc = 0.f;
-        for (int j = 0; j < n; ++j) acc = fmaf(rb[j], to_float(kk[j * ks + e]), acc);
-        dq[e] = from_float<T>(acc * scale_f);
-      }
-      __syncwarp();
-    }
-    __syncthreads();  // row statistics complete
-
-    // pass 2: key columns -> dk, dv
-    for (int j = warp; j < n; j += kAttnWarps) {
-      const T* kj = kk + j * ks;
-      const T* vj = vv + j * ks;
-      for (int i = lane; i < n; i += 32) {
-        const T* qi = qs + i * ks;
-        const T* di = dd + i * ks;
-        float acc = 0.f;
-        for (int e = 0; e < hd; ++e) acc = fmaf(to_float(qi[e]), to_float(kj[e]), acc);
-        acc += bias_h[size_t(i) * n + j];
-        if (mask_w) acc += mask_w[size_t(i) * n + j];
-        const float p = expf(acc - row_max[i]) / row_sum[i];
-        float dp = 0.f;
-        for (int e = 0; e < hd; ++e) dp = fmaf(to_float(di[e]), to_float(vj[e]), dp);
-        ra[i] = to_float(from_float<T>(p));
-        rb[i] = to_float(from_float<T>(p * (dp - row_dp[i])));
-      }
-      __syncwarp();
-      const size_t r = token_row(j);
-      T* dk = dx3 + r * c3 + c + h * hd;
-      T* dv = dk + c;
-      for (int e = lane; e < hd; e += 32) {
-        float ak = 0.f, av = 0.f;
-        for (int i = 0; i < n; ++i) {
-          av = fmaf(ra[i], to_float(dd[i * ks + e]), av);
-          ak = fmaf(rb[i], to_float(qs[i * ks + e]), ak);
-        }
-        dk[e] = from_float<T>(ak);
-        dv[e] = from_float<T>(av);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// dbias[h, i, j] = sum over slices s of part[s, h, i, j], s in order.
-__global__ void sum_slices_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                  int slices, long long per_slice) {
-  const long long k = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (k >= per_slice) return;
-  float acc = 0.f;
-  for (int s = 0; s < slices; ++s) acc += part[s * per_slice + k];
-  out[k] = acc;
-}
-
-// Batch chunks of the backward grid: enough (head, window, chunk) blocks to
-// fill the card twice over, at most one chunk per batch row.
-inline int direct_bwd_chunks(int b, int nh, int nw) {
-  const int want = (2 * 132 + nh * nw - 1) / (nh * nw);
-  return want < 1 ? 1 : (want > b ? b : want);
+  // row of window token t of batch b in the (B, D, Hp, Wp) feature map
+  auto token_row = [=](int b, int t) -> size_t {
+    const int tt = t / hw, r = t % hw;
+    return ((size_t(b) * d + tt) * hp + strip * wh + r / ww) * size_t(wp) + col * ww + r % ww;
+  };
+  attention_bwd_block<T>(x3, bias + size_t(h) * n * n,
+                         mask ? mask + size_t(w) * n * n : nullptr, dout, dx3,
+                         dbias_part + ((size_t(chunk) * nw + w) * nh + h) * n * n, n, c, c / nh,
+                         h, chunk, bsz, nchunk, token_row, scale_t, scale_f);
 }
 
 template <typename T>
@@ -295,22 +143,20 @@ int launch_bwd(const void* x3, const void* bias, const void* mask, const void* d
                int ww, float scale_t, float scale_f, cudaStream_t stream) {
   const int n = d * wh * ww;
   const int nw = (hp / wh) * (wp / ww);
-  const size_t smem = direct_bwd_smem_bytes<T>(n, c / nh);
+  const size_t smem = attention_bwd_smem_bytes<T>(n, c / nh);
   auto kernel = direct_window_attention_bwd_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int chunks = direct_bwd_chunks(b, nh, nw);
+  const int chunks = attention_bwd_chunks(b, nh, nw);
   kernel<<<dim3(nh, nw, chunks), kAttnThreads, smem, stream>>>(
       static_cast<const T*>(x3), static_cast<const float*>(bias),
       static_cast<const float*>(mask), static_cast<const T*>(dout), static_cast<T*>(dx3),
       static_cast<float*>(part), b, d, hp, wp, c, nh, wh, ww, scale_t, scale_f);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long per_slice = static_cast<long long>(nh) * n * n;
-  sum_slices_kernel<<<static_cast<unsigned>((per_slice + 255) / 256), 256, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<float*>(dbias), chunks * nw, per_slice);
-  return static_cast<int>(cudaGetLastError());
+  return launch_sum_slices(static_cast<const float*>(part), static_cast<float*>(dbias),
+                           chunks * nw, static_cast<long long>(nh) * n * n, stream);
 }
 
 }  // namespace
@@ -365,10 +211,10 @@ extern "C" long long emvm_direct_window_attention_bwd_scratch(int b, int d, int 
                                                               int nh, int wh, int ww) {
   const int nw = (hp / wh) * (wp / ww);
   const long long n = static_cast<long long>(d) * wh * ww;
-  return static_cast<long long>(emvm::direct_bwd_chunks(b, nh, nw)) * nw * nh * n * n;
+  return static_cast<long long>(emvm::attention_bwd_chunks(b, nh, nw)) * nw * nh * n * n;
 }
 
 extern "C" size_t emvm_direct_window_attention_bwd_smem_bytes(int dtype, int n, int hd) {
-  return dtype == emvm::kFloat32 ? emvm::direct_bwd_smem_bytes<float>(n, hd)
-                                 : emvm::direct_bwd_smem_bytes<__nv_bfloat16>(n, hd);
+  return dtype == emvm::kFloat32 ? emvm::attention_bwd_smem_bytes<float>(n, hd)
+                                 : emvm::attention_bwd_smem_bytes<__nv_bfloat16>(n, hd);
 }

@@ -9,7 +9,8 @@ kernel (kd, kh, kw, C, E) becomes the Conv3d weight (E, C, kd, kh, kw);
 LayerNorm ``scale`` becomes ``weight``; embeddings' ``embedding`` becomes
 ``weight``. A pretrain tree's frozen ``feature_model`` teacher is carried
 too. :func:`swin2d_state_dict_from_hf` loads a HF ``SwinModel`` checkpoint
-(the 2D teacher's real weights) into the same names. This module imports
+into the same names: the 2D teacher's real weights (``prefix=
+"feature_model."``) or the trained 2D backbone's (``prefix="enc_img.swin."``). This module imports
 nothing of JAX: the tree holds numpy arrays (or anything ``np.asarray``
 takes).
 """
@@ -147,21 +148,38 @@ def bert_encoder_state_dict(tree: Tree, num_layers: int, prefix: str = "") -> di
     return sd
 
 
+def enc_img_state_dict(img: Tree, prefix: str = "enc_img.") -> dict:
+    """The image encoder's tree: ``EncVideo`` (swin, optional ``fc``, the
+    embeddings and ``norm``) or ``EncImgSwin`` (swin, ``swin2bert`` and the
+    ``embeds`` block, whose ``emb_odr`` exists for concat fusion only)."""
+    p = prefix
+    sd = swin3d_state_dict(img["swin"], swin_depths(img["swin"]), f"{p}swin.")
+    if "embeds" in img:
+        _linear(sd, f"{p}swin2bert", img["swin2bert"])
+        emb = img["embeds"]
+        for k in ("emb_cls", "emb_pos", "emb_len", "emb_odr"):
+            if k in emb:
+                _put(sd, f"{p}embeds.{k}", emb[k])
+        _layernorm(sd, f"{p}embeds.norm", emb["norm"])
+        return sd
+    if "fc" in img:
+        _linear(sd, f"{p}fc", img["fc"])
+    for k in ("emb_cls", "emb_pos", "emb_len", "emb_odr"):
+        _put(sd, f"{p}{k}", img[k])
+    _layernorm(sd, f"{p}norm", img["norm"])
+    return sd
+
+
 def state_dict_from_flax(params: Tree, cfg: ModelConfig,
                          heads: Mapping[str, str] | None = None) -> dict:
     """JAX ``VioletBase``/``VioletRetrieval``/``VioletPretrain`` params ->
-    the port's ``state_dict``. ``heads`` maps head names to kinds as in
+    the port's ``state_dict``, with an ``EncVideo`` or an ``EncImgSwin``
+    (``vis_backbone="swin2d"``) image encoder. ``heads`` maps head names to kinds as in
     ``violet_params_from_torch``: ``"score_head"`` (``fc``, ``fc_mvm``),
     ``"mlm_head"`` or ``"linear"``. A frozen ``feature_model`` teacher in
     the tree is carried under ``feature_model.`` (its depths read from the
     tree; a 2D teacher has no final norm)."""
-    img = params["enc_img"]
-    sd = swin3d_state_dict(img["swin"], cfg.swin.depths, "enc_img.swin.")
-    if "fc" in img:
-        _linear(sd, "enc_img.fc", img["fc"])
-    for k in ("emb_cls", "emb_pos", "emb_len", "emb_odr"):
-        _put(sd, f"enc_img.{k}", img[k])
-    _layernorm(sd, "enc_img.norm", img["norm"])
+    sd = enc_img_state_dict(params["enc_img"])
     sd.update(bert_embeddings_state_dict(params["enc_txt"]["emb_txt"],
                                          "enc_txt.emb_txt."))
     sd.update(bert_encoder_state_dict(params["trsfr"], cfg.fusion.num_hidden_layers,

@@ -12,7 +12,10 @@ Swin-base teacher (``feature_model``, run frame by frame on the unmasked
 clip under no_grad, its LayerNorms through the kernel; ref:
 main_pretrain.py:164-174, 527-545).
 
-The other MVM targets, ``smtm`` and ``am`` masking are not ported.
+The video backbone is the Video Swin (``vidswin``) or the trained 2D Swin
+(``swin2d``, concat fusion; mean fusion keeps one averaged frame of video
+tokens and so takes no MVM task). The other MVM targets, ``smtm`` and ``am``
+masking are not ported.
 """
 
 from __future__ import annotations
@@ -69,6 +72,10 @@ class VioletPretrain(VioletBase):
         if not set(pretrain_tasks) <= {"mtm", "vtm", "mvm"}:
             raise NotImplementedError(f"pretrain_tasks {tuple(pretrain_tasks)}: "
                                       "smtm is not ported")
+        if config.temporal_fusion == "mean" and "mvm" in pretrain_tasks:
+            raise ValueError("MVM predicts every frame's patches, and mean temporal fusion "
+                             "leaves one averaged frame of video tokens: use concat fusion "
+                             "or drop the mvm task")
         device = torch.device(device)
         with device:
             super().__init__(config, dtype)
@@ -124,7 +131,7 @@ class VioletPretrain(VioletBase):
             out, p_out = all_out[:b], all_out[b:]
         else:
             out, p_out = self.go_cross(fi, mi, ft, mt, generator), None
-        lv = t * (1 + h * w)
+        lv = fi.shape[1]                  # t * (1 + h * w), one frame under mean fusion
         out_mvm, out_txt = out[:, :lv], out[:, lv:]
         out_vtm = self.fc(out[:, lv], generator)                     # (B, 1)
         if p_out is not None:

@@ -8,10 +8,11 @@ dims, and the relative-position index built for the full window and sliced
 ``[:N, :N]`` (ref: visbackbone/video_swin.py:95-108,155,384-398).
 
 Window attention picks its kernel from the geometry alone: with one
-temporal window (D == wd, every student stage: the temporal window clamps
-to T) :func:`direct_window_attention` on the padded, rolled 5D map;
-otherwise (the per-frame 2D Swin teacher, wd == 1 < D) the windows are
-partitioned and :func:`lane_window_attention` runs them. The JAX
+temporal window (D == wd, every Video Swin stage: the temporal window
+clamps to T) :func:`direct_window_attention` on the padded, rolled 5D map;
+otherwise (the per-frame 2D Swin, wd == 1 < D: the frozen teacher or the
+trained ``swin2d`` backbone) the windows are partitioned and
+:func:`lane_window_attention` runs them, forward and backward. The JAX
 ``WindowAttention3D`` folds 4 or 2 frames into one window there for the
 TPU's block shapes and runs the t-sliced lane kernel; the CUDA kernel does
 the same work on the frames' own windows. The CUDA kernels run on the card,

@@ -2,8 +2,10 @@
 video encoder, text embeddings, cross-modal fusion, and the score head.
 
 Covers what the retrieval eval and the pretrain step run: the ``vidswin``
-backbone, the embeddings-only text encoder, and the ``full`` joint attention
-mask. Names are the reference checkpoint's (``enc_img.swin.*``,
+backbone (:class:`EncVideo`) and the trained 2D Swin backbone
+(``vis_backbone`` ``"swin"`` / ``"swin2d"``: ``encoders2d.EncImgSwin``, mean
+or concat fusion), the embeddings-only text encoder, and the ``full`` joint
+attention mask. Names are the reference checkpoint's (``enc_img.swin.*``,
 ``enc_img.emb_pos``, ``enc_txt.emb_txt.*``, ``trsfr.layer.*``).
 
 ``go_feat``, ``go_cross`` and :class:`ScoreHead` take a ``generator``: with
@@ -21,6 +23,7 @@ from empirical_mvm_torch.core.config import ModelConfig
 from empirical_mvm_torch.models.bert import (BertEmbeddings, BertEncoder,
                                              extended_attention_mask)
 from empirical_mvm_torch.models.common import Linear, dropout
+from empirical_mvm_torch.models.encoders2d import EncImgSwin
 from empirical_mvm_torch.models.video_swin import SwinTransformer3D
 from empirical_mvm_torch.ops.layernorm import FusedLayerNorm
 from empirical_mvm_torch.ops.preprocess import maybe_normalize
@@ -110,11 +113,18 @@ class VioletBase(nn.Module):
 
     def __init__(self, cfg: ModelConfig, dtype=torch.float32):
         super().__init__()
-        if cfg.vis_backbone != "vidswin":
-            raise NotImplementedError(f"vis_backbone {cfg.vis_backbone!r} is not ported")
+        vb = cfg.vis_backbone
+        if vb == "vidswin":
+            self.enc_img = EncVideo(cfg, dtype)
+        elif vb in ("swin", "swin2d"):
+            self.enc_img = EncImgSwin(cfg, cfg.temporal_fusion, dtype)
+        elif vb in ("r50", "merlot"):
+            raise NotImplementedError(f"vis_backbone {vb!r} (ResNet-50 / MERLOT encoder) "
+                                      "is not ported")
+        else:
+            raise ValueError(f"unknown vis_backbone {vb!r}")
         self.config = cfg
         self.dtype = dtype
-        self.enc_img = EncVideo(cfg, dtype)
         self.enc_txt = EncTxt(cfg, dtype)
         self.trsfr = BertEncoder(cfg.fusion, dtype)
 

@@ -13,10 +13,11 @@ kernels the retrieval eval and the pretrain step run:
   dropout) and ``_lane_sa_bwd_kernel``: BERT attention read straight from
   the fused qkv output (every fusion layer).
 * :func:`lane_window_attention` (``csrc/lane_window_attention.cu``) replaces
-  the Pallas ``_lane_fwd_kernel``: window attention on partitioned windows
-  (the frozen 2D Swin teacher's per-frame windows, which the TPU kernel
-  takes in its t-sliced form). Forward only: its backward
-  (``_lane_bwd_kernel``) is not ported yet.
+  the Pallas ``_lane_fwd_kernel`` and ``_lane_bwd_kernel``: window attention
+  on partitioned windows (the per-frame windows of the 2D Swin, trained as
+  the student or frozen as the 2d_feature teacher, which the TPU kernels
+  take in their t-sliced form), with its gradient to x3 and to the
+  relative-position bias.
 
 Each is a ``torch.autograd.Function``. A CPU tensor takes the plain versions
 (forward and backward); a CUDA tensor launches the kernels or raises. The
@@ -507,19 +508,38 @@ def _check_lane_window(x3, bias, mask, n_windows, n_heads):
         raise ValueError(f"mask must be {(n_windows, n, n)}, got {tuple(mask.shape)}")
 
 
+def _lane_window_heads(x3, bias, mask, n_windows, n_heads):
+    """q, k, v as (B_/nW, nW, nH, n, hd), window b_ = (period, b_ % nW), and
+    the additive terms of the scores."""
+    b_, n, c3 = x3.shape
+    nw = n_windows if mask is not None else 1
+    qkv = x3.reshape(b_ // nw, nw, n, 3, n_heads, c3 // 3 // n_heads).permute(3, 0, 1, 4, 2, 5)
+    return qkv, ([bias] if mask is None else [bias, mask[:, None]])
+
+
 def lane_window_attention_reference(x3, bias, mask, n_windows, n_heads, scale):
     """Plain version of :func:`lane_window_attention`, with the kernel's
     roundings: q * scale in the input dtype, fp32 scores, bias, mask and
     softmax, probabilities cast to v's dtype before P.V."""
     _check_lane_window(x3, bias, mask, n_windows, n_heads)
     b_, n, c3 = x3.shape
-    nw = n_windows if mask is not None else 1
-    # (3, B_/nW, nW, nH, n, hd): window b_ = (period, b_ % nW)
-    q, k, v = x3.reshape(b_ // nw, nw, n, 3, n_heads, c3 // 3 // n_heads).permute(
-        3, 0, 1, 4, 2, 5)
-    adds = [bias] if mask is None else [bias, mask[:, None]]
+    (q, k, v), adds = _lane_window_heads(x3, bias, mask, n_windows, n_heads)
     o = _attend(q, k, v, adds, scale)
     return o.transpose(-2, -3).reshape(b_, n, c3 // 3)
+
+
+def lane_window_attention_backward_plain(x3, bias, mask, do, n_windows, n_heads, scale):
+    """Plain backward of :func:`lane_window_attention` with the algebra and
+    roundings of the JAX ``_lane_bwd_kernel`` (:func:`_attend_backward`):
+    dx3 (B_, n, 3C) in x3's dtype, dbias (nH, n, n) fp32 summed over all B_
+    windows."""
+    _check_lane_window(x3, bias, mask, n_windows, n_heads)
+    b_, n, c3 = x3.shape
+    (q, k, v), adds = _lane_window_heads(x3, bias, mask, n_windows, n_heads)
+    dof = do.reshape(q.shape[0], q.shape[1], n, n_heads, -1).transpose(-2, -3)
+    dq, dk, dv, ds = _attend_backward(q, k, v, adds, scale, dof)
+    dx3 = torch.stack([dq, dk, dv]).permute(1, 2, 4, 0, 3, 5).reshape(b_, n, c3)
+    return dx3, ds.sum((0, 1))
 
 
 def _lane_window_fwd(x3, bias, mask, n_windows, n_heads, scale):
@@ -542,34 +562,69 @@ def _lane_window_fwd(x3, bias, mask, n_windows, n_heads, scale):
     return out
 
 
+def _lane_window_bwd(x3, bias, mask, do, n_windows, n_heads, scale):
+    tensors = (x3, bias, do) if mask is None else (x3, bias, do, mask)
+    if any(t.dtype != torch.float32 for t in (bias, mask) if t is not None):
+        raise TypeError("bias and mask must be float32")
+    dev = _build.check_tensors(*tensors)
+    if do.dtype != x3.dtype:
+        raise TypeError(f"do is {do.dtype}, x3 {x3.dtype}")
+    code = _build.dtype_code(x3.dtype)
+    b_, n, c3 = x3.shape
+    c = c3 // 3
+    if do.shape != (b_, n, c):
+        raise ValueError(f"do must be {(b_, n, c)}, got {tuple(do.shape)}")
+    nw = n_windows if mask is not None else 1
+    lib = _build.library()
+    _build.check_smem(lib.emvm_lane_window_attention_bwd_smem_bytes(code, n, c // n_heads),
+                      f"the backward of a window of {n} tokens")
+    dx3 = torch.empty_like(x3)
+    dbias = torch.empty((n_heads, n, n), dtype=torch.float32, device=dev)
+    part = torch.empty(lib.emvm_lane_window_attention_bwd_scratch(b_, n, n_heads, nw),
+                       dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _build.record_launch(lib.emvm_lane_window_attention_bwd(
+            code, x3.data_ptr(), bias.data_ptr(), None if mask is None else mask.data_ptr(),
+            do.data_ptr(), dx3.data_ptr(), dbias.data_ptr(), part.data_ptr(), b_, n, c,
+            n_heads, nw, _scale_in(x3.dtype, scale), _scale_f32(scale),
+            _build.stream_ptr(dev)), "lane_window_attention_bwd")
+    return dx3, dbias
+
+
 class _LaneWindowAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x3, bias, mask, n_windows, n_heads, scale):
         _check_lane_window(x3, bias, mask, n_windows, n_heads)
+        ctx.save_for_backward(x3, bias, mask)
+        ctx.config = (n_windows, n_heads, scale)
         if x3.device.type == "cpu":
             return lane_window_attention_reference(x3, bias, mask, n_windows, n_heads, scale)
         return _lane_window_fwd(x3, bias, mask, n_windows, n_heads, scale)
 
     @staticmethod
     def backward(ctx, do):
-        raise NotImplementedError(
-            "the backward of lane_window_attention (the TPU `_lane_bwd_kernel`, row 8 "
-            "of PERF.md's kernel table) is not ported: run it under torch.no_grad()")
+        x3, bias, mask = ctx.saved_tensors
+        if x3.device.type == "cpu":
+            dx3, dbias = lane_window_attention_backward_plain(x3, bias, mask, do, *ctx.config)
+        else:
+            dx3, dbias = _lane_window_bwd(x3, bias, mask, do.contiguous(), *ctx.config)
+        return dx3, dbias, None, None, None, None
 
 
 def lane_window_attention(x3: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor | None,
                           n_windows: int, n_heads: int, scale: float) -> torch.Tensor:
     """Window attention on partitioned windows (JAX ``lane_window_attention``),
-    forward only. The JAX ``t_slices=f`` form, f frames folded into one
-    window that each attend only within themselves, is this function on the
-    frames' own windows (partitioned with a window one frame deep).
+    differentiable in x3 and bias. The JAX ``t_slices=f`` form, f frames
+    folded into one window that each attend only within themselves, is this
+    function on the frames' own windows (partitioned with a window one frame
+    deep).
 
     Args:
       x3:   (B_, n, 3C) qkv output of the partitioned windows, last axis
             ordered (3, nH, hd).
       bias: (nH, n, n) fp32 relative-position bias.
       mask: (nW, n, n) fp32 shift mask, window b_ taking ``mask[b_ % nW]``,
-            or None for an unshifted block.
+            or None for an unshifted block. It gets no gradient.
     Returns:
       (B_, n, C) in x3's dtype.
     """

@@ -166,6 +166,43 @@ def test_lane_window_attention_kernel(cuda, dtype, b_, nh, c, nw):
     assert _build.launch_counts["lane_window_attention"] == before + 2
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b_,nh,c,nw", [
+    # the trained 2D swin's stage 0 in small (2 clips of 4 frames x 4
+    # windows of 7 x 7, hd = 32, the 4-frame mask) and its stage 3 (one
+    # window a frame at C = 1024, nH = 32; a mask period of 2 as well)
+    (32, 4, 128, 16),
+    (8, 32, 1024, 2),
+])
+def test_lane_window_attention_bwd_kernel(cuda, dtype, b_, nh, c, nw):
+    """The backward kernel against its plain version, shifted and
+    unshifted; through autograd one forward and one backward launch; two
+    runs give bit-identical dbias (fixed-order sums, no atomics)."""
+    rs = np.random.RandomState(8)
+    n = 49
+    x3 = _randn(rs, b_, n, 3 * c, scale=0.5).to(cuda)
+    do = _randn(rs, b_, n, c).to(cuda).to(torch.bfloat16).float()
+    bias = _randn(rs, nh, n, n, scale=0.1).to(cuda)
+    mask = torch.from_numpy(np.where(rs.rand(nw, n, n) < 0.3, -100.0, 0.0)
+                            .astype(np.float32)).to(cuda)
+    scale = (c // nh) ** -0.5
+    for m, w in ((mask, nw), (None, 1)):
+        _check(lambda a: twa._lane_window_bwd(a, bias, m, do.to(a.dtype), w, nh, scale),
+               lambda a: twa.lane_window_attention_backward_plain(
+                   a, bias, m, do.to(a.dtype), w, nh, scale), x3, dtype, "attention_bwd")
+        first = twa._lane_window_bwd(x3.to(dtype), bias, m, do.to(dtype), w, nh, scale)
+        second = twa._lane_window_bwd(x3.to(dtype), bias, m, do.to(dtype), w, nh, scale)
+        assert torch.equal(first[1], second[1]) and torch.equal(first[0], second[0])
+    before = dict(_build.launch_counts)
+    xg = x3.to(dtype).requires_grad_(True)
+    bg = bias.clone().requires_grad_(True)
+    twa.lane_window_attention(xg, bg, mask, nw, nh, scale).backward(do.to(dtype))
+    for name in ("lane_window_attention", "lane_window_attention_bwd"):
+        assert _build.launch_counts[name] == before.get(name, 0) + 1
+    assert torch.isfinite(xg.grad.float()).all() and torch.isfinite(bg.grad).all()
+
+
 def _lane_setup(rs, cuda, b, l, c):
     x3 = _randn(rs, b, l, 3 * c, scale=0.5).to(cuda)
     do = _randn(rs, b, l, c).to(cuda).to(torch.bfloat16).float()
@@ -338,14 +375,18 @@ def test_bf16_check_catches_planted_faults(cuda, tmp_path, monkeypatch, fault):
 
 
 # Faults planted in the backward kernels: the rounding of ds before its
-# products, and the scale on dq (`_direct_bwd_kernel` :1499-1501,
-# `_lane_sa_bwd_kernel` :1173-1175).
+# products, of p before dv, and the scale on dq (`_direct_bwd_kernel`
+# :1499-1501, `_lane_bwd_kernel` :897-906, `_lane_sa_bwd_kernel`
+# :1173-1175). The faults in attention_bwd.cuh change the direct and the
+# lane window backward, which share its body; both must catch them.
 PLANTED_BWD = {
-    "direct_ds_not_rounded": ("window_attention.cu", "rb[j] = to_float(from_float<T>(ds));",
+    "direct_ds_not_rounded": ("attention_bwd.cuh", "rb[j] = to_float(from_float<T>(ds));",
                               "rb[j] = ds;"),
-    "direct_dq_scale_dropped": ("window_attention.cu",
+    "direct_dq_scale_dropped": ("attention_bwd.cuh",
                                 "dq[e] = from_float<T>(acc * scale_f);",
                                 "dq[e] = from_float<T>(acc);"),
+    "window_p_not_rounded": ("attention_bwd.cuh", "ra[i] = to_float(from_float<T>(p));",
+                             "ra[i] = p;"),
     "lane_ds_not_rounded": ("self_attention.cu",
                             "sm.rb[j] = to_float(from_float<T>(sm.ra[j] * (sm.rb[j] - dsum)));",
                             "sm.rb[j] = sm.ra[j] * (sm.rb[j] - dsum);"),
@@ -360,7 +401,9 @@ def test_bf16_check_catches_planted_backward_faults(cuda, tmp_path, monkeypatch,
     """Each planted backward fault, built from a copy of the sources, fails
     chip_smoke's bf16 backward limits at a train-path shape (swin stage 2,
     shifted: N = 196, hd = 32; or the fusion shape L = 232, hd = 64, with
-    dropout). The readings are printed (run with -s)."""
+    dropout); a fault of the shared window backward also at the trained 2D
+    swin's stage 2 (lane window, 4 frames of 4 windows of 49 tokens,
+    shifted). The readings are printed (run with -s)."""
     name, good, bad = PLANTED_BWD[fault]
     src = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, src)
@@ -371,18 +414,30 @@ def test_bf16_check_catches_planted_backward_faults(cuda, tmp_path, monkeypatch,
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_lib", None)
     gen = torch.Generator(cuda).manual_seed(0)
-    if fault.startswith("direct"):
+    cases = {}
+    if name == "attention_bwd.cuh":
         win, nh, c, hp = (4, 7, 7), 16, 512, 14
         x3 = torch.randn(2, 4, hp, hp, 3 * c, device=cuda, generator=gen) * 0.5
         do = torch.randn(2, 4, hp, hp, c, device=cuda, generator=gen).to(torch.bfloat16)
         bias = torch.randn(nh, 196, 196, device=cuda, generator=gen) * 0.02
         mask = torch.from_numpy(_shift_attn_mask((4, hp, hp), win, (0, 3, 3))).to(cuda)
         scale = (c // nh) ** -0.5
-        readings, failures = bf16_check(
+        cases["direct"] = bf16_check(
             lambda a: twa._direct_bwd(a, bias, mask, do.to(a.dtype), win, nh, scale),
             lambda a: twa.direct_window_attention_backward_plain(a, bias, mask, do.to(a.dtype),
                                                                  win, nh, scale),
             x3, "attention_bwd")
+        wb, wn = 64, 49                              # stage 2 of the 2D swin: nW = 4 x 4
+        wmask = torch.from_numpy(_shift_attn_mask((4, hp, hp), (1, 7, 7), (0, 3, 3))
+                                 ).to(cuda)
+        xw = torch.randn(wb, wn, 3 * c, device=cuda, generator=gen) * 0.5
+        dw = torch.randn(wb, wn, c, device=cuda, generator=gen).to(torch.bfloat16)
+        wbias = torch.randn(nh, wn, wn, device=cuda, generator=gen) * 0.02
+        cases["lane_window"] = bf16_check(
+            lambda a: twa._lane_window_bwd(a, wbias, wmask, dw.to(a.dtype), 16, nh, scale),
+            lambda a: twa.lane_window_attention_backward_plain(a, wbias, wmask, dw.to(a.dtype),
+                                                               16, nh, scale),
+            xw, "attention_bwd")
     else:
         p, l, d, lh = 8, 232, 768, 12
         x3 = torch.randn(p, l, 3 * d, device=cuda, generator=gen) * 0.5
@@ -392,10 +447,11 @@ def test_bf16_check_catches_planted_backward_faults(cuda, tmp_path, monkeypatch,
         lmask = ((1.0 - keep) * torch.finfo(torch.float32).min)[:, None, :].expand(p, l, l)
         seed = torch.tensor([77, 1], dtype=torch.int32, device=cuda)
         scale = (d // lh) ** -0.5
-        readings, failures = bf16_check(
+        cases["lane"] = bf16_check(
             lambda a: twa._lane_bwd(a, lmask, do.to(a.dtype), lh, scale, 0.1, seed),
             lambda a: twa.lane_self_attention_backward_plain(a, lmask, do.to(a.dtype), lh,
                                                              scale, 0.1, seed),
             x3, "attention_bwd")
-    print(f"planted {fault}: {readings} failures={failures}")
-    assert failures, f"planted fault {fault} passes the bf16 backward limits"
+    for case, (readings, failures) in cases.items():
+        print(f"planted {fault} [{case}]: {readings} failures={failures}")
+        assert failures, f"planted fault {fault} passes the bf16 backward limits at {case}"

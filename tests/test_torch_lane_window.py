@@ -1,11 +1,13 @@
 """The port's lane window attention and the frozen 2D Swin teacher against
 the JAX package on the CPU.
 
-* ``lane_window_attention``'s plain version (the path a CPU tensor takes)
-  against the JAX Pallas kernel run in interpret mode, in its plain form
-  (t_slices = 1) and its t-sliced form (f = 2, 4), shifted and unshifted;
-  fp32 at atol 1e-5, and bf16 within one bf16 step. The port takes the
-  t-sliced form's frames as windows of their own (``_per_frame``).
+* ``lane_window_attention``'s plain versions (the path a CPU tensor takes),
+  forward and backward, against the JAX Pallas kernels run in interpret
+  mode (the backward through ``jax.vjp``), in the plain form (t_slices = 1)
+  and the t-sliced form (f = 2, 4), shifted and unshifted; fp32 at atol
+  1e-5, and bf16 within one bf16 step. The port takes the t-sliced form's
+  frames as windows of their own (``_per_frame``); its dx3 goes back through
+  ``_from_per_frame`` and dbias, summed over every window, compares as it is.
 * ``SwinTransformer3D`` at 2D Swin geometry with fused norms (the teacher)
   against the JAX one with ``EMVM_PALLAS_INTERPRET=1``, so that JAX runs its
   t-sliced lane kernel and its kernel LayerNorm: T = 4 (f = 4), T = 2
@@ -134,16 +136,89 @@ def test_tsliced_lane_equals_each_frame_attended_alone():
                 torch.testing.assert_close(out[:, t:t + 1], alone, atol=1e-5, rtol=0)
 
 
+def _lane_bwd_inputs(f, n_windows, dtype=np.float32, seed=0):
+    x3, bias, mask = _lane_inputs(f, n_windows, seed)
+    rs = np.random.RandomState(seed + 10)
+    do = rs.randn(*x3.shape[:-1], C).astype(np.float32)
+    return x3.astype(dtype), bias, mask, do.astype(dtype)
+
+
+def _port_lane_bwd(x3, bias, mask, do, n_windows, f):
+    """The port's plain backward on the JAX layout: dx3 back in that layout,
+    dbias as it is."""
+    x3, do = (x3, do) if f > 1 else (x3[:, None], do[:, None])
+    nw = n_windows if mask is not None else 1
+    dx3, dbias = twa.lane_window_attention_backward_plain(
+        _per_frame(x3, nw), bias, mask, _per_frame(do, nw), nw, NH, (C // NH) ** -0.5)
+    dx3 = _from_per_frame(dx3, nw, x3.shape[1])
+    return (dx3 if f > 1 else dx3[:, 0]), dbias
+
+
+def _jax_lane_bwd(x3, bias, mask, do, n_windows, f, has_mask):
+    jmask = jnp.asarray(mask if has_mask else np.zeros((1, N, N), np.float32))
+
+    def vjp(a, b, g):
+        _, back = jax.vjp(lambda a, b: jwa.lane_window_attention(
+            a, b, jmask, n_windows if has_mask else 1, NH, (C // NH) ** -0.5, True, has_mask,
+            t_slices=f), a, b)
+        return back(g)
+
+    dx3, dbias = jax.jit(vjp)(jnp.asarray(x3), jnp.asarray(bias), jnp.asarray(do))
+    return np.asarray(dx3.astype(jnp.float32)), np.asarray(dbias)
+
+
+@pytest.mark.parametrize("f", [1, 2, 4])
+@pytest.mark.parametrize("n_windows,has_mask", [(1, False), (1, True), (4, True)])
+def test_lane_window_attention_backward_matches_jax_kernel(f, n_windows, has_mask):
+    x3, bias, mask, do = _lane_bwd_inputs(f, n_windows)
+    rdx3, rdbias = _jax_lane_bwd(x3, bias, mask, do, n_windows, f, has_mask)
+    dx3, dbias = _port_lane_bwd(T(x3), T(bias), T(mask) if has_mask else None, T(do),
+                                n_windows, f)
+    assert dx3.shape == x3.shape and dbias.shape == (NH, N, N)
+    np.testing.assert_allclose(dx3.numpy(), rdx3, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(dbias.numpy(), rdbias, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("f", [1, 4])
+def test_lane_window_attention_backward_bf16_matches_jax_kernel(f):
+    """The plain backward in bf16 repeats the JAX kernel's roundings (q *
+    scale, p and ds rounded to bf16 before their products): dx3 within one
+    bf16 step of itself or half a step of its largest value, as the forward;
+    dq and dv with at most 0.1 % of their elements different at all. dk =
+    round(ds)^T . qs is held to the one-step limit only: XLA's CPU compiler
+    rewrites the interpreted kernel's dot(ds, q * scale) as dot(ds, q) *
+    scale, so the JAX reference skips the bf16 rounding of qs there that the
+    kernel's text (and the port) makes, and about 40 % of dk's elements
+    land one step apart. dbias is fp32 from fp32 ds and differs by
+    summation order only."""
+    x3, bias, mask, do = _lane_bwd_inputs(f, 4, jnp.bfloat16, seed=1)
+    rdx3, rdbias = _jax_lane_bwd(x3, bias, mask, do, 4, f, True)
+    bf = lambda a: T(a.astype(np.float32)).to(torch.bfloat16)     # noqa: E731
+    dx3, dbias = _port_lane_bwd(bf(x3), T(bias), T(mask), bf(do), 4, f)
+    assert dx3.dtype == torch.bfloat16 and dbias.dtype == torch.float32
+    dx3 = dx3.float().numpy()
+    np.testing.assert_allclose(dx3, rdx3, atol=BF16_STEP / 2 * np.abs(rdx3).max(),
+                               rtol=BF16_STEP)
+    for part in (slice(0, C), slice(2 * C, 3 * C)):                  # dq, dv
+        assert (dx3[..., part] != rdx3[..., part]).mean() <= 1e-3
+    np.testing.assert_allclose(dbias.numpy(), rdbias, atol=1e-5 * np.abs(rdbias).max(), rtol=0)
+
+
 def test_lane_window_wrapper_contract():
-    """CPU tensors take the plain version (no launch); the backward is not
-    ported and says so; refused shapes raise."""
-    x3, bias, mask = _lane_inputs(1, 4)
+    """CPU tensors take the plain versions, forward and backward, and launch
+    nothing; the mask gets no gradient; refused shapes raise."""
+    x3, bias, mask, do = _lane_bwd_inputs(1, 4)
     before = dict(_build.launch_counts)
     xg = T(x3).requires_grad_(True)
-    out = twa.lane_window_attention(xg, T(bias), T(mask), 4, NH, 0.1)
+    bg = T(bias).requires_grad_(True)
+    mg = T(mask).requires_grad_(True)
+    out = twa.lane_window_attention(xg, bg, mg, 4, NH, 0.1)
+    out.backward(T(do))
     assert dict(_build.launch_counts) == before
-    with pytest.raises(NotImplementedError, match="_lane_bwd_kernel"):
-        out.sum().backward()
+    dx3, dbias = twa.lane_window_attention_backward_plain(T(x3), T(bias), T(mask), T(do), 4,
+                                                          NH, 0.1)
+    assert torch.equal(xg.grad, dx3) and torch.equal(bg.grad, dbias)
+    assert mg.grad is None
     with pytest.raises(ValueError, match="x3 must be"):
         twa.lane_window_attention(T(x3[:, None]), T(bias), T(mask), 4, NH, 0.1)
     with pytest.raises(ValueError, match="multiple"):

@@ -189,6 +189,14 @@ def test_two_train_steps_match_make_pretrain_train_step(slice_, grads):
     near-cancelling others. Elements whose gradient is resolved (|g| above
     100x the two sides' gradient difference and 1e-6) are held to 2e-6
     after the two updates; the rest to Adam's bound of 2 lr + 2e-6."""
+    assert_two_steps_match(slice_, grads, HEADS)
+
+
+def assert_two_steps_match(slice_, grads, heads, outliers=0.0):
+    """Two steps of the JAX ``make_pretrain_train_step`` and of the port's
+    from the same carried params, held as the test above says; at most
+    ``outliers`` of the resolved elements may exceed 2e-6 (within Adam's
+    bound all the same)."""
     jm, params = slice_["jm"], slice_["params"]
     tm = copy.deepcopy(slice_["tm"])
     _, _, got_g, want_g = grads
@@ -205,15 +213,17 @@ def test_two_train_steps_match_make_pretrain_train_step(slice_, grads):
         state, ls = step(state, batch, 7)
         np.testing.assert_allclose(ls["total"].item(), float(jls["total"]), **LOSS_TOL)
     assert state.step == 2 and opt.schedules["other_decay"](1) == 1e-3
-    want = convert.state_dict_from_flax(_np_tree(jstate.params), tm.config, HEADS)
-    resolved_n = 0
+    want = convert.state_dict_from_flax(_np_tree(jstate.params), tm.config, heads)
+    resolved_n, over = 0, []
     for name, p in tm.named_parameters():
         g = want_g[name].abs()
         resolved = (g > 100 * (got_g[name] - want_g[name]).abs()) & (g > 1e-6)
         resolved_n += int(resolved.sum())
         d = (p.detach() - want[name]).abs()
-        assert _max(d[resolved]) <= 2e-6, (name, _max(d[resolved]))
-        assert _max(d[~resolved]) <= 2e-3 + 2e-6, (name, _max(d[~resolved]))
+        if _max(d[resolved]) > 2e-6:
+            over.append((name, int((d[resolved] > 2e-6).sum()), _max(d[resolved])))
+        assert _max(d) <= 2e-3 + 2e-6, (name, _max(d))
+    assert sum(n for _, n, _ in over) <= outliers * resolved_n, over
     assert resolved_n > 0.99 * sum(p.numel() for p in tm.parameters() if p.requires_grad
                                    ) - sum(int((want_g[n] == 0).sum()) for n in want_g)
 

@@ -265,17 +265,15 @@ def test_pretrain_config_with_2d_feature_builds_the_teacher(monkeypatch):
     assert m.feature_model.norm is None
 
 
-def test_swin2d_state_dict_from_hf_matches_jax_import():
-    """A synthetic HF ``SwinModel`` state_dict (two stages, a downsample, the
-    final layernorm the import leaves out) through the port's import equals
-    the JAX ``swin2d_params_from_hf`` carried by ``swin3d_state_dict``, key
-    for key; the port's teacher loads it."""
-    depths, heads, e = (2, 1), (2, 4), 16
-    rs = np.random.RandomState(9)
+def synthetic_hf_swin(depths, heads, e, seed=9):
+    """A seeded HF ``SwinModel`` state_dict of the given stages, with the
+    final ``layernorm`` that the imports leave out."""
+    rs = np.random.RandomState(seed)
     hf = {"embeddings.patch_embeddings.projection.weight": rs.randn(e, 3, 4, 4),
           "embeddings.patch_embeddings.projection.bias": rs.randn(e),
           "embeddings.norm.weight": rs.randn(e), "embeddings.norm.bias": rs.randn(e),
-          "layernorm.weight": rs.randn(2 * e), "layernorm.bias": rs.randn(2 * e)}
+          "layernorm.weight": rs.randn(e * 2 ** (len(depths) - 1)),
+          "layernorm.bias": rs.randn(e * 2 ** (len(depths) - 1))}
     for i, depth in enumerate(depths):
         c = e * 2 ** i
         for j in range(depth):
@@ -295,7 +293,16 @@ def test_swin2d_state_dict_from_hf_matches_jax_import():
             p = f"encoder.layers.{i}.downsample."
             hf[p + "norm.weight"], hf[p + "norm.bias"] = rs.randn(4 * c), rs.randn(4 * c)
             hf[p + "reduction.weight"] = rs.randn(2 * c, 4 * c)
-    hf = {k: v.astype(np.float32) if v.dtype == np.float64 else v for k, v in hf.items()}
+    return {k: v.astype(np.float32) if v.dtype == np.float64 else v for k, v in hf.items()}
+
+
+def test_swin2d_state_dict_from_hf_matches_jax_import():
+    """A synthetic HF ``SwinModel`` state_dict (two stages, a downsample, the
+    final layernorm the import leaves out) through the port's import equals
+    the JAX ``swin2d_params_from_hf`` carried by ``swin3d_state_dict``, key
+    for key; the port's teacher loads it."""
+    depths, heads, e = (2, 1), (2, 4), 16
+    hf = synthetic_hf_swin(depths, heads, e)
     got = convert.swin2d_state_dict_from_hf(hf, depths, "feature_model.")
     want = convert.swin3d_state_dict(swin2d_params_from_hf(hf, depths), depths,
                                      "feature_model.")
