@@ -2,6 +2,12 @@
 """Drive the PyTorch port (empirical_mvm_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare-build OTHER/empirical_mvm_torch/csrc
+
+The second form only compares the backward kernels that share
+csrc/attention_bwd.cuh's body (``compare_builds``) between this checkout's
+sources and another's (for example the parent commit, unpacked with ``git
+archive``): outputs bit for bit and times in turns, on one card.
 
 Phases, each of which records its failures; the script exits non-zero,
 before the final line, if any phase failed:
@@ -24,7 +30,13 @@ before the final line, if any phase failed:
    eval's shapes and at the train step's; ``lane_window_attention`` and the
    LayerNorm at the frozen 2D teacher's shapes of the 2d_feature step, and
    ``lane_window_attention_bwd`` at the trained 2D swin's shapes of the
-   swin2d step (the same seven (window, head) shapes).
+   swin2d step (the same seven (window, head) shapes);
+   ``packed_window_attention`` and its backward at the C = 96 Video Swin's
+   stages 0 and 1 of the violet step (N = 196), unshifted and shifted, and
+   at stage 0 of the 2D Swin-tiny (N = 49, not on a path of this script);
+   ``fused_window_attention`` (q, k, v as three arrays, the same kernel)
+   and its backward at the violet stage-0 shifted shape; the direct kernels
+   forward and backward at the violet step's stages 2 and 3 (C = 384, 768).
    Prints one
    ``kernel_shapes`` line with the per-shape numbers and, at the end, one
    ``kernels`` JSON line.
@@ -73,11 +85,20 @@ before the final line, if any phase failed:
    held to ``TRAIN_SWIN2D_LAUNCHES``.
 11. Whole swin2d train step: phase 7 for the run of phase 10 (swin depths
    (2, 2, 2, 2) at the 2D geometry).
-12. The last line is ``{"ok": true, "device": {...}}``.
+12. The pretrain train step on the C = 96 Video Swin, as phase 6 with
+   ``model.vis_backbone_size`` = "violet" replaced in code (the reference's
+   ``swin_violet.py``: embed 96, depths 2/2/18/2, heads 3/6/12/24): its
+   stage-0 and stage-1 blocks (C = 96, 192) run the packed window kernel
+   forward and backward, stages 2 and 3 the direct kernels. Launches of one
+   step held to ``TRAIN_VIOLET_LAUNCHES``.
+13. Whole violet train step: phase 7 for the run of phase 12 (swin depths
+   (2, 2, 2, 2) at the violet widths).
+14. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import subprocess
@@ -153,6 +174,12 @@ TRAIN_2D_LAUNCHES = {**TRAIN_LAUNCHES, "fused_layer_norm": 27 + 52,
 TRAIN_SWIN2D_LAUNCHES = {"fused_layer_norm": 27, "fused_layer_norm_bwd": 27,
                          "lane_window_attention": 24, "lane_window_attention_bwd": 24,
                          "lane_self_attention_dropout": 12, "lane_self_attention_bwd": 12}
+# the violet step (phase 12): the C = 96 Video Swin's 4 blocks of stages 0
+# and 1 (C = 96, 192: no multiple of 128) run the packed kernel, its 20
+# blocks of stages 2 and 3 the direct kernels; the rest as the pixel step
+TRAIN_VIOLET_LAUNCHES = {**TRAIN_LAUNCHES, "direct_window_attention": 20,
+                         "direct_window_attention_bwd": 20, "packed_window_attention": 4,
+                         "packed_window_attention_bwd": 4}
 EVAL_KERNELS = ("fused_layer_norm", "direct_window_attention", "lane_self_attention")
 
 # Limits. A tolerance is dict(atol=..., rtol=..., scale=...): an element may
@@ -213,6 +240,11 @@ BF16_LIMITS = {
                        "dgamma": (dict(scale=1e-4), dict(scale=1e-4), None),
                        "dbeta": (dict(scale=1e-4), dict(scale=1e-4), None)},
 }
+# the backward of fused_window_attention returns dq, dk and dv apart: each
+# is held as the backward's dx3
+for _lim in (FP32_LIMITS, BF16_LIMITS):
+    _lim["attention_bwd_qkv"] = {**{g: _lim["attention_bwd"]["dx3"] for g in ("dq", "dk", "dv")},
+                                 "dbias": _lim["attention_bwd"]["dbias"]}
 OUTPUTS = {kind: tuple(lim) for kind, lim in FP32_LIMITS.items()}
 # dropout keep fraction: 1 - p within 5 binomial standard deviations
 KEEP_SIGMAS = 5.0
@@ -255,6 +287,20 @@ KERNELS = {
     "lane_window_attention_bwd": dict(
         source="empirical_mvm_torch/csrc/lane_window_attention.cu",
         replaces="empirical_mvm_tpu/ops/window_attention.py:853"),
+    # rows 9 and 10 run one pair of kernel bodies (`_attn_kernel` :69,
+    # `_attn_bwd_kernel` :109); named here by their pallas_call sites
+    "packed_window_attention": dict(
+        source="empirical_mvm_torch/csrc/packed_window_attention.cu",
+        replaces="empirical_mvm_tpu/ops/window_attention.py:383"),
+    "packed_window_attention_bwd": dict(
+        source="empirical_mvm_torch/csrc/packed_window_attention.cu",
+        replaces="empirical_mvm_tpu/ops/window_attention.py:411"),
+    "fused_window_attention": dict(
+        source="empirical_mvm_torch/csrc/packed_window_attention.cu",
+        replaces="empirical_mvm_tpu/ops/window_attention.py:232"),
+    "fused_window_attention_bwd": dict(
+        source="empirical_mvm_torch/csrc/packed_window_attention.cu",
+        replaces="empirical_mvm_tpu/ops/window_attention.py:259"),
 }
 
 
@@ -370,14 +416,24 @@ def _grad_call(out, inputs, grad):
     return lambda: torch.autograd.grad(out, inputs, grad, retain_graph=True)
 
 
-def direct_cases(dev, gen, b, t, path):
-    """Every swin stage of the student, ``b`` clips of ``t`` frames at
-    224^2: the eval at msrvtt-retrieval (32 clips, T = 5: the window clamps
-    to (5, 7, 7), N = 245) and the train step (20 clips, T = 4: N = 196);
-    hd = 32."""
+def _direct_sdpa(a, win, b, nw, nh):
+    """q, k, v of SDPA on (B, nW * nH, N, hd) from the 5D x3 map: a clip's
+    windows and heads on one axis (4D, which SDPA's fused kernels take)."""
+    xw = wa.window_partition(a, win)                            # (B * nW, N, 3C)
+    n, hd = xw.shape[1], xw.shape[2] // (3 * nh)
+    qkv = xw.reshape(b, nw, n, 3, nh, hd).permute(3, 0, 1, 4, 2, 5)
+    return qkv.reshape(3, b, nw * nh, n, hd).contiguous().unbind(0)
+
+
+def direct_cases(dev, gen, b, t, path, swin=SwinConfig.base(), stages=range(4)):
+    """The student's swin stages ``stages`` (of ``swin``'s widths), ``b``
+    clips of ``t`` frames at 224^2: the eval at msrvtt-retrieval (32 clips,
+    T = 5: the window clamps to (5, 7, 7), N = 245), the train step (20
+    clips, T = 4: N = 196) and the violet step's stages 2 and 3 (the C = 96
+    swin's C = 384 and 768, the direct kernel's stages there); hd = 32."""
     recs = []
-    for stage in range(4):
-        hw, c, nh = 56 >> stage, 128 << stage, 4 << stage
+    for stage in stages:
+        hw, c, nh = 56 >> stage, swin.embed_dim << stage, swin.num_heads[stage]
         win, shift = get_window_size((t, hw, hw), (8, 7, 7), (4, 3, 3))
         n = win[0] * win[1] * win[2]
         hp = -(-hw // win[1]) * win[1]
@@ -396,12 +452,9 @@ def direct_cases(dev, gen, b, t, path):
             def plain(a, mask=mask):
                 return wa.direct_window_attention_plain(a, bias, mask, win, nh, scale)
 
-            def library(a, mask=mask):
-                hd = c // nh
-                qkv = wa.window_partition(a, win).reshape(b, nw, n, 3, nh, hd)
-                q, k, v = qkv.permute(3, 0, 1, 4, 2, 5).contiguous().unbind(0)
-                m = bias[None] if mask is None else bias[None] + mask[:, None]
-                m = m.to(a.dtype)
+            def library(a, mask=mask, nw=nw):
+                q, k, v = _direct_sdpa(a, win, b, nw, nh)
+                m = _window_sdpa_mask(bias, mask, nw, a.dtype)
                 return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m,
                                                               scale=scale)
 
@@ -477,50 +530,63 @@ def _bf16_values(t):
     return t.to(torch.bfloat16).float()
 
 
-def direct_bwd_cases(dev, gen):
-    """The direct backward at every swin stage of the train step: B = 20
-    clips of T = 4 frames at 224^2, window (4, 7, 7), N = 196, hd = 32."""
+def _direct_bwd_inputs(dev, gen, swin=SwinConfig.base(), stages=range(4)):
+    """The direct backward's inputs at the swin stages ``stages`` (of
+    ``swin``'s widths) of the train step: B = 20 clips of T = 4 frames at
+    224^2, window (4, 7, 7), N = 196, hd = 32; x3, do and bias drawn once a
+    stage, for its unshifted and shifted block. Yields (stage, window, nH,
+    x3, do, bias, mask or None)."""
     b, t = TRAIN_B, TRAIN_T
-    recs = []
-    for stage in range(4):
-        hw, c, nh = 56 >> stage, 128 << stage, 4 << stage
+    for stage in stages:
+        hw, c, nh = 56 >> stage, swin.embed_dim << stage, swin.num_heads[stage]
         win, shift = get_window_size((t, hw, hw), (8, 7, 7), (4, 3, 3))
         n = win[0] * win[1] * win[2]
         hp = -(-hw // win[1]) * win[1]
-        nw = (hp // win[1]) * (hp // win[2])
-        hd = c // nh
         x3 = torch.randn(b, t, hp, hp, 3 * c, device=dev, generator=gen) * 0.5
         do = _bf16_values(torch.randn(b, t, hp, hp, c, device=dev, generator=gen))
         bias = torch.randn(nh, n, n, device=dev, generator=gen) * 0.02
         masks = [None]
         if any(shift):
             masks.append(torch.from_numpy(_shift_attn_mask((t, hp, hp), win, shift)).to(dev))
-        scale = hd ** -0.5
         for mask in masks:
-            def kernel(a, mask=mask):
-                return wa._direct_bwd(a, bias, mask, do.to(a.dtype), win, nh, scale)
+            yield stage, win, nh, x3, do, bias, mask
 
-            def plain(a, mask=mask):
-                return wa.direct_window_attention_backward_plain(a, bias, mask, do.to(a.dtype),
-                                                                 win, nh, scale)
 
-            def library(a, mask=mask):
-                qkv = wa.window_partition(a, win).reshape(b, nw, n, 3, nh, hd)
-                q, k, v = (u.detach().requires_grad_(True) for u in
-                           qkv.permute(3, 0, 1, 4, 2, 5).contiguous().unbind(0))
-                m = (bias[None] if mask is None else bias[None] + mask[:, None]).to(a.dtype)
-                out = F.scaled_dot_product_attention(q, k, v, attn_mask=m, scale=scale)
-                dop = wa.window_partition(do.to(a.dtype), win).reshape(b, nw, n, nh, hd)
-                return _grad_call(out, (q, k, v), dop.transpose(2, 3).contiguous())
+def direct_bwd_cases(dev, gen, path="", swin=SwinConfig.base(), stages=range(4)):
+    """The direct backward at the train step's swin stages
+    (``_direct_bwd_inputs``): every stage of Swin-base, or the violet
+    swin's stages 2 and 3."""
+    recs = []
+    for stage, win, nh, x3, do, bias, mask in _direct_bwd_inputs(dev, gen, swin, stages):
+        b, t, hp, _, c3 = x3.shape
+        c, n = c3 // 3, bias.shape[-1]
+        hd, nw = c // nh, (hp // win[1]) * (hp // win[2])
+        scale = hd ** -0.5
 
-            label = f"stage{stage} x3=({b},{t},{hp},{hp},{3 * c}) nH={nh} " + (
-                "shifted" if mask is not None else "unshifted")
-            ops = 2.5 * 4 * b * nw * nh * n * n * hd
-            nbytes = (2 * x3.numel() + do.numel()) * 2 + 2 * bias.numel() * 4 + (
-                0 if mask is None else mask.numel() * 4)
-            recs.append(measure("direct_window_attention_bwd", label, x3, kernel, plain,
-                                library, torch.bfloat16, "attention_bwd", ops,
-                                "bf16_tensor", nbytes))
+        def kernel(a):
+            return wa._direct_bwd(a, bias, mask, do.to(a.dtype), win, nh, scale)
+
+        def plain(a):
+            return wa.direct_window_attention_backward_plain(a, bias, mask, do.to(a.dtype),
+                                                             win, nh, scale)
+
+        def library(a):
+            q, k, v = (u.detach().requires_grad_(True)
+                       for u in _direct_sdpa(a, win, b, nw, nh))
+            m = _window_sdpa_mask(bias, mask, nw, a.dtype)
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=m, scale=scale)
+            dop = wa.window_partition(do.to(a.dtype), win).reshape(b, nw, n, nh, hd)
+            return _grad_call(out, (q, k, v),
+                              dop.transpose(2, 3).reshape(b, nw * nh, n, hd).contiguous())
+
+        label = f"{path}stage{stage} x3=({b},{t},{hp},{hp},{3 * c}) nH={nh} " + (
+            "shifted" if mask is not None else "unshifted")
+        ops = 2.5 * 4 * b * nw * nh * n * n * hd
+        nbytes = (2 * x3.numel() + do.numel()) * 2 + 2 * bias.numel() * 4 + (
+            0 if mask is None else mask.numel() * 4)
+        recs.append(measure("direct_window_attention_bwd", label, x3, kernel, plain,
+                            library, torch.bfloat16, "attention_bwd", ops,
+                            "bf16_tensor", nbytes))
     return recs
 
 
@@ -610,8 +676,8 @@ def _window_shapes():
 
 
 def _window_sdpa_mask(bias, mk, nw, dtype):
-    """bias + mask as a (1, nW * nH, 49, 49) ``attn_mask`` that broadcasts
-    over the clips, for SDPA on (clips, nW * nH, 49, hd)."""
+    """bias + mask as a (1, nW * nH, N, N) ``attn_mask`` that broadcasts
+    over the clips, for SDPA on (clips, nW * nH, N, hd)."""
     nh, n, _ = bias.shape
     m = bias[None] if mk is None else bias[None] + mk[:, None]
     return m.expand(nw, nh, n, n).reshape(1, nw * nh, n, n).to(dtype)
@@ -658,29 +724,39 @@ def lane_window_cases(dev, gen):
     return recs
 
 
-def lane_window_bwd_cases(dev, gen):
-    """The trained 2D swin's window attention backward in the swin2d step:
-    the shapes of ``lane_window_cases``, do drawn once per shape. SDPA's
-    backward, the yardstick, runs on the layout and broadcast mask of the
-    forward's yardstick."""
-    b, n, hd = TRAIN_B, 49, 32
-    recs = []
+def _window_bwd_inputs(dev, gen):
+    """The lane window backward's inputs at ``_window_shapes``: x3, do and
+    bias drawn once a shape. Yields (stage, nW of one clip, nH, x3, do,
+    bias, mask or None, blocks of the shape)."""
+    b, n = TRAIN_B, 49
     for stage, nw, c, nh, mk, blocks in _window_shapes():
         x3 = torch.randn(b * nw, n, 3 * c, device=dev, generator=gen) * 0.5
         do = _bf16_values(torch.randn(b * nw, n, c, device=dev, generator=gen))
         bias = torch.randn(nh, n, n, device=dev, generator=gen) * 0.02
-        mk = None if mk is None else torch.from_numpy(mk).to(dev)
+        yield stage, nw, nh, x3, do, bias, None if mk is None else torch.from_numpy(mk).to(dev), \
+            blocks
+
+
+def lane_window_bwd_cases(dev, gen):
+    """The trained 2D swin's window attention backward in the swin2d step:
+    the shapes of ``lane_window_cases`` (``_window_bwd_inputs``). SDPA's
+    backward, the yardstick, runs on the layout and broadcast mask of the
+    forward's yardstick."""
+    recs = []
+    for stage, nw, nh, x3, do, bias, mk, blocks in _window_bwd_inputs(dev, gen):
+        b, n, hd = TRAIN_B, 49, 32
+        c = x3.shape[-1] // 3
         n_w = nw if mk is not None else 1
         scale = hd ** -0.5
 
-        def kernel(a, bias=bias, mk=mk, n_w=n_w, nh=nh, do=do):
+        def kernel(a):
             return wa._lane_window_bwd(a, bias, mk, do.to(a.dtype), n_w, nh, scale)
 
-        def plain(a, bias=bias, mk=mk, n_w=n_w, nh=nh, do=do):
+        def plain(a):
             return wa.lane_window_attention_backward_plain(a, bias, mk, do.to(a.dtype), n_w,
                                                            nh, scale)
 
-        def library(a, bias=bias, mk=mk, nh=nh, nw=nw, do=do, c=c):
+        def library(a):
             qkv = a.reshape(b, nw, n, 3, nh, hd).permute(3, 0, 1, 4, 2, 5)
             q, k, v = (u.detach().requires_grad_(True) for u in
                        qkv.reshape(3, b, nw * nh, n, hd).contiguous().unbind(0))
@@ -698,6 +774,146 @@ def lane_window_bwd_cases(dev, gen):
                             torch.bfloat16, "attention_bwd", ops, "bf16_tensor", nbytes))
         recs[-1]["launches_per_step"] = blocks
     return recs
+
+
+def _packed_shapes():
+    """(label, windows of one clip, C, nH, N, mask or None, launches in one
+    violet step) of ``packed_window_attention``: stages 0 and 1 of the C =
+    96 Video Swin (``swin_violet.py``) on TRAIN_T frames of 224^2, window
+    clamped to (4, 7, 7) (N = 196, hd = 32), each stage one unshifted and one
+    shifted block; and stage 0 of the 2D Swin-tiny on the same clips, window
+    (1, 7, 7) (N = 49) with the 4-frame mask, on no path of this script (0
+    launches)."""
+    violet = SwinConfig.violet()
+    for stage in (0, 1):
+        hw, c, nh = 56 >> stage, violet.embed_dim << stage, violet.num_heads[stage]
+        win, shift = get_window_size((TRAIN_T, hw, hw), violet.window_size, (4, 3, 3))
+        nw, n = (hw // 7) ** 2, win[0] * win[1] * win[2]
+        yield f"violet stage{stage}", nw, c, nh, n, None, 1
+        yield f"violet stage{stage}", nw, c, nh, n, _shift_attn_mask((TRAIN_T, hw, hw), win,
+                                                                     shift), 1
+    tiny = swin2d_config("tiny")
+    c, nh = tiny.embed_dim, tiny.num_heads[0]
+    win, shift = get_window_size((TRAIN_T, 56, 56), (1, 7, 7), (0, 3, 3))
+    for mk in (None, _shift_attn_mask((TRAIN_T, 56, 56), win, shift)):
+        yield "2d swin-tiny stage0", TRAIN_T * 64, c, nh, 49, mk, 0
+
+
+def _packed_sdpa(a, b, nw, nh, n, hd):
+    """q, k, v of SDPA on (clips, nW * nH, N, hd) from packed (B_, 3nH, N,
+    hd): a clip's windows and heads on one axis."""
+    return a.reshape(b, nw, 3, nh, n, hd).transpose(1, 2).reshape(b, 3, nw * nh, n, hd).unbind(1)
+
+
+def packed_cases(dev, gen):
+    """``packed_window_attention`` forward and backward at ``_packed_shapes``,
+    and ``fused_window_attention`` (q, k, v as three arrays: the same kernel
+    on three base pointers) forward and backward at the violet stage-0
+    shifted shape. SDPA, the yardstick, runs on (clips, nW * nH, N, hd) with
+    the broadcast ``_window_sdpa_mask``, its backward through autograd. Each
+    record carries its shape's launches in one violet step
+    (``launches_per_step``); the 2D Swin-tiny records are marked
+    ``off_path``."""
+    b, hd = TRAIN_B, 32
+    recs = []
+    for label, nw, c, nh, n, mk, blocks in _packed_shapes():
+        b_ = b * nw
+        qkv = torch.randn(b_, 3 * nh, n, hd, device=dev, generator=gen) * 0.5
+        do = _bf16_values(torch.randn(b_, nh, n, hd, device=dev, generator=gen))
+        bias = torch.randn(nh, n, n, device=dev, generator=gen) * 0.02
+        mk = None if mk is None else torch.from_numpy(mk).to(dev)
+        n_w = nw if mk is not None else 1
+        scale = hd ** -0.5
+        label = f"{label} qkv=({b_},{3 * nh},{n},{hd}) " + (
+            "unshifted" if mk is None else f"shifted nW={n_w}")
+
+        def fwd_kernel(a, bias=bias, mk=mk, n_w=n_w, nh=nh):
+            return wa.packed_window_attention(a, bias, mk, n_w, nh, scale)
+
+        def fwd_plain(a, bias=bias, mk=mk, n_w=n_w, nh=nh):
+            return wa.packed_window_attention_plain(a, bias, mk, n_w, nh, scale)
+
+        def fwd_library(a, bias=bias, mk=mk, nh=nh, nw=nw, n=n):
+            q, k, v = _packed_sdpa(a, b, nw, nh, n, hd)
+            m = _window_sdpa_mask(bias, mk, nw, a.dtype)
+            return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m, scale=scale)
+
+        def bwd_kernel(a, bias=bias, mk=mk, n_w=n_w, nh=nh, do=do):
+            return wa._packed_bwd(a, bias, mk, do.to(a.dtype), n_w, nh, scale)
+
+        def bwd_plain(a, bias=bias, mk=mk, n_w=n_w, nh=nh, do=do):
+            return wa.packed_window_attention_backward_plain(a, bias, mk, do.to(a.dtype), n_w,
+                                                             nh, scale)
+
+        def bwd_library(a, bias=bias, mk=mk, nh=nh, nw=nw, n=n, do=do):
+            q, k, v = (u.detach().contiguous().requires_grad_(True)
+                       for u in _packed_sdpa(a, b, nw, nh, n, hd))
+            m = _window_sdpa_mask(bias, mk, nw, a.dtype)
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=m, scale=scale)
+            dop = do.to(a.dtype).reshape(b, nw * nh, n, hd)
+            return _grad_call(out, (q, k, v), dop)
+
+        ops = 4 * b_ * nh * n * n * hd
+        extra = bias.numel() * 4 + (0 if mk is None else mk.numel() * 4)
+        fwd = measure("packed_window_attention", label, qkv, fwd_kernel, fwd_plain,
+                      fwd_library, torch.bfloat16, "attention", ops, "bf16_tensor",
+                      (qkv.numel() + do.numel()) * 2 + extra)
+        bwd = measure("packed_window_attention_bwd", label, qkv, bwd_kernel, bwd_plain,
+                      bwd_library, torch.bfloat16, "attention_bwd", 2.5 * ops, "bf16_tensor",
+                      (2 * qkv.numel() + do.numel()) * 2 + extra + bias.numel() * 4)
+        for rec in (fwd, bwd):
+            rec["launches_per_step"] = blocks
+            if not blocks:
+                rec["off_path"] = True
+        recs += [fwd, bwd]
+        if label.startswith("violet stage0") and mk is not None:
+            recs += fused_cases(qkv, do, bias, mk, nw, nh, label)
+    return recs
+
+
+def fused_cases(qkv, do, bias, mk, nw, nh, label):
+    """``fused_window_attention`` and its backward on q, k, v (B_, nH, N,
+    hd) held apart (a (3, B_, nH, N, hd) stack unbound) from ``qkv``'s
+    values."""
+    b_, _, n, hd = qkv.shape
+    stack = qkv.reshape(b_, 3, nh, n, hd).transpose(0, 1).contiguous()
+    scale = hd ** -0.5
+
+    def fwd_kernel(a):
+        return wa.fused_window_attention(*a.unbind(0), bias, mk, nw, scale)
+
+    def fwd_plain(a):
+        return wa.fused_window_attention_plain(*a.unbind(0), bias, mk, nw, scale)
+
+    def fwd_library(a):
+        q, k, v = (u.reshape(b_ // nw, nw * nh, n, hd) for u in a.unbind(0))
+        m = _window_sdpa_mask(bias, mk, nw, a.dtype)
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m, scale=scale)
+
+    def bwd_kernel(a):
+        return wa._fused_bwd(*a.unbind(0), bias, mk, do.to(a.dtype), nw, scale)
+
+    def bwd_plain(a):
+        return wa.fused_window_attention_backward_plain(*a.unbind(0), bias, mk, do.to(a.dtype),
+                                                        nw, scale)
+
+    def bwd_library(a):
+        q, k, v = (u.reshape(b_ // nw, nw * nh, n, hd).detach().requires_grad_(True)
+                   for u in a.unbind(0))
+        m = _window_sdpa_mask(bias, mk, nw, a.dtype)
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=m, scale=scale)
+        return _grad_call(out, (q, k, v), do.to(a.dtype).reshape(b_ // nw, nw * nh, n, hd))
+
+    ops = 4 * b_ * nh * n * n * hd
+    extra = bias.numel() * 4 + mk.numel() * 4
+    label = label.replace("qkv=", "q,k,v=3x").replace(f",{3 * nh},", f",{nh},")
+    fwd = measure("fused_window_attention", label, stack, fwd_kernel, fwd_plain, fwd_library,
+                  torch.bfloat16, "attention", ops, "bf16_tensor",
+                  (stack.numel() + do.numel()) * 2 + extra)
+    bwd = measure("fused_window_attention_bwd", label, stack, bwd_kernel, bwd_plain,
+                  bwd_library, torch.bfloat16, "attention_bwd_qkv", 2.5 * ops, "bf16_tensor",
+                  (2 * stack.numel() + do.numel()) * 2 + extra + bias.numel() * 4)
+    return [fwd, bwd]
 
 
 def ln_bwd_cases(dev, gen):
@@ -792,6 +1008,14 @@ def with_swin2d_backbone(run):
         run.model, vis_backbone="swin2d", temporal_fusion="concat"))
 
 
+def with_violet_backbone(run):
+    """``run`` with the C = 96 Video Swin of the reference's
+    ``swin_violet.py`` (``vis_backbone_size`` "violet") in place of
+    Swin-base."""
+    return dataclasses.replace(run, model=dataclasses.replace(run.model,
+                                                              vis_backbone_size="violet"))
+
+
 def backbone_config(cfg):
     """The SwinConfig the model's image encoder builds."""
     if cfg.vis_backbone in ("swin", "swin2d") and cfg.swin_custom is None:
@@ -807,7 +1031,7 @@ VTM_OUT_BIAS = "fc.3.bias"
 
 
 def train_phase(dev, run, want_launches):
-    """Phases 6, 8 and 10: the pretrain train step at full width for the
+    """Phases 6, 8, 10 and 12: the pretrain train step at full width for the
     run's backbone and MVM target. Returns the launch counts of the first timed step,
     which must equal ``want_launches``."""
     cfg = run.model
@@ -839,10 +1063,12 @@ def train_phase(dev, run, want_launches):
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     clips_s = [b / t for t in secs]
     target = run.train.mvm_target
-    print(f"train-step {cfg.vis_backbone} {target} launch counts: {launches}", flush=True)
+    backbone = f"{cfg.vis_backbone}-{cfg.vis_backbone_size}"
+    print(f"train-step {backbone} {target} launch counts: {launches}", flush=True)
     print(json.dumps({
         "slice": "pretrain_train_step", "config": PRETRAIN_CONFIG.name,
-        "vis_backbone": cfg.vis_backbone, "mvm_target": list(target), "dtype": "bfloat16",
+        "vis_backbone": cfg.vis_backbone, "vis_backbone_size": cfg.vis_backbone_size,
+        "mvm_target": list(target), "dtype": "bfloat16",
         "batch": b, "frames": cfg.size_frame, "size_img": cfg.size_img,
         "size_txt": cfg.size_txt, "steps": TRAIN_STEPS, "warmup_step_s": warm_s,
         "clips_per_s": float(np.median(clips_s)), "clips_per_s_range": [min(clips_s),
@@ -850,7 +1076,7 @@ def train_phase(dev, run, want_launches):
         "step_ms_median": float(np.median(secs)) * 1e3, "step_s_each": secs,
         "peak_mem_gib": peak, "losses_each_step": losses}), flush=True)
     require(launches == want_launches,
-            f"launches of one {cfg.vis_backbone} {target} train step {launches}, "
+            f"launches of one {backbone} {target} train step {launches}, "
             f"not {want_launches}")
     for i, step_ls in enumerate(losses):
         require(all(np.isfinite(v) for v in step_ls.values()),
@@ -881,7 +1107,7 @@ def train_phase(dev, run, want_launches):
 
 
 def whole_step_phase(dev, run):
-    """Phases 7, 9 and 11: one train step of a depth-cut copy (the student; a
+    """Phases 7, 9, 11 and 13: one train step of a depth-cut copy (the student; a
     2D teacher keeps its full depth), card fp32 (kernels) against CPU fp32
     (plain versions)."""
     cfg = run.model
@@ -938,7 +1164,8 @@ def whole_step_phase(dev, run):
             fails.append(f"loss {k}: card {ls_c[k]} cpu {ls_r[k]}")
     worst.sort(reverse=True)
     print(json.dumps({"whole_step_vs_cpu": {
-        "vis_backbone": cut.vis_backbone, "mvm_target": list(run.train.mvm_target),
+        "vis_backbone": cut.vis_backbone, "vis_backbone_size": cut.vis_backbone_size,
+        "mvm_target": list(run.train.mvm_target),
         "swin_depths": list(cut.swin.depths), "fusion_layers": cut.fusion.num_hidden_layers,
         "batch": b, "losses_card": ls_c, "losses_cpu": ls_r, "loss_abs_diff": loss_diff,
         "grad_global_max": g_all, "params": len(g_r), "step_s": secs,
@@ -947,19 +1174,90 @@ def whole_step_phase(dev, run):
     require(not fails, "whole train step, card against CPU:\n" + "\n".join(fails))
 
 
+def _shared_bwd_calls(dev, gen):
+    """(kernel, label, x3, call) of each backward that runs
+    attention_bwd.cuh's body, at the shapes phase 3 times it
+    (``_direct_bwd_inputs``, ``_window_bwd_inputs``); ``call(a)`` launches
+    the kernel on a (a dtype of x3) with the shape's do, bias and mask."""
+    for stage, win, nh, x3, do, bias, mask in _direct_bwd_inputs(dev, gen):
+        scale = (x3.shape[-1] // 3 // nh) ** -0.5
+        yield ("direct_window_attention_bwd",
+               f"stage{stage} {'shifted' if mask is not None else 'unshifted'}", x3,
+               lambda a, do=do, bias=bias, mask=mask, win=win, nh=nh, scale=scale:
+               wa._direct_bwd(a, bias, mask, do.to(a.dtype), win, nh, scale))
+    for stage, nw, nh, x3, do, bias, mk, _ in _window_bwd_inputs(dev, gen):
+        yield ("lane_window_attention_bwd",
+               f"2d stage{stage} {'shifted' if mk is not None else 'unshifted'}", x3,
+               lambda a, do=do, bias=bias, mk=mk, nw=nw if mk is not None else 1, nh=nh:
+               wa._lane_window_bwd(a, bias, mk, do.to(a.dtype), nw, nh, 32 ** -0.5))
+
+
+def compare_builds(base_csrc: Path) -> None:
+    """Build the kernel library from ``base_csrc`` too and hold the backward
+    kernels of attention_bwd.cuh's body (``_shared_bwd_calls``) of this
+    checkout's build against it: dx3 and dbias bit-identical in fp32 and
+    bf16 (same inputs), and the bf16 times of both builds with CUDA events in
+    turns (base, new, new, base). Prints one JSON line per shape and the
+    sums per kernel; exits non-zero if an output differs."""
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(_nvidia_smi(), flush=True)
+    libs = {"new": _build.library(), "base": _build.load(_build.build(csrc=base_csrc), False)}
+    gen = torch.Generator(dev).manual_seed(0)
+    differ, sums = [], {}
+    for kernel, label, x3, call in _shared_bwd_calls(dev, gen):
+        outs = {}
+        for which, lib in libs.items():
+            _build._lib = lib
+            outs[which] = [u for dt in (torch.float32, torch.bfloat16)
+                           for u in _tuple(call(x3.to(dt)))]
+        same = all(torch.equal(u, v) for u, v in zip(outs["base"], outs["new"]))
+        del outs
+        a16 = x3.to(torch.bfloat16)
+        ms = {"base": [], "new": []}
+        for which in ("base", "new", "new", "base"):
+            _build._lib = libs[which]
+            ms[which].append(time_ms(lambda: call(a16)))
+        rec = {"kernel": kernel, "shape": label, "bit_identical": same,
+               **{f"{w}_ms": v for w, v in ms.items()}}
+        print(json.dumps(rec), flush=True)
+        differ += [] if same else [f"{kernel} [{label}]"]
+        tot = sums.setdefault(kernel, {"base_ms": 0.0, "new_ms": 0.0})
+        for w, v in ms.items():
+            tot[f"{w}_ms"] += float(np.mean(v))
+    _build._lib = libs["new"]
+    for tot in sums.values():
+        tot["new_over_base"] = tot["new_ms"] / tot["base_ms"]
+    print(json.dumps({"compare_build": str(base_csrc), "per_kernel": sums}), flush=True)
+    require(not differ, f"outputs differ from the base build: {differ}")
+
+
+def _nvidia_smi() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--compare-build", type=Path, metavar="CSRC",
+                        help="only compare the shared-body backward kernels with a build "
+                             "of CSRC")
+    args = parser.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "the port's chip run needs a CUDA card")
+    if args.compare_build:
+        compare_builds(args.compare_build)
+        return
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. device
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = _nvidia_smi()
     print(smi, flush=True)
     print(f"device: {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | count {torch.cuda.device_count()}", flush=True)
@@ -980,7 +1278,10 @@ def main() -> None:
             + direct_bwd_cases(dev, gen) + lane_train_cases(dev, gen)
             + ln_bwd_cases(dev, gen)
             + lane_window_cases(dev, gen) + ln_cases(dev, gen, TEACHER_LN, "train teacher")
-            + lane_window_bwd_cases(dev, gen))
+            + lane_window_bwd_cases(dev, gen) + packed_cases(dev, gen)
+            + direct_cases(dev, gen, TRAIN_B, TRAIN_T, "violet train", SwinConfig.violet(),
+                           (2, 3))
+            + direct_bwd_cases(dev, gen, "violet ", SwinConfig.violet(), (2, 3)))
     failures = [f for r in recs for f in r.pop("failures")]
     print(json.dumps({"kernel_shapes": recs}), flush=True)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s; "
@@ -1088,36 +1389,51 @@ def main() -> None:
 
     # 11. the whole swin2d train step, card fp32 against CPU fp32
     whole_step_phase(dev, run_swin2d)
+    torch.cuda.empty_cache()
+
+    # 12. the pretrain train step at full width on the C = 96 Video Swin
+    # (vis_backbone_size "violet"), MVM-pixel: the packed kernel in stages 0-1
+    run_violet = with_violet_backbone(run)
+    train_violet_launches = train_phase(dev, run_violet, TRAIN_VIOLET_LAUNCHES)
+    torch.cuda.empty_cache()
+
+    # 13. the whole violet train step, card fp32 against CPU fp32
+    whole_step_phase(dev, run_violet)
 
     require(not failures, "kernel checks failed:\n" + "\n".join(failures))
 
     # kernels line: per kernel, times summed over its main-path shapes (one
-    # call of each), the largest errors over every shape checked, and the
-    # launches of one train step (the 2d_feature step's, else the pixel
-    # step's, else the swin2d step's, else one eval's)
+    # call of each; the records marked off_path are left out of the sums),
+    # the largest errors over every shape checked, and the launches of one
+    # train step (the 2d_feature step's, else the pixel step's, else the
+    # swin2d step's, else the violet step's, else one eval's)
     line = []
     for name, meta in KERNELS.items():
-        mine = [r for r in recs if r["kernel"] == name]
+        checked = [r for r in recs if r["kernel"] == name]
+        mine = [r for r in checked if not r.get("off_path")]
         tot = {k: sum(r[k] for r in mine) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
         ops_bound = sum(r["bound_ms"] for r in mine if r["bound_by"] == "operations")
-        bf16 = {k: max(r[k] for r in mine) for k in mine[0]
+        bf16 = {k: max(r[k] for r in checked) for k in checked[0]
                 if k.startswith(("max_abs_err_bf16", "mismatch_bf16"))}
-        # the lane window kernels: each shape weighted by its blocks in a step
+        # the window kernels: each shape weighted by its blocks in a step
         step = {f"{k}_step": sum(r[k] * r["launches_per_step"] for r in mine)
                 for k in tot} if "launches_per_step" in mine[0] else {}
         line.append({"name": name, "route": "cuda", **meta,
                      "launches": (train_2d_launches.get(name) or train_launches.get(name)
                                   or train_swin2d_launches.get(name)
+                                  or train_violet_launches.get(name)
                                   or eval_launches.get(name, 0)),
                      "launches_train_step_2d_feature": train_2d_launches.get(name, 0),
                      "launches_train_step_swin2d": train_swin2d_launches.get(name, 0),
+                     "launches_train_step_violet": train_violet_launches.get(name, 0),
                      "launches_train_step": train_launches.get(name, 0),
                      "launches_eval": eval_launches.get(name, 0),
-                     "max_abs_err": max(r["max_abs_err"] for r in mine), **bf16,
+                     "max_abs_err": max(r["max_abs_err"] for r in checked), **bf16,
                      "ms": tot["ms"], "kernel_ms": tot["ms"], "plain_ms": tot["plain_ms"],
                      "bound_ms": tot["bound_ms"],
                      "bound_by": "operations" if ops_bound > tot["bound_ms"] / 2 else "bytes",
-                     "library_ms": tot["library_ms"], **step, "shapes": len(mine)})
+                     "library_ms": tot["library_ms"], **step, "shapes": len(mine),
+                     "shapes_checked": len(checked)})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -1,21 +1,26 @@
 // The window-attention backward that the direct kernel
-// (window_attention.cu) and the lane window kernel
-// (lane_window_attention.cu) share: one block of kAttnThreads threads walks
-// a fixed sequence of windows that share one head and one mask slot, and
-// for each window computes dx3 and adds its ds rows into the block's own
-// fp32 dbias slice. Only the window's token addressing differs between the
-// two callers; it comes in as `rows(step, t)`, the row of token t of the
-// window the block visits at `step`, in x3's (rows, 3C) and dout's
-// (rows, C) layouts.
+// (window_attention.cu), the lane window kernel (lane_window_attention.cu)
+// and the packed kernel (packed_window_attention.cu) share: one block of
+// kAttnThreads threads walks a fixed sequence of windows that share one head
+// and one mask slot, and for each window computes dq, dk, dv and adds its ds
+// rows into the block's own fp32 dbias slice. Only the addressing differs
+// between the callers; it comes in as three input bases q, k, v, three
+// output bases gq, gk, gv (for dq, dk, dv, in the inputs' layout), dout,
+// and a functor `addr(seg, step, t)`: the element offset of token t's head
+// row in segment seg (0, 1, 2: q, k, v from their bases and dq, dk, dv from
+// theirs; 3: dout) of the window the block visits at `step`. The direct and the lane
+// window kernels pass x3, x3 + C, x3 + 2C as the bases of one (rows, 3C)
+// array; the packed kernel the three (N, hd) head tiles of its
+// (B_, 3nH, N, hd) array, or three separate arrays.
 //
 // Algebra and roundings of the JAX backward kernels (`_direct_bwd_kernel`,
-// `_lane_bwd_kernel`): qs = q * scale in T; p = softmax(qs.k^T + bias +
-// mask) in fp32; dv = round_T(p)^T.do; dp = do.v^T; ds = p * (dp -
-// rowsum(dp * p)); dbias += ds (fp32); dq = (round_T(ds).k) * scale (the
-// fp32 scale); dk = round_T(ds)^T.qs.
+// `_lane_bwd_kernel`, `_attn_bwd_kernel`): qs = q * scale in T; p =
+// softmax(qs.k^T + bias + mask) in fp32; dv = round_T(p)^T.do; dp = do.v^T;
+// ds = p * (dp - rowsum(dp * p)); dbias += ds (fp32); dq = (round_T(ds).k) *
+// scale (the fp32 scale); dk = round_T(ds)^T.qs.
 //
 // Per window the block stages qs, k, v and do of its head in shared memory
-// (rows padded by one word; every read of x3, dout, bias and mask goes
+// (rows padded by one word; every read of q, k, v, dout, bias and mask goes
 // through __ldg, since the kernels' __restrict__ does not reliably reach
 // this inlined body: without it the direct backward ran 6 % slower on the
 // H100 than with its own copy of the body), then
@@ -42,17 +47,17 @@ __host__ __device__ inline size_t attention_bwd_smem_bytes(int n, int hd) {
          align16(3 * size_t(n) * sizeof(float)) + 2 * size_t(kAttnWarps) * n * sizeof(float);
 }
 
-// The windows step = first, first + stride, ... < steps of one (head h,
-// mask slot) pair. bias_h (n, n) is the head's bias, mask_w (n, n) the
-// slot's mask or null, part (n, n) the block's dbias slice. Inlined into
-// each kernel, so that `rows` compiles to the caller's own address code.
-template <typename T, typename Rows>
-__device__ __forceinline__ void attention_bwd_block(const T* __restrict__ x3, const float* __restrict__ bias_h,
-                                    const float* __restrict__ mask_w,
-                                    const T* __restrict__ dout, T* __restrict__ dx3,
-                                    float* __restrict__ part, int n, int c, int hd, int h,
-                                    int first, int steps, int stride, Rows rows,
-                                    float scale_t, float scale_f) {
+// The windows step = first, first + stride, ... < steps of one (head, mask
+// slot) pair. bias_h (n, n) is the head's bias, mask_w (n, n) the slot's
+// mask or null, part (n, n) the block's dbias slice. Inlined into each
+// kernel, so that `addr` compiles to the caller's own address code.
+template <typename T, typename Addr>
+__device__ __forceinline__ void attention_bwd_block(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ bias_h, const float* __restrict__ mask_w,
+    const T* __restrict__ dout, T* __restrict__ gq, T* __restrict__ gk, T* __restrict__ gv,
+    float* __restrict__ part, int n, int hd, int first, int steps, int stride, Addr addr,
+    float scale_t, float scale_f) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ks = k_row_stride<T>(hd);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -68,19 +73,16 @@ __device__ __forceinline__ void attention_bwd_block(const T* __restrict__ x3, co
   float* ra = reinterpret_cast<float*>(smem_raw + 4 * mat + align16(3 * size_t(n) * sizeof(float))) +
               size_t(warp) * 2 * n;
   float* rb = ra + n;
-  const size_t c3 = size_t(3) * c;
 
   for (int b = first; b < steps; b += stride) {
     const bool first_window = b == first;
     __syncthreads();  // the previous window is done with shared memory
     for (int idx = threadIdx.x; idx < n * hd; idx += blockDim.x) {
       const int t = idx / hd, e = idx % hd;
-      const size_t r = rows(b, t);
-      const T* src = x3 + r * c3 + h * hd + e;
-      qs[t * ks + e] = from_float<T>(to_float(__ldg(src)) * scale_t);
-      kk[t * ks + e] = __ldg(src + c);
-      vv[t * ks + e] = __ldg(src + 2 * c);
-      dd[t * ks + e] = __ldg(dout + r * c + h * hd + e);
+      qs[t * ks + e] = from_float<T>(to_float(__ldg(q + addr(0, b, t) + e)) * scale_t);
+      kk[t * ks + e] = __ldg(k + addr(1, b, t) + e);
+      vv[t * ks + e] = __ldg(v + addr(2, b, t) + e);
+      dd[t * ks + e] = __ldg(dout + addr(3, b, t) + e);
     }
     __syncthreads();
 
@@ -131,7 +133,7 @@ __device__ __forceinline__ void attention_bwd_block(const T* __restrict__ x3, co
         row_dp[i] = dsum;
       }
       __syncwarp();
-      T* dq = dx3 + rows(b, i) * c3 + h * hd;
+      T* dq = gq + addr(0, b, i);
       for (int e = lane; e < hd; e += 32) {
         float acc = 0.f;
         for (int j = 0; j < n; ++j) acc = fmaf(rb[j], to_float(kk[j * ks + e]), acc);
@@ -159,8 +161,8 @@ __device__ __forceinline__ void attention_bwd_block(const T* __restrict__ x3, co
         rb[i] = to_float(from_float<T>(p * (dp - row_dp[i])));
       }
       __syncwarp();
-      T* dk = dx3 + rows(b, j) * c3 + c + h * hd;
-      T* dv = dk + c;
+      T* dk = gk + addr(1, b, j);
+      T* dv = gv + addr(2, b, j);
       for (int e = lane; e < hd; e += 32) {
         float ak = 0.f, av = 0.f;
         for (int i = 0; i < n; ++i) {

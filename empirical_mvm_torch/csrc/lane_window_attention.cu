@@ -121,14 +121,17 @@ __global__ void __launch_bounds__(kAttnThreads)
                                      int nh, float scale_t, float scale_f) {
   const int h = blockIdx.x, slot = blockIdx.y, chunk = blockIdx.z, nchunk = gridDim.z;
   const int nw = gridDim.y;
-  // row of token t of window (period p, slot) in the (B_ * n) rows
-  auto token_row = [=](int p, int t) -> size_t {
-    return (size_t(p) * nw + slot) * n + t;
+  const int hd = c / nh;
+  // offset of head h of token t of window (period p, slot) in the (B_ * n)
+  // rows: in x3 and dx3 from the q, k or v column base, or in dout
+  auto addr = [=](int seg, int p, int t) -> size_t {
+    const size_t row = (size_t(p) * nw + slot) * n + t;
+    return row * (seg == 3 ? c : 3 * c) + h * hd;
   };
-  attention_bwd_block<T>(x3, bias + size_t(h) * n * n,
-                         mask ? mask + size_t(slot) * n * n : nullptr, dout, dx3,
-                         dbias_part + ((size_t(chunk) * nw + slot) * nh + h) * n * n, n, c,
-                         c / nh, h, chunk, periods, nchunk, token_row, scale_t, scale_f);
+  attention_bwd_block<T>(x3, x3 + c, x3 + 2 * c, bias + size_t(h) * n * n,
+                         mask ? mask + size_t(slot) * n * n : nullptr, dout, dx3, dx3 + c,
+                         dx3 + 2 * c, dbias_part + ((size_t(chunk) * nw + slot) * nh + h) * n * n,
+                         n, hd, chunk, periods, nchunk, addr, scale_t, scale_f);
 }
 
 template <typename T>

@@ -126,15 +126,19 @@ __global__ void __launch_bounds__(kAttnThreads)
   const int hw = wh * ww;
   const int n = d * hw;
   const int strip = w / (wp / ww), col = w % (wp / ww);
-  // row of window token t of batch b in the (B, D, Hp, Wp) feature map
-  auto token_row = [=](int b, int t) -> size_t {
+  const int hd = c / nh;
+  // offset of head h of window token t of batch b in the (B, D, Hp, Wp)
+  // feature map: in x3 and dx3 from the q, k or v column base, or in dout
+  auto addr = [=](int seg, int b, int t) -> size_t {
     const int tt = t / hw, r = t % hw;
-    return ((size_t(b) * d + tt) * hp + strip * wh + r / ww) * size_t(wp) + col * ww + r % ww;
+    const size_t row =
+        ((size_t(b) * d + tt) * hp + strip * wh + r / ww) * size_t(wp) + col * ww + r % ww;
+    return row * (seg == 3 ? c : 3 * c) + h * hd;
   };
-  attention_bwd_block<T>(x3, bias + size_t(h) * n * n,
-                         mask ? mask + size_t(w) * n * n : nullptr, dout, dx3,
-                         dbias_part + ((size_t(chunk) * nw + w) * nh + h) * n * n, n, c, c / nh,
-                         h, chunk, bsz, nchunk, token_row, scale_t, scale_f);
+  attention_bwd_block<T>(x3, x3 + c, x3 + 2 * c, bias + size_t(h) * n * n,
+                         mask ? mask + size_t(w) * n * n : nullptr, dout, dx3, dx3 + c,
+                         dx3 + 2 * c, dbias_part + ((size_t(chunk) * nw + w) * nh + h) * n * n,
+                         n, hd, chunk, bsz, nchunk, addr, scale_t, scale_f);
 }
 
 template <typename T>

@@ -7,16 +7,23 @@ window clamped per stage to the input extent with zero shift on clamped
 dims, and the relative-position index built for the full window and sliced
 ``[:N, :N]`` (ref: visbackbone/video_swin.py:95-108,155,384-398).
 
-Window attention picks its kernel from the geometry alone: with one
-temporal window (D == wd, every Video Swin stage: the temporal window
-clamps to T) :func:`direct_window_attention` on the padded, rolled 5D map;
-otherwise (the per-frame 2D Swin, wd == 1 < D: the frozen teacher or the
-trained ``swin2d`` backbone) the windows are partitioned and
-:func:`lane_window_attention` runs them, forward and backward. The JAX
-``WindowAttention3D`` folds 4 or 2 frames into one window there for the
+Window attention picks its kernel as the JAX ``WindowAttention3D`` does
+(``WindowAttention3D.forward``). Where the width C is a multiple of 128 (the
+Swin-base stages): with one temporal window (D == wd, every Video Swin
+stage: the temporal window clamps to T) :func:`direct_window_attention` on
+the padded, rolled 5D map; otherwise (the per-frame 2D Swin, wd == 1 < D:
+the frozen teacher or the trained ``swin2d`` backbone) the windows are
+partitioned and :func:`lane_window_attention` runs them, forward and
+backward. The JAX package folds 4 or 2 frames into one window there for the
 TPU's block shapes and runs the t-sliced lane kernel; the CUDA kernel does
-the same work on the frames' own windows. The CUDA kernels run on the card,
-their plain versions on the CPU.
+the same work on the frames' own windows. Where C is not a multiple of 128
+(stages 0 and 1 of the C = 96 swins: tiny, small, violet) the qkv map is
+copied once into (B_, 3nH, N, hd) windows and
+:func:`packed_window_attention` runs them; on the 2D geometry the JAX
+package runs that kernel on a 4-frame block-diagonal superwindow whose
+off-diagonal bias is -1e9, which is the same function as the frames' own
+windows that the port attends. The CUDA kernels run on the card, their
+plain versions on the CPU.
 LayerNorms are the plain :class:`LayerNorm`, as the JAX package keeps flax
 ``nn.LayerNorm`` in trained swins; a frozen teacher passes
 ``fused_norms=True`` and runs them through :class:`FusedLayerNorm` (the JAX
@@ -48,6 +55,7 @@ from empirical_mvm_torch.ops.layernorm import FusedLayerNorm, LayerNorm
 from empirical_mvm_torch.ops.patch_embed import patch_embed_3d
 from empirical_mvm_torch.ops.window_attention import (direct_window_attention,
                                                       lane_window_attention,
+                                                      packed_window_attention,
                                                       window_partition, window_reverse)
 
 
@@ -129,6 +137,26 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
+def _to_packed(qkv: torch.Tensor, window: Sequence[int], n_heads: int) -> torch.Tensor:
+    """(B, D, H, W, 3C) qkv map, last axis (3, nH, hd) -> (B_, 3nH, N, hd):
+    the window partition and the head transpose in one copy."""
+    b, d, h, w, c3 = qkv.shape
+    wd, wh, ww = window
+    x = qkv.reshape(b, d // wd, wd, h // wh, wh, w // ww, ww, 3 * n_heads, -1)
+    x = x.permute(0, 1, 3, 5, 7, 2, 4, 6, 8)
+    return x.reshape(-1, 3 * n_heads, wd * wh * ww, c3 // (3 * n_heads)).contiguous()
+
+
+def _from_packed(out: torch.Tensor, window: Sequence[int], b: int, d: int, h: int,
+                 w: int) -> torch.Tensor:
+    """(B_, nH, N, hd) window outputs -> (B, D, H, W, C), heads innermost:
+    the inverse of :func:`_to_packed` for one segment, in one copy."""
+    wd, wh, ww = window
+    _, nh, _, hd = out.shape
+    x = out.reshape(b, d // wd, h // wh, w // ww, nh, wd, wh, ww, hd)
+    return x.permute(0, 1, 5, 2, 6, 3, 7, 4, 8).reshape(b, d, h, w, nh * hd)
+
+
 class WindowAttention3D(nn.Module):
     """3D window attention with relative position bias on the padded, rolled
     5D feature map (ref: visbackbone/video_swin.py:111-172)."""
@@ -160,17 +188,33 @@ class WindowAttention3D(nn.Module):
 
     def forward(self, x, mask, window_eff):
         """x (B, Dp, Hp, Wp, C) padded and rolled; mask (nW, N, N) fp32 over
-        all (Dp/wd) * nW_hw windows, or None."""
-        b, dp, hp, wp, _ = x.shape
+        all (Dp/wd) * nW_hw windows, or None.
+
+        The kernel: for C % 128 == 0, the direct kernel with one temporal
+        window (D == wd), else the lane window kernel on the partitioned
+        windows; for any other C the packed kernel, its (B_, 3nH, N, hd)
+        input one copy of the qkv map (:func:`_to_packed`; the JAX package
+        partitions before the qkv GEMM and transposes after it, two copies)
+        and its output one copy back to the map. The C % 128 rule is the
+        JAX package's (its ``direct_attention_fits`` and
+        ``lane_attention_fits`` refuse such C: the TPU's 128-lane blocks),
+        kept so that both packages run the same kernel in each stage; the
+        CUDA kernels take any C. The JAX checks' VMEM budgets have no
+        counterpart."""
+        b, dp, hp, wp, c = x.shape
         wd, wh, ww = window_eff
         n = wd * wh * ww
+        nh, nw = self.num_heads, 1 if mask is None else mask.shape[0]
         bias, scale = self.rel_pos_bias(n), float(self.scale)
-        if dp == wd:
+        if c % 128 == 0 and dp == wd:
             return self.proj(direct_window_attention(self.qkv(x), bias, mask, window_eff,
-                                                     self.num_heads, scale))
+                                                     nh, scale))
+        if c % 128:
+            out = packed_window_attention(_to_packed(self.qkv(x), window_eff, nh), bias, mask,
+                                          nw, nh, scale)
+            return self.proj(_from_packed(out, window_eff, b, dp, hp, wp))
         xw = self.qkv(window_partition(x, window_eff))              # (B_, N, 3C)
-        out = lane_window_attention(xw, bias, mask, 1 if mask is None else mask.shape[0],
-                                    self.num_heads, scale)
+        out = lane_window_attention(xw, bias, mask, nw, nh, scale)
         return window_reverse(self.proj(out), window_eff, b, dp, hp, wp)
 
 

@@ -67,6 +67,13 @@ _SIGNATURES = {
         (_I, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _F, _P), _I),
     "emvm_lane_window_attention_bwd_scratch": ((_LL, _I, _I, _I), _LL),
     "emvm_lane_window_attention_bwd_smem_bytes": ((_I, _I, _I), _SZ),
+    "emvm_packed_window_attention_fwd": (
+        (_I, _P, _P, _P, _LL, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P), _I),
+    "emvm_packed_window_attention_bwd": (
+        (_I, _P, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _F,
+         _P), _I),
+    "emvm_packed_window_attention_bwd_scratch": ((_LL, _I, _I, _I), _LL),
+    "emvm_packed_window_attention_bwd_smem_bytes": ((_I, _I, _I), _SZ),
     "emvm_attention_smem_bytes": ((_I, _I, _I), _SZ),
     "emvm_error_string": ((_I,), ctypes.c_char_p),
 }
@@ -83,23 +90,25 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _sources() -> list[Path]:
-    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+def _sources(csrc: Path | None = None) -> list[Path]:
+    return sorted(p for p in (csrc or CSRC).iterdir() if p.suffix in (".cu", ".cuh"))
 
 
-def library_path() -> Path:
+def library_path(csrc: Path | None = None) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in _sources():
+    for p in _sources(csrc):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"libemvm_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile every csrc/*.cu in parallel and link them into one .so;
-    return its path. ``verbose`` adds ``-Xptxas -v`` and prints what nvcc
-    says (registers, shared memory and spills of each kernel)."""
-    so = library_path()
+def build(verbose: bool = False, csrc: Path | None = None) -> Path:
+    """Compile every .cu of ``csrc`` (default: the package's csrc/) in
+    parallel and link them into one .so; return its path. ``verbose`` adds
+    ``-Xptxas -v`` and prints what nvcc says (registers, shared memory and
+    spills of each kernel)."""
+    csrc = csrc or CSRC
+    so = library_path(csrc)
     if so.exists():
         return so
     nvcc = _nvcc()
@@ -108,7 +117,7 @@ def build(verbose: bool = False) -> Path:
     flags = list(NVCC_FLAGS) + (["-Xptxas", "-v"] if verbose else [])
     try:
         procs = []
-        for src in _sources():
+        for src in _sources(csrc):
             if src.suffix != ".cu":
                 continue
             obj = tmp / (src.stem + ".o")
@@ -133,17 +142,25 @@ def build(verbose: bool = False) -> Path:
     return so
 
 
+def load(path: Path, complete: bool = True) -> ctypes.CDLL:
+    """Load a built library and declare its entry points' signatures. With
+    ``complete`` every entry point of ``_SIGNATURES`` must be there;
+    without, those missing are skipped (a build of older sources)."""
+    lib = ctypes.CDLL(str(path))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name) if complete else getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = restype
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, (argtypes, restype) in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = restype
-            _lib = lib
+            _lib = load(build())
     return _lib
 
 

@@ -18,6 +18,13 @@ kernels the retrieval eval and the pretrain step run:
   the student or frozen as the 2d_feature teacher, which the TPU kernels
   take in their t-sliced form), with its gradient to x3 and to the
   relative-position bias.
+* :func:`packed_window_attention` (``csrc/packed_window_attention.cu``)
+  replaces the Pallas ``_attn_kernel`` and ``_attn_bwd_kernel`` as
+  ``packed_window_attention`` runs them: window attention on q, k, v packed
+  as (B_, 3nH, N, hd) head tiles (the swin stages whose width is no multiple
+  of 128), with its gradient to qkv and to the bias.
+  :func:`fused_window_attention`, the same kernels on q, k and v held as
+  three arrays, replaces the JAX ``fused_window_attention``.
 
 Each is a ``torch.autograd.Function``. A CPU tensor takes the plain versions
 (forward and backward); a CUDA tensor launches the kernels or raises. The
@@ -629,3 +636,253 @@ def lane_window_attention(x3: torch.Tensor, bias: torch.Tensor, mask: torch.Tens
       (B_, n, C) in x3's dtype.
     """
     return _LaneWindowAttention.apply(x3, bias, mask, int(n_windows), n_heads, float(scale))
+
+
+# ---------------------------------------------------------------------------
+# packed_window_attention and fused_window_attention
+# ---------------------------------------------------------------------------
+
+def _check_packed(qkv, bias, mask, n_windows, n_heads):
+    if qkv.dim() != 4 or qkv.shape[1] != 3 * n_heads:
+        raise ValueError(f"qkv must be (B_, 3*{n_heads}, N, hd), got {tuple(qkv.shape)}")
+    _check_tiles(qkv.shape[0], n_heads, qkv.shape[2], bias, mask, n_windows)
+
+
+def _check_tiles(b_, n_heads, n, bias, mask, n_windows):
+    if bias.shape != (n_heads, n, n):
+        raise ValueError(f"bias must be {(n_heads, n, n)}, got {tuple(bias.shape)}")
+    if mask is not None:
+        if n_windows < 1 or b_ % n_windows:
+            raise ValueError(f"{b_} windows are not a multiple of n_windows={n_windows}")
+        if mask.shape != (n_windows, n, n):
+            raise ValueError(f"mask must be {(n_windows, n, n)}, got {tuple(mask.shape)}")
+
+
+def _tile_heads(t, nw):
+    """(B_, X, N, hd) as (B_/nW, nW, X, N, hd): window b_ = (period, b_ % nW)."""
+    return t.reshape(t.shape[0] // nw, nw, *t.shape[1:])
+
+
+def _tile_adds(bias, mask):
+    return [bias] if mask is None else [bias, mask[:, None]]
+
+
+def _tiles_attend(q, k, v, bias, mask, n_windows, scale):
+    nw = n_windows if mask is not None else 1
+    o = _attend(*(_tile_heads(t, nw) for t in (q, k, v)), _tile_adds(bias, mask), scale)
+    return o.reshape(q.shape)
+
+
+def _tiles_attend_backward(q, k, v, bias, mask, do, n_windows, scale):
+    nw = n_windows if mask is not None else 1
+    dq, dk, dv, ds = _attend_backward(*(_tile_heads(t, nw) for t in (q, k, v)),
+                                      _tile_adds(bias, mask), scale, _tile_heads(do, nw))
+    return dq.reshape(q.shape), dk.reshape(q.shape), dv.reshape(q.shape), ds.sum((0, 1))
+
+
+def packed_window_attention_plain(qkv, bias, mask, n_windows, n_heads, scale):
+    """Plain version of :func:`packed_window_attention`, with the kernel's
+    roundings (:func:`_attend`)."""
+    _check_packed(qkv, bias, mask, n_windows, n_heads)
+    return _tiles_attend(*qkv.chunk(3, dim=1), bias, mask, n_windows, scale)
+
+
+def packed_window_attention_backward_plain(qkv, bias, mask, do, n_windows, n_heads, scale):
+    """Plain backward of :func:`packed_window_attention` with the algebra and
+    roundings of the JAX ``_attn_bwd_kernel`` (:func:`_attend_backward`):
+    dqkv (B_, 3nH, N, hd) in qkv's dtype, dbias (nH, N, N) fp32 summed over
+    all B_ windows."""
+    _check_packed(qkv, bias, mask, n_windows, n_heads)
+    dq, dk, dv, dbias = _tiles_attend_backward(*qkv.chunk(3, dim=1), bias, mask, do,
+                                               n_windows, scale)
+    return torch.cat([dq, dk, dv], dim=1), dbias
+
+
+def _tiles_launch_args(q, bias, mask, n_windows):
+    """Checks common to the packed kernel's launches (q's storage is checked
+    by the caller: q may be a view into qkv); returns the library, the dtype
+    code, the device and nW as the kernel takes it."""
+    if any(t.dtype != torch.float32 for t in (bias, mask) if t is not None):
+        raise TypeError("bias and mask must be float32")
+    dev = _build.check_tensors(*(t for t in (bias, mask) if t is not None))
+    if q.device != dev:
+        raise ValueError(f"tensors on {q.device} and {dev}")
+    code = _build.dtype_code(q.dtype)
+    return _build.library(), code, dev, (n_windows if mask is not None else 1)
+
+
+def _tiles_fwd(q, k, v, window_stride, b_, n_heads, bias, mask, n_windows, scale, name):
+    """Launch the packed forward on q, k, v bases (views of contiguous
+    storage, their windows ``window_stride`` elements apart)."""
+    lib, code, dev, nw = _tiles_launch_args(q, bias, mask, n_windows)
+    n, hd = q.shape[-2:]
+    _build.check_smem(lib.emvm_attention_smem_bytes(code, n, hd), f"a window of {n} tokens")
+    out = torch.empty((b_, n_heads, n, hd), dtype=q.dtype, device=dev)
+    with torch.cuda.device(dev):
+        _build.record_launch(lib.emvm_packed_window_attention_fwd(
+            code, q.data_ptr(), k.data_ptr(), v.data_ptr(), window_stride, bias.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(), b_, n, n_heads, hd, nw,
+            _scale_in(q.dtype, scale), _build.stream_ptr(dev)), name)
+    return out
+
+
+def _tiles_bwd(q, k, v, dq, dk, dv, window_stride, b_, n_heads, bias, mask, do, n_windows,
+               scale, name):
+    """Launch the packed backward; dq, dk, dv are written in the layout of
+    q, k, v. Returns dbias."""
+    lib, code, dev, nw = _tiles_launch_args(q, bias, mask, n_windows)
+    n, hd = q.shape[-2:]
+    if _build.check_tensors(do) != dev:
+        raise ValueError(f"tensors on {do.device} and {dev}")
+    if do.dtype != q.dtype:
+        raise TypeError(f"do is {do.dtype}, q {q.dtype}")
+    if do.shape != (b_, n_heads, n, hd):
+        raise ValueError(f"do must be {(b_, n_heads, n, hd)}, got {tuple(do.shape)}")
+    _build.check_smem(lib.emvm_packed_window_attention_bwd_smem_bytes(code, n, hd),
+                      f"the backward of a window of {n} tokens")
+    dbias = torch.empty((n_heads, n, n), dtype=torch.float32, device=dev)
+    part = torch.empty(lib.emvm_packed_window_attention_bwd_scratch(b_, n, n_heads, nw),
+                       dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _build.record_launch(lib.emvm_packed_window_attention_bwd(
+            code, q.data_ptr(), k.data_ptr(), v.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), window_stride, bias.data_ptr(),
+            None if mask is None else mask.data_ptr(), do.data_ptr(), dbias.data_ptr(),
+            part.data_ptr(), b_, n, n_heads, hd, nw, _scale_in(q.dtype, scale),
+            _scale_f32(scale), _build.stream_ptr(dev)), name)
+    return dbias
+
+
+def _packed_fwd(qkv, bias, mask, n_windows, n_heads, scale):
+    _build.check_tensors(qkv)
+    b_ = qkv.shape[0]
+    return _tiles_fwd(*qkv.chunk(3, dim=1), qkv[0].numel(), b_, n_heads, bias, mask,
+                      n_windows, scale, "packed_window_attention")
+
+
+def _packed_bwd(qkv, bias, mask, do, n_windows, n_heads, scale):
+    _build.check_tensors(qkv)
+    dqkv = torch.empty_like(qkv)
+    dbias = _tiles_bwd(*qkv.chunk(3, dim=1), *dqkv.chunk(3, dim=1), qkv[0].numel(),
+                       qkv.shape[0], n_heads, bias, mask, do, n_windows, scale,
+                       "packed_window_attention_bwd")
+    return dqkv, dbias
+
+
+class _PackedWindowAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, bias, mask, n_windows, n_heads, scale):
+        _check_packed(qkv, bias, mask, n_windows, n_heads)
+        ctx.save_for_backward(qkv, bias, mask)
+        ctx.config = (n_windows, n_heads, scale)
+        if qkv.device.type == "cpu":
+            return packed_window_attention_plain(qkv, bias, mask, n_windows, n_heads, scale)
+        return _packed_fwd(qkv, bias, mask, n_windows, n_heads, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, bias, mask = ctx.saved_tensors
+        if qkv.device.type == "cpu":
+            dqkv, dbias = packed_window_attention_backward_plain(qkv, bias, mask, do,
+                                                                 *ctx.config)
+        else:
+            dqkv, dbias = _packed_bwd(qkv, bias, mask, do.contiguous(), *ctx.config)
+        return dqkv, dbias, None, None, None, None
+
+
+def packed_window_attention(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor | None,
+                            n_windows: int, n_heads: int, scale: float) -> torch.Tensor:
+    """Window attention on the packed qkv tensor (JAX
+    ``packed_window_attention``), differentiable in qkv and bias.
+
+    Args:
+      qkv:  (B_, 3nH, N, hd), the qkv GEMM output of the partitioned windows
+            reshaped to (B_, N, 3nH, hd) and transposed once; axis 1 ordered
+            (3, nH).
+      bias: (nH, N, N) fp32 relative-position bias.
+      mask: (nW, N, N) fp32 shift mask, window b_ taking ``mask[b_ % nW]``,
+            or None for an unshifted block (the JAX ``has_mask=False``). It
+            gets no gradient.
+    Returns:
+      (B_, nH, N, hd) in qkv's dtype.
+    """
+    return _PackedWindowAttention.apply(qkv, bias, mask, int(n_windows), int(n_heads),
+                                        float(scale))
+
+
+def _check_fused(q, k, v, bias, mask, n_windows):
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must be (B_, nH, N, hd) alike, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if mask is None:
+        raise ValueError("fused_window_attention always adds its mask")
+    _check_tiles(q.shape[0], q.shape[1], q.shape[2], bias, mask, n_windows)
+
+
+def fused_window_attention_plain(q, k, v, bias, mask, n_windows, scale):
+    """Plain version of :func:`fused_window_attention`."""
+    _check_fused(q, k, v, bias, mask, n_windows)
+    return _tiles_attend(q, k, v, bias, mask, n_windows, scale)
+
+
+def fused_window_attention_backward_plain(q, k, v, bias, mask, do, n_windows, scale):
+    """Plain backward of :func:`fused_window_attention`: dq, dk, dv in q's
+    dtype, dbias (nH, N, N) fp32."""
+    _check_fused(q, k, v, bias, mask, n_windows)
+    return _tiles_attend_backward(q, k, v, bias, mask, do, n_windows, scale)
+
+
+def _fused_fwd(q, k, v, bias, mask, n_windows, scale):
+    _build.check_tensors(q, k, v)
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"q, k, v are {q.dtype}, {k.dtype}, {v.dtype}")
+    return _tiles_fwd(q, k, v, q[0].numel(), q.shape[0], q.shape[1], bias, mask, n_windows,
+                      scale, "fused_window_attention")
+
+
+def _fused_bwd(q, k, v, bias, mask, do, n_windows, scale):
+    _build.check_tensors(q, k, v)
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"q, k, v are {q.dtype}, {k.dtype}, {v.dtype}")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dbias = _tiles_bwd(q, k, v, dq, dk, dv, q[0].numel(), q.shape[0], q.shape[1], bias, mask,
+                       do, n_windows, scale, "fused_window_attention_bwd")
+    return dq, dk, dv, dbias
+
+
+class _FusedWindowAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask, n_windows, scale):
+        _check_fused(q, k, v, bias, mask, n_windows)
+        ctx.save_for_backward(q, k, v, bias, mask)
+        ctx.config = (n_windows, scale)
+        if q.device.type == "cpu":
+            return fused_window_attention_plain(q, k, v, bias, mask, n_windows, scale)
+        return _fused_fwd(q, k, v, bias, mask, n_windows, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, mask = ctx.saved_tensors
+        if q.device.type == "cpu":
+            grads = fused_window_attention_backward_plain(q, k, v, bias, mask, do, *ctx.config)
+        else:
+            grads = _fused_bwd(q, k, v, bias, mask, do.contiguous(), *ctx.config)
+        return (*grads, None, None, None)
+
+
+def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor, mask: torch.Tensor, n_windows: int,
+                           scale: float) -> torch.Tensor:
+    """Window attention on q, k and v held as three arrays (JAX
+    ``fused_window_attention``), differentiable in q, k, v and bias; the
+    kernel of :func:`packed_window_attention` on three base pointers.
+
+    Args:
+      q, k, v: (B_, nH, N, hd), windows innermost in B_.
+      bias:    (nH, N, N) fp32 relative-position bias.
+      mask:    (nW, N, N) fp32 additive mask, always added, window b_ taking
+               ``mask[b_ % nW]``. It gets no gradient.
+    Returns:
+      (B_, nH, N, hd) in q's dtype.
+    """
+    return _FusedWindowAttention.apply(q, k, v, bias, mask, int(n_windows), float(scale))

@@ -203,6 +203,74 @@ def test_lane_window_attention_bwd_kernel(cuda, dtype, b_, nh, c, nw):
     assert torch.isfinite(xg.grad.float()).all() and torch.isfinite(bg.grad).all()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b_,nh,n,nw", [
+    # the violet swin's stage 0 in small (2 clips of 4 windows of 4 x 7 x 7,
+    # hd = 32) and the 2D Swin-tiny's (2 clips of 4 frames x 4 windows of
+    # 7 x 7, the 4-frame mask)
+    (8, 3, 196, 4),
+    (32, 3, 49, 16),
+])
+def test_packed_window_attention_kernels(cuda, dtype, b_, nh, n, nw):
+    """Forward and backward against their plain versions, shifted and
+    unshifted; two backward runs give bit-identical outputs (fixed-order
+    sums, no atomics); through autograd one forward and one backward
+    launch."""
+    rs = np.random.RandomState(9)
+    qkv = _randn(rs, b_, 3 * nh, n, 32, scale=0.5).to(cuda)
+    do = _randn(rs, b_, nh, n, 32).to(cuda).to(torch.bfloat16).float()
+    bias = _randn(rs, nh, n, n, scale=0.1).to(cuda)
+    mask = torch.from_numpy(np.where(rs.rand(nw, n, n) < 0.3, -100.0, 0.0)
+                            .astype(np.float32)).to(cuda)
+    scale = 32 ** -0.5
+    for m, w in ((mask, nw), (None, 1)):
+        _check(lambda a: twa.packed_window_attention(a, bias, m, w, nh, scale),
+               lambda a: twa.packed_window_attention_plain(a, bias, m, w, nh, scale),
+               qkv, dtype, "attention")
+        _check(lambda a: twa._packed_bwd(a, bias, m, do.to(a.dtype), w, nh, scale),
+               lambda a: twa.packed_window_attention_backward_plain(
+                   a, bias, m, do.to(a.dtype), w, nh, scale), qkv, dtype, "attention_bwd")
+        first = twa._packed_bwd(qkv.to(dtype), bias, m, do.to(dtype), w, nh, scale)
+        second = twa._packed_bwd(qkv.to(dtype), bias, m, do.to(dtype), w, nh, scale)
+        assert torch.equal(first[1], second[1]) and torch.equal(first[0], second[0])
+    before = dict(_build.launch_counts)
+    xg = qkv.to(dtype).requires_grad_(True)
+    bg = bias.clone().requires_grad_(True)
+    twa.packed_window_attention(xg, bg, mask, nw, nh, scale).backward(do.to(dtype))
+    for name in ("packed_window_attention", "packed_window_attention_bwd"):
+        assert _build.launch_counts[name] == before.get(name, 0) + 1
+    assert torch.isfinite(xg.grad.float()).all() and torch.isfinite(bg.grad).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_window_attention_kernels(cuda, dtype):
+    """Row 10: q, k, v as three arrays on the packed kernel, forward and
+    backward against their plain versions at a violet stage-0 shape in
+    small (2 clips of 4 shifted windows)."""
+    rs = np.random.RandomState(10)
+    b_, nh, n, nw = 8, 3, 196, 4
+    qkv = _randn(rs, 3, b_, nh, n, 32, scale=0.5).to(cuda)
+    do = _randn(rs, b_, nh, n, 32).to(cuda).to(torch.bfloat16).float()
+    bias = _randn(rs, nh, n, n, scale=0.1).to(cuda)
+    mask = torch.from_numpy(np.where(rs.rand(nw, n, n) < 0.3, -100.0, 0.0)
+                            .astype(np.float32)).to(cuda)
+    scale = 32 ** -0.5
+    before = dict(_build.launch_counts)
+    _check(lambda a: twa.fused_window_attention(*a.unbind(0), bias, mask, nw, scale),
+           lambda a: twa.fused_window_attention_plain(*a.unbind(0), bias, mask, nw, scale),
+           qkv, dtype, "attention")
+    _check(lambda a: twa._fused_bwd(*a.unbind(0), bias, mask, do.to(a.dtype), nw, scale),
+           lambda a: twa.fused_window_attention_backward_plain(*a.unbind(0), bias, mask,
+                                                               do.to(a.dtype), nw, scale),
+           qkv, dtype, "attention_bwd_qkv")
+    assert _build.launch_counts["fused_window_attention"] > before.get(
+        "fused_window_attention", 0)
+    assert _build.launch_counts["packed_window_attention"] == before.get(
+        "packed_window_attention", 0)
+
+
 def _lane_setup(rs, cuda, b, l, c):
     x3 = _randn(rs, b, l, 3 * c, scale=0.5).to(cuda)
     do = _randn(rs, b, l, c).to(cuda).to(torch.bfloat16).float()
@@ -287,7 +355,11 @@ PLANTED = {
                          "qb[d] = to_float(from_float<T>(to_float(q_row[d]) * scale_t));",
                          "qb[d] = to_float(q_row[d]) * scale_t;"),
     "bias_dropped": ("window_attention.cu", "bias_h + size_t(t) * n,", "nullptr,"),
+    "packed_mask_slot": ("packed_window_attention.cu", "mask + (win % nw) * n * n",
+                         "mask + ((win + 1) % nw) * n * n"),
 }
+# faults of the packed kernel alone, which the direct kernel does not run
+PACKED_ONLY = {"packed_mask_slot"}
 # faults that also change the lane kernel at the fusion shape; at hd = 64 the
 # scale is 0.125, so q * scale is exact in bf16 and q_scaled_in_fp32 is no
 # fault there
@@ -295,6 +367,9 @@ LANE_FAULTS = {"probabilities_not_rounded"}
 # faults that change the lane window kernel (its rows run attend_row too) at
 # the 2D teacher's shape, hd = 32
 WINDOW_FAULTS = {"probabilities_not_rounded", "q_scaled_in_fp32", "scale_not_rounded"}
+# faults that change the packed kernel (attend_row, its own mask slot) at
+# the violet swin's stage 0 (N = 196, hd = 32, shifted)
+PACKED_FAULTS = WINDOW_FAULTS | PACKED_ONLY
 
 
 @pytest.mark.cuda
@@ -303,7 +378,9 @@ def test_bf16_check_catches_planted_faults(cuda, tmp_path, monkeypatch, fault):
     """Each planted fault, built from a copy of the sources, fails the bf16
     limits at a main-path shape (swin stage 2, shifted: N = 245, hd = 32)
     and, for LANE_FAULTS, at the fusion shape; for WINDOW_FAULTS at the 2D
-    teacher's stage 2 (4 frames of 4 windows of 49 tokens, shifted). The
+    teacher's stage 2 (4 frames of 4 windows of 49 tokens, shifted); for
+    PACKED_FAULTS at the violet swin's stage 0 (2 clips of 64 shifted
+    windows of 196 tokens, 3 heads; a packed-only fault there alone). The
     readings are printed (run with -s)."""
     if fault in PLANTED:
         name, good, bad = PLANTED[fault]
@@ -336,7 +413,7 @@ def test_bf16_check_catches_planted_faults(cuda, tmp_path, monkeypatch, fault):
             _build.stream_ptr(cuda)), "direct_window_attention")
         return out
 
-    cases = {"direct": bf16_check(
+    cases = {} if fault in PACKED_ONLY else {"direct": bf16_check(
         direct, lambda a: twa.direct_window_attention_plain(a, bias, mask, win, nh, scale),
         x3, "attention")}
     if fault in LANE_FAULTS:
@@ -369,9 +446,36 @@ def test_bf16_check_catches_planted_faults(cuda, tmp_path, monkeypatch, fault):
             window, lambda a: twa.lane_window_attention_reference(a, wbias, wmask, 16, nh,
                                                                   scale),
             xw, "attention")
+    if fault in PACKED_FAULTS:
+        xp, pbias, pmask = _packed_setup(gen, cuda)
+
+        def packed(a):
+            lib = _build.library()
+            out = torch.empty(a.shape[0], 3, 196, 32, dtype=a.dtype, device=cuda)
+            seg = a[0, :3].numel() * a.element_size()
+            _build.record_launch(lib.emvm_packed_window_attention_fwd(
+                _build.dtype_code(a.dtype), a.data_ptr(), a.data_ptr() + seg,
+                a.data_ptr() + 2 * seg, a[0].numel(), pbias.data_ptr(), pmask.data_ptr(),
+                out.data_ptr(), a.shape[0], 196, 3, 32, 64, scale_for(a, 32 ** -0.5),
+                _build.stream_ptr(cuda)), "packed_window_attention")
+            return out
+
+        cases["packed"] = bf16_check(
+            packed, lambda a: twa.packed_window_attention_plain(a, pbias, pmask, 64, 3,
+                                                                32 ** -0.5),
+            xp, "attention")
     for case, (readings, failures) in cases.items():
         print(f"planted {fault} [{case}]: {readings} failures={failures}")
         assert failures, f"planted fault {fault} passes the bf16 limits at {case}"
+
+
+def _packed_setup(gen, cuda):
+    """qkv, bias and mask of the violet swin's stage 0, shifted, for 2
+    clips: (128, 9, 196, 32), 3 heads, nW = 64."""
+    qkv = torch.randn(128, 9, 196, 32, device=cuda, generator=gen) * 0.5
+    bias = torch.randn(3, 196, 196, device=cuda, generator=gen) * 0.02
+    mask = torch.from_numpy(_shift_attn_mask((4, 56, 56), (4, 7, 7), (0, 3, 3))).to(cuda)
+    return qkv, bias, mask
 
 
 # Faults planted in the backward kernels: the rounding of ds before its
@@ -392,6 +496,9 @@ PLANTED_BWD = {
                             "sm.rb[j] = sm.ra[j] * (sm.rb[j] - dsum);"),
     "lane_dq_scale_dropped": ("self_attention.cu", "dq[e] = from_float<T>(acc * scale_f);",
                               "dq[e] = from_float<T>(acc);"),
+    # k, v and their gradients addressed with dout's window stride
+    "packed_kv_dout_stride": ("packed_window_attention.cu", "return seg == 3 ?",
+                              "return seg >= 1 ?"),
 }
 
 
@@ -403,7 +510,9 @@ def test_bf16_check_catches_planted_backward_faults(cuda, tmp_path, monkeypatch,
     shifted: N = 196, hd = 32; or the fusion shape L = 232, hd = 64, with
     dropout); a fault of the shared window backward also at the trained 2D
     swin's stage 2 (lane window, 4 frames of 4 windows of 49 tokens,
-    shifted). The readings are printed (run with -s)."""
+    shifted) and at the violet swin's stage 0 (the packed backward), where
+    a fault of the packed kernel alone is planted. The readings are printed
+    (run with -s)."""
     name, good, bad = PLANTED_BWD[fault]
     src = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, src)
@@ -415,6 +524,14 @@ def test_bf16_check_catches_planted_backward_faults(cuda, tmp_path, monkeypatch,
     monkeypatch.setattr(_build, "_lib", None)
     gen = torch.Generator(cuda).manual_seed(0)
     cases = {}
+    if name in ("attention_bwd.cuh", "packed_window_attention.cu"):
+        xp, pbias, pmask = _packed_setup(gen, cuda)
+        dp = torch.randn(128, 3, 196, 32, device=cuda, generator=gen).to(torch.bfloat16)
+        cases["packed"] = bf16_check(
+            lambda a: twa._packed_bwd(a, pbias, pmask, dp.to(a.dtype), 64, 3, 32 ** -0.5),
+            lambda a: twa.packed_window_attention_backward_plain(a, pbias, pmask, dp.to(a.dtype),
+                                                                 64, 3, 32 ** -0.5),
+            xp, "attention_bwd")
     if name == "attention_bwd.cuh":
         win, nh, c, hp = (4, 7, 7), 16, 512, 14
         x3 = torch.randn(2, 4, hp, hp, 3 * c, device=cuda, generator=gen) * 0.5
@@ -438,7 +555,7 @@ def test_bf16_check_catches_planted_backward_faults(cuda, tmp_path, monkeypatch,
             lambda a: twa.lane_window_attention_backward_plain(a, wbias, wmask, dw.to(a.dtype),
                                                                16, nh, scale),
             xw, "attention_bwd")
-    else:
+    elif name == "self_attention.cu":
         p, l, d, lh = 8, 232, 768, 12
         x3 = torch.randn(p, l, 3 * d, device=cuda, generator=gen) * 0.5
         do = torch.randn(p, l, d, device=cuda, generator=gen).to(torch.bfloat16)

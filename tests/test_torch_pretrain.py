@@ -67,12 +67,13 @@ def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-@pytest.fixture(scope="module")
-def slice_():
-    """JAX model and params, the port model carrying them, the batch, and
-    the fixed draws, with the JAX package's draws replaced by them."""
+def carried_slice(model_cfg):
+    """JAX model and params for the tiny ``model_cfg(package)`` (pixel
+    target), the port model carrying them, the batch, and the fixed draws,
+    with the JAX package's draws replaced by them while the generator is
+    suspended (a module fixture yields from it)."""
     batch = _batch()
-    tm = VioletPretrain(_model_cfg(tcfg), device="cpu", seed=1)
+    tm = VioletPretrain(model_cfg(tcfg), device="cpu", seed=1)
     gen = torch.Generator().manual_seed(3)
     txt_t = torch.from_numpy(batch["txt"])
     draws = tmask.draw_masks(gen, txt_t, 2, 2, 2, special_token_ids=(101, 102, 0),
@@ -93,7 +94,7 @@ def slice_():
         mp.setattr(jax.lax, "top_k",
                    lambda x, k: (None, jnp.asarray(neg_idx.numpy(), jnp.int32)))
         mp.setattr(jpretrain, "ScoreHead", functools.partial(jviolet.ScoreHead, dropout=0.0))
-        jm = jpretrain.VioletPretrain(config=_model_cfg(jcfg), mvm_target=("pixel",),
+        jm = jpretrain.VioletPretrain(config=model_cfg(jcfg), mvm_target=("pixel",),
                                       pretrain_masks=("bm", "rm"))
         args = [jnp.asarray(batch[k]) for k in ("img", "txt", "mask")]
         key = jax.random.PRNGKey(0)
@@ -106,6 +107,13 @@ def slice_():
         tm.fc[0].p = 0.0
         yield dict(jm=jm, params=params, tm=tm, batch=batch, draws=draws,
                    neg_idx=neg_idx, args=args)
+
+
+@pytest.fixture(scope="module")
+def slice_():
+    """JAX model and params, the port model carrying them, the batch, and
+    the fixed draws, with the JAX package's draws replaced by them."""
+    yield from carried_slice(_model_cfg)
 
 
 def _max(t):
@@ -130,10 +138,10 @@ def test_weight_carry_round_trip_of_the_pretrain_tree(slice_):
                                       err_msg=jax.tree_util.keystr(path))
 
 
-@pytest.fixture(scope="module")
-def grads(slice_):
+def losses_and_grads(slice_, heads=HEADS):
     """Losses and parameter gradients of both sides at the carried params
-    (dropout off): JAX's as port-named tensors."""
+    (dropout off): JAX's as port-named tensors, the port's None as zeros;
+    and the names of the port's parameters without a gradient."""
     jm, params, tm = slice_["jm"], slice_["params"], slice_["tm"]
 
     def jloss(p):
@@ -147,14 +155,23 @@ def grads(slice_):
     ls = tm.losses(b["img"], b["txt"], b["mask"], draws=slice_["draws"],
                    neg_idx=slice_["neg_idx"])
     ls["total"].backward()
+    no_grad = {n for n, p in tm.named_parameters() if p.grad is None}
     got = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).clone()
            for n, p in tm.named_parameters()}
     tm.zero_grad(set_to_none=True)
-    return ls, jls, got, convert.state_dict_from_flax(_np_tree(jgrads), tm.config, HEADS)
+    return ls, jls, got, convert.state_dict_from_flax(_np_tree(jgrads), tm.config, heads), \
+        no_grad
+
+
+@pytest.fixture(scope="module")
+def grads(slice_):
+    """Losses and parameter gradients of both sides at the carried params
+    (dropout off): JAX's as port-named tensors."""
+    return losses_and_grads(slice_)
 
 
 def test_losses_and_gradients_match_jax(grads):
-    ls, jls, got, want = grads
+    ls, jls, got, want, _ = grads
     assert set(ls) == {"mtm", "vtm", "mvm_pixel", "total"} == set(jls)
     for k in ls:
         np.testing.assert_allclose(ls[k].item(), float(jls[k]), err_msg=k, **LOSS_TOL)
@@ -199,7 +216,7 @@ def assert_two_steps_match(slice_, grads, heads, outliers=0.0):
     bound all the same)."""
     jm, params = slice_["jm"], slice_["params"]
     tm = copy.deepcopy(slice_["tm"])
-    _, _, got_g, want_g = grads
+    _, _, got_g, want_g = grads[:4]
     tx = jopt.build_optimizer(params, lr=1e-3, max_iter=10)
     jstep = jts.make_pretrain_train_step(jm, tx, mesh=None, donate=False)
     jstate = jts.create_train_state(params, tx)

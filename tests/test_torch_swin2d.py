@@ -17,7 +17,6 @@ the JAX package on the CPU; inputs from numpy with a seed, fp32.
 """
 
 import dataclasses
-import functools
 
 import numpy as np
 import pytest
@@ -29,22 +28,18 @@ import jax
 import jax.numpy as jnp
 
 from empirical_mvm_tpu.core import config as jcfg
-from empirical_mvm_tpu.data import masking as jmask
 from empirical_mvm_tpu.models import encoders2d as jenc
-from empirical_mvm_tpu.models import pretrain as jpretrain
-from empirical_mvm_tpu.models import violet as jviolet
 from empirical_mvm_tpu.train import optimizer as jopt
 from empirical_mvm_torch.core import config as tcfg
-from empirical_mvm_torch.data import masking as tmask
 from empirical_mvm_torch.models import convert
 from empirical_mvm_torch.models import encoders2d as tenc
 from empirical_mvm_torch.models.encoders2d import EncImgSwin, swin2d_config
-from empirical_mvm_torch.models.pretrain import VioletPretrain, draw_negatives
+from empirical_mvm_torch.models.pretrain import VioletPretrain
 from empirical_mvm_torch.models.violet import VioletBase
 from empirical_mvm_torch.ops.layernorm import FusedLayerNorm, LayerNorm
 from empirical_mvm_torch.train import optimizer as topt
-from tests.test_torch_pretrain import (B, BERT, GRAD_TOL, LOSS_TOL, _batch, _np_tree, _t,
-                                       assert_two_steps_match)
+from tests.test_torch_pretrain import (BERT, GRAD_TOL, LOSS_TOL, _np_tree,
+                                       assert_two_steps_match, carried_slice, losses_and_grads)
 from tests.test_torch_pretrain_2d import synthetic_hf_swin
 
 T = torch.from_numpy
@@ -116,41 +111,7 @@ def slice_():
     """JAX model and params, the port model carrying them, the batch and
     the fixed draws, with the JAX package's draws replaced by them (as in
     test_torch_pretrain.py)."""
-    batch = _batch()
-    tm = VioletPretrain(_model_cfg(tcfg), device="cpu", seed=1)
-    gen = torch.Generator().manual_seed(3)
-    txt_t = T(batch["txt"])
-    draws = tmask.draw_masks(gen, txt_t, 2, 2, 2, special_token_ids=(101, 102, 0),
-                             mask_token_id=103, p_mask=0.3, mask_types=("bm", "rm"))
-    neg_idx = draw_negatives(gen, B, 3)
-    mb = tmask.apply_masking(draws, torch.zeros(B, 2, 64, 64, 3), txt_t, mask_token_id=103)
-    pix, cov = mb.mvm_mask.numpy(), mb.cov.numpy()
-    new_txt, ans = mb.txt.numpy(), mb.ans_mtm.numpy()
-
-    def fake_apply_masking(key, img, txt, vq, **kw):
-        return jmask.MaskedBatch(img=img * (1.0 - jnp.asarray(pix)), txt=jnp.asarray(new_txt),
-                                 ans_mtm=jnp.asarray(ans),
-                                 ans_mvm=jnp.full((B, 2 * 5), -1, jnp.int32),
-                                 mvm_mask=jnp.asarray(pix), cov=jnp.asarray(cov))
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jmask, "apply_masking", fake_apply_masking)
-        mp.setattr(jax.lax, "top_k",
-                   lambda x, k: (None, jnp.asarray(neg_idx.numpy(), jnp.int32)))
-        mp.setattr(jpretrain, "ScoreHead", functools.partial(jviolet.ScoreHead, dropout=0.0))
-        jm = jpretrain.VioletPretrain(config=_model_cfg(jcfg), mvm_target=("pixel",),
-                                      pretrain_masks=("bm", "rm"))
-        args = [jnp.asarray(batch[k]) for k in ("img", "txt", "mask")]
-        key = jax.random.PRNGKey(0)
-        params = jax.jit(lambda: jm.init({"params": key, "dropout": key, "mask": key},
-                                         *args, method=jm.losses)["params"])()
-        rs = np.random.RandomState(2)
-        params = jax.tree.map(lambda p: np.asarray(p) + 0.05 * rs.randn(*np.shape(p))
-                              .astype(np.float32), params)
-        tm.load_state_dict(convert.state_dict_from_flax(params, tm.config, HEADS))
-        tm.fc[0].p = 0.0
-        yield dict(jm=jm, params=params, tm=tm, batch=batch, draws=draws,
-                   neg_idx=neg_idx, args=args)
+    yield from carried_slice(_model_cfg)
 
 
 def test_weight_carry_of_the_swin2d_tree(slice_):
@@ -189,25 +150,7 @@ def test_weight_carry_of_the_swin2d_tree(slice_):
 def grads(slice_):
     """Losses and parameter gradients of both sides at the carried params
     (dropout off): JAX's as port-named tensors, the port's None as zeros."""
-    jm, params, tm = slice_["jm"], slice_["params"], slice_["tm"]
-
-    def jloss(p):
-        ls = jm.apply({"params": p}, *slice_["args"], method=jm.losses, deterministic=True,
-                      rngs={"mask": jax.random.PRNGKey(1)})
-        return ls["total"], ls
-
-    jgrads, jls = jax.jit(jax.grad(jloss, has_aux=True))(params)
-    b = _t(slice_["batch"])
-    tm.zero_grad(set_to_none=True)
-    ls = tm.losses(b["img"], b["txt"], b["mask"], draws=slice_["draws"],
-                   neg_idx=slice_["neg_idx"])
-    ls["total"].backward()
-    no_grad = {n for n, p in tm.named_parameters() if p.grad is None}
-    got = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).clone()
-           for n, p in tm.named_parameters()}
-    tm.zero_grad(set_to_none=True)
-    return ls, jls, got, convert.state_dict_from_flax(_np_tree(jgrads), tm.config, HEADS), \
-        no_grad
+    return losses_and_grads(slice_)
 
 
 def test_swin2d_losses_and_gradients_match_jax(grads):
@@ -230,7 +173,7 @@ def test_swin2d_two_train_steps_match_make_pretrain_train_step(slice_, grads):
     whose step-1 gradient nearly cancels move by up to +-lr on either side
     whatever their step-0 gradient (5 read, 2e-5 at most): at most 1e-4 of
     the resolved elements may exceed 2e-6."""
-    assert_two_steps_match(slice_, grads[:4], HEADS, outliers=1e-4)
+    assert_two_steps_match(slice_, grads, HEADS, outliers=1e-4)
 
 
 def test_swin2d_optimizer_labels_match_jax(slice_):
