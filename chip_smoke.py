@@ -36,8 +36,13 @@ before the final line, if any phase failed:
    at stage 0 of the 2D Swin-tiny (N = 49, not on a path of this script);
    ``fused_window_attention`` (q, k, v as three arrays, the same kernel)
    and its backward at the violet stage-0 shifted shape; the direct kernels
-   forward and backward at the violet step's stages 2 and 3 (C = 384, 768).
-   Prints one
+   forward and backward at the violet step's stages 2 and 3 (C = 384, 768);
+   ``packed_self_attention`` (the tiled self-attention) forward at p = 0 and
+   p = 0.1 and its backward at the multiple-choice fusion shape, with the
+   dropout keep fraction, at DPT-Large's 384^2 shape (fp32 and bf16) and at
+   N = 129, ``fused_self_attention`` (the same kernel on q, k, v apart),
+   and a copy of csrc/ with two planted roundings dropped, which must fail
+   the bf16 limits. Prints one
    ``kernel_shapes`` line with the per-shape numbers and, at the end, one
    ``kernels`` JSON line.
 4. The retrieval eval at full width: VioletRetrieval at
@@ -93,7 +98,26 @@ before the final line, if any phase failed:
    step held to ``TRAIN_VIOLET_LAUNCHES``.
 13. Whole violet train step: phase 7 for the run of phase 12 (swin depths
    (2, 2, 2, 2) at the violet widths).
-14. The last line is ``{"ok": true, "device": {...}}``.
+14. The multiple-choice QA fine-tune step at full width: VioletQAMC at
+   configs/msrvtt-mc.json (Swin-base on 5 frames of 224^2, 8 questions of 5
+   options of 100 text tokens, so the 12-layer BERT-base fusion runs 40 rows
+   of 350 tokens on the tiled self-attention), seeded random weights, bf16,
+   the ``ce`` step of ``make_supervised_train_step`` with the package's
+   ``build_optimizer``. One warm-up step, then ``TRAIN_STEPS`` timed steps:
+   questions/s (batch / step seconds) median and range, peak device memory,
+   every loss finite; the launches of the first timed step held to
+   ``TRAIN_QAMC_LAUNCHES`` (12 + 12 tiled launches, no lane
+   self-attention); every parameter with a gradient changed (the score
+   head's output bias may instead have an all-zero gradient).
+15. Whole multiple-choice step: a depth-cut copy (swin depths (2, 2, 2, 2),
+   2 fusion layers, batch 2, every rate 0) at full widths and L = 350, card
+   fp32 against CPU fp32, as phase 7; the score head's output bias, whose
+   gradient is zero in exact arithmetic, is held to ``ZERO_GRAD_ATOL`` on
+   each side.
+16. The multiple-choice eval: ``make_eval_step`` on the trained model of
+   phase 14 over ``QAMC_EVAL_BATCHES`` seeded batches, ``qamc_accuracy``;
+   each batch launches ``EVAL_QAMC_LAUNCHES``.
+17. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -101,6 +125,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import shutil
 import subprocess
 import time
 from pathlib import Path
@@ -113,18 +138,21 @@ from empirical_mvm_torch.core.config import SwinConfig, load_run_config
 from empirical_mvm_torch.data.masking import draw_masks
 from empirical_mvm_torch.models.encoders2d import swin2d_config
 from empirical_mvm_torch.models.pretrain import VioletPretrain, draw_negatives
-from empirical_mvm_torch.models.tasks import VioletRetrieval
+from empirical_mvm_torch.models.tasks import VioletQAMC, VioletRetrieval
 from empirical_mvm_torch.models.video_swin import _shift_attn_mask, get_window_size
 from empirical_mvm_torch.ops import _build
 from empirical_mvm_torch.ops import layernorm as ln
 from empirical_mvm_torch.ops import window_attention as wa
-from empirical_mvm_torch.train.evaluators import retrieval_two_stage_eval
-from empirical_mvm_torch.train.optimizer import AdamW
-from empirical_mvm_torch.train.train_step import create_train_state, make_pretrain_train_step
+from empirical_mvm_torch.train.evaluators import qamc_accuracy, retrieval_two_stage_eval
+from empirical_mvm_torch.train.optimizer import build_optimizer
+from empirical_mvm_torch.train.train_step import (create_train_state, make_eval_step,
+                                                  make_pretrain_train_step,
+                                                  make_supervised_train_step)
 
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs" / "msrvtt-retrieval.json"
 PRETRAIN_CONFIG = REPO / "configs" / "pretrain.json"
+QAMC_CONFIG = REPO / "configs" / "msrvtt-mc.json"
 
 # Main-path sizes of phase 4: one stage-1 encode batch of ITEMS captions with
 # CLIPS clips each, and stage-2 chunks of CHUNK (text, video) pairs.
@@ -181,6 +209,20 @@ TRAIN_VIOLET_LAUNCHES = {**TRAIN_LAUNCHES, "direct_window_attention": 20,
                          "direct_window_attention_bwd": 20, "packed_window_attention": 4,
                          "packed_window_attention_bwd": 4}
 EVAL_KERNELS = ("fused_layer_norm", "direct_window_attention", "lane_self_attention")
+# The multiple-choice fine-tune step of configs/msrvtt-mc.json (phase 14):
+# batch 8 questions of 5 options over 5 frames of 224^2, so the fusion runs
+# 40 rows of L = 5 * 50 + 100 = 350 tokens, which lane_sa_attention_fits
+# refuses: its 12 layers take the tiled self-attention (row 11) forward with
+# dropout and backward, and no lane_self_attention. LayerNorm: 24 fusion
+# sites, EncVideo and the text embeddings; the swin's 24 blocks the direct
+# kernels (N = 245). The eval (phase 16) runs the forwards of one step.
+QAMC_B, QAMC_O, QAMC_L = 8, 5, 350
+TRAIN_QAMC_LAUNCHES = {"fused_layer_norm": 26, "fused_layer_norm_bwd": 26,
+                       "direct_window_attention": 24, "direct_window_attention_bwd": 24,
+                       "packed_self_attention": 12, "packed_self_attention_bwd": 12}
+EVAL_QAMC_LAUNCHES = {"fused_layer_norm": 26, "direct_window_attention": 24,
+                      "packed_self_attention": 12}
+QAMC_EVAL_BATCHES = 4
 
 # Limits. A tolerance is dict(atol=..., rtol=..., scale=...): an element may
 # differ by atol + rtol * |reference| + scale * max|reference|. Gradients
@@ -245,6 +287,23 @@ BF16_LIMITS = {
 for _lim in (FP32_LIMITS, BF16_LIMITS):
     _lim["attention_bwd_qkv"] = {**{g: _lim["attention_bwd"]["dx3"] for g in ("dq", "dk", "dv")},
                                  "dbias": _lim["attention_bwd"]["dbias"]}
+    # the tiled self-attention's backward: dqkv (packed) or dq, dk, dv
+    # (split), no bias, each held as the backward's dx3
+    _lim["sa_bwd"] = {"dqkv": _lim["attention_bwd"]["dx3"]}
+    _lim["sa_bwd_qkv"] = {g: _lim["attention_bwd"]["dx3"] for g in ("dq", "dk", "dv")}
+# the tiled self-attention's forward ("sa"): as attention, but against plain
+# bf16 one bf16 step plus 1e-3 of the output's scale, the backward's term for
+# an inner rounding that falls the other way. Some fp32 probabilities of
+# the plain softmax and of the kernel's exp(s - max) / sum differ in their
+# last bit (the exp and the division are not torch's); a
+# p that then rounds the other way in bf16 moves an output that cancels to
+# near 0 by ulp(p) |v|, above one bf16 step of that output (at N = 577,
+# tests/test_torch_self_attention.py holds the kernel's arithmetic, emulated,
+# to this limit). A dropped rounding still moves far more than
+# BF16_MISMATCH of the elements.
+FP32_LIMITS["sa"] = FP32_LIMITS["attention"]
+BF16_LIMITS["sa"] = {"out": (BF16_VS_FP32["attention"],
+                             dict(atol=1e-5, rtol=2.0 ** -7, scale=1e-3), BF16_MISMATCH)}
 OUTPUTS = {kind: tuple(lim) for kind, lim in FP32_LIMITS.items()}
 # dropout keep fraction: 1 - p within 5 binomial standard deviations
 KEEP_SIGMAS = 5.0
@@ -254,6 +313,13 @@ KEEP_SIGMAS = 5.0
 # fusion layers and the heads; the floor covers gradients that are zero in
 # exact arithmetic, such as the key biases under the shift-invariant softmax)
 WHOLE_STEP_TOL = dict(loss_rtol=1e-4, grad_scale=2e-3, grad_global=1e-6)
+# The multiple-choice score head's output bias adds the same value to every
+# option, so the cross entropy over the options gives it a gradient of 0 in
+# exact arithmetic; each side's reads as fp32 roundoff of sums of 10 rows of
+# O(1) (about 1e-7 on an H100), held to this bound rather than to the
+# other side's roundoff, which the floor of WHOLE_STEP_TOL (1e-6 of a largest
+# gradient of 0.12) does not cover.
+ZERO_GRAD_ATOL = 1e-6
 
 # H100 SXM peaks (NVIDIA data sheet; at the full 700 W power limit)
 HBM_BYTES_S = 3.35e12
@@ -301,6 +367,20 @@ KERNELS = {
     "fused_window_attention_bwd": dict(
         source="empirical_mvm_torch/csrc/packed_window_attention.cu",
         replaces="empirical_mvm_tpu/ops/window_attention.py:259"),
+    # row 11: both entries run `_sa_call`'s two pallas_calls (`_sa_kernel`
+    # :460, `_sa_bwd_kernel` :483)
+    "packed_self_attention": dict(
+        source="empirical_mvm_torch/csrc/self_attention_tiled.cu",
+        replaces="empirical_mvm_tpu/ops/window_attention.py:593"),
+    "packed_self_attention_bwd": dict(
+        source="empirical_mvm_torch/csrc/self_attention_tiled.cu",
+        replaces="empirical_mvm_tpu/ops/window_attention.py:607"),
+    "fused_self_attention": dict(
+        source="empirical_mvm_torch/csrc/self_attention_tiled.cu",
+        replaces="empirical_mvm_tpu/ops/window_attention.py:593"),
+    "fused_self_attention_bwd": dict(
+        source="empirical_mvm_torch/csrc/self_attention_tiled.cu",
+        replaces="empirical_mvm_tpu/ops/window_attention.py:607"),
 }
 
 
@@ -371,6 +451,15 @@ def bf16_check(kernel, plain, act, kind):
         if mismatch is not None and readings[f"mismatch_bf16{tag}"] > mismatch:
             failures.append(f"{name} bf16: {readings[f'mismatch_bf16{tag}']:.3g} of the "
                             f"elements differ from plain bf16, above {mismatch}")
+        if "scale" in same:
+            # how much of the limit's scale term is used: the largest excess
+            # over one bf16 step of the element, and the share of elements
+            # above that step
+            over_step = d16 - BF16_SAME_ROUNDING["atol"] - BF16_SAME_ROUNDING["rtol"] * r16.abs()
+            readings.update({f"over_one_step_bf16{tag}": over_step.max().item(),
+                             f"share_over_one_step_bf16{tag}": (over_step > 0).float()
+                             .mean().item()})
+            del over_step
         del d32, d16
     return readings, failures
 
@@ -916,6 +1005,209 @@ def fused_cases(qkv, do, bias, mk, nw, nh, label):
     return [fwd, bwd]
 
 
+# Faults planted in a copy of csrc/ for phase 3 (file, correct text, planted
+# text): the tiled self-attention's rounding of the probabilities before P.V
+# (forward) and of ds before dq (backward).
+PLANTED_TILED = (("self_attention_tiled.cu", "pw[jj] = to_float(from_float<T>(p));",
+                  "pw[jj] = p;"),
+                 ("self_attention_tiled.cu", "ds = to_float(from_float<T>(p * (dp - dd[r])));",
+                  "ds = p * (dp - dd[r]);"))
+
+
+def _span_bytes(t):
+    """The bytes of storage that a view spans: a broadcast axis (stride 0),
+    such as the padding mask's query axis, reads no more."""
+    return (1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))) * t.element_size()
+
+
+def _padding_mask(dev, gen, b, n, text, shortest):
+    """The (B, N, N) view of a (B, 1, N) padding bias that BertEncoder
+    passes: the last ``text`` keys are a caption of ``shortest`` to ``text``
+    tokens, zero-padded."""
+    keep = torch.ones(b, n, device=dev)
+    lens = torch.randint(shortest, text + 1, (b,), device=dev, generator=gen)
+    keep[:, n - text:] = (torch.arange(text, device=dev)[None] < lens[:, None]).float()
+    return ((1.0 - keep) * torch.finfo(torch.float32).min)[:, None, :].expand(b, n, n)
+
+
+def _sa_calls(mask, nh, scale, p_drop, seed, do):
+    """The tiled kernel's forward and backward on qkv, its plain versions,
+    and their SDPA yardsticks (``attn_mask`` = mask[:, None]); the backward
+    kernel runs from the forward's stats, computed once per dtype outside
+    the timed calls."""
+    stats = {}
+
+    def fwd(a):
+        return wa._packed_sa_fwd(a, mask, nh, scale, p_drop, seed)[0]
+
+    def bwd(a):
+        if a.dtype not in stats:
+            stats[a.dtype] = wa._packed_sa_fwd(a, mask, nh, scale, p_drop, seed)[1]
+        return wa._packed_sa_bwd(a, mask, do.to(a.dtype), stats[a.dtype], nh, scale, p_drop,
+                                 seed)
+
+    def fwd_plain(a):
+        return wa.packed_self_attention_plain(a, mask, nh, scale, p_drop, seed)
+
+    def bwd_plain(a):
+        return wa.packed_self_attention_backward_plain(a, mask, do.to(a.dtype), nh, scale,
+                                                       p_drop, seed)
+
+    def sdpa(a, grad):
+        q, k, v = (u.detach().contiguous().requires_grad_(grad) for u in a.chunk(3, dim=1))
+        m = mask[:, None].to(a.dtype)
+        return q, k, v, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                                               dropout_p=p_drop, scale=scale)
+
+    def fwd_library(a):
+        return sdpa(a, False)[-1]
+
+    def bwd_library(a):
+        q, k, v, call = sdpa(a, True)
+        return _grad_call(call(), (q, k, v), do.to(a.dtype))
+
+    return (fwd, fwd_plain, fwd_library), (bwd, bwd_plain, bwd_library)
+
+
+def tiled_sa_cases(dev, gen):
+    """Row 11, the tiled self-attention (``packed_self_attention`` and its
+    backward; ``fused_self_attention``, the same kernel on q, k, v apart):
+    (a) the multiple-choice fusion, 40 rows of 350 tokens (250 video + a
+    question and option of 8 to 100 tokens), 12 heads of 64: forward at p = 0
+    (the eval) and p = 0.1 (the fine-tune step), backward at p = 0.1, and the
+    dropout keep fraction; (b) DPT-Large at 384^2, 8 images of 577 tokens, 16
+    heads, no mask, forward in fp32 (which row 5's shared memory cannot hold)
+    and bf16, backward in bf16; (c) the split entry at (a)'s shape with
+    dropout; (d) N = 129, one key of the last tile. (b)-(d) are on no path of
+    this script (``off_path``). SDPA with ``attn_mask`` = mask[:, None] (and
+    ``dropout_p``) is the yardstick."""
+    recs = []
+    shapes = (("mc fusion", QAMC_B * QAMC_O, 12, QAMC_L, 100, (0.0, P_ATTN)),
+              ("dpt 384", 8, 16, 577, 0, (0.0,)),
+              ("ragged", 16, 12, 129, 32, (P_ATTN,)))
+    for label, b, nh, n, text, rates in shapes:
+        hd = 64
+        qkv = torch.randn(b, 3 * nh, n, hd, device=dev, generator=gen) * 0.5
+        do = _bf16_values(torch.randn(b, nh, n, hd, device=dev, generator=gen))
+        mask = (_padding_mask(dev, gen, b, n, text, 8) if text
+                else torch.zeros(b, n, n, device=dev))
+        scale = hd ** -0.5
+        seed = torch.tensor([20261016, 11], dtype=torch.int32, device=dev)
+        ops = 4 * b * nh * n * n * hd
+        mask_bytes = _span_bytes(mask)
+        on_path = label == "mc fusion"
+        mine = []
+        for p_drop in rates:
+            (fwd, *fwd_rest), (bwd, *bwd_rest) = _sa_calls(mask, nh, scale, p_drop,
+                                                           seed if p_drop else None, do)
+            name = f"{label} qkv=({b},{3 * nh},{n},{hd}) p_drop={p_drop}"
+            works = (torch.float32, torch.bfloat16) if label == "dpt 384" else (torch.bfloat16,)
+            for work in works:
+                item = torch.finfo(work).bits // 8
+                mine.append(measure(
+                    "packed_self_attention", f"{name} {str(work)[6:]}", qkv, fwd, *fwd_rest,
+                    work, "sa", ops, "bf16_tensor" if item == 2 else "fp32",
+                    (qkv.numel() + do.numel()) * item + mask_bytes))
+            if on_path and p_drop:
+                keep = wa.dropout_keep(seed, (b, nh, n, n), p_drop)
+                frac = keep.float().mean().item()
+                sigma = (p_drop * (1 - p_drop) / keep.numel()) ** 0.5
+                del keep
+                mine[-1]["keep_fraction"] = frac
+                if abs(frac - (1 - p_drop)) > KEEP_SIGMAS * sigma:
+                    mine[-1]["failures"].append(f"dropout keep fraction {frac} is not "
+                                                f"{1 - p_drop} +- {KEEP_SIGMAS} sigma")
+            if p_drop or not on_path:
+                mine.append(measure("packed_self_attention_bwd", name, qkv, bwd, *bwd_rest,
+                                    torch.bfloat16, "sa_bwd", 2.5 * ops, "bf16_tensor",
+                                    (2 * qkv.numel() + do.numel()) * 2 + mask_bytes))
+            if on_path and p_drop:
+                mine += split_sa_cases(qkv, do, mask, nh, p_drop, seed, name)
+        for rec in mine:
+            rec.setdefault("off_path", not on_path)
+        recs += mine
+    recs[0]["failures"] += planted_tiled_check(dev, gen)
+    return recs
+
+
+def split_sa_cases(qkv, do, mask, nh, p_drop, seed, label):
+    """``fused_self_attention`` and its backward on q, k, v (B, nH, N, hd)
+    held apart (a (3, B, nH, N, hd) stack unbound) from ``qkv``'s values."""
+    b, _, n, hd = qkv.shape
+    stack = qkv.reshape(b, 3, nh, n, hd).transpose(0, 1).contiguous()
+    scale = hd ** -0.5
+    stats = {}
+
+    def fwd(a):
+        return wa._fused_sa_fwd(*a.unbind(0), mask, scale, p_drop, seed)[0]
+
+    def bwd(a):
+        if a.dtype not in stats:
+            stats[a.dtype] = wa._fused_sa_fwd(*a.unbind(0), mask, scale, p_drop, seed)[1]
+        return wa._fused_sa_bwd(*a.unbind(0), mask, do.to(a.dtype), stats[a.dtype], scale,
+                                p_drop, seed)
+
+    def sdpa(a, grad):
+        q, k, v = (u.detach().requires_grad_(grad) for u in a.unbind(0))
+        m = mask[:, None].to(a.dtype)
+        return q, k, v, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                                               dropout_p=p_drop, scale=scale)
+
+    def bwd_library(a):
+        q, k, v, call = sdpa(a, True)
+        return _grad_call(call(), (q, k, v), do.to(a.dtype))
+
+    ops = 4 * b * nh * n * n * hd
+    label = label.replace("qkv=", "q,k,v=3x").replace(f",{3 * nh},", f",{nh},")
+    fwd_rec = measure("fused_self_attention", label, stack, fwd,
+                      lambda a: wa.fused_self_attention_plain(*a.unbind(0), mask, scale, p_drop,
+                                                              seed),
+                      lambda a: sdpa(a, False)[-1], torch.bfloat16, "sa", ops,
+                      "bf16_tensor", (stack.numel() + do.numel()) * 2 + _span_bytes(mask))
+    bwd_rec = measure("fused_self_attention_bwd", label, stack, bwd,
+                      lambda a: wa.fused_self_attention_backward_plain(
+                          *a.unbind(0), mask, do.to(a.dtype), scale, p_drop, seed),
+                      bwd_library, torch.bfloat16, "sa_bwd_qkv", 2.5 * ops, "bf16_tensor",
+                      (2 * stack.numel() + do.numel()) * 2 + _span_bytes(mask))
+    for rec in (fwd_rec, bwd_rec):
+        rec["off_path"] = True
+    return [fwd_rec, bwd_rec]
+
+
+def planted_tiled_check(dev, gen):
+    """Build a copy of csrc/ with ``PLANTED_TILED`` and hold its tiled
+    forward and backward, at the multiple-choice shape in small (8 rows of
+    350, p = 0.1), to the bf16 limits: each must fail them. Returns the
+    faults that passed."""
+    src = _build.BUILD_DIR / "planted_csrc"
+    shutil.rmtree(src, ignore_errors=True)
+    shutil.copytree(_build.CSRC, src)
+    for name, good, bad in PLANTED_TILED:
+        text = (src / name).read_text()
+        require(text.count(good) == 1, f"planted fault: {good!r} is not in {name} once")
+        (src / name).write_text(text.replace(good, bad))
+    t0 = time.perf_counter()
+    planted = _build.load(_build.build(csrc=src))
+    build_s = time.perf_counter() - t0
+    b, nh, n, hd = 8, 12, QAMC_L, 64
+    qkv = torch.randn(b, 3 * nh, n, hd, device=dev, generator=gen) * 0.5
+    do = _bf16_values(torch.randn(b, nh, n, hd, device=dev, generator=gen))
+    seed = torch.tensor([78, 2], dtype=torch.int32, device=dev)
+    (fwd, fwd_plain, _), (bwd, bwd_plain, _) = _sa_calls(
+        _padding_mask(dev, gen, b, n, 100, 8), nh, hd ** -0.5, P_ATTN, seed, do)
+    real = _build.library()
+    _build._lib = planted
+    try:
+        caught = {"forward p not rounded": bf16_check(fwd, fwd_plain, qkv, "sa"),
+                  "backward ds not rounded": bf16_check(bwd, bwd_plain, qkv, "sa_bwd")}
+    finally:
+        _build._lib = real
+    print(json.dumps({"planted_tiled_faults": {k: dict(readings=r, failures=f)
+                                               for k, (r, f) in caught.items()},
+                      "build_s": build_s}), flush=True)
+    return [f"planted fault passes the bf16 limits: {k}" for k, (_, f) in caught.items() if not f]
+
+
 def ln_bwd_cases(dev, gen):
     """The LayerNorm backward at the four sites of the train step."""
     recs = []
@@ -988,13 +1280,6 @@ def synthetic_pretrain_batch(b, cfg, seed, device):
             "mask": torch.from_numpy((txt > 0).astype(np.int32)).to(device)}
 
 
-def build_optimizer(model, run):
-    t = run.train
-    return AdamW(model, t.lr, TRAIN_MAX_ITER, weight_decay=t.decay, betas=t.betas,
-                 warmup_ratio=t.warmup_ratio, min_lr=t.min_lr, max_grad_norm=t.max_grad_norm,
-                 backbone_lr_mul=t.vis_backbone_lr_mul)
-
-
 def with_mvm_target(run, target):
     """``run`` with ``train.mvm_target`` replaced, as bench.py builds the
     2d_feature model from configs/pretrain.json."""
@@ -1038,7 +1323,7 @@ def train_phase(dev, run, want_launches):
     b = run.train.size_batch
     model = VioletPretrain.from_run_config(run, dtype=torch.bfloat16, device=dev,
                                            seed=TRAIN_SEED)
-    opt = build_optimizer(model, run)
+    opt = build_optimizer(model, run.train, TRAIN_MAX_ITER)
     state = create_train_state(model, opt)
     step = make_pretrain_train_step(model, opt)
     batch = synthetic_pretrain_batch(b, cfg, seed=3, device=dev)
@@ -1136,7 +1421,7 @@ def whole_step_phase(dev, run):
         model.fc[0].p = 0.0                 # the score heads' dropout, fixed at 0.1
         if hasattr(model, "fc_mvm"):
             model.fc_mvm[0].p = 0.0
-        opt = build_optimizer(model, run)
+        opt = build_optimizer(model, run.train, TRAIN_MAX_ITER)
         step = make_pretrain_train_step(model, opt)
         on_dev = {k: (type(v)(*(t.to(device) for t in v)) if k == "draws" else v.to(device))
                   for k, v in batch.items()}
@@ -1145,14 +1430,37 @@ def whole_step_phase(dev, run):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         secs[name] = time.perf_counter() - t0
-        results[name] = ({k: v.item() for k, v in ls.items()},
-                         {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-                          .detach().float().cpu() for n, p in model.named_parameters()})
+        results[name] = _step_results(model, ls)
+    hold_card_against_cpu(results, secs, {
+        "vis_backbone": cut.vis_backbone, "vis_backbone_size": cut.vis_backbone_size,
+        "mvm_target": list(run.train.mvm_target), "swin_depths": list(cut.swin.depths),
+        "fusion_layers": cut.fusion.num_hidden_layers, "batch": b})
+
+
+def _step_results(model, ls):
+    """A step's losses and every parameter's gradient (zeros where None), on
+    the CPU."""
+    return ({k: v.item() for k, v in ls.items()},
+            {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().float().cpu()
+             for n, p in model.named_parameters()})
+
+
+def hold_card_against_cpu(results, secs, info, zero=()):
+    """Hold the card's step (``results["card"]``: losses, gradients) to the
+    CPU's with ``WHOLE_STEP_TOL``; print the differences. The parameters in
+    ``zero`` have gradients that are zero in exact arithmetic: each side's
+    is held to ``ZERO_GRAD_ATOL`` instead of to the other's roundoff."""
     (ls_c, g_c), (ls_r, g_r) = results["card"], results["cpu"]
     tol = WHOLE_STEP_TOL
     g_all = max(g.abs().max().item() for g in g_r.values())
     worst, fails = [], []
+    for n in zero:
+        got = max(g_c[n].abs().max().item(), g_r[n].abs().max().item())
+        if got > ZERO_GRAD_ATOL:
+            fails.append(f"{n}: gradient {got:.3g}, zero in exact arithmetic")
     for n, g in g_r.items():
+        if n in zero:
+            continue
         d = (g_c[n] - g).abs().max().item()
         bound = tol["grad_scale"] * g.abs().max().item() + tol["grad_global"] * g_all
         worst.append((d / bound, n, d))
@@ -1164,14 +1472,172 @@ def whole_step_phase(dev, run):
             fails.append(f"loss {k}: card {ls_c[k]} cpu {ls_r[k]}")
     worst.sort(reverse=True)
     print(json.dumps({"whole_step_vs_cpu": {
-        "vis_backbone": cut.vis_backbone, "vis_backbone_size": cut.vis_backbone_size,
-        "mvm_target": list(run.train.mvm_target),
-        "swin_depths": list(cut.swin.depths), "fusion_layers": cut.fusion.num_hidden_layers,
-        "batch": b, "losses_card": ls_c, "losses_cpu": ls_r, "loss_abs_diff": loss_diff,
+        **info, "losses_card": ls_c, "losses_cpu": ls_r, "loss_abs_diff": loss_diff,
         "grad_global_max": g_all, "params": len(g_r), "step_s": secs,
         "worst_grads": [dict(param=n, max_abs_diff=d, fraction_of_limit=r)
                         for r, n, d in worst[:8]]}}), flush=True)
     require(not fails, "whole train step, card against CPU:\n" + "\n".join(fails))
+
+
+# ---------------------------------------------------------------------------
+# phases 14-16: the multiple-choice QA fine-tune step and eval
+# ---------------------------------------------------------------------------
+
+def synthetic_qamc_batch(b, cfg, seed, device):
+    """``b`` seeded uint8 clips, each with ``size_option`` rows of a question
+    and an option of 8 to size_txt tokens ([CLS] ... [SEP], zero-padded),
+    their padding mask, and a seeded answer per clip."""
+    rs = np.random.RandomState(seed)
+    o, x = cfg.size_option, cfg.size_txt
+    txt = np.zeros((b, o, x), np.int32)
+    for row in txt.reshape(b * o, x):
+        n = rs.randint(8, x + 1)
+        row[:n] = rs.randint(1000, cfg.text.vocab_size, n)
+        row[0], row[n - 1] = 101, 102
+    img = rs.randint(0, 256, (b, cfg.size_frame, cfg.size_img, cfg.size_img, 3))
+    return {"img": torch.from_numpy(img.astype(np.uint8)).to(device),
+            "txt": torch.from_numpy(txt).to(device),
+            "mask": torch.from_numpy((txt > 0).astype(np.int32)).to(device),
+            "ans": torch.from_numpy(rs.randint(0, o, b)).to(device)}
+
+
+# the score head's output bias: shared by the options, so its gradient under
+# the cross entropy over them is zero in exact arithmetic (as VTM_OUT_BIAS)
+QAMC_OUT_BIAS = "fc.3.bias"
+
+
+def qamc_train_phase(dev, run):
+    """Phase 14: the multiple-choice fine-tune step at full width. Returns
+    its launch counts (held to ``TRAIN_QAMC_LAUNCHES``) and the trained
+    model, which phase 16 evaluates."""
+    cfg = run.model
+    b = run.train.size_batch
+    model = VioletQAMC(cfg, dtype=torch.bfloat16, device=dev, seed=TRAIN_SEED)
+    opt = build_optimizer(model, run.train, TRAIN_MAX_ITER)
+    state = create_train_state(model, opt)
+    step = make_supervised_train_step(model, opt, "ce")
+    batch = synthetic_qamc_batch(b, cfg, seed=6, device=dev)
+    before = {n: p.detach().clone() for n, p in state.params.items()}
+    t0 = time.perf_counter()
+    state, ls = step(state, batch, TRAIN_SEED)             # warm-up: first launches, cuBLAS
+    torch.cuda.synchronize(dev)
+    warm_s = time.perf_counter() - t0
+    losses = [ls["total"].item()]
+    torch.cuda.reset_peak_memory_stats(dev)
+    secs, launches = [], {}
+    for i in range(TRAIN_STEPS):
+        if i == 0:
+            _build.launch_counts.clear()
+        t0 = time.perf_counter()
+        state, ls = step(state, batch, TRAIN_SEED)
+        torch.cuda.synchronize(dev)
+        secs.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = dict(_build.launch_counts)
+        losses.append(ls["total"].item())
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    qps = [b / t for t in secs]
+    print(f"qamc train-step launch counts: {launches}", flush=True)
+    print(json.dumps({
+        "slice": "qamc_train_step", "config": QAMC_CONFIG.name, "dtype": "bfloat16",
+        "batch": b, "options": cfg.size_option, "frames": cfg.size_frame,
+        "size_img": cfg.size_img, "size_txt": cfg.size_txt, "fusion_rows": b * cfg.size_option,
+        "fusion_tokens": cfg.size_frame * cfg.tokens_per_frame + cfg.size_txt,
+        "steps": TRAIN_STEPS, "warmup_step_s": warm_s,
+        "questions_per_s": float(np.median(qps)), "questions_per_s_range": [min(qps), max(qps)],
+        "step_ms_median": float(np.median(secs)) * 1e3, "step_s_each": secs,
+        "peak_mem_gib": peak, "losses_each_step": losses}), flush=True)
+    require(launches == TRAIN_QAMC_LAUNCHES,
+            f"launches of one qamc train step {launches}, not {TRAIN_QAMC_LAUNCHES}")
+    require(all(np.isfinite(v) for v in losses), f"non-finite loss: {losses}")
+    no_grad = {n for n, p in state.params.items() if p.grad is None}
+    require(no_grad == {"enc_img.emb_odr"}, f"parameters without a gradient: {sorted(no_grad)}")
+    zero = {n for n, p in state.params.items() if n not in no_grad and not p.grad.any()}
+    print(f"parameters whose last gradient is exactly 0: {sorted(zero)}", flush=True)
+    require(zero <= {QAMC_OUT_BIAS}, f"all-zero last gradients: {sorted(zero - {QAMC_OUT_BIAS})}")
+    unchanged = [n for n, p in state.params.items()
+                 if n not in no_grad | zero and torch.equal(before[n], p.detach())]
+    require(not unchanged, f"parameters unchanged after {TRAIN_STEPS + 1} steps: {unchanged}")
+    return launches, model
+
+
+def qamc_whole_step_phase(dev, run):
+    """Phase 15: one multiple-choice step of a depth-cut copy (swin depths
+    (2, 2, 2, 2), 2 fusion layers, batch 2, every rate 0) at full widths and
+    L = 350, so the fusion still takes the tiled kernel: card fp32 against
+    CPU fp32."""
+    cfg = run.model
+    cut = dataclasses.replace(
+        cfg, swin_custom=dataclasses.replace(cfg.swin, depths=(2, 2, 2, 2), drop_path_rate=0.0),
+        fusion=dataclasses.replace(cfg.fusion, num_hidden_layers=2, hidden_dropout_prob=0.0,
+                                   attention_probs_dropout_prob=0.0),
+        text=dataclasses.replace(cfg.text, hidden_dropout_prob=0.0))
+    b = 2
+    fused = cut.size_frame * cut.tokens_per_frame + cut.size_txt
+    require(not wa.lane_sa_attention_fits(b * cut.size_option, fused, cut.hidden_size,
+                                          cut.fusion.num_attention_heads),
+            f"the cut multiple-choice fusion over {fused} tokens would take the lane kernel")
+    batch = synthetic_qamc_batch(b, cut, seed=7, device="cpu")
+    card = VioletQAMC(cut, dtype=torch.float32, device=dev, seed=1)
+    cpu = VioletQAMC(cut, dtype=torch.float32, device="cpu", seed=1)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    results, secs = {}, {}
+    _build.launch_counts.clear()
+    for name, model, device in (("card", card, dev), ("cpu", cpu, torch.device("cpu"))):
+        model.fc[0].p = 0.0                 # the score head's dropout, fixed at 0.1
+        opt = build_optimizer(model, run.train, TRAIN_MAX_ITER)
+        step = make_supervised_train_step(model, opt, "ce")
+        t0 = time.perf_counter()
+        _, ls = step(create_train_state(model, opt), {k: v.to(device) for k, v in batch.items()},
+                     0)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        secs[name] = time.perf_counter() - t0
+        results[name] = _step_results(model, ls)
+    require(_build.launch_counts["packed_self_attention_bwd"] == 2,
+            f"the cut card step's launches: {dict(_build.launch_counts)}")
+    hold_card_against_cpu(results, secs, {
+        "slice": "qamc", "swin_depths": list(cut.swin.depths),
+        "fusion_layers": cut.fusion.num_hidden_layers, "batch": b,
+        "fusion_rows": b * cut.size_option, "fusion_tokens": fused,
+        "zero_in_exact_arithmetic": {QAMC_OUT_BIAS: [results[k][1][QAMC_OUT_BIAS].abs().max()
+                                                     .item() for k in ("card", "cpu")]}},
+        zero=(QAMC_OUT_BIAS,))
+
+
+def qamc_eval_phase(dev, model, run):
+    """Phase 16: ``make_eval_step`` on ``QAMC_EVAL_BATCHES`` seeded batches
+    (one warm-up batch first) and ``qamc_accuracy`` over them, as cli/qa.py
+    scores a split; each batch launches ``EVAL_QAMC_LAUNCHES``."""
+    cfg = run.model
+    b = run.train.size_batch
+    eval_step = make_eval_step(model)
+    batches = [synthetic_qamc_batch(b, cfg, seed=20 + i, device=dev)
+               for i in range(QAMC_EVAL_BATCHES + 1)]
+    eval_step(batches[0])
+    torch.cuda.synchronize(dev)
+    _build.launch_counts.clear()
+    accs, secs = [], []
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        logits = eval_step(batch)
+        torch.cuda.synchronize(dev)
+        secs.append(time.perf_counter() - t0)
+        require(logits.shape == (b, cfg.size_option) and torch.isfinite(logits).all(),
+                f"eval logits {tuple(logits.shape)}, finite: {torch.isfinite(logits).all()}")
+        accs.append(qamc_accuracy(logits.float().cpu().numpy(), batch["ans"].cpu().numpy()))
+    launches = dict(_build.launch_counts)
+    want = {k: v * QAMC_EVAL_BATCHES for k, v in EVAL_QAMC_LAUNCHES.items()}
+    accuracy = float(np.mean(accs))
+    qps = [b / t for t in secs]
+    print(json.dumps({
+        "slice": "qamc_eval", "config": QAMC_CONFIG.name, "dtype": "bfloat16", "batch": b,
+        "batches": QAMC_EVAL_BATCHES, "accuracy": accuracy, "accuracy_each": accs,
+        "questions_per_s": float(np.median(qps)), "questions_per_s_range": [min(qps), max(qps)],
+        "launches": launches}), flush=True)
+    require(launches == want, f"launches of {QAMC_EVAL_BATCHES} qamc evals {launches}, not {want}")
+    require(0.0 <= accuracy <= 1.0, f"accuracy {accuracy}")
+    return {k: v // QAMC_EVAL_BATCHES for k, v in launches.items()}
 
 
 def _shared_bwd_calls(dev, gen):
@@ -1232,6 +1698,39 @@ def compare_builds(base_csrc: Path) -> None:
     require(not differ, f"outputs differ from the base build: {differ}")
 
 
+def kernels_line(recs, runs):
+    """The ``kernels`` line: per kernel, times summed over its main-path
+    shapes (one call of each; the records marked off_path are left out of
+    the sums, unless the kernel has no other, as the split entries), the
+    largest errors over every shape checked, and ``launches``: those of the
+    first run in ``runs`` (name -> launch counts of one step or call, in
+    order: the 2d_feature step, the pixel step, the swin2d step, the violet
+    step, the multiple-choice step, one eval) that launched the kernel,
+    each run's beside it as ``launches_<name>``."""
+    line = []
+    for name, meta in KERNELS.items():
+        checked = [r for r in recs if r["kernel"] == name]
+        mine = [r for r in checked if not r.get("off_path")] or checked
+        tot = {k: sum(r[k] for r in mine) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        ops_bound = sum(r["bound_ms"] for r in mine if r["bound_by"] == "operations")
+        bf16 = {k: max(r[k] for r in checked if k in r) for k in checked[0]
+                if k.startswith(("max_abs_err_bf16", "mismatch_bf16", "over_one_step_bf16",
+                                 "share_over_one_step_bf16"))}
+        # the window kernels: each shape weighted by its blocks in a step
+        step = {f"{k}_step": sum(r[k] * r["launches_per_step"] for r in mine)
+                for k in tot} if "launches_per_step" in mine[0] else {}
+        line.append({"name": name, "route": "cuda", **meta,
+                     "launches": next((n[name] for n in runs.values() if n.get(name)), 0),
+                     **{f"launches_{run}": n.get(name, 0) for run, n in runs.items()},
+                     "max_abs_err": max(r["max_abs_err"] for r in checked), **bf16,
+                     "ms": tot["ms"], "kernel_ms": tot["ms"], "plain_ms": tot["plain_ms"],
+                     "bound_ms": tot["bound_ms"],
+                     "bound_by": "operations" if ops_bound > tot["bound_ms"] / 2 else "bytes",
+                     "library_ms": tot["library_ms"], **step, "shapes": len(mine),
+                     "shapes_checked": len(checked)})
+    return line
+
+
 def _nvidia_smi() -> str:
     """The card's name and power limit as nvidia-smi gives them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1281,7 +1780,8 @@ def main() -> None:
             + lane_window_bwd_cases(dev, gen) + packed_cases(dev, gen)
             + direct_cases(dev, gen, TRAIN_B, TRAIN_T, "violet train", SwinConfig.violet(),
                            (2, 3))
-            + direct_bwd_cases(dev, gen, "violet ", SwinConfig.violet(), (2, 3)))
+            + direct_bwd_cases(dev, gen, "violet ", SwinConfig.violet(), (2, 3))
+            + tiled_sa_cases(dev, gen))
     failures = [f for r in recs for f in r.pop("failures")]
     print(json.dumps({"kernel_shapes": recs}), flush=True)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s; "
@@ -1399,41 +1899,30 @@ def main() -> None:
 
     # 13. the whole violet train step, card fp32 against CPU fp32
     whole_step_phase(dev, run_violet)
+    torch.cuda.empty_cache()
+
+    # 14. the multiple-choice QA fine-tune step at full width (msrvtt-mc):
+    # the fusion over 40 rows of 350 tokens on the tiled self-attention
+    run_qamc = load_run_config(str(QAMC_CONFIG))
+    train_qamc_launches, qamc_model = qamc_train_phase(dev, run_qamc)
+    torch.cuda.empty_cache()
+
+    # 15. the whole multiple-choice step, card fp32 against CPU fp32
+    qamc_whole_step_phase(dev, run_qamc)
+    torch.cuda.empty_cache()
+
+    # 16. the multiple-choice eval on the trained model
+    eval_qamc_launches = qamc_eval_phase(dev, qamc_model, run_qamc)
+    del qamc_model
+    torch.cuda.empty_cache()
 
     require(not failures, "kernel checks failed:\n" + "\n".join(failures))
 
-    # kernels line: per kernel, times summed over its main-path shapes (one
-    # call of each; the records marked off_path are left out of the sums),
-    # the largest errors over every shape checked, and the launches of one
-    # train step (the 2d_feature step's, else the pixel step's, else the
-    # swin2d step's, else the violet step's, else one eval's)
-    line = []
-    for name, meta in KERNELS.items():
-        checked = [r for r in recs if r["kernel"] == name]
-        mine = [r for r in checked if not r.get("off_path")]
-        tot = {k: sum(r[k] for r in mine) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        ops_bound = sum(r["bound_ms"] for r in mine if r["bound_by"] == "operations")
-        bf16 = {k: max(r[k] for r in checked) for k in checked[0]
-                if k.startswith(("max_abs_err_bf16", "mismatch_bf16"))}
-        # the window kernels: each shape weighted by its blocks in a step
-        step = {f"{k}_step": sum(r[k] * r["launches_per_step"] for r in mine)
-                for k in tot} if "launches_per_step" in mine[0] else {}
-        line.append({"name": name, "route": "cuda", **meta,
-                     "launches": (train_2d_launches.get(name) or train_launches.get(name)
-                                  or train_swin2d_launches.get(name)
-                                  or train_violet_launches.get(name)
-                                  or eval_launches.get(name, 0)),
-                     "launches_train_step_2d_feature": train_2d_launches.get(name, 0),
-                     "launches_train_step_swin2d": train_swin2d_launches.get(name, 0),
-                     "launches_train_step_violet": train_violet_launches.get(name, 0),
-                     "launches_train_step": train_launches.get(name, 0),
-                     "launches_eval": eval_launches.get(name, 0),
-                     "max_abs_err": max(r["max_abs_err"] for r in checked), **bf16,
-                     "ms": tot["ms"], "kernel_ms": tot["ms"], "plain_ms": tot["plain_ms"],
-                     "bound_ms": tot["bound_ms"],
-                     "bound_by": "operations" if ops_bound > tot["bound_ms"] / 2 else "bytes",
-                     "library_ms": tot["library_ms"], **step, "shapes": len(mine),
-                     "shapes_checked": len(checked)})
+    line = kernels_line(recs, {
+        "train_step_2d_feature": train_2d_launches, "train_step": train_launches,
+        "train_step_swin2d": train_swin2d_launches, "train_step_violet": train_violet_launches,
+        "train_step_qamc": train_qamc_launches, "eval": eval_launches,
+        "eval_qamc": eval_qamc_launches})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -4,8 +4,10 @@ the MLM head (counterpart of ``empirical_mvm_tpu/models/bert.py``).
 Module and parameter names are HF BERT's (``attention.self.query``,
 ``attention.output.LayerNorm``, ``intermediate.dense``,
 ``predictions.transform.dense``, ...), the names of the reference
-checkpoints. Attention runs through :func:`lane_self_attention` on one fused
-qkv product, and every LayerNorm through :func:`fused_layer_norm`.
+checkpoints. Attention runs on one fused qkv product, through
+:func:`lane_self_attention` where :func:`lane_sa_attention_fits` holds and
+through :func:`packed_self_attention` elsewhere (the JAX package's route),
+and every LayerNorm through :func:`fused_layer_norm`.
 
 Training: a generator passed to ``forward`` turns on hidden dropout at the
 JAX package's sites (after the embeddings' LayerNorm, after the attention
@@ -23,7 +25,9 @@ from torch import nn
 from empirical_mvm_torch.core.config import BertConfig
 from empirical_mvm_torch.models.common import Linear, dropout
 from empirical_mvm_torch.ops.layernorm import FusedLayerNorm
-from empirical_mvm_torch.ops.window_attention import lane_self_attention
+from empirical_mvm_torch.ops.window_attention import (lane_sa_attention_fits,
+                                                      lane_self_attention,
+                                                      packed_self_attention)
 
 
 def extended_attention_mask(mask: torch.Tensor,
@@ -91,7 +95,10 @@ class BertSelfAttention(nn.Module):
     """Multi-head self-attention + output projection + residual LayerNorm
     (HF BertAttention; JAX ``BertSelfAttention``). q, k and v keep their own
     parameters and run as one product of the concatenated weights, as
-    bert.py:118-120 of the JAX package does."""
+    bert.py:118-120 of the JAX package does. The attention kernel follows the
+    JAX rule (bert.py:121-150): the lane kernel on the (B, L, 3D) product
+    where :func:`lane_sa_attention_fits`, else the tiled kernel on it
+    transposed once to (B, 3nH, L, hd)."""
 
     def __init__(self, cfg: BertConfig, dtype=torch.float32):
         super().__init__()
@@ -108,10 +115,16 @@ class BertSelfAttention(nn.Module):
         w3 = torch.cat([s.query.weight, s.key.weight, s.value.weight]).to(dt)
         b3 = torch.cat([s.query.bias, s.key.bias, s.value.bias]).to(dt)
         qkv = F.linear(x.to(dt), w3, b3)                         # (B, L, 3D)
-        hd = x.shape[-1] // self.num_heads
-        ctx = lane_self_attention(qkv, mask, self.num_heads, hd ** -0.5,
-                                  self.p_attn if generator is not None else 0.0,
-                                  generator)
+        b, l, d = x.shape
+        nh = self.num_heads
+        hd = d // nh
+        p = self.p_attn if generator is not None else 0.0
+        if lane_sa_attention_fits(b, l, d, nh):
+            ctx = lane_self_attention(qkv, mask, nh, hd ** -0.5, p, generator)
+        else:
+            qkv = qkv.reshape(b, l, 3 * nh, hd).transpose(1, 2).contiguous()
+            ctx = packed_self_attention(qkv, mask, nh, hd ** -0.5, p, generator)
+            ctx = ctx.transpose(1, 2).reshape(b, l, d)
         return self.output(ctx, x, generator)
 
 

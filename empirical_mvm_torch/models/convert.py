@@ -2,7 +2,8 @@
 
 :func:`state_dict_from_flax` is the exact inverse of the JAX package's
 ``models/torch_import.violet_params_from_torch``: it takes the flax param
-tree of a ``VioletRetrieval`` or ``VioletPretrain`` (nested dicts of arrays)
+tree of a ``VioletRetrieval``, ``VioletQAMC`` or ``VioletPretrain`` (nested
+dicts of arrays)
 and returns the reference-named torch ``state_dict`` the port's model of the
 same name loads. Dense kernels (in, out) become Linear weights (out, in); the patch
 kernel (kd, kh, kw, C, E) becomes the Conv3d weight (E, C, kd, kh, kw);
@@ -172,8 +173,8 @@ def enc_img_state_dict(img: Tree, prefix: str = "enc_img.") -> dict:
 
 def state_dict_from_flax(params: Tree, cfg: ModelConfig,
                          heads: Mapping[str, str] | None = None) -> dict:
-    """JAX ``VioletBase``/``VioletRetrieval``/``VioletPretrain`` params ->
-    the port's ``state_dict``, with an ``EncVideo`` or an ``EncImgSwin``
+    """JAX ``VioletBase``/``VioletRetrieval``/``VioletQAMC``/``VioletPretrain``
+    params -> the port's ``state_dict``, with an ``EncVideo`` or an ``EncImgSwin``
     (``vis_backbone="swin2d"``) image encoder. ``heads`` maps head names to kinds as in
     ``violet_params_from_torch``: ``"score_head"`` (``fc``, ``fc_mvm``),
     ``"mlm_head"`` or ``"linear"``. A frozen ``feature_model`` teacher in

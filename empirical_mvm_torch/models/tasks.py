@@ -1,5 +1,6 @@
-"""Retrieval task model, forward only (counterpart of
-``VioletRetrieval`` in ``empirical_mvm_tpu/models/tasks.py``)."""
+"""Downstream task models (counterpart of ``empirical_mvm_tpu/models/tasks.py``):
+``VioletRetrieval``, forward only, and the score-head multiple-choice QA
+model ``VioletQAMC``."""
 
 from __future__ import annotations
 
@@ -61,3 +62,37 @@ class VioletRetrieval(VioletBase):
         first text token (ref: eval_retrieval.py:112-115)."""
         out = self.go_cross(feat_img, mask_img, feat_txt, mask_txt)
         return self.fc(out[:, feat_img.shape[1]])[..., 0]
+
+
+class VioletQAMC(VioletBase):
+    """Score-head multiple choice (ref: main_qamc.py:50-98; JAX
+    ``VioletQAMC``): each (question, option) row is cross-encoded with its
+    video and scored at the first text token. ``txt`` and ``mask`` are (B,
+    O, X); the logits are (B, O).
+
+    Built on ``device`` (the card unless the caller asks for the CPU) with
+    parameters drawn from ``seed``. The JAX gumbel video-token selection
+    (``num_video_tokens > 0``) has no caller in the QA CLI and is not ported.
+    """
+
+    def __init__(self, config: ModelConfig, dtype=torch.float32, device="cuda",
+                 seed: int = 0, num_video_tokens: int = -1):
+        if num_video_tokens > 0:
+            raise NotImplementedError("the gumbel video-token selection of VioletQAMC "
+                                      "(num_video_tokens > 0) is not ported")
+        device = torch.device(device)
+        with device:
+            super().__init__(config, dtype)
+            self.fc = ScoreHead(config.hidden_size, dtype=dtype)
+        init_weights(self, torch.Generator(device).manual_seed(seed))
+
+    def forward(self, img, txt, mask, generator=None):
+        """img (B, T, H, W, 3); txt, mask (B, O, X). A ``generator`` runs the
+        training pass (its dropout and drop-path draws)."""
+        b, o, x = txt.shape
+        cls_pos = _cls_pos(img.shape, self.config.size_patch)
+        fi, mi, ft, mt = self.go_feat(img, txt.reshape(b * o, x), mask.reshape(b * o, x),
+                                      generator)
+        out = self.go_cross(fi.repeat_interleave(o, 0), mi.repeat_interleave(o, 0), ft, mt,
+                            generator)
+        return self.fc(out[:, cls_pos], generator).reshape(b, o)

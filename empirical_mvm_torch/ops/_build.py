@@ -74,6 +74,12 @@ _SIGNATURES = {
          _P), _I),
     "emvm_packed_window_attention_bwd_scratch": ((_LL, _I, _I, _I), _LL),
     "emvm_packed_window_attention_bwd_smem_bytes": ((_I, _I, _I), _SZ),
+    "emvm_tiled_self_attention_fwd": (
+        (_I, _P, _P, _P, _LL, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _F, _P, _U, _F, _P), _I),
+    "emvm_tiled_self_attention_bwd": (
+        (_I, _P, _P, _P, _P, _P, _P, _LL, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P,
+         _U, _F, _P), _I),
+    "emvm_tiled_self_attention_smem_bytes": ((_I, _I, _I), _SZ),
     "emvm_attention_smem_bytes": ((_I, _I, _I), _SZ),
     "emvm_error_string": ((_I,), ctypes.c_char_p),
 }

@@ -25,6 +25,14 @@ kernels the retrieval eval and the pretrain step run:
   of 128), with its gradient to qkv and to the bias.
   :func:`fused_window_attention`, the same kernels on q, k and v held as
   three arrays, replaces the JAX ``fused_window_attention``.
+* :func:`packed_self_attention` (``csrc/self_attention_tiled.cu``) replaces
+  the Pallas ``_sa_kernel`` and ``_sa_bwd_kernel`` as
+  ``packed_self_attention`` runs them: BERT attention with a per-row mask
+  and dropout on q, k, v packed as (B, 3nH, N, hd) head tiles, with K and V
+  streamed in tiles, so any N fits; BERT takes it where
+  :func:`lane_sa_attention_fits` refuses the lane kernel.
+  :func:`fused_self_attention` is the same kernel on q, k and v held as
+  three arrays (the JAX ``fused_self_attention``).
 
 Each is a ``torch.autograd.Function``. A CPU tensor takes the plain versions
 (forward and backward); a CUDA tensor launches the kernels or raises. The
@@ -169,10 +177,11 @@ def _attend(q, k, v, adds, scale, keep=None, inv_keep=1.0):
 
 def _attend_backward(q, k, v, adds, scale, do, keep=None, inv_keep=1.0):
     """Gradients of :func:`_attend` with the JAX backward kernels' algebra and
-    roundings (``_direct_bwd_kernel``, ``_lane_sa_bwd_kernel``): p recomputed
-    in fp32, dv = round(p_drop)^T.do, dp under the keep mask, ds = p * (dp -
-    rowsum(dp * p)), dq = (round(ds).k) * scale (fp32 scale), dk =
-    round(ds)^T.qs. Returns dq, dk, dv in q's dtype and ds in fp32."""
+    roundings (``_direct_bwd_kernel``, ``_lane_sa_bwd_kernel``,
+    ``_sa_bwd_kernel``): p recomputed in fp32, dv = round(p_drop)^T.do, dp
+    under the keep mask, ds = p * (dp - rowsum(dp * p)), dq = (round(ds).k) *
+    scale (fp32 scale), dk = round(ds)^T.qs. Returns dq, dk, dv in q's dtype
+    and ds in fp32."""
     dt = q.dtype
     qs = (q * _scale_in(dt, scale)).float()
     kf, vf, dof = k.float(), v.float(), do.float()
@@ -354,6 +363,10 @@ def _check_lane(x3, mask, n_heads, p_drop, seed):
         raise ValueError(f"last axis {c3} is not (3, {n_heads}, hd)")
     if mask.shape != (b, l, l):
         raise ValueError(f"mask must be {(b, l, l)}, got {tuple(mask.shape)}")
+    _check_drop(p_drop, seed)
+
+
+def _check_drop(p_drop, seed):
     if not 0.0 <= p_drop < 1.0:
         raise ValueError(f"p_drop must be in [0, 1), got {p_drop}")
     if p_drop > 0.0 and (seed is None or seed.shape != (2,) or seed.dtype != torch.int32):
@@ -489,12 +502,17 @@ def lane_self_attention(x3: torch.Tensor, mask: torch.Tensor, n_heads: int,
     Returns:
       (B, L, D) in x3's dtype.
     """
-    seed = None
-    if p_drop > 0.0:
-        if generator is None:
-            raise ValueError("attention dropout needs a generator")
-        seed = draw_dropout_seed(generator)
-    return _LaneSelfAttention.apply(x3, mask, seed, n_heads, scale, float(p_drop))
+    return _LaneSelfAttention.apply(x3, mask, _call_seed(p_drop, generator), n_heads, scale,
+                                    float(p_drop))
+
+
+def _call_seed(p_drop: float, generator: torch.Generator | None) -> torch.Tensor | None:
+    """The (seed, offset) of one attention call with dropout, or None."""
+    if p_drop <= 0.0:
+        return None
+    if generator is None:
+        raise ValueError("attention dropout needs a generator")
+    return draw_dropout_seed(generator)
 
 
 # ---------------------------------------------------------------------------
@@ -886,3 +904,278 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       (B_, nH, N, hd) in q's dtype.
     """
     return _FusedWindowAttention.apply(q, k, v, bias, mask, int(n_windows), float(scale))
+
+
+# ---------------------------------------------------------------------------
+# The BERT route: lane_self_attention where it fits, else the tiled kernel
+# ---------------------------------------------------------------------------
+
+# The JAX package's default VMEM budget for one lane program
+# (``_lane_budget``: ``EMVM_LANE_BUDGET_MB`` unset)
+LANE_BUDGET_BYTES = 10 * 2 ** 20
+
+
+def _lane_sa_bytes(n: int, c: int) -> int:
+    """The JAX ``_lane_bytes(1, n, c, nh, backward=True, with_bias=False)``:
+    one lane self-attention program's VMEM estimate in bf16 (double-buffered
+    x3, do and dx3 blocks, the streamed fp32 mask, four live fp32 (N, N)
+    temporaries, the per-head outputs)."""
+    item = 2
+    inb = 4 * n * c * item * 2
+    outb = n * 3 * c * item * 2
+    maskb = n * n * 4 * 2
+    temps = 4 * n * n * 4
+    acc = 3 * n * c * item
+    return inb + outb + maskb + temps + acc
+
+
+def lane_sa_attention_fits(b: int, l: int, c: int, nh: int) -> bool:
+    """The JAX ``lane_sa_attention_fits``: BERT runs :func:`lane_self_attention`
+    when the width is a multiple of 128 and one lane program's backward fits
+    the JAX budget, else :func:`packed_self_attention`. It reads (b, l, c,
+    nh) only, whatever the dtype, so both packages route a model alike: the
+    fusion over 232 (pretrain) and 275 (retrieval) tokens takes the lane
+    kernel, the multiple-choice fusion over 350 tokens the tiled one."""
+    return c % 128 == 0 and _lane_sa_bytes(l, c) <= LANE_BUDGET_BYTES
+
+
+# ---------------------------------------------------------------------------
+# packed_self_attention and fused_self_attention
+# ---------------------------------------------------------------------------
+
+# hd up to 4 channels a lane (csrc/self_attention_tiled.cu kMaxHd)
+MAX_TILED_HD = 128
+
+
+def _check_sa(b, n, mask, p_drop, seed):
+    if mask.shape != (b, n, n):
+        raise ValueError(f"mask must be {(b, n, n)}, got {tuple(mask.shape)}")
+    _check_drop(p_drop, seed)
+
+
+def _check_packed_sa(qkv, mask, n_heads, p_drop, seed):
+    if qkv.dim() != 4 or qkv.shape[1] != 3 * n_heads:
+        raise ValueError(f"qkv must be (B, 3*{n_heads}, N, hd), got {tuple(qkv.shape)}")
+    _check_sa(qkv.shape[0], qkv.shape[2], mask, p_drop, seed)
+
+
+def _check_fused_sa(q, k, v, mask, p_drop, seed):
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must be (B, nH, N, hd) alike, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    _check_sa(q.shape[0], q.shape[2], mask, p_drop, seed)
+
+
+def _sa_keep(q, p_drop, seed):
+    if p_drop == 0.0:
+        return None
+    b, nh, n, _ = q.shape
+    return dropout_keep(seed, (b, nh, n, n), p_drop)
+
+
+def _sa_attend(q, k, v, mask, scale, p_drop, seed):
+    return _attend(q, k, v, [mask[:, None]], scale, _sa_keep(q, p_drop, seed),
+                   _inv_keep(p_drop))
+
+
+def _sa_attend_backward(q, k, v, mask, do, scale, p_drop, seed):
+    return _attend_backward(q, k, v, [mask[:, None]], scale, do, _sa_keep(q, p_drop, seed),
+                            _inv_keep(p_drop))[:3]
+
+
+def packed_self_attention_plain(qkv, mask, n_heads, scale, p_drop=0.0, seed=None):
+    """Plain version of :func:`packed_self_attention`'s forward; ``seed`` is
+    the (seed, offset) int32 pair the kernel would be given."""
+    _check_packed_sa(qkv, mask, n_heads, p_drop, seed)
+    return _sa_attend(*qkv.chunk(3, dim=1), mask, scale, p_drop, seed)
+
+
+def packed_self_attention_backward_plain(qkv, mask, do, n_heads, scale, p_drop=0.0, seed=None):
+    """Plain backward of :func:`packed_self_attention`: dqkv (B, 3nH, N, hd)
+    in qkv's dtype, regenerating the forward's keep mask."""
+    _check_packed_sa(qkv, mask, n_heads, p_drop, seed)
+    return torch.cat(_sa_attend_backward(*qkv.chunk(3, dim=1), mask, do, scale, p_drop, seed),
+                     dim=1)
+
+
+def fused_self_attention_plain(q, k, v, mask, scale, p_drop=0.0, seed=None):
+    """Plain version of :func:`fused_self_attention`'s forward."""
+    _check_fused_sa(q, k, v, mask, p_drop, seed)
+    return _sa_attend(q, k, v, mask, scale, p_drop, seed)
+
+
+def fused_self_attention_backward_plain(q, k, v, mask, do, scale, p_drop=0.0, seed=None):
+    """Plain backward of :func:`fused_self_attention`: dq, dk, dv in q's
+    dtype."""
+    _check_fused_sa(q, k, v, mask, p_drop, seed)
+    return _sa_attend_backward(q, k, v, mask, do, scale, p_drop, seed)
+
+
+def _sa_lib(q, hd, backward):
+    """Checks common to the tiled kernel's launches; returns the library
+    and the dtype code."""
+    if hd > MAX_TILED_HD:
+        raise ValueError(f"the tiled self-attention takes hd <= {MAX_TILED_HD}, got {hd}")
+    code = _build.dtype_code(q.dtype)
+    lib = _build.library()
+    _build.check_smem(lib.emvm_tiled_self_attention_smem_bytes(code, hd, int(backward)),
+                      f"a head of {hd} channels")
+    return lib, code
+
+
+def _sa_fwd(q, k, v, batch_stride, n_heads, mask, scale, p_drop, seed, name):
+    """Launch the tiled forward on q, k, v bases (views of contiguous
+    storage, rows b ``batch_stride`` elements apart). Returns out (B, nH, N,
+    hd) and the rows' max and sum (B, nH, 2, N) fp32."""
+    (mptr, msb, msr), drop = _lane_args(q, mask, seed, p_drop)
+    b, _, n, hd = q.shape
+    lib, code = _sa_lib(q, hd, False)
+    out = torch.empty((b, n_heads, n, hd), dtype=q.dtype, device=q.device)
+    stats = torch.empty((b, n_heads, 2, n), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        _build.record_launch(lib.emvm_tiled_self_attention_fwd(
+            code, q.data_ptr(), k.data_ptr(), v.data_ptr(), batch_stride, mptr, msb, msr,
+            out.data_ptr(), stats.data_ptr(), b, n, n_heads, hd, _scale_in(q.dtype, scale),
+            *drop, _build.stream_ptr(q.device)), name)
+    return out, stats
+
+
+def _sa_bwd(q, k, v, dq, dk, dv, batch_stride, n_heads, mask, do, stats, scale, p_drop, seed,
+            name):
+    """Launch the tiled backward from the forward's ``stats``; dq, dk, dv
+    are written in the layout of q, k, v."""
+    (mptr, msb, msr), drop = _lane_args(q, mask, seed, p_drop)
+    if _build.check_tensors(do, stats) != q.device:
+        raise ValueError(f"tensors on {do.device} and {q.device}")
+    if do.dtype != q.dtype:
+        raise TypeError(f"do is {do.dtype}, q {q.dtype}")
+    b, _, n, hd = q.shape
+    if do.shape != (b, n_heads, n, hd) or stats.shape != (b, n_heads, 2, n):
+        raise ValueError(f"do and stats must be {(b, n_heads, n, hd)}, {(b, n_heads, 2, n)}, "
+                         f"got {tuple(do.shape)}, {tuple(stats.shape)}")
+    lib, code = _sa_lib(q, hd, True)
+    dsum = torch.empty((b, n_heads, n), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        _build.record_launch(lib.emvm_tiled_self_attention_bwd(
+            code, q.data_ptr(), k.data_ptr(), v.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), batch_stride, mptr, msb, msr, do.data_ptr(), stats.data_ptr(),
+            dsum.data_ptr(), b, n, n_heads, hd, _scale_in(q.dtype, scale), _scale_f32(scale),
+            *drop, _build.stream_ptr(q.device)), name)
+
+
+def _packed_sa_fwd(qkv, mask, n_heads, scale, p_drop, seed):
+    _build.check_tensors(qkv)
+    return _sa_fwd(*qkv.chunk(3, dim=1), qkv[0].numel(), n_heads, mask, scale, p_drop, seed,
+                   "packed_self_attention")
+
+
+def _packed_sa_bwd(qkv, mask, do, stats, n_heads, scale, p_drop, seed):
+    _build.check_tensors(qkv)
+    dqkv = torch.empty_like(qkv)
+    _sa_bwd(*qkv.chunk(3, dim=1), *dqkv.chunk(3, dim=1), qkv[0].numel(), n_heads, mask, do,
+            stats, scale, p_drop, seed, "packed_self_attention_bwd")
+    return dqkv
+
+
+def _fused_sa_fwd(q, k, v, mask, scale, p_drop, seed):
+    _build.check_tensors(q, k, v)
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"q, k, v are {q.dtype}, {k.dtype}, {v.dtype}")
+    return _sa_fwd(q, k, v, q[0].numel(), q.shape[1], mask, scale, p_drop, seed,
+                   "fused_self_attention")
+
+
+def _fused_sa_bwd(q, k, v, mask, do, stats, scale, p_drop, seed):
+    _build.check_tensors(q, k, v)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    _sa_bwd(q, k, v, dq, dk, dv, q[0].numel(), q.shape[1], mask, do, stats, scale, p_drop, seed,
+            "fused_self_attention_bwd")
+    return dq, dk, dv
+
+
+class _PackedSelfAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, mask, seed, n_heads, scale, p_drop):
+        _check_packed_sa(qkv, mask, n_heads, p_drop, seed)
+        ctx.config = (n_heads, scale, p_drop)
+        if qkv.device.type == "cpu":
+            ctx.save_for_backward(qkv, mask, seed)
+            return packed_self_attention_plain(qkv, mask, n_heads, scale, p_drop, seed)
+        out, stats = _packed_sa_fwd(qkv, mask, n_heads, scale, p_drop, seed)
+        ctx.save_for_backward(qkv, mask, seed, stats)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, mask, seed, *stats = ctx.saved_tensors
+        n_heads, scale, p_drop = ctx.config
+        if qkv.device.type == "cpu":
+            dqkv = packed_self_attention_backward_plain(qkv, mask, do, n_heads, scale, p_drop,
+                                                        seed)
+        else:
+            dqkv = _packed_sa_bwd(qkv, mask, do.contiguous(), *stats, n_heads, scale, p_drop,
+                                  seed)
+        return dqkv, None, None, None, None, None
+
+
+def packed_self_attention(qkv: torch.Tensor, mask: torch.Tensor, n_heads: int, scale: float,
+                          p_drop: float = 0.0,
+                          generator: torch.Generator | None = None) -> torch.Tensor:
+    """BERT self-attention on the packed qkv tensor (JAX
+    ``packed_self_attention``), differentiable in qkv, for any sequence
+    length.
+
+    Args:
+      qkv:  (B, 3nH, N, hd), the fused qkv GEMM output (B, N, 3D) reshaped to
+            (B, N, 3nH, hd) and transposed once; axis 1 ordered (3, nH).
+      mask: (B, N, N) fp32 additive bias. It may be a broadcast view (for
+            example a (B, 1, 1, N) padding bias expanded over the query
+            rows); only its key axis must be contiguous. It gets no gradient.
+      p_drop: attention-probability dropout rate; above 0 it needs
+            ``generator``, from which the call draws its (seed, offset).
+    Returns:
+      (B, nH, N, hd) in qkv's dtype.
+    """
+    return _PackedSelfAttention.apply(qkv, mask, _call_seed(p_drop, generator), int(n_heads),
+                                      float(scale), float(p_drop))
+
+
+class _FusedSelfAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, mask, seed, scale, p_drop):
+        _check_fused_sa(q, k, v, mask, p_drop, seed)
+        ctx.config = (scale, p_drop)
+        if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v, mask, seed)
+            return fused_self_attention_plain(q, k, v, mask, scale, p_drop, seed)
+        out, stats = _fused_sa_fwd(q, k, v, mask, scale, p_drop, seed)
+        ctx.save_for_backward(q, k, v, mask, seed, stats)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, mask, seed, *stats = ctx.saved_tensors
+        scale, p_drop = ctx.config
+        if q.device.type == "cpu":
+            grads = fused_self_attention_backward_plain(q, k, v, mask, do, scale, p_drop, seed)
+        else:
+            grads = _fused_sa_bwd(q, k, v, mask, do.contiguous(), *stats, scale, p_drop, seed)
+        return (*grads, None, None, None, None)
+
+
+def fused_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+                         scale: float, p_drop: float = 0.0,
+                         generator: torch.Generator | None = None) -> torch.Tensor:
+    """:func:`packed_self_attention` on q, k and v held as three arrays (JAX
+    ``fused_self_attention``), differentiable in q, k and v; the same kernel
+    on three base pointers.
+
+    Args:
+      q, k, v: (B, nH, N, hd).
+      mask:    (B, N, N) fp32 additive bias (a view with a contiguous key axis
+               will do). It gets no gradient.
+    Returns:
+      (B, nH, N, hd) in q's dtype.
+    """
+    return _FusedSelfAttention.apply(q, k, v, mask, _call_seed(p_drop, generator),
+                                     float(scale), float(p_drop))

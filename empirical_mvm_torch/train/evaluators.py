@@ -1,5 +1,6 @@
-"""Two-stage retrieval evaluation (counterpart of
-``empirical_mvm_tpu/train/evaluators.py:23-145``, single device).
+"""Evaluators (counterpart of ``empirical_mvm_tpu/train/evaluators.py``,
+single device): the two-stage retrieval evaluation and the multiple-choice
+accuracy.
 
 Stage 1 encodes every (caption, video) item; stage 2 cross-scores every
 (caption, video) pair and ranks them into R@1/5/10 and MedR
@@ -27,6 +28,12 @@ def rank_metrics(score_matrix: np.ndarray, gt_idx: Sequence[int]) -> dict:
             "r5": float((ranks <= 5).mean() * 100),
             "r10": float((ranks <= 10).mean() * 100),
             "medr": float(np.median(ranks))}
+
+
+def qamc_accuracy(logits: np.ndarray, answers: np.ndarray) -> float:
+    """Share of questions whose highest-scored option is the answer
+    (ref: main_qamc.py:152-154)."""
+    return float((np.argmax(logits, axis=1) == answers).mean())
 
 
 def _sync(device: torch.device) -> None:

@@ -1,6 +1,7 @@
 """AdamW(0.9, 0.98) with the reference's four parameter groups, warmup-linear
 schedule and global-norm clipping: the update of the JAX package's
 ``build_optimizer`` (``empirical_mvm_tpu/train/optimizer.py``), step for step.
+:func:`build_optimizer` builds it from a run's ``TrainConfig``.
 
 * Groups (ref: agent.py:86-95): {swin, other} by whether "swin" is in the
   parameter's name, x {decay, nodecay}, no decay where the leaf name holds
@@ -17,12 +18,15 @@ schedule and global-norm clipping: the update of the JAX package's
   square root, decoupled weight decay added to the update before the
   learning rate scales it.
 * A fifth label, ``frozen`` (the JAX ``optax.set_to_zero`` group): every
-  parameter with ``requires_grad`` off, which the model sets on its frozen
-  MVM teacher (the JAX package matches the teachers by name, having no
-  such flag). A frozen parameter has no moments and is never changed; the
-  global-norm clip sees only the other parameters' gradients (the teacher
-  runs under no_grad, so its gradients are zero in the JAX step and add
-  nothing to the JAX norm).
+  parameter with ``requires_grad`` off, and the names in ``frozen``. A
+  frozen parameter has no moments and is never changed. The model turns
+  ``requires_grad`` off on its MVM teacher, which then gets no gradient;
+  :func:`build_optimizer` does so for every teacher module that the JAX
+  ``_is_frozen`` names, and passes the parameters under the run's
+  ``freeze`` prefixes as ``frozen``. Those keep their gradients, and the
+  clip counts them: the JAX clip runs before the labels split the tree, so
+  it counts them too (the PyTorch reference computes none; a teacher's
+  gradient, run under no_grad, is zero on both sides).
 
 Parameters and moments are updated in place (``torch._foreach_*`` over each
 group), which saves a copy of both; a trained parameter that received no
@@ -31,16 +35,23 @@ gradient is updated as with a zero gradient, as under ``jax.grad``.
 
 from __future__ import annotations
 
-from typing import Callable
+import re
+from typing import Callable, Iterable
 
 import torch
 from torch import nn
 
+from empirical_mvm_torch.core.config import TrainConfig
 from empirical_mvm_torch.ops.layernorm import LayerNorm
 
 GROUPS = ("swin_decay", "swin_nodecay", "other_decay", "other_nodecay")
 FROZEN = "frozen"
 EPS = 1e-8          # Adam's epsilon in the JAX build_optimizer
+
+# Frozen-teacher modules, excluded from updates wherever they sit in the
+# model (the JAX ``TEACHER_PREFIXES``; ref: main_pretrain.py:515-545 runs the
+# MVM teachers under no_grad).
+TEACHER_PREFIXES = ("feature_model", "dpt", "raft", "dvae", "clip_model")
 
 
 def warmup_linear_factor(max_iter: int, warmup_ratio: float = 0.1) -> Callable[[int], float]:
@@ -63,19 +74,37 @@ def warmup_linear_schedule(base_lr: float, max_iter: int, warmup_ratio: float = 
     return lambda step: max(min_lr, base_lr * factor(step))
 
 
-def group_labels(model: nn.Module) -> dict[str, str]:
+def group_labels(model: nn.Module, frozen: Iterable[str] = ()) -> dict[str, str]:
     """Parameter name -> group, by the rule of ``default_group_fn``, or
-    ``frozen`` where ``requires_grad`` is off."""
+    ``frozen`` where ``requires_grad`` is off or the name is in ``frozen``."""
+    frozen = set(frozen)
     norm_weights = {id(m.weight) for m in model.modules() if isinstance(m, LayerNorm)}
     labels = {}
     for name, p in model.named_parameters():
-        if not p.requires_grad:
+        if not p.requires_grad or name in frozen:
             labels[name] = FROZEN
             continue
         no_decay = "bias" in name.rsplit(".", 1)[-1] or id(p) in norm_weights
         labels[name] = (f"{'swin' if 'swin' in name else 'other'}_"
                         f"{'nodecay' if no_decay else 'decay'}")
     return labels
+
+
+def port_path(prefix: str) -> str:
+    """A JAX tree path (``trsfr.layer_0``, ``enc_img.swin.layers_2``) in the
+    port's parameter names, whose list entries are ``name.i``
+    (``trsfr.layer.0``); the top-level modules keep their names."""
+    return re.sub(r"_(\d+)(?=\.|$)", r".\1", prefix)
+
+
+def _is_frozen(name: str, freeze_prefixes: tuple[str, ...]) -> bool:
+    """The JAX ``_is_frozen``: under a ``freeze`` prefix (path-prefix match),
+    or inside a teacher module anywhere in the model."""
+    for pre in freeze_prefixes:
+        if name == pre or name.startswith(pre + "."):
+            return True
+    return any(name == mod or name.startswith(mod + ".") or f".{mod}." in name
+               for mod in TEACHER_PREFIXES)
 
 
 class AdamW:
@@ -89,8 +118,9 @@ class AdamW:
     def __init__(self, model: nn.Module, lr: float, max_iter: int,
                  weight_decay: float = 1e-3, betas: tuple[float, float] = (0.9, 0.98),
                  warmup_ratio: float = 0.1, min_lr: float = 1e-8,
-                 max_grad_norm: float = 1.0, backbone_lr_mul: float = 1.0):
-        self.labels = group_labels(model)
+                 max_grad_norm: float = 1.0, backbone_lr_mul: float = 1.0,
+                 frozen: Iterable[str] = ()):
+        self.labels = group_labels(model, frozen)
         self.betas, self.max_grad_norm = betas, max_grad_norm
         mul = {"swin": backbone_lr_mul, "other": 1.0}
         self.schedules = {g: warmup_linear_schedule(lr * mul[g.split("_")[0]], max_iter,
@@ -111,7 +141,9 @@ class AdamW:
         g = [grads[n] if grads[n] is not None else torch.zeros_like(params[n])
              for n in names]
         if self.max_grad_norm > 0:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            counted = g + [grads[n] for n in params
+                           if self.labels[n] == FROZEN and grads[n] is not None]
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(counted)))
             factor = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
                                  self.max_grad_norm / norm)
             g = torch._foreach_mul(g, factor)
@@ -140,3 +172,25 @@ class AdamW:
             torch._foreach_add_(p, upd, alpha=-self.schedules[group](count - 1))
         state["count"] = count
         return state
+
+
+def build_optimizer(model: nn.Module, train_cfg: TrainConfig, max_iter: int) -> AdamW:
+    """The JAX ``build_optimizer`` as ``AgentBase`` calls it: the run's lr,
+    decay, betas, schedule, clip and backbone multiplier, and frozen the
+    parameters that ``_is_frozen`` names: the teachers with
+    ``requires_grad_(False)`` on ``model`` itself, the run's ``freeze``
+    prefixes (given as JAX tree paths) by name, their gradients still
+    counted by the clip."""
+    t = train_cfg
+    if t.grad_accum > 1:
+        raise NotImplementedError("grad_accum > 1 (the JAX optax.MultiSteps) is not ported")
+    prefixes = tuple(port_path(p) for p in t.freeze)
+    frozen = []
+    for name, p in model.named_parameters():
+        if _is_frozen(name, ()):
+            p.requires_grad_(False)
+        elif _is_frozen(name, prefixes):
+            frozen.append(name)
+    return AdamW(model, t.lr, max_iter, weight_decay=t.decay, betas=t.betas,
+                 warmup_ratio=t.warmup_ratio, min_lr=t.min_lr, max_grad_norm=t.max_grad_norm,
+                 backbone_lr_mul=t.vis_backbone_lr_mul, frozen=frozen)

@@ -1,6 +1,8 @@
-"""The pretrain train step (counterpart of
-``empirical_mvm_tpu/train/train_step.py``, single device): masking,
-forward, every loss, backward and the AdamW update of one step.
+"""The train steps (counterpart of ``empirical_mvm_tpu/train/train_step.py``
+and of the supervised agents' step in ``train/agent.py``, single device):
+the pretrain step (masking, forward, every loss, backward and the AdamW
+update), the supervised fine-tune step of the downstream heads, and the
+deterministic eval forward.
 
 PyTorch runs eagerly, so the step is a plain function over a
 :class:`TrainState`. Its parameters are the model's own and are updated in
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from empirical_mvm_torch.train.losses import cross_entropy_ignore
 from empirical_mvm_torch.train.optimizer import AdamW
 
 
@@ -64,3 +67,41 @@ def make_pretrain_train_step(model: nn.Module, optimizer: AdamW) -> Callable:
                 {k: v.detach() for k, v in ls.items()})
 
     return step
+
+
+def make_supervised_train_step(model: nn.Module, optimizer: AdamW,
+                               loss_kind: str = "ce") -> Callable:
+    """Build ``step(state, batch, seed) -> (state, {"total": loss})``, the
+    JAX ``make_supervised_agent(loss_kind)`` step: the model's training pass
+    (dropout drawn from the step's generator), the loss, backward and the
+    update. ``"ce"`` (``QAMCAgent``): ``model(img, txt, mask)`` gives logits
+    (B, K) against ``batch["ans"]`` (B,), label -1 ignored. ``batch`` holds
+    img, txt, mask and ans on the model's device."""
+    if loss_kind != "ce":
+        raise NotImplementedError(f"the {loss_kind!r} supervised step is not ported")
+    device = next(model.parameters()).device
+
+    def step(state: TrainState, batch: dict, seed: int):
+        drop_gen, _ = step_generators(seed, state.step, device)
+        for p in state.params.values():
+            p.grad = None
+        out = model(batch["img"], batch["txt"], batch["mask"], generator=drop_gen)
+        loss = cross_entropy_ignore(out, batch["ans"])
+        loss.backward()
+        opt_state = optimizer.update(state.params,
+                                     {n: p.grad for n, p in state.params.items()},
+                                     state.opt_state)
+        return TrainState(state.params, opt_state, state.step + 1), {"total": loss.detach()}
+
+    return step
+
+
+def make_eval_step(model: nn.Module) -> Callable:
+    """Build ``eval_step(batch)``: the deterministic forward of
+    ``model(img, txt, mask)`` without autograd (JAX ``make_eval_step``)."""
+
+    @torch.no_grad()
+    def eval_step(batch: dict):
+        return model(batch["img"], batch["txt"], batch["mask"])
+
+    return eval_step

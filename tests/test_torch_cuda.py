@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import FP32_LIMITS, OUTPUTS, _excess, _tuple, bf16_check
+from chip_smoke import FP32_LIMITS, OUTPUTS, _excess, _sa_calls, _tuple, bf16_check
 from empirical_mvm_torch.models.video_swin import _shift_attn_mask
 from empirical_mvm_torch.ops import _build
 from empirical_mvm_torch.ops import layernorm as tln
@@ -319,6 +319,76 @@ def test_lane_dropout_through_autograd(cuda):
     assert (xg.grad - want).abs().max() <= 1e-4 * want.abs().max()
 
 
+def _sa_setup(rs, cuda, b, nh, n, hd):
+    """qkv (B, 3nH, N, hd), do (bf16 values), and the (B, N, N) view of a
+    (B, 1, N) padding bias that BERT passes (row 0 padded from N / 2)."""
+    qkv = _randn(rs, b, 3 * nh, n, hd, scale=0.5).to(cuda)
+    do = _randn(rs, b, nh, n, hd).to(cuda).to(torch.bfloat16).float()
+    keep = np.ones((b, n), np.float32)
+    keep[0, n // 2:] = 0
+    bias = torch.from_numpy((1.0 - keep) * np.finfo(np.float32).min).to(cuda)
+    return qkv, do, bias[:, None, :].expand(b, n, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nh,n,hd", [
+    # N = 70: a key tile of 6; N = 577, hd = 64: DPT at 384^2, whose fp32
+    # heads row 5's shared memory cannot hold
+    (3, 4, 70, 32),
+    (2, 16, 577, 64),
+])
+@pytest.mark.parametrize("p_drop", [0.0, 0.1])
+def test_tiled_self_attention_kernels(cuda, dtype, b, nh, n, hd, p_drop):
+    """Row 11 forward and backward against their plain versions, with and
+    without dropout (the same (seed, offset)); two runs give bit-identical
+    outputs (no atomics)."""
+    rs = np.random.RandomState(11)
+    qkv, do, mask = _sa_setup(rs, cuda, b, nh, n, hd)
+    scale = hd ** -0.5
+    seed = torch.tensor([4321, 3], dtype=torch.int32, device=cuda) if p_drop else None
+    if n == 577:
+        lib = _build.library()
+        assert lib.emvm_attention_smem_bytes(0, n, hd) > _build.MAX_SMEM_BYTES
+    (forward, forward_plain, _), (backward, backward_plain, _) = _sa_calls(
+        mask, nh, scale, p_drop, seed, do)
+    _check(forward, forward_plain, qkv, dtype, "sa")
+    _check(backward, backward_plain, qkv, dtype, "sa_bwd")
+    a = qkv.to(dtype)
+    assert torch.equal(forward(a), forward(a)) and torch.equal(backward(a), backward(a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_self_attention_through_autograd(cuda, dtype):
+    """packed_self_attention and fused_self_attention (the same kernel on q,
+    k, v apart) through autograd with dropout: one forward and one backward
+    launch each, the split gradients equal the packed dqkv, and the packed
+    gradient equals the plain backward at the seed the wrapper drew."""
+    rs = np.random.RandomState(12)
+    b, nh, n, hd = 2, 4, 100, 64
+    qkv, do, mask = _sa_setup(rs, cuda, b, nh, n, hd)
+    qkv, do = qkv.to(dtype), do.to(dtype)
+    scale = hd ** -0.5
+    seed = twa.draw_dropout_seed(torch.Generator(cuda).manual_seed(3))
+    before = dict(_build.launch_counts)
+    xg = qkv.clone().requires_grad_(True)
+    out = twa.packed_self_attention(xg, mask, nh, scale, 0.1, torch.Generator(cuda).manual_seed(3))
+    out.backward(do)
+    q, k, v = (t.contiguous().requires_grad_(True) for t in qkv.chunk(3, dim=1))
+    out2 = twa.fused_self_attention(q, k, v, mask, scale, 0.1,
+                                    torch.Generator(cuda).manual_seed(3))
+    out2.backward(do)
+    for name in ("packed_self_attention", "packed_self_attention_bwd", "fused_self_attention",
+                 "fused_self_attention_bwd"):
+        assert _build.launch_counts[name] == before.get(name, 0) + 1, name
+    assert torch.equal(out, out2)
+    assert torch.equal(torch.cat([q.grad, k.grad, v.grad], dim=1), xg.grad)
+    want = twa.packed_self_attention_backward_plain(qkv.float(), mask, do.float(), nh, scale, 0.1,
+                                                    seed)
+    assert (xg.grad.float() - want).abs().max() <= 2e-2 * want.abs().max()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,c,eps", [(40, 768, 1e-12), (4000, 768, 1e-5), (7, 96, 1e-5)])
@@ -357,9 +427,14 @@ PLANTED = {
     "bias_dropped": ("window_attention.cu", "bias_h + size_t(t) * n,", "nullptr,"),
     "packed_mask_slot": ("packed_window_attention.cu", "mask + (win % nw) * n * n",
                          "mask + ((win + 1) % nw) * n * n"),
+    "tiled_p_not_rounded": ("self_attention_tiled.cu", "pw[jj] = to_float(from_float<T>(p));",
+                            "pw[jj] = p;"),
 }
 # faults of the packed kernel alone, which the direct kernel does not run
 PACKED_ONLY = {"packed_mask_slot"}
+# faults of the tiled self-attention alone, checked at the multiple-choice
+# fusion shape (8 rows of 350, 12 heads, p = 0.1)
+TILED_ONLY = {"tiled_p_not_rounded"}
 # faults that also change the lane kernel at the fusion shape; at hd = 64 the
 # scale is 0.125, so q * scale is exact in bf16 and q_scaled_in_fp32 is no
 # fault there
@@ -413,7 +488,7 @@ def test_bf16_check_catches_planted_faults(cuda, tmp_path, monkeypatch, fault):
             _build.stream_ptr(cuda)), "direct_window_attention")
         return out
 
-    cases = {} if fault in PACKED_ONLY else {"direct": bf16_check(
+    cases = {} if fault in PACKED_ONLY | TILED_ONLY else {"direct": bf16_check(
         direct, lambda a: twa.direct_window_attention_plain(a, bias, mask, win, nh, scale),
         x3, "attention")}
     if fault in LANE_FAULTS:
@@ -464,6 +539,12 @@ def test_bf16_check_catches_planted_faults(cuda, tmp_path, monkeypatch, fault):
             packed, lambda a: twa.packed_window_attention_plain(a, pbias, pmask, 64, 3,
                                                                 32 ** -0.5),
             xp, "attention")
+    if fault in TILED_ONLY:
+        p, nh, n, hd = 8, 12, 350, 64
+        xt, _, mt = _sa_setup(np.random.RandomState(13), cuda, p, nh, n, hd)
+        seed = torch.tensor([78, 2], dtype=torch.int32, device=cuda)
+        cases["tiled"] = bf16_check(*_sa_calls(mt, nh, hd ** -0.5, 0.1, seed, None)[0][:2], xt,
+                                    "sa")
     for case, (readings, failures) in cases.items():
         print(f"planted {fault} [{case}]: {readings} failures={failures}")
         assert failures, f"planted fault {fault} passes the bf16 limits at {case}"
@@ -499,6 +580,12 @@ PLANTED_BWD = {
     # k, v and their gradients addressed with dout's window stride
     "packed_kv_dout_stride": ("packed_window_attention.cu", "return seg == 3 ?",
                               "return seg >= 1 ?"),
+    "tiled_ds_not_rounded": ("self_attention_tiled.cu",
+                             "ds = to_float(from_float<T>(p * (dp - dd[r])));",
+                             "ds = p * (dp - dd[r]);"),
+    "tiled_dq_scale_dropped": ("self_attention_tiled.cu",
+                               "from_float<T>(acc[r][c] * scale_f);",
+                               "from_float<T>(acc[r][c]);"),
 }
 
 
@@ -555,6 +642,13 @@ def test_bf16_check_catches_planted_backward_faults(cuda, tmp_path, monkeypatch,
             lambda a: twa.lane_window_attention_backward_plain(a, wbias, wmask, dw.to(a.dtype),
                                                                16, nh, scale),
             xw, "attention_bwd")
+    elif name == "self_attention_tiled.cu":
+        p, nh, n, hd = 8, 12, 350, 64
+        xt, _, mt = _sa_setup(np.random.RandomState(13), cuda, p, nh, n, hd)
+        dt = torch.randn(p, nh, n, hd, device=cuda, generator=gen).to(torch.bfloat16)
+        seed = torch.tensor([78, 2], dtype=torch.int32, device=cuda)
+        cases["tiled"] = bf16_check(*_sa_calls(mt, nh, hd ** -0.5, 0.1, seed, dt)[1][:2], xt,
+                                    "sa_bwd")
     elif name == "self_attention.cu":
         p, l, d, lh = 8, 232, 768, 12
         x3 = torch.randn(p, l, 3 * d, device=cuda, generator=gen) * 0.5
