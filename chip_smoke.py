@@ -5,9 +5,10 @@
     python3 chip_smoke.py --compare-build OTHER/empirical_mvm_torch/csrc
 
 The second form only compares the backward kernels that share
-csrc/attention_bwd.cuh's body (``compare_builds``) between this checkout's
-sources and another's (for example the parent commit, unpacked with ``git
-archive``): outputs bit for bit and times in turns, on one card.
+csrc/attention_bwd.cuh's body and the forward kernels that share
+csrc/common.cuh's ``attend_row`` (``compare_builds``) between this
+checkout's sources and another's (for example the parent commit, unpacked
+with ``git archive``): outputs bit for bit and times in turns, on one card.
 
 Phases, each of which records its failures; the script exits non-zero,
 before the final line, if any phase failed:
@@ -42,7 +43,14 @@ before the final line, if any phase failed:
    dropout keep fraction, at DPT-Large's 384^2 shape (fp32 and bf16) and at
    N = 129, ``fused_self_attention`` (the same kernel on q, k, v apart),
    and a copy of csrc/ with two planted roundings dropped, which must fail
-   the bf16 limits. Prints one
+   the bf16 limits; the LayerNorm at the 3D teacher's final norm and at the
+   CLIP teacher's sites, ``lane_self_attention`` at the CLIP teacher's
+   shape (80 frames of 50 tokens, p = 0); ``lane_attention`` (row 12, the
+   lanebench tool's kernel) at the tool's three stage shapes with its zero
+   mask and a seeded shift-like mask, each beside row 7's time on the same
+   inputs; and, marked ``off_path``, what the C % 128 rule costs at the
+   violet stages 0-1: rows 12 and 7 on the partitioned windows against
+   ``_to_packed`` + row 9 + ``_from_packed``. Prints one
    ``kernel_shapes`` line with the per-shape numbers and, at the end, one
    ``kernels`` JSON line.
 4. The retrieval eval at full width: VioletRetrieval at
@@ -117,13 +125,32 @@ before the final line, if any phase failed:
 16. The multiple-choice eval: ``make_eval_step`` on the trained model of
    phase 14 over ``QAMC_EVAL_BATCHES`` seeded batches, ``qamc_accuracy``;
    each batch launches ``EVAL_QAMC_LAUNCHES``.
-17. The last line is ``{"ok": true, "device": {...}}``.
+17. The lanebench tool, ``empirical_mvm_torch.tools.lanebench.main(
+   ["--stage", "-1", "--grad"])`` in this process: its lines; each path's
+   error against the tool's fp32 oracle within phase 3's bf16 attention
+   limit; ``lane_attention`` launched (its counts are the kernels line's
+   ``launches_lanebench``).
+18-20. The pretrain train step at full width for the 3d_feature (the
+   frozen Video Swin-base teacher: the direct kernel in its 24 blocks, the
+   kernel LayerNorm at its 53 sites), 2d_clip (the frozen CLIP ViT-B/32 on
+   each frame: lane_self_attention in its 12 layers, 25 LayerNorm sites)
+   and hog targets, each as phase 6 with ``train.mvm_target`` replaced;
+   launches held to ``TRAIN_3D_LAUNCHES``, ``TRAIN_CLIP_LAUNCHES`` and
+   ``TRAIN_HOG_LAUNCHES``; the teachers get no gradient and stay
+   bit-unchanged; the device time of one no-grad call of each teacher and
+   of ``hog_image`` printed.
+21. Whole train step for ("hog", "3d_feature", "2d_clip"): phase 7 for that
+   run (the student cut, both teachers at full depth), both sides fed one
+   hog target computed on the CPU; ``hog_image`` itself held card against
+   CPU apart (``HOG_FLIP_SHARE``, ``HOG_CELL_SCALE``).
+22. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import shutil
 import subprocess
@@ -139,10 +166,15 @@ from empirical_mvm_torch.data.masking import draw_masks
 from empirical_mvm_torch.models.encoders2d import swin2d_config
 from empirical_mvm_torch.models.pretrain import VioletPretrain, draw_negatives
 from empirical_mvm_torch.models.tasks import VioletQAMC, VioletRetrieval
-from empirical_mvm_torch.models.video_swin import _shift_attn_mask, get_window_size
+from empirical_mvm_torch.models.video_swin import (_from_packed, _shift_attn_mask, _to_packed,
+                                                  get_window_size)
 from empirical_mvm_torch.ops import _build
 from empirical_mvm_torch.ops import layernorm as ln
 from empirical_mvm_torch.ops import window_attention as wa
+from empirical_mvm_torch.ops.hog import hog_bins, hog_image
+from empirical_mvm_torch.ops.preprocess import maybe_normalize
+from empirical_mvm_torch.teachers.clip import renormalize_imagenet_to_clip
+from empirical_mvm_torch.tools import lanebench
 from empirical_mvm_torch.train.evaluators import qamc_accuracy, retrieval_two_stage_eval
 from empirical_mvm_torch.train.optimizer import build_optimizer
 from empirical_mvm_torch.train.train_step import (create_train_state, make_eval_step,
@@ -184,6 +216,12 @@ TEACHER_LN = tuple((f"teacher stage{s} norms", 80 * (56 >> s) ** 2, 128 << s, 1e
                     torch.bfloat16) for s in range(4)) + tuple(
     (f"teacher merge{s}", 80 * (28 >> s) ** 2, 512 << s, 1e-5, torch.bfloat16)
     for s in range(3))
+# the 3d_feature step's frozen Video Swin-base teacher (phase 18) has the 2D
+# teacher's sites (the same rows: 20 clips x 4 frames at 56 >> stage) and a
+# final norm; the 2d_clip step's CLIP ViT-B/32 (phase 19) normalizes 80
+# frames of 50 tokens (pre_ln, then ln1 and ln2 in each of 12 layers)
+TEACHER3D_LN = TEACHER_LN + (("teacher final norm", 80 * 49, 1024, 1e-5, torch.bfloat16),)
+CLIP_LN = (("clip pre_ln/ln1/ln2", 80 * 50, 768, 1e-5, torch.bfloat16),)
 # launches of one train step: LayerNorm at 24 fusion sites + EncVideo +
 # embeddings + MLM head; a swin attention in each of the 24 blocks; one
 # fusion attention in each of the 12 layers
@@ -208,6 +246,21 @@ TRAIN_SWIN2D_LAUNCHES = {"fused_layer_norm": 27, "fused_layer_norm_bwd": 27,
 TRAIN_VIOLET_LAUNCHES = {**TRAIN_LAUNCHES, "direct_window_attention": 20,
                          "direct_window_attention_bwd": 20, "packed_window_attention": 4,
                          "packed_window_attention_bwd": 4}
+# the 3d_feature step (phase 18) adds the frozen Video Swin-base teacher,
+# forward only: a direct window attention in each of its 24 blocks, and the
+# kernel LayerNorm at its 53 sites (the 2D teacher's 52 and a final norm)
+TRAIN_3D_LAUNCHES = {**TRAIN_LAUNCHES, "fused_layer_norm": 27 + 53,
+                     "direct_window_attention": 24 + 24}
+# the 2d_clip step (phase 19) adds the frozen CLIP ViT-B/32 on 80 frames of
+# 50 tokens: lane_self_attention (p = 0, lane_sa_attention_fits) in each of
+# its 12 layers, the kernel LayerNorm at pre_ln and 2 x 12 layer sites (the
+# post LayerNorm reads the pooled CLS token, which the target does not use)
+TRAIN_CLIP_LAUNCHES = {**TRAIN_LAUNCHES, "fused_layer_norm": 27 + 1 + 2 * 12,
+                       "lane_self_attention": 12}
+# the hog step (phase 20): HOG is torch ops; the kernels are the pixel step's
+TRAIN_HOG_LAUNCHES = dict(TRAIN_LAUNCHES)
+# MVM targets whose model holds a frozen teacher
+TEACHER_TARGETS = {"2d_feature", "3d_feature", "2d_clip"}
 EVAL_KERNELS = ("fused_layer_norm", "direct_window_attention", "lane_self_attention")
 # The multiple-choice fine-tune step of configs/msrvtt-mc.json (phase 14):
 # batch 8 questions of 5 options over 5 frames of 224^2, so the fusion runs
@@ -321,6 +374,15 @@ WHOLE_STEP_TOL = dict(loss_rtol=1e-4, grad_scale=2e-3, grad_global=1e-6)
 # gradient of 0.12) does not cover.
 ZERO_GRAD_ATOL = 1e-6
 
+# hog_image, card against CPU on the same normalized clips (phase 21): a
+# pixel falls in another orientation bin only where its angle lies within
+# the last bit of atan2 and of the division of a bin edge: at most
+# HOG_FLIP_SHARE of the pixels may. In the cells where no pixel changed bin,
+# the rendering may differ by HOG_CELL_SCALE of its largest value (hypot and
+# atan2 to the last bit, 64-term fp32 sums in another order).
+HOG_FLIP_SHARE = 1e-4
+HOG_CELL_SCALE = 1e-5
+
 # H100 SXM peaks (NVIDIA data sheet; at the full 700 W power limit)
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bf16_tensor": 989e12, "fp32": 67e12}
@@ -381,6 +443,10 @@ KERNELS = {
     "fused_self_attention_bwd": dict(
         source="empirical_mvm_torch/csrc/self_attention_tiled.cu",
         replaces="empirical_mvm_tpu/ops/window_attention.py:607"),
+    # row 12: the lanebench tool's `_lane_kernel` (its pallas_call at :80)
+    "lane_attention": dict(
+        source="empirical_mvm_torch/csrc/lane_window_attention.cu",
+        replaces="tools/lanebench.py:38"),
 }
 
 
@@ -1005,6 +1071,138 @@ def fused_cases(qkv, do, bias, mk, nw, nh, label):
     return [fwd, bwd]
 
 
+def clip_lane_case(dev, gen):
+    """Row 5 at the CLIP teacher's shape in the 2d_clip step: 80 frames of
+    L = 50 tokens (the class token and 7 x 7 patches), ViT-B/32's 12 heads
+    of 64, p = 0, the zero mask ``CLIPAttention`` passes (a (1, 1, L) row
+    expanded). SDPA without a mask (the same function) is the yardstick."""
+    p, l, d, nh = TRAIN_B * TRAIN_T, 50, 768, 12
+    x3 = torch.randn(p, l, 3 * d, device=dev, generator=gen) * 0.5
+    mask = torch.zeros(1, 1, l, device=dev).expand(p, l, l)
+    scale = (d // nh) ** -0.5
+
+    def kernel(a):
+        return wa.lane_self_attention(a, mask, nh, scale)
+
+    def plain(a):
+        return wa.lane_self_attention_plain(a, mask, nh, scale)
+
+    def library(a):
+        q, k, v = a.reshape(p, l, 3, nh, d // nh).permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+        return lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+    ops = 4 * p * nh * l * l * (d // nh)
+    nbytes = x3.numel() * 2 + p * l * d * 2 + _span_bytes(mask)
+    return [measure("lane_self_attention", f"2d_clip teacher x3=({p},{l},{3 * d}) nH={nh}", x3,
+                    kernel, plain, library, torch.bfloat16, "attention", ops, "bf16_tensor",
+                    nbytes)]
+
+
+def _shift_like_mask(dev, gen, nw, n):
+    """(nW, N, N) of 0 or -100 with the structure of a swin shift mask: the
+    tokens of each window in up to 4 seeded regions, a pair of tokens in two
+    regions masked."""
+    region = torch.randint(0, 4, (nw, n), device=dev, generator=gen)
+    return torch.where(region[:, :, None] != region[:, None, :], -100.0, 0.0)
+
+
+def _lane_attention_record(label, x3, bias, mask, nh):
+    """Row 12 (``lane_attention``) on (B_, N, 3C) ``x3`` against its plain
+    version and SDPA (4D: (B_ / nW, nW * nH, N, hd) with the broadcast
+    ``_window_sdpa_mask``), and row 7 (``lane_window_attention``, the scale
+    on q) timed on the same bf16 x3, bias and mask (``lane_window_ms``)."""
+    b_, n, c3 = x3.shape
+    c = c3 // 3
+    hd, nw = c // nh, mask.shape[0]
+    scale = hd ** -0.5
+
+    def kernel(a):
+        return wa.lane_attention(a, bias, mask, nh, scale)
+
+    def plain(a):
+        return wa.lane_attention_reference(a, bias, mask, nh, scale)
+
+    def library(a):
+        qkv = a.reshape(b_ // nw, nw, n, 3, nh, hd).permute(3, 0, 1, 4, 2, 5)
+        q, k, v = qkv.reshape(3, b_ // nw, nw * nh, n, hd).contiguous().unbind(0)
+        m = _window_sdpa_mask(bias, mask, nw, a.dtype)
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m, scale=scale)
+
+    ops = 4 * b_ * n * n * c
+    nbytes = x3.numel() * 2 + b_ * n * c * 2 + bias.numel() * 4 + mask.numel() * 4
+    rec = measure("lane_attention", label, x3, kernel, plain, library, torch.bfloat16,
+                  "attention", ops, "bf16_tensor", nbytes)
+    a16 = x3.to(torch.bfloat16)
+    rec["lane_window_ms"] = time_ms(
+        lambda: wa.lane_window_attention(a16, bias, mask, nw, nh, scale))
+    return rec
+
+
+def lane_attention_cases(dev, gen):
+    """Row 12, the lanebench tool's kernel, at the tool's three Swin-base
+    stage shapes (``lanebench.SHAPES``: N = 196, hd = 32) in bf16, with the
+    tool's zero mask (its path: the kernels line sums these) and a seeded
+    shift-like mask (``_shift_like_mask``, marked ``off_path``); each record
+    with row 7's time on the same inputs (``_lane_attention_record``)."""
+    recs = []
+    for stage, sh in lanebench.SHAPES.items():
+        b_, n, c, nh, nw = (sh[k] for k in ("b_", "n", "c", "nh", "nw"))
+        x3 = torch.randn(b_, n, 3 * c, device=dev, generator=gen) * 0.5
+        bias = torch.randn(nh, n, n, device=dev, generator=gen) * 0.1
+        masks = {"zero mask": torch.zeros(nw, n, n, device=dev),
+                 "shift-like mask": _shift_like_mask(dev, gen, nw, n)}
+        for name, mask in masks.items():
+            rec = _lane_attention_record(f"lanebench stage{stage} x3=({b_},{n},{3 * c}) "
+                                         f"nH={nh} nW={nw} {name}", x3, bias, mask, nh)
+            rec["off_path"] = name != "zero mask"
+            recs.append(rec)
+    return recs
+
+
+def c128_cases(dev, gen):
+    """What the C % 128 rule costs (``off_path``): at the C = 96 Video
+    Swin's stages 0 and 1 of the violet step (20 clips of 4 frames, window
+    (4, 7, 7): N = 196, hd = 32, the shifted block), row 12 and row 7 on the
+    partitioned windows (B_, N, 3C) against the route ``WindowAttention3D``
+    takes there, ``_to_packed`` + row 9 + ``_from_packed`` on the (B, D, H,
+    W, 3C) map of the same values (``packed_route_ms``; the largest
+    difference of its output from row 7's, the same function with the same
+    roundings, beside it)."""
+    violet = SwinConfig.violet()
+    recs = []
+    for stage in (0, 1):
+        hw, c, nh = 56 >> stage, violet.embed_dim << stage, violet.num_heads[stage]
+        win, shift = get_window_size((TRAIN_T, hw, hw), violet.window_size, (4, 3, 3))
+        n, nw = win[0] * win[1] * win[2], (hw // win[1]) * (hw // win[2])
+        scale = (c // nh) ** -0.5
+        x5 = torch.randn(TRAIN_B, TRAIN_T, hw, hw, 3 * c, device=dev, generator=gen) * 0.5
+        xw = wa.window_partition(x5, win).contiguous()
+        bias = torch.randn(nh, n, n, device=dev, generator=gen) * 0.02
+        mask = torch.from_numpy(_shift_attn_mask((TRAIN_T, hw, hw), win, shift)).to(dev)
+        rec = _lane_attention_record(
+            f"C % 128 cost: violet stage{stage} x3=({xw.shape[0]},{n},{3 * c}) nH={nh} "
+            f"shifted nW={nw}", xw, bias, mask, nh)
+        x16 = x5.to(torch.bfloat16)
+
+        def packed_route(x16=x16, win=win, nh=nh, bias=bias, mask=mask, nw=nw, scale=scale,
+                         hw=hw):
+            out = wa.packed_window_attention(_to_packed(x16, win, nh), bias, mask, nw, nh,
+                                             scale)
+            return _from_packed(out, win, TRAIN_B, TRAIN_T, hw, hw)
+
+        lane_window = wa.lane_window_attention(xw.to(torch.bfloat16), bias, mask, nw, nh, scale)
+        rec.update(packed_route_ms=time_ms(packed_route), off_path=True,
+                   packed_route_vs_lane_window_max_abs=(
+                       wa.window_partition(packed_route(), win) - lane_window).abs().max()
+                   .float().item())
+        print(json.dumps({"c128_cost": {k: rec[k] for k in (
+            "shape", "ms", "lane_window_ms", "packed_route_ms",
+            "packed_route_vs_lane_window_max_abs")}}), flush=True)
+        recs.append(rec)
+        del x5, xw, x16, lane_window
+    return recs
+
+
 # Faults planted in a copy of csrc/ for phase 3 (file, correct text, planted
 # text): the tiled self-attention's rounding of the probabilities before P.V
 # (forward) and of ds before dq (backward).
@@ -1309,16 +1507,46 @@ def backbone_config(cfg):
 
 
 def _teacher(name):
-    return name.startswith("feature_model.")
+    return name.startswith(("feature_model.", "clip_model."))
+
+
+def _event_ms(fn) -> float:
+    """Device time of one call of fn, from CUDA events around it."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def target_times(model, img):
+    """Device ms of one no-grad call of each MVM teacher of ``model`` on the
+    normalized clips ``img`` (``feature_model`` on the clips, ``clip_model``
+    on their frames, CLIP-normalized) and of ``hog_image``, as the step
+    makes its targets."""
+    b, t = img.shape[:2]
+    calls = {}
+    if hasattr(model, "feature_model"):
+        calls["feature_model"] = lambda: model.feature_model(img)
+    if hasattr(model, "clip_model"):
+        frames = renormalize_imagenet_to_clip(img.reshape(b * t, *img.shape[2:]))
+        calls["clip_model"] = lambda: model.clip_model.features(frames)
+    if "hog" in model.mvm_target:
+        calls["hog_image"] = lambda: hog_image(img)
+    with torch.no_grad():
+        return {name: _event_ms(fn) for name, fn in calls.items()}
 
 
 VTM_OUT_BIAS = "fc.3.bias"
 
 
 def train_phase(dev, run, want_launches):
-    """Phases 6, 8, 10 and 12: the pretrain train step at full width for the
-    run's backbone and MVM target. Returns the launch counts of the first timed step,
-    which must equal ``want_launches``."""
+    """Phases 6, 8, 10, 12 and 18-20: the pretrain train step at full width
+    for the run's backbone and MVM target. Returns the launch counts of the
+    first timed step, which must equal ``want_launches``. After the timed
+    steps, the MVM teachers' and HOG's device time of one no-grad call each
+    (``target_times``)."""
     cfg = run.model
     b = run.train.size_batch
     model = VioletPretrain.from_run_config(run, dtype=torch.bfloat16, device=dev,
@@ -1348,6 +1576,7 @@ def train_phase(dev, run, want_launches):
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     clips_s = [b / t for t in secs]
     target = run.train.mvm_target
+    targets_ms = target_times(model, maybe_normalize(batch["img"]))
     backbone = f"{cfg.vis_backbone}-{cfg.vis_backbone_size}"
     print(f"train-step {backbone} {target} launch counts: {launches}", flush=True)
     print(json.dumps({
@@ -1359,7 +1588,8 @@ def train_phase(dev, run, want_launches):
         "clips_per_s": float(np.median(clips_s)), "clips_per_s_range": [min(clips_s),
                                                                           max(clips_s)],
         "step_ms_median": float(np.median(secs)) * 1e3, "step_s_each": secs,
-        "peak_mem_gib": peak, "losses_each_step": losses}), flush=True)
+        "peak_mem_gib": peak, "losses_each_step": losses,
+        "target_ms_one_call": targets_ms}), flush=True)
     require(launches == want_launches,
             f"launches of one {backbone} {target} train step {launches}, "
             f"not {want_launches}")
@@ -1367,9 +1597,10 @@ def train_phase(dev, run, want_launches):
         require(all(np.isfinite(v) for v in step_ls.values()),
                 f"non-finite loss at step {i}: {step_ls}")
     # no gradient: the frame-order embedding, which the pretrain forward does
-    # not use, and the frozen teacher, which must also be bit-unchanged
+    # not use, and the frozen teachers, which must also be bit-unchanged
     teacher = {n for n in state.params if _teacher(n)}
-    require(bool(teacher) == ("2d_feature" in target), f"teacher parameters: {len(teacher)}")
+    require(bool(teacher) == bool(TEACHER_TARGETS & set(target)),
+            f"teacher parameters: {len(teacher)}")
     no_grad = {n for n, p in state.params.items() if p.grad is None}
     odr = {n for n in state.params if n.endswith(".emb_odr")}
     require(len(odr) == 1 and no_grad == teacher | odr,
@@ -1392,9 +1623,11 @@ def train_phase(dev, run, want_launches):
 
 
 def whole_step_phase(dev, run):
-    """Phases 7, 9, 11 and 13: one train step of a depth-cut copy (the student; a
-    2D teacher keeps its full depth), card fp32 (kernels) against CPU fp32
-    (plain versions)."""
+    """Phases 7, 9, 11, 13 and 21: one train step of a depth-cut copy (the
+    student; the teachers keep their full depth), card fp32 (kernels)
+    against CPU fp32 (plain versions). With the hog target, both sides are
+    fed the same ``hog`` target, computed once on the CPU, and
+    ``hog_image`` is held card against CPU apart (``hog_check``)."""
     cfg = run.model
     cut = dataclasses.replace(
         cfg, swin_custom=dataclasses.replace(backbone_config(cfg), depths=(2, 2, 2, 2),
@@ -1413,14 +1646,17 @@ def whole_step_phase(dev, run):
                        mask_token_id=VioletPretrain.mask_token_id, p_mask=run.train.p_mask,
                        mask_types=run.train.pretrain_masks)
     batch.update(draws=draws, neg_idx=draw_negatives(gen, b, 3))
+    if "hog" in run.train.mvm_target:
+        hog_check(dev, maybe_normalize(batch["img"]))
+        batch["hog"] = hog_image(maybe_normalize(batch["img"]))
     card = VioletPretrain.from_run_config(run_cut, dtype=torch.float32, device=dev, seed=1)
     cpu = VioletPretrain.from_run_config(run_cut, dtype=torch.float32, device="cpu", seed=1)
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
     results, secs = {}, {}
     for name, model, device in (("card", card, dev), ("cpu", cpu, torch.device("cpu"))):
-        model.fc[0].p = 0.0                 # the score heads' dropout, fixed at 0.1
-        if hasattr(model, "fc_mvm"):
-            model.fc_mvm[0].p = 0.0
+        for head in ("fc", "fc_mvm", "fc_mvm_clip"):  # the score heads' dropout, 0.1
+            if hasattr(model, head):
+                getattr(model, head)[0].p = 0.0
         opt = build_optimizer(model, run.train, TRAIN_MAX_ITER)
         step = make_pretrain_train_step(model, opt)
         on_dev = {k: (type(v)(*(t.to(device) for t in v)) if k == "draws" else v.to(device))
@@ -1435,6 +1671,33 @@ def whole_step_phase(dev, run):
         "vis_backbone": cut.vis_backbone, "vis_backbone_size": cut.vis_backbone_size,
         "mvm_target": list(run.train.mvm_target), "swin_depths": list(cut.swin.depths),
         "fusion_layers": cut.fusion.num_hidden_layers, "batch": b})
+
+
+def hog_check(dev, img):
+    """``hog_image`` of the normalized clips ``img`` (on the CPU) on the card
+    against the CPU: the share of pixels in another orientation bin held to
+    ``HOG_FLIP_SHARE``, the rendering of the cells where none is to
+    ``HOG_CELL_SCALE`` of its largest value; both printed."""
+    bins_c, _ = hog_bins(img)
+    bins_d, _ = hog_bins(img.to(dev))
+    flipped = bins_d.cpu() != bins_c                           # (B, T, H, W)
+    want, got = hog_image(img), hog_image(img.to(dev)).cpu()
+    b, t, h, w = flipped.shape
+    cell = flipped.reshape(b, t, h // 8, 8, w // 8, 8).any(5).any(3)
+    clean = ~cell.repeat_interleave(8, 2).repeat_interleave(8, 3)
+    share = flipped.float().mean().item()
+    diff = (got - want).abs()
+    clean_max = diff[clean].max().item()
+    scale = want.abs().max().item()
+    print(json.dumps({"hog_card_vs_cpu": {
+        "pixels": flipped.numel(), "share_in_another_bin": share,
+        "cells_with_a_changed_bin": int(cell.sum()), "max_abs_diff": diff.max().item(),
+        "max_abs_diff_clean_cells": clean_max, "max_abs": scale,
+        "limits": {"share": HOG_FLIP_SHARE, "clean_cells": HOG_CELL_SCALE * scale}}}),
+          flush=True)
+    require(share <= HOG_FLIP_SHARE, f"hog: {share} of the pixels in another bin")
+    require(clean_max <= HOG_CELL_SCALE * scale,
+            f"hog: {clean_max} apart in cells where no bin changed")
 
 
 def _step_results(model, ls):
@@ -1640,6 +1903,31 @@ def qamc_eval_phase(dev, model, run):
     return {k: v // QAMC_EVAL_BATCHES for k, v in launches.items()}
 
 
+def lanebench_phase():
+    """Phase 17: the lanebench tool (``empirical_mvm_torch.tools.lanebench``)
+    as its command line runs it, ``--stage -1 --grad``, in this process: its
+    lines, and each path's largest error against the tool's fp32 oracle held
+    to phase 3's bf16 attention limit against plain fp32. Returns the tool's
+    launch counts, in which ``lane_attention`` must appear."""
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    recs = lanebench.main(["--stage", "-1", "--grad"])
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    limit = BF16_VS_FP32["attention"]["atol"]
+    print(json.dumps({"slice": "lanebench", "records": recs, "launches": launches,
+                      "err_limit": limit, "s": time.perf_counter() - t0}), flush=True)
+    require(sorted(r["stage"] for r in recs) == sorted(lanebench.SHAPES),
+            f"lanebench ran stages {[r['stage'] for r in recs]}")
+    for r in recs:
+        require(r["err_lane"] <= limit and r["err_packed"] <= limit,
+                f"lanebench stage{r['stage']}: errors {r['err_lane']}, {r['err_packed']} "
+                f"above {limit}")
+    require(launches.get("lane_attention", 0) >= len(recs),
+            f"lanebench launched lane_attention {launches.get('lane_attention', 0)} times")
+    return launches
+
+
 def _shared_bwd_calls(dev, gen):
     """(kernel, label, x3, call) of each backward that runs
     attention_bwd.cuh's body, at the shapes phase 3 times it
@@ -1658,20 +1946,57 @@ def _shared_bwd_calls(dev, gen):
                wa._lane_window_bwd(a, bias, mk, do.to(a.dtype), nw, nh, 32 ** -0.5))
 
 
+def _attend_row_calls(dev, gen):
+    """(kernel, label, x3, call) of each forward that runs common.cuh's
+    ``attend_row`` (rows 3, 5, 7 and 9), at the shapes phase 3 times it: the
+    direct forward at the train step's stages (``_direct_bwd_inputs``), the
+    lane self-attention at the eval's fusion shape and at the train step's
+    with dropout, the lane window forward at the 2D swin's shapes
+    (``_window_bwd_inputs``), the packed forward at ``_packed_shapes``."""
+    for stage, win, nh, x3, _, bias, mask in _direct_bwd_inputs(dev, gen):
+        scale = (x3.shape[-1] // 3 // nh) ** -0.5
+        yield ("direct_window_attention",
+               f"stage{stage} {'shifted' if mask is not None else 'unshifted'}", x3,
+               lambda a, bias=bias, mask=mask, win=win, nh=nh, scale=scale:
+               wa._direct_fwd(a, bias, mask, win, nh, scale))
+    seed = torch.tensor([20261016, 7], dtype=torch.int32, device=dev)
+    for label, b, l, text, p_drop in (("eval", CHUNK, 275, 25, 0.0),
+                                      ("train", 4 * TRAIN_B, TRAIN_L, 32, P_ATTN)):
+        x3 = torch.randn(b, l, 3 * 768, device=dev, generator=gen) * 0.5
+        mask = _padding_mask(dev, gen, b, l, text, 3)
+        yield ("lane_self_attention", f"{label} p_drop={p_drop}", x3,
+               lambda a, mask=mask, p_drop=p_drop: wa._lane_fwd(a, mask, 12, 64 ** -0.5, p_drop,
+                                                               seed if p_drop else None))
+    for stage, nw, nh, x3, _, bias, mk, _ in _window_bwd_inputs(dev, gen):
+        yield ("lane_window_attention",
+               f"2d stage{stage} {'shifted' if mk is not None else 'unshifted'}", x3,
+               lambda a, bias=bias, mk=mk, nw=nw if mk is not None else 1, nh=nh:
+               wa._lane_window_fwd(a, bias, mk, nw, nh, 32 ** -0.5))
+    for label, nw, c, nh, n, mk, _ in _packed_shapes():
+        qkv = torch.randn(TRAIN_B * nw, 3 * nh, n, 32, device=dev, generator=gen) * 0.5
+        bias = torch.randn(nh, n, n, device=dev, generator=gen) * 0.02
+        mk = None if mk is None else torch.from_numpy(mk).to(dev)
+        yield ("packed_window_attention", f"{label} {'shifted' if mk is not None else ''}", qkv,
+               lambda a, bias=bias, mk=mk, nw=nw if mk is not None else 1, nh=nh:
+               wa._packed_fwd(a, bias, mk, nw, nh, 32 ** -0.5))
+
+
 def compare_builds(base_csrc: Path) -> None:
     """Build the kernel library from ``base_csrc`` too and hold the backward
-    kernels of attention_bwd.cuh's body (``_shared_bwd_calls``) of this
-    checkout's build against it: dx3 and dbias bit-identical in fp32 and
-    bf16 (same inputs), and the bf16 times of both builds with CUDA events in
-    turns (base, new, new, base). Prints one JSON line per shape and the
-    sums per kernel; exits non-zero if an output differs."""
+    kernels of attention_bwd.cuh's body (``_shared_bwd_calls``) and the
+    forward kernels of common.cuh's ``attend_row`` (``_attend_row_calls``)
+    of this checkout's build against it: every output bit-identical in fp32
+    and bf16 (same inputs), and the bf16 times of both builds with CUDA
+    events in turns (base, new, new, base). Prints one JSON line per shape
+    and the sums per kernel; exits non-zero if an output differs."""
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(_nvidia_smi(), flush=True)
     libs = {"new": _build.library(), "base": _build.load(_build.build(csrc=base_csrc), False)}
     gen = torch.Generator(dev).manual_seed(0)
     differ, sums = [], {}
-    for kernel, label, x3, call in _shared_bwd_calls(dev, gen):
+    for kernel, label, x3, call in itertools.chain(_shared_bwd_calls(dev, gen),
+                                                   _attend_row_calls(dev, gen)):
         outs = {}
         for which, lib in libs.items():
             _build._lib = lib
@@ -1705,8 +2030,9 @@ def kernels_line(recs, runs):
     largest errors over every shape checked, and ``launches``: those of the
     first run in ``runs`` (name -> launch counts of one step or call, in
     order: the 2d_feature step, the pixel step, the swin2d step, the violet
-    step, the multiple-choice step, one eval) that launched the kernel,
-    each run's beside it as ``launches_<name>``."""
+    step, the multiple-choice step, one eval, one multiple-choice eval, the
+    3d_feature, 2d_clip and hog steps, the lanebench tool's run) that
+    launched the kernel, each run's beside it as ``launches_<name>``."""
     line = []
     for name, meta in KERNELS.items():
         checked = [r for r in recs if r["kernel"] == name]
@@ -1781,7 +2107,10 @@ def main() -> None:
             + direct_cases(dev, gen, TRAIN_B, TRAIN_T, "violet train", SwinConfig.violet(),
                            (2, 3))
             + direct_bwd_cases(dev, gen, "violet ", SwinConfig.violet(), (2, 3))
-            + tiled_sa_cases(dev, gen))
+            + tiled_sa_cases(dev, gen)
+            + ln_cases(dev, gen, TEACHER3D_LN[len(TEACHER_LN):], "train 3d teacher")
+            + clip_lane_case(dev, gen) + ln_cases(dev, gen, CLIP_LN, "train clip teacher")
+            + lane_attention_cases(dev, gen) + c128_cases(dev, gen))
     failures = [f for r in recs for f in r.pop("failures")]
     print(json.dumps({"kernel_shapes": recs}), flush=True)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s; "
@@ -1916,13 +2245,33 @@ def main() -> None:
     del qamc_model
     torch.cuda.empty_cache()
 
+    # 17. the lanebench tool: row 12 against transpose + row 9, and the lane
+    # window forward + backward (rows 7-8) against the packed one (rows 9-10)
+    lanebench_launches = lanebench_phase()
+    torch.cuda.empty_cache()
+
+    # 18-20. the pretrain train step at full width for the 3d_feature (the
+    # frozen Video Swin-base teacher), 2d_clip (the frozen CLIP ViT-B/32) and
+    # hog MVM targets
+    step_launches = {}
+    for target, want in (("3d_feature", TRAIN_3D_LAUNCHES), ("2d_clip", TRAIN_CLIP_LAUNCHES),
+                         ("hog", TRAIN_HOG_LAUNCHES)):
+        step_launches[f"train_step_{target}"] = train_phase(
+            dev, with_mvm_target(run, (target,)), want)
+        torch.cuda.empty_cache()
+
+    # 21. the whole train step for the three targets together, card fp32
+    # against CPU fp32 (the teachers at full depth, one hog target for both)
+    whole_step_phase(dev, with_mvm_target(run, ("hog", "3d_feature", "2d_clip")))
+    torch.cuda.empty_cache()
+
     require(not failures, "kernel checks failed:\n" + "\n".join(failures))
 
     line = kernels_line(recs, {
         "train_step_2d_feature": train_2d_launches, "train_step": train_launches,
         "train_step_swin2d": train_swin2d_launches, "train_step_violet": train_violet_launches,
         "train_step_qamc": train_qamc_launches, "eval": eval_launches,
-        "eval_qamc": eval_qamc_launches})
+        "eval_qamc": eval_qamc_launches, **step_launches, "lanebench": lanebench_launches})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

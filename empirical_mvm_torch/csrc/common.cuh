@@ -150,6 +150,8 @@ struct AttnSmem {
 // the numerics of the JAX kernels it replaces:
 //   * q is multiplied by the scale in the storage type (the scale itself
 //     rounded to T by the caller), as `q * jnp.asarray(scale, dtype)` does;
+//     with kScoreScale (tools/lanebench.py `_lane_kernel`) q stays as it is
+//     and the fp32 score q.k is multiplied by the fp32 scale instead;
 //   * scores, the additive terms and the softmax are fp32;
 //   * with dropout on, the fp32 probability (b, h, i, j) is zeroed or scaled
 //     by inv_keep (`_lane_sa_fwd_kernel`);
@@ -157,7 +159,7 @@ struct AttnSmem {
 //   * the output row is rounded once to T.
 // add0 / add1 are rows of n fp32 values, or null. (b, h, i) name the row for
 // the dropout counter.
-template <typename T>
+template <typename T, bool kScoreScale = false>
 __device__ void attend_row(const T* __restrict__ q_row, float scale_t,
                            const AttnSmem<T>& sm, int n, int hd,
                            const float* __restrict__ add0,
@@ -170,8 +172,12 @@ __device__ void attend_row(const T* __restrict__ q_row, float scale_t,
   float* sb = sm.s + size_t(warp) * n;
   const int ks = k_row_stride<T>(hd);
 
-  for (int d = lane; d < hd; d += 32)
-    qb[d] = to_float(from_float<T>(to_float(q_row[d]) * scale_t));
+  if constexpr (kScoreScale) {
+    for (int d = lane; d < hd; d += 32) qb[d] = to_float(q_row[d]);
+  } else {
+    for (int d = lane; d < hd; d += 32)
+      qb[d] = to_float(from_float<T>(to_float(q_row[d]) * scale_t));
+  }
   __syncwarp();
 
   float mx = -CUDART_INF_F;
@@ -179,6 +185,7 @@ __device__ void attend_row(const T* __restrict__ q_row, float scale_t,
     const T* kr = sm.k + size_t(j) * ks;
     float acc = 0.f;
     for (int d = 0; d < hd; ++d) acc = fmaf(qb[d], to_float(kr[d]), acc);
+    if constexpr (kScoreScale) acc *= scale_t;
     if (add0) acc += add0[j];
     if (add1) acc += add1[j];
     sb[j] = acc;

@@ -27,13 +27,26 @@
 // kernel: q * scale rounded to the storage type, fp32 scores, bias, mask
 // and softmax, probabilities rounded before P.V. Every loop bounds itself
 // by n (49 is not a power of two).
+//
+// The same kernel, instantiated with kScoreScale, is `lane_attention`:
+// it replaces tools/lanebench.py `_lane_kernel` (its `pallas_call` in
+// `lane_attention`), the benchmark tool's window attention off the qkv
+// GEMM output. Same x3, bias and out; its mask is always given, (nW, n, n)
+// with window b_ taking mask[b_ % nW] (nW = 1: one mask for every window).
+// It differs from the kernel above in one rounding: q is not scaled; the
+// fp32 score q.k is multiplied by the fp32 scale, then bias and mask are
+// added (`attend_row<T, true>`). The TPU kernel's g windows a grid step are
+// TPU blocking and have no counterpart. At the tool's Swin-base stage
+// shapes (n = 196, hd = 32, bf16) one (window, head) does 4 * n^2 * hd =
+// 4.9 MFLOP on 8 * n * hd = 50 KB of x3 and out, about 98 operations per
+// byte: memory bound on the card's ~295, as above.
 #include "attention_bwd.cuh"
 #include "common.cuh"
 
 namespace emvm {
 namespace {
 
-template <typename T>
+template <typename T, bool kScoreScale>
 __global__ void __launch_bounds__(kAttnThreads)
     lane_window_attention_fwd_kernel(const T* __restrict__ x3,
                                      const float* __restrict__ bias,
@@ -62,19 +75,20 @@ __global__ void __launch_bounds__(kAttnThreads)
   T* os = out + win * n * c + h * hd;
   const Dropout no_drop(nullptr, 0u, 1.f);
   for (int i = threadIdx.x >> 5; i < n; i += kAttnWarps) {
-    attend_row<T>(xs + size_t(i) * c3, scale_t, sm, n, hd, bias_h + size_t(i) * n,
-                  mask_w ? mask_w + size_t(i) * n : nullptr, os + size_t(i) * c, no_drop, 0,
-                  h, i);
+    attend_row<T, kScoreScale>(xs + size_t(i) * c3, scale_t, sm, n, hd,
+                               bias_h + size_t(i) * n,
+                               mask_w ? mask_w + size_t(i) * n : nullptr, os + size_t(i) * c,
+                               no_drop, 0, h, i);
   }
 }
 
-template <typename T>
+template <typename T, bool kScoreScale = false>
 int launch(const void* x3, const void* bias, const void* mask, void* out, long long windows,
            int n, int c, int nh, int nw, float scale_t, cudaStream_t stream) {
   const long long blocks = windows * nh;
   if (windows < 1 || blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t smem = attn_smem_bytes<T>(n, c / nh);
-  auto kernel = lane_window_attention_fwd_kernel<T>;
+  auto kernel = lane_window_attention_fwd_kernel<T, kScoreScale>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -174,6 +188,24 @@ extern "C" int emvm_lane_window_attention_fwd(int dtype, const void* x3, const v
     case emvm::kBFloat16:
       return emvm::launch<__nv_bfloat16>(x3, bias, mask, out, windows, n, c, nh, nw,
                                          scale_t, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// lane_attention (tools/lanebench.py `_lane_kernel`): mask (nw, n, n) is
+// required; scale is the fp32 scale that multiplies the fp32 scores.
+extern "C" int emvm_lane_attention_fwd(int dtype, const void* x3, const void* bias,
+                                       const void* mask, void* out, long long windows, int n,
+                                       int c, int nh, int nw, float scale, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (!mask || nw < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype) {
+    case emvm::kFloat32:
+      return emvm::launch<float, true>(x3, bias, mask, out, windows, n, c, nh, nw, scale, s);
+    case emvm::kBFloat16:
+      return emvm::launch<__nv_bfloat16, true>(x3, bias, mask, out, windows, n, c, nh, nw,
+                                               scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

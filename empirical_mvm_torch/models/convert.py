@@ -9,7 +9,10 @@ same name loads. Dense kernels (in, out) become Linear weights (out, in); the pa
 kernel (kd, kh, kw, C, E) becomes the Conv3d weight (E, C, kd, kh, kw);
 LayerNorm ``scale`` becomes ``weight``; embeddings' ``embedding`` becomes
 ``weight``. A pretrain tree's frozen ``feature_model`` teacher is carried
-too. :func:`swin2d_state_dict_from_hf` loads a HF ``SwinModel`` checkpoint
+too, and a ``clip_model`` teacher under HF ``CLIPVisionModel`` names
+(:func:`clip_state_dict`, the inverse of the JAX package's
+``teachers/clip.clip_params_from_torch``).
+:func:`swin2d_state_dict_from_hf` loads a HF ``SwinModel`` checkpoint
 into the same names: the 2D teacher's real weights (``prefix=
 "feature_model."``) or the trained 2D backbone's (``prefix="enc_img.swin."``). This module imports
 nothing of JAX: the tree holds numpy arrays (or anything ``np.asarray``
@@ -123,6 +126,38 @@ def swin2d_state_dict_from_hf(hf: Mapping[str, Any], depths, prefix: str = "") -
     return sd
 
 
+def clip_state_dict(tree: Tree, prefix: str = "") -> dict:
+    """Inverse of ``clip_params_from_torch``: a ``CLIPVisual`` tree to HF
+    ``CLIPVisionModel`` names without the ``vision_model.`` prefix. The
+    (ps * ps * 3, D) patch kernel, rows ordered (i, j, c), becomes the
+    (D, 3, ps, ps) conv weight; the fused ``qkv`` Dense splits into
+    ``q_proj``, ``k_proj`` and ``v_proj``."""
+    p = prefix
+    sd: dict = {}
+    pk = np.asarray(tree["patch_kernel"])
+    d = pk.shape[1]
+    ps = int(round((pk.shape[0] // 3) ** 0.5))
+    _put(sd, f"{p}embeddings.patch_embedding.weight",
+         pk.reshape(ps, ps, 3, d).transpose(3, 2, 0, 1))
+    _put(sd, f"{p}embeddings.class_embedding", tree["class_embedding"])
+    _put(sd, f"{p}embeddings.position_embedding.weight", tree["position_embedding"])
+    _layernorm(sd, f"{p}pre_layrnorm", tree["pre_ln"])
+    _layernorm(sd, f"{p}post_layernorm", tree["post_ln"])
+    layers = sorted((k for k in tree if k.startswith("layers_")), key=lambda k: int(k[7:]))
+    for i, name in enumerate(layers):
+        lt, tl = tree[name], f"{p}encoder.layers.{i}"
+        _layernorm(sd, f"{tl}.layer_norm1", lt["ln1"])
+        _layernorm(sd, f"{tl}.layer_norm2", lt["ln2"])
+        kernel, bias = np.asarray(lt["qkv"]["kernel"]), np.asarray(lt["qkv"]["bias"])
+        for j, proj in enumerate(("q_proj", "k_proj", "v_proj")):
+            _linear(sd, f"{tl}.self_attn.{proj}", {"kernel": kernel[:, j * d:(j + 1) * d],
+                                                   "bias": bias[j * d:(j + 1) * d]})
+        _linear(sd, f"{tl}.self_attn.out_proj", lt["proj"])
+        _linear(sd, f"{tl}.mlp.fc1", lt["fc1"])
+        _linear(sd, f"{tl}.mlp.fc2", lt["fc2"])
+    return sd
+
+
 def bert_embeddings_state_dict(tree: Tree, prefix: str = "") -> dict:
     """Inverse of ``bert_embeddings_params_from_torch``."""
     sd: dict = {}
@@ -179,7 +214,8 @@ def state_dict_from_flax(params: Tree, cfg: ModelConfig,
     ``violet_params_from_torch``: ``"score_head"`` (``fc``, ``fc_mvm``),
     ``"mlm_head"`` or ``"linear"``. A frozen ``feature_model`` teacher in
     the tree is carried under ``feature_model.`` (its depths read from the
-    tree; a 2D teacher has no final norm)."""
+    tree; a 2D teacher has no final norm, the 3D one has), a ``clip_model``
+    under ``clip_model.`` (:func:`clip_state_dict`)."""
     sd = enc_img_state_dict(params["enc_img"])
     sd.update(bert_embeddings_state_dict(params["enc_txt"]["emb_txt"],
                                          "enc_txt.emb_txt."))
@@ -188,6 +224,8 @@ def state_dict_from_flax(params: Tree, cfg: ModelConfig,
     if "feature_model" in params:
         teacher = params["feature_model"]
         sd.update(swin3d_state_dict(teacher, swin_depths(teacher), "feature_model."))
+    if "clip_model" in params:
+        sd.update(clip_state_dict(params["clip_model"], "clip_model."))
     for name, kind in (heads or {}).items():
         tree = params[name]
         if kind == "score_head":

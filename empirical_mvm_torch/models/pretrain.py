@@ -1,35 +1,41 @@
-"""VIOLET pretraining model for the pixel and 2d_feature MVM targets: MTM +
-VTM + MVM (counterpart of ``empirical_mvm_tpu/models/pretrain.py``; ref:
-main_pretrain.py:140-267).
+"""VIOLET pretraining model: MTM + VTM + MVM with the pixel, hog,
+3d_feature, 2d_feature and 2d_clip targets (counterpart of
+``empirical_mvm_tpu/models/pretrain.py``; ref: main_pretrain.py:140-267).
 
 As in the JAX package, the VTM negatives are vectorised: each row pairs its
 video with its own caption (the positive, read from the MTM pass) and O-1
 other captions, and the B*(O-1) negative pairs ride one ``go_cross`` call
-with the B masked pairs. The pixel decoder is a Linear on the fused patch
-tokens followed by the channel-major pixel shuffle. The 2d_feature target
-regresses, through the ``fc_mvm`` score head, the features of a frozen 2D
-Swin-base teacher (``feature_model``, run frame by frame on the unmasked
-clip under no_grad, its LayerNorms through the kernel; ref:
-main_pretrain.py:164-174, 527-545).
+with the B masked pairs. The pixel and hog decoders are a Linear on the
+fused patch tokens followed by the channel-major pixel shuffle; the hog
+target is :func:`hog_image` of the unmasked clip. The feature targets
+regress, through a score head, the features of a frozen teacher run on the
+unmasked clip under no_grad with its LayerNorms through the kernel:
+3d_feature a Video Swin-base and 2d_feature a 2D Swin-base (``fc_mvm``,
+``feature_model``; with both targets, as in the JAX package's ``if 3d ...
+elif 2d``, the one teacher is the 3D one and both losses read it), 2d_clip
+a CLIP ViT-B/32 frame by frame (``fc_mvm_clip``, ``clip_model``; ref:
+main_pretrain.py:153-174, 508-545).
 
 The video backbone is the Video Swin (``vidswin``) or the trained 2D Swin
 (``swin2d``, concat fusion; mean fusion keeps one averaged frame of video
-tokens and so takes no MVM task). The other MVM targets, ``smtm`` and ``am``
-masking are not ported.
+tokens and so takes no MVM task). The vq, depth and optical_flow targets,
+``smtm``, ``am`` masking and the ``corrupt`` clip flag are not ported.
 """
 
 from __future__ import annotations
 
 import torch
 
-from empirical_mvm_torch.core.config import ModelConfig, RunConfig
+from empirical_mvm_torch.core.config import ModelConfig, RunConfig, SwinConfig
 from empirical_mvm_torch.data.masking import MaskDraws, apply_masking, draw_masks
 from empirical_mvm_torch.models.bert import BertMLMHead
 from empirical_mvm_torch.models.common import Linear, init_weights
 from empirical_mvm_torch.models.encoders2d import swin2d_config
 from empirical_mvm_torch.models.video_swin import SwinTransformer3D
 from empirical_mvm_torch.models.violet import ScoreHead, VioletBase
+from empirical_mvm_torch.ops.hog import hog_image
 from empirical_mvm_torch.ops.preprocess import maybe_normalize
+from empirical_mvm_torch.teachers.clip import CLIPVisual, renormalize_imagenet_to_clip
 from empirical_mvm_torch.train.losses import cross_entropy_ignore, masked_l1
 
 
@@ -54,18 +60,21 @@ class VioletPretrain(VioletBase):
 
     Built on ``device`` (the card unless the caller asks for the CPU) with
     parameters drawn from ``seed``; load a converted checkpoint with
-    ``load_state_dict`` to replace them.
+    ``load_state_dict`` to replace them. ``clip_arch`` is the 2d_clip
+    teacher's (hidden, layers, heads, mlp); hidden is also the width
+    ``fc_mvm_clip`` regresses.
     """
 
     special_token_ids = (101, 102, 0)     # [CLS], [SEP], [PAD] of bert-base
     mask_token_id = 103
     num_options = 4                       # VTM: 1 positive + 3 in-batch negatives
-    mvm_targets_ported = ("pixel", "2d_feature")
+    mvm_targets_ported = ("pixel", "2d_feature", "3d_feature", "2d_clip", "hog")
 
     def __init__(self, config: ModelConfig, *, mvm_target=("pixel",),
                  pretrain_tasks=("mtm", "vtm", "mvm"), pretrain_masks=("bm", "rm"),
                  p_mask: float = 0.15, temp: float = 0.05,
-                 dtype=torch.float32, device="cuda", seed: int = 0):
+                 clip_arch=(768, 12, 12, 3072), dtype=torch.float32, device="cuda",
+                 seed: int = 0):
         if not set(mvm_target) <= set(self.mvm_targets_ported):
             raise NotImplementedError(f"mvm_target {tuple(mvm_target)}: only "
                                       f"{self.mvm_targets_ported} are ported")
@@ -84,11 +93,19 @@ class VioletPretrain(VioletBase):
             self.fc_mtm = BertMLMHead(config.fusion, dtype)
             if "pixel" in mvm_target:
                 self.decoder_pixel = Linear(d, ps * ps * 3, compute_dtype=dtype)
-            if "2d_feature" in mvm_target:
-                teacher = swin2d_config("base")
+            if "hog" in mvm_target:
+                self.decoder_hog = Linear(d, ps * ps, compute_dtype=dtype)
+            if {"3d_feature", "2d_feature"} & set(mvm_target):
+                teacher = (SwinConfig.base() if "3d_feature" in mvm_target
+                           else swin2d_config("base"))
                 self.fc_mvm = ScoreHead(d, teacher.num_features, dtype)
                 self.feature_model = SwinTransformer3D(teacher, dtype, fused_norms=True)
                 self.feature_model.requires_grad_(False)
+            if "2d_clip" in mvm_target:
+                self.fc_mvm_clip = ScoreHead(d, clip_arch[0], dtype)
+                self.clip_model = CLIPVisual(*clip_arch, image_size=config.size_img,
+                                             dtype=dtype)
+                self.clip_model.requires_grad_(False)
         self.mvm_target = tuple(mvm_target)
         self.pretrain_tasks = tuple(pretrain_tasks)
         self.pretrain_masks = tuple(pretrain_masks)
@@ -100,7 +117,8 @@ class VioletPretrain(VioletBase):
         """The model a pretrain task file (``configs/pretrain.json``) names."""
         t = run.train
         return cls(run.model, mvm_target=t.mvm_target, pretrain_tasks=t.pretrain_tasks,
-                   pretrain_masks=t.pretrain_masks, p_mask=t.p_mask, temp=t.temp, **kwargs)
+                   pretrain_masks=t.pretrain_masks, p_mask=t.p_mask, temp=t.temp,
+                   clip_arch=t.clip_arch, **kwargs)
 
     def patch_tokens(self, out_mvm, t, h, w):
         """Drop the per-frame CLS, return the (B, T, h, w, D) grid
@@ -110,6 +128,9 @@ class VioletPretrain(VioletBase):
 
     def decode_pixel(self, grid):
         return pixel_shuffle_tokens(self.decoder_pixel(grid), self.config.size_patch, 3)
+
+    def decode_hog(self, grid):
+        return pixel_shuffle_tokens(self.decoder_hog(grid), self.config.size_patch, 1)[..., 0]
 
     def forward(self, img, txt, mask, neg_idx=None, generator=None):
         """One pretrain forward (ref: main_pretrain.py:226-267) on a masked
@@ -140,14 +161,17 @@ class VioletPretrain(VioletBase):
         return {"out_mtm": self.fc_mtm(out_txt), "out_mvm": out_mvm, "out_vtm": out_vtm}
 
     def losses(self, img, txt, mask, *, generator=None, mask_generator=None,
-               draws: MaskDraws | None = None, neg_idx=None) -> dict:
+               draws: MaskDraws | None = None, neg_idx=None, hog=None) -> dict:
         """Masking, forward and every loss of one pretrain step
         (ref: main_pretrain.py:276-372, 374-553, 555-569).
 
         ``img`` is the unmasked clip, uint8 or normalized float. Masks and
         negatives are drawn from ``mask_generator`` unless ``draws`` and
         ``neg_idx`` are given; ``generator`` drives dropout and stochastic
-        depth (None: the deterministic pass).
+        depth (None: the deterministic pass). ``hog`` (B, T, H, W), when
+        given, is the hog target in place of :func:`hog_image` of the clip
+        (the JAX ``losses(hog=...)``). The JAX ``corrupt`` flag, which also
+        drops corrupt clips from the hog loss, is not ported.
         """
         img = maybe_normalize(img)
         b, t = img.shape[:2]
@@ -169,13 +193,28 @@ class VioletPretrain(VioletBase):
                                                       device=img.device))}
         if "mvm" in self.pretrain_tasks:
             grid = self.patch_tokens(out["out_mvm"], t, h, w)
+            cov = mb.cov[..., None]
             if "pixel" in self.mvm_target:
                 ls["mvm_pixel"] = masked_l1(self.decode_pixel(grid), img, mb.mvm_mask,
                                             channel_div=3.0)
-            if "2d_feature" in self.mvm_target:
+            if "hog" in self.mvm_target:
+                if hog is None:
+                    with torch.no_grad():
+                        hog = hog_image(img)
+                ls["mvm_hog"] = masked_l1(self.decode_hog(grid), hog, mb.mvm_mask[..., 0])
+            if {"3d_feature", "2d_feature"} & set(self.mvm_target):
                 with torch.no_grad():               # the frozen teacher, unmasked clip
                     target = self.feature_model(img)
-                ls["mvm_2d_feature"] = masked_l1(self.fc_mvm(grid, generator), target,
-                                                 mb.cov[..., None], channel_div=3.0)
+                for name in ("3d_feature", "2d_feature"):
+                    if name in self.mvm_target:
+                        ls[f"mvm_{name}"] = masked_l1(self.fc_mvm(grid, generator), target,
+                                                      cov, channel_div=3.0)
+            if "2d_clip" in self.mvm_target:
+                with torch.no_grad():               # frame by frame, CLIP-normalized
+                    frames = renormalize_imagenet_to_clip(img.reshape(b * t, *img.shape[2:]))
+                    target = self.clip_model.features(frames)
+                ls["mvm_2d_clip"] = masked_l1(self.fc_mvm_clip(grid, generator),
+                                              target.reshape(b, t, *target.shape[1:]), cov,
+                                              channel_div=3.0)
         ls["total"] = sum(ls.values())
         return ls

@@ -63,6 +63,7 @@ _SIGNATURES = {
     "emvm_lane_self_attention_bwd_smem_bytes": ((_I, _I, _I), _SZ),
     "emvm_lane_window_attention_fwd": (
         (_I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P), _I),
+    "emvm_lane_attention_fwd": ((_I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P), _I),
     "emvm_lane_window_attention_bwd": (
         (_I, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _F, _P), _I),
     "emvm_lane_window_attention_bwd_scratch": ((_LL, _I, _I, _I), _LL),

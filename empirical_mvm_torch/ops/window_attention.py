@@ -33,6 +33,10 @@ kernels the retrieval eval and the pretrain step run:
   :func:`lane_sa_attention_fits` refuses the lane kernel.
   :func:`fused_self_attention` is the same kernel on q, k and v held as
   three arrays (the JAX ``fused_self_attention``).
+* :func:`lane_attention` (``csrc/lane_window_attention.cu``, the lane window
+  kernel with the scale on the scores) replaces ``tools/lanebench.py``
+  ``_lane_kernel``, the benchmark tool's forward-only window attention off
+  the qkv GEMM output; ``empirical_mvm_torch/tools/lanebench.py`` runs it.
 
 Each is a ``torch.autograd.Function``. A CPU tensor takes the plain versions
 (forward and backward); a CUDA tensor launches the kernels or raises. The
@@ -654,6 +658,85 @@ def lane_window_attention(x3: torch.Tensor, bias: torch.Tensor, mask: torch.Tens
       (B_, n, C) in x3's dtype.
     """
     return _LaneWindowAttention.apply(x3, bias, mask, int(n_windows), n_heads, float(scale))
+
+
+# ---------------------------------------------------------------------------
+# lane_attention (tools/lanebench.py's kernel)
+# ---------------------------------------------------------------------------
+
+def _check_lane_attention(x3, bias, mask, n_heads):
+    if x3.dim() != 3:
+        raise ValueError(f"x3 must be (B_, N, 3C), got {tuple(x3.shape)}")
+    b_, n, c3 = x3.shape
+    if c3 % 3 or (c3 // 3) % n_heads:
+        raise ValueError(f"last axis {c3} is not (3, {n_heads}, hd)")
+    if bias.shape != (n_heads, n, n):
+        raise ValueError(f"bias must be {(n_heads, n, n)}, got {tuple(bias.shape)}")
+    if mask.dim() != 3 or mask.shape[1:] != (n, n) or b_ % mask.shape[0]:
+        raise ValueError(f"mask must be (nW, {n}, {n}) with nW dividing {b_}, "
+                         f"got {tuple(mask.shape)}")
+
+
+def lane_attention_reference(x3, bias, mask, n_heads, scale):
+    """Plain version of :func:`lane_attention` with the roundings of the
+    JAX ``_lane_kernel``: the fp32 product q.k, then times the fp32 scale,
+    plus bias[h] and mask[b_ % nW]; fp32 softmax; probabilities cast to v's
+    dtype before P.V, which sums in fp32; each head's output cast to x3's
+    dtype."""
+    _check_lane_attention(x3, bias, mask, n_heads)
+    b_, n, c3 = x3.shape
+    nw = mask.shape[0]
+    q, k, v = x3.reshape(b_ // nw, nw, n, 3, n_heads, -1).permute(3, 0, 1, 4, 2, 5)
+    s = (q.float() @ k.float().transpose(-1, -2)) * torch.tensor(_scale_f32(scale))
+    s = s + bias + mask[:, None]
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    o = (p.float() @ v.float()).to(x3.dtype)
+    return o.transpose(-2, -3).reshape(b_, n, c3 // 3)
+
+
+def _lane_attention_fwd(x3, bias, mask, n_heads, scale):
+    if bias.dtype != torch.float32 or mask.dtype != torch.float32:
+        raise TypeError("bias and mask must be float32")
+    dev = _build.check_tensors(x3, bias, mask)
+    code = _build.dtype_code(x3.dtype)
+    b_, n, c3 = x3.shape
+    c = c3 // 3
+    lib = _build.library()
+    _build.check_smem(lib.emvm_attention_smem_bytes(code, n, c // n_heads),
+                      f"a window of {n} tokens")
+    out = torch.empty((b_, n, c), dtype=x3.dtype, device=dev)
+    with torch.cuda.device(dev):
+        _build.record_launch(lib.emvm_lane_attention_fwd(
+            code, x3.data_ptr(), bias.data_ptr(), mask.data_ptr(), out.data_ptr(), b_, n, c,
+            n_heads, mask.shape[0], _scale_f32(scale), _build.stream_ptr(dev)),
+            "lane_attention")
+    return out
+
+
+def lane_attention(x3: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor, n_heads: int,
+                   scale: float) -> torch.Tensor:
+    """Window attention off the (B_, N, 3C) qkv GEMM output, the
+    benchmark tool's kernel (``tools/lanebench.py`` ``lane_attention``),
+    forward only as there. Unlike :func:`lane_window_attention` it scales
+    the fp32 scores, not q, and always takes a mask.
+
+    Args:
+      x3:   (B_, N, 3C), last axis ordered (3, nH, hd).
+      bias: (nH, N, N) fp32.
+      mask: (nW, N, N) fp32, window b_ taking ``mask[b_ % nW]``; nW = 1
+            applies one mask to every window.
+    Returns:
+      (B_, N, C) in x3's dtype. A CPU tensor takes the plain version; a
+      CUDA tensor launches the kernel.
+    """
+    _check_lane_attention(x3, bias, mask, n_heads)
+    if x3.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError("lane_attention is forward only, as in the JAX package; for a "
+                           "gradient take lane_window_attention (rows 7 and 8), as the "
+                           "tool's --grad does")
+    if x3.device.type == "cpu":
+        return lane_attention_reference(x3, bias, mask, n_heads, scale)
+    return _lane_attention_fwd(x3, bias, mask, n_heads, scale)
 
 
 # ---------------------------------------------------------------------------

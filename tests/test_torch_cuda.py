@@ -169,6 +169,33 @@ def test_lane_window_attention_kernel(cuda, dtype, b_, nh, c, nw):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b_,nh,c,nw", [
+    # lanebench's stages 0 and 2 in small (N = 196, hd = 32), and one mask
+    # for every window at hd = 32 and 64
+    (32, 4, 128, 16),
+    (8, 16, 512, 4),
+    (6, 4, 128, 1),
+    (6, 2, 128, 1),
+])
+def test_lane_attention_kernel(cuda, dtype, b_, nh, c, nw):
+    """Row 12 (the lanebench tool's kernel: the scale on the fp32 scores)
+    against its plain version, with a mask of entries 0 or -100."""
+    rs = np.random.RandomState(12)
+    n = 196
+    x3 = _randn(rs, b_, n, 3 * c, scale=0.5).to(cuda)
+    bias = _randn(rs, nh, n, n, scale=0.1).to(cuda)
+    mask = torch.from_numpy(np.where(rs.rand(nw, n, n) < 0.3, -100.0, 0.0)
+                            .astype(np.float32)).to(cuda)
+    scale = (c // nh) ** -0.5
+    before = _build.launch_counts["lane_attention"]
+    _check(lambda a: twa.lane_attention(a, bias, mask, nh, scale),
+           lambda a: twa.lane_attention_reference(a, bias, mask, nh, scale),
+           x3, dtype, "attention")
+    assert _build.launch_counts["lane_attention"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b_,nh,c,nw", [
     # the trained 2D swin's stage 0 in small (2 clips of 4 frames x 4
     # windows of 7 x 7, hd = 32, the 4-frame mask) and its stage 3 (one
     # window a frame at C = 1024, nH = 32; a mask period of 2 as well)
@@ -429,12 +456,21 @@ PLANTED = {
                          "mask + ((win + 1) % nw) * n * n"),
     "tiled_p_not_rounded": ("self_attention_tiled.cu", "pw[jj] = to_float(from_float<T>(p));",
                             "pw[jj] = p;"),
+    # row 12 with row 7's rounding: q * scale rounded to bf16 (the scores
+    # then divided back by the scale that row 12 multiplies them by)
+    "row12_q_scaled": ("common.cuh", "qb[d] = to_float(q_row[d]);",
+                       "qb[d] = to_float(from_float<T>(to_float(q_row[d]) * scale_t)) / scale_t;"),
 }
 # faults of the packed kernel alone, which the direct kernel does not run
 PACKED_ONLY = {"packed_mask_slot"}
 # faults of the tiled self-attention alone, checked at the multiple-choice
 # fusion shape (8 rows of 350, 12 heads, p = 0.1)
 TILED_ONLY = {"tiled_p_not_rounded"}
+# faults that change row 12 (lane_attention), checked at lanebench's stage 2
+# in small (16 windows of 196 tokens, 16 heads, nW = 4); row12_q_scaled
+# changes it alone
+ROW12_ONLY = {"row12_q_scaled"}
+ROW12_FAULTS = {"probabilities_not_rounded"} | ROW12_ONLY
 # faults that also change the lane kernel at the fusion shape; at hd = 64 the
 # scale is 0.125, so q * scale is exact in bf16 and q_scaled_in_fp32 is no
 # fault there
@@ -455,8 +491,9 @@ def test_bf16_check_catches_planted_faults(cuda, tmp_path, monkeypatch, fault):
     and, for LANE_FAULTS, at the fusion shape; for WINDOW_FAULTS at the 2D
     teacher's stage 2 (4 frames of 4 windows of 49 tokens, shifted); for
     PACKED_FAULTS at the violet swin's stage 0 (2 clips of 64 shifted
-    windows of 196 tokens, 3 heads; a packed-only fault there alone). The
-    readings are printed (run with -s)."""
+    windows of 196 tokens, 3 heads; a packed-only fault there alone); for
+    ROW12_FAULTS at lanebench's stage 2 in small (a row-12 fault there
+    alone). The readings are printed (run with -s)."""
     if fault in PLANTED:
         name, good, bad = PLANTED[fault]
         src = tmp_path / "csrc"
@@ -488,7 +525,7 @@ def test_bf16_check_catches_planted_faults(cuda, tmp_path, monkeypatch, fault):
             _build.stream_ptr(cuda)), "direct_window_attention")
         return out
 
-    cases = {} if fault in PACKED_ONLY | TILED_ONLY else {"direct": bf16_check(
+    cases = {} if fault in PACKED_ONLY | TILED_ONLY | ROW12_ONLY else {"direct": bf16_check(
         direct, lambda a: twa.direct_window_attention_plain(a, bias, mask, win, nh, scale),
         x3, "attention")}
     if fault in LANE_FAULTS:
@@ -545,6 +582,14 @@ def test_bf16_check_catches_planted_faults(cuda, tmp_path, monkeypatch, fault):
         seed = torch.tensor([78, 2], dtype=torch.int32, device=cuda)
         cases["tiled"] = bf16_check(*_sa_calls(mt, nh, hd ** -0.5, 0.1, seed, None)[0][:2], xt,
                                     "sa")
+    if fault in ROW12_FAULTS:
+        xr = torch.randn(16, 196, 3 * c, device=cuda, generator=gen) * 0.5
+        rbias = torch.randn(nh, 196, 196, device=cuda, generator=gen) * 0.1
+        rmask = torch.where(torch.rand(4, 196, 196, device=cuda, generator=gen) < 0.3, -100.0,
+                            0.0)
+        cases["lane_attention"] = bf16_check(
+            lambda a: twa.lane_attention(a, rbias, rmask, nh, scale),
+            lambda a: twa.lane_attention_reference(a, rbias, rmask, nh, scale), xr, "attention")
     for case, (readings, failures) in cases.items():
         print(f"planted {fault} [{case}]: {readings} failures={failures}")
         assert failures, f"planted fault {fault} passes the bf16 limits at {case}"
