@@ -8,7 +8,9 @@ The second form only compares the backward kernels that share
 csrc/attention_bwd.cuh's body and the forward kernels that share
 csrc/common.cuh's ``attend_row`` (``compare_builds``) between this
 checkout's sources and another's (for example the parent commit, unpacked
-with ``git archive``): outputs bit for bit and times in turns, on one card.
+with ``git archive``): outputs bit for bit and times in turns, on one card;
+and row 11 (the tiled self-attention) at the multiple-choice shape: fp32
+bit for bit, each build's bf16 held to the bf16 limits, times in turns.
 
 Phases, each of which records its failures; the script exits non-zero,
 before the final line, if any phase failed:
@@ -42,10 +44,12 @@ before the final line, if any phase failed:
    p = 0.1 and its backward at the multiple-choice fusion shape, with the
    dropout keep fraction, at DPT-Large's 384^2 shape (fp32 and bf16) and at
    N = 129, ``fused_self_attention`` (the same kernel on q, k, v apart),
-   and a copy of csrc/ with two planted roundings dropped, which must fail
-   the bf16 limits; the LayerNorm at the 3D teacher's final norm and at the
-   CLIP teacher's sites, ``lane_self_attention`` at the CLIP teacher's
-   shape (80 frames of 50 tokens, p = 0); ``lane_attention`` (row 12, the
+   each record naming the body that ran (``tensor_core`` for bf16,
+   ``cuda_core`` for fp32), and a copy of csrc/ with two planted faults of
+   the tensor-core body, which must fail the bf16 limits; the LayerNorm at
+   the 3D teacher's final norm and at the CLIP teacher's sites,
+   ``lane_self_attention`` at the CLIP teacher's shape (80 frames of 50
+   tokens, p = 0); ``lane_attention`` (row 12, the
    lanebench tool's kernel) at the tool's three stage shapes with its zero
    mask and a seeded shift-like mask, each beside row 7's time on the same
    inputs; and, marked ``off_path``, what the C % 128 rule costs at the
@@ -150,6 +154,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import itertools
 import json
 import shutil
@@ -354,9 +359,22 @@ for _lim in (FP32_LIMITS, BF16_LIMITS):
 # tests/test_torch_self_attention.py holds the kernel's arithmetic, emulated,
 # to this limit). A dropped rounding still moves far more than
 # BF16_MISMATCH of the elements.
+# Row 11's mismatch share: its bf16 body (hd 32, 64, 128) sums the scores
+# on the tensor cores, in another order than the plain version's fp32 chain,
+# so some fp32 scores differ in their last bit and a p near a bf16 rounding
+# boundary rounds the other way; each such p moves outputs by a step. On
+# the H100 that moves 1.12e-3 of the forward's outputs and 1.38e-3 of dq,
+# dk and dv at N = 577, 6.6e-4 and 7.6e-4 at the multiple-choice shape,
+# where the CUDA-core body reads 3.4e-4 and 3.0e-4 (PERF.md); the CPU
+# emulation of the new order reads the same (tests/test_torch_self_attention.py).
+# SA_MISMATCH is about twice the largest reading; the planted faults of row
+# 11 move 13-51 % of the elements.
+SA_MISMATCH = 3e-3
 FP32_LIMITS["sa"] = FP32_LIMITS["attention"]
 BF16_LIMITS["sa"] = {"out": (BF16_VS_FP32["attention"],
-                             dict(atol=1e-5, rtol=2.0 ** -7, scale=1e-3), BF16_MISMATCH)}
+                             dict(atol=1e-5, rtol=2.0 ** -7, scale=1e-3), SA_MISMATCH)}
+BF16_LIMITS["sa_bwd"] = {"dqkv": BF16_LIMITS["attention_bwd"]["dx3"][:2] + (SA_MISMATCH,)}
+BF16_LIMITS["sa_bwd_qkv"] = {g: BF16_LIMITS["sa_bwd"]["dqkv"] for g in ("dq", "dk", "dv")}
 OUTPUTS = {kind: tuple(lim) for kind, lim in FP32_LIMITS.items()}
 # dropout keep fraction: 1 - p within 5 binomial standard deviations
 KEEP_SIGMAS = 5.0
@@ -1203,13 +1221,38 @@ def c128_cases(dev, gen):
     return recs
 
 
-# Faults planted in a copy of csrc/ for phase 3 (file, correct text, planted
-# text): the tiled self-attention's rounding of the probabilities before P.V
-# (forward) and of ds before dq (backward).
-PLANTED_TILED = (("self_attention_tiled.cu", "pw[jj] = to_float(from_float<T>(p));",
-                  "pw[jj] = p;"),
-                 ("self_attention_tiled.cu", "ds = to_float(from_float<T>(p * (dp - dd[r])));",
-                  "ds = p * (dp - dd[r]);"))
+# Faults planted in a copy of csrc/ for phase 3 (file, correct texts,
+# planted texts), each a rounding point of the JAX kernels that the
+# tensor-core body of the tiled self-attention could move (its roundings of
+# p and ds are structural: an mma operand is bf16). Forward: the
+# normalisation moved after P.V, so the unnormalised p is rounded. Backward:
+# dk from q as stored, the scale applied to the fp32 product, so q * scale
+# is not rounded before dk (a fault only where the scale is inexact in
+# bf16: hd 32, not 64, whose scale 0.125 is a power of two).
+PLANTED_TILED = {
+    "forward p rounded before normalising": (
+        "self_attention_mma.cuh",
+        ("div_rn(expf(__fsub_rn(sc[nt][e], mx[e >> 1])), sum[e >> 1], rcp[e >> 1]);",
+         "pack(o[dt][2 * r], o[dt][2 * r + 1]);"),
+        ("expf(__fsub_rn(sc[nt][e], mx[e >> 1]));",
+         "pack(o[dt][2 * r] / sum[r], o[dt][2 * r + 1] / sum[r]);")),
+    "backward q * scale not rounded before dk": (
+        "self_attention_mma.cuh",
+        ("product_nn<HD, G::kColDTiles>(ak, sa, qs,", "pack(ak[dt][2 * r], ak[dt][2 * r + 1])"),
+        ("product_nn<HD, G::kColDTiles>(ak, sa, qb,",
+         "pack(ak[dt][2 * r] * scale_t, ak[dt][2 * r + 1] * scale_t)")),
+}
+
+
+def plant(src: Path, name: str, good, bad) -> None:
+    """Replace, in the csrc copy ``src``, each text of ``good`` (one string
+    or a tuple) in file ``name`` with the same item of ``bad``; each must
+    occur there exactly once."""
+    text = (src / name).read_text()
+    for g, b in zip(_tuple(good), _tuple(bad)):
+        require(text.count(g) == 1, f"planted fault: {g!r} is not in {name} once")
+        text = text.replace(g, b)
+    (src / name).write_text(text)
 
 
 def _span_bytes(t):
@@ -1323,6 +1366,10 @@ def tiled_sa_cases(dev, gen):
                 mine += split_sa_cases(qkv, do, mask, nh, p_drop, seed, name)
         for rec in mine:
             rec.setdefault("off_path", not on_path)
+            dtype = getattr(torch, rec["dtype"])
+            rec["body"] = wa._sa_body(dtype, hd)
+            rec["smem_bytes"] = _build.library().emvm_tiled_self_attention_smem_bytes(
+                _build.dtype_code(dtype), hd, int(rec["kernel"].endswith("_bwd")))
         recs += mine
     recs[0]["failures"] += planted_tiled_check(dev, gen)
     return recs
@@ -1373,31 +1420,34 @@ def split_sa_cases(qkv, do, mask, nh, p_drop, seed, label):
 
 
 def planted_tiled_check(dev, gen):
-    """Build a copy of csrc/ with ``PLANTED_TILED`` and hold its tiled
-    forward and backward, at the multiple-choice shape in small (8 rows of
-    350, p = 0.1), to the bf16 limits: each must fail them. Returns the
-    faults that passed."""
+    """Build a copy of csrc/ with both ``PLANTED_TILED`` faults and hold its
+    tiled forward at the multiple-choice shape in small (8 rows of 350, 12
+    heads of 64, p = 0.1) and its backward at the same rows with 24 heads of
+    32 (where q * scale rounds), to the bf16 limits: each must fail them.
+    Returns the faults that passed."""
     src = _build.BUILD_DIR / "planted_csrc"
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(_build.CSRC, src)
-    for name, good, bad in PLANTED_TILED:
-        text = (src / name).read_text()
-        require(text.count(good) == 1, f"planted fault: {good!r} is not in {name} once")
-        (src / name).write_text(text.replace(good, bad))
+    for name, good, bad in PLANTED_TILED.values():
+        plant(src, name, good, bad)
     t0 = time.perf_counter()
     planted = _build.load(_build.build(csrc=src))
     build_s = time.perf_counter() - t0
-    b, nh, n, hd = 8, 12, QAMC_L, 64
-    qkv = torch.randn(b, 3 * nh, n, hd, device=dev, generator=gen) * 0.5
-    do = _bf16_values(torch.randn(b, nh, n, hd, device=dev, generator=gen))
+    b, n = 8, QAMC_L
+    mask = _padding_mask(dev, gen, b, n, 100, 8)
     seed = torch.tensor([78, 2], dtype=torch.int32, device=dev)
-    (fwd, fwd_plain, _), (bwd, bwd_plain, _) = _sa_calls(
-        _padding_mask(dev, gen, b, n, 100, 8), nh, hd ** -0.5, P_ATTN, seed, do)
+    cases = []
+    for nh, hd in ((12, 64), (24, 32)):
+        qkv = torch.randn(b, 3 * nh, n, hd, device=dev, generator=gen) * 0.5
+        do = _bf16_values(torch.randn(b, nh, n, hd, device=dev, generator=gen))
+        cases.append((qkv, _sa_calls(mask, nh, hd ** -0.5, P_ATTN, seed, do)))
+    (q64, ((fwd, fwd_plain, _), _)), (q32, (_, (bwd, bwd_plain, _))) = cases
     real = _build.library()
     _build._lib = planted
     try:
-        caught = {"forward p not rounded": bf16_check(fwd, fwd_plain, qkv, "sa"),
-                  "backward ds not rounded": bf16_check(bwd, bwd_plain, qkv, "sa_bwd")}
+        fwd_fault, bwd_fault = PLANTED_TILED
+        caught = {fwd_fault: bf16_check(fwd, fwd_plain, q64, "sa"),
+                  bwd_fault: bf16_check(bwd, bwd_plain, q32, "sa_bwd")}
     finally:
         _build._lib = real
     print(json.dumps({"planted_tiled_faults": {k: dict(readings=r, failures=f)
@@ -1981,20 +2031,64 @@ def _attend_row_calls(dev, gen):
                wa._packed_fwd(a, bias, mk, nw, nh, 32 ** -0.5))
 
 
+def _tiled_calls(dev, gen):
+    """(kernel, label, qkv, calls, kind) of row 11 at the multiple-choice
+    fusion shape (40 rows of 350, 12 heads of 64, the padding mask):
+    forward at p = 0 and p = 0.1, backward at p = 0.1. ``calls()`` returns a
+    fresh (kernel call, plain version) pair, so that each build's backward
+    runs from its own forward's stats."""
+    b, nh, n, hd = QAMC_B * QAMC_O, 12, QAMC_L, 64
+    qkv = torch.randn(b, 3 * nh, n, hd, device=dev, generator=gen) * 0.5
+    do = _bf16_values(torch.randn(b, nh, n, hd, device=dev, generator=gen))
+    mask = _padding_mask(dev, gen, b, n, 100, 8)
+    seed = torch.tensor([20261016, 11], dtype=torch.int32, device=dev)
+
+    def calls(p_drop, backward):
+        return _sa_calls(mask, nh, hd ** -0.5, p_drop, seed if p_drop else None,
+                         do)[backward][:2]
+
+    for p_drop in (0.0, P_ATTN):
+        label = f"mc fusion p_drop={p_drop}"
+        yield "packed_self_attention", label, qkv, functools.partial(calls, p_drop, 0), "sa"
+        if p_drop:
+            yield ("packed_self_attention_bwd", label, qkv, functools.partial(calls, p_drop, 1),
+                   "sa_bwd")
+
+
 def compare_builds(base_csrc: Path) -> None:
     """Build the kernel library from ``base_csrc`` too and hold the backward
     kernels of attention_bwd.cuh's body (``_shared_bwd_calls``) and the
     forward kernels of common.cuh's ``attend_row`` (``_attend_row_calls``)
     of this checkout's build against it: every output bit-identical in fp32
     and bf16 (same inputs), and the bf16 times of both builds with CUDA
-    events in turns (base, new, new, base). Prints one JSON line per shape
-    and the sums per kernel; exits non-zero if an output differs."""
+    events in turns (base, new, new, base). Row 11 (``_tiled_calls``), whose
+    bf16 body may sum in another order: fp32 bit-identical, each build's
+    bf16 output held to the bf16 limits against the plain version, and the
+    bf16 times in turns. Prints one JSON line per shape and the sums per
+    kernel with new / base; exits non-zero if an output differs or a limit
+    is exceeded."""
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(_nvidia_smi(), flush=True)
     libs = {"new": _build.library(), "base": _build.load(_build.build(csrc=base_csrc), False)}
     gen = torch.Generator(dev).manual_seed(0)
-    differ, sums = [], {}
+    differ, failures, sums = [], [], {}
+
+    def in_turns(calls, a16):
+        """bf16 times of calls[build](a16), base, new, new, base."""
+        ms = {"base": [], "new": []}
+        for which in ("base", "new", "new", "base"):
+            _build._lib = libs[which]
+            ms[which].append(time_ms(lambda: calls[which](a16)))
+        return ms
+
+    def record(kernel, label, ms, **extra):
+        print(json.dumps({"kernel": kernel, "shape": label, **extra,
+                          **{f"{w}_ms": v for w, v in ms.items()}}), flush=True)
+        tot = sums.setdefault(kernel, {"base_ms": 0.0, "new_ms": 0.0})
+        for w, v in ms.items():
+            tot[f"{w}_ms"] += float(np.mean(v))
+
     for kernel, label, x3, call in itertools.chain(_shared_bwd_calls(dev, gen),
                                                    _attend_row_calls(dev, gen)):
         outs = {}
@@ -2004,23 +2098,29 @@ def compare_builds(base_csrc: Path) -> None:
                            for u in _tuple(call(x3.to(dt)))]
         same = all(torch.equal(u, v) for u, v in zip(outs["base"], outs["new"]))
         del outs
-        a16 = x3.to(torch.bfloat16)
-        ms = {"base": [], "new": []}
-        for which in ("base", "new", "new", "base"):
-            _build._lib = libs[which]
-            ms[which].append(time_ms(lambda: call(a16)))
-        rec = {"kernel": kernel, "shape": label, "bit_identical": same,
-               **{f"{w}_ms": v for w, v in ms.items()}}
-        print(json.dumps(rec), flush=True)
+        record(kernel, label, in_turns({w: call for w in libs}, x3.to(torch.bfloat16)),
+               bit_identical=same)
         differ += [] if same else [f"{kernel} [{label}]"]
-        tot = sums.setdefault(kernel, {"base_ms": 0.0, "new_ms": 0.0})
-        for w, v in ms.items():
-            tot[f"{w}_ms"] += float(np.mean(v))
+    for kernel, label, qkv, calls, kind in _tiled_calls(dev, gen):
+        outs, readings, kernel_calls = {}, {}, {}
+        for which, lib in libs.items():
+            _build._lib = lib
+            call, plain = calls()
+            kernel_calls[which] = call
+            outs[which] = _tuple(call(qkv))
+            readings[which], failed = bf16_check(call, plain, qkv, kind)
+            failures += [f"{which} build {kernel} [{label}] {f}" for f in failed]
+        same = all(torch.equal(u, v) for u, v in zip(outs["base"], outs["new"]))
+        del outs
+        record(kernel, label, in_turns(kernel_calls, qkv.to(torch.bfloat16)),
+               fp32_bit_identical=same, bf16=readings)
+        differ += [] if same else [f"{kernel} [{label}] fp32"]
     _build._lib = libs["new"]
     for tot in sums.values():
         tot["new_over_base"] = tot["new_ms"] / tot["base_ms"]
     print(json.dumps({"compare_build": str(base_csrc), "per_kernel": sums}), flush=True)
     require(not differ, f"outputs differ from the base build: {differ}")
+    require(not failures, f"bf16 limits exceeded: {failures}")
 
 
 def kernels_line(recs, runs):
@@ -2045,6 +2145,8 @@ def kernels_line(recs, runs):
         # the window kernels: each shape weighted by its blocks in a step
         step = {f"{k}_step": sum(r[k] * r["launches_per_step"] for r in mine)
                 for k in tot} if "launches_per_step" in mine[0] else {}
+        # row 11: the body each dtype ran (tensor_core or cuda_core)
+        body = {"body": {r["dtype"]: r["body"] for r in checked}} if "body" in checked[0] else {}
         line.append({"name": name, "route": "cuda", **meta,
                      "launches": next((n[name] for n in runs.values() if n.get(name)), 0),
                      **{f"launches_{run}": n.get(name, 0) for run, n in runs.items()},
@@ -2052,7 +2154,7 @@ def kernels_line(recs, runs):
                      "ms": tot["ms"], "kernel_ms": tot["ms"], "plain_ms": tot["plain_ms"],
                      "bound_ms": tot["bound_ms"],
                      "bound_by": "operations" if ops_bound > tot["bound_ms"] / 2 else "bytes",
-                     "library_ms": tot["library_ms"], **step, "shapes": len(mine),
+                     "library_ms": tot["library_ms"], **step, **body, "shapes": len(mine),
                      "shapes_checked": len(checked)})
     return line
 
@@ -2067,8 +2169,8 @@ def _nvidia_smi() -> str:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--compare-build", type=Path, metavar="CSRC",
-                        help="only compare the shared-body backward kernels with a build "
-                             "of CSRC")
+                        help="only compare the shared-body kernels and row 11 with a "
+                             "build of CSRC")
     args = parser.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():

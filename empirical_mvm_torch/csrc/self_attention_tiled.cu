@@ -1,7 +1,9 @@
 // Tiled self-attention forward and backward: BERT-style attention with a
 // per-row additive mask over q, k and v held as (N, hd) head tiles, for any
 // sequence length N. Keys and values stream through shared memory in tiles
-// of kTile rows, so no buffer grows with N.
+// of 64 rows, so no buffer grows with N (the row 5 kernel,
+// self_attention.cu, stages a head's whole K and V per block: at N = 577,
+// hd = 64 in fp32 that is about 300 KB, above the 227 KB a block may have).
 //
 // Replaces: empirical_mvm_tpu/ops/window_attention.py `_sa_kernel` (forward,
 // with `_sa_dropout`) and `_sa_bwd_kernel` (backward), over the grids that
@@ -22,22 +24,36 @@
 // one block shape between forward and backward.
 //
 // Rounding points, those of the JAX kernels: q * scale rounded to the
-// storage type before the scores and before dk; fp32 scores, mask, softmax;
-// the probabilities after dropout rounded before P.V and before dv; ds
-// rounded before dq and dk; dq scaled in fp32.
+// storage type before the scores and before dk; fp32 scores, mask, softmax
+// (p = exp(s - max) / sum); the probabilities after dropout rounded before
+// P.V and before dv; ds = p * (dp - D), D = rowsum(dp * p), rounded before
+// dq and dk; dq scaled in fp32. FlashAttention's D = rowsum(dO * O) is the
+// same sum in exact arithmetic, but from O rounded to bf16 it moves a large
+// share of the bf16 dq and dk elements by a rounding
+// (tests/test_torch_self_attention.py shows it), so the backward sums the
+// JAX D in a pass of its own.
+//
+// Two bodies, picked by dtype and hd in the C entry points (the rule of
+// ops/window_attention.py `_sa_body`):
+//   * bf16 at hd 32, 64 or 128: the tensor-core body, self_attention_mma.cuh
+//     (mma.sync m16n8k16, ldmatrix, cp.async; its design is there). BERT-base
+//     and DPT-L have hd = 64.
+//   * fp32, and bf16 at any other hd (up to 128): the CUDA-core body below,
+//     whose fp32 products the fp32 limits need (TF32 tensor cores keep about
+//     three digits).
 //
 // Bound on the H100: at the multiple-choice fusion shape (40 rows of
 // N = 350, 12 heads, hd = 64, bf16) the forward does 4 * N^2 * hd operations
-// per (row, head), 15.05 GFLOP in all, on 105.6 MB (q, k, v and out in bf16,
-// the fp32 mask, read once): 0.015 ms at 989 TFLOP/s against 0.032 ms at
-// 3.35 TB/s. The backward does 2.5 times the operations (37.6 GFLOP, 0.038
-// ms) on about 170 MB (0.051 ms): memory. This version runs far above either
-// floor: its products run on the CUDA cores, not the tensor cores.
+// per (row, head), 15.05 GFLOP in all (0.015 ms at 989 TFLOP/s), on 86 MB
+// (q, k, v and out in bf16, read or written once; the stride-0 mask 56 KB):
+// 0.026 ms at 3.35 TB/s, memory. The backward does 2.5 times the operations
+// (37.6 GFLOP, 0.038 ms) on 150 MB (0.045 ms): memory. The tensor-core body
+// does more than that count, three products of 2 * N^2 * hd in the forward
+// (the scores twice) and nine in the backward (the scores and dp three
+// times), and its exp, division and Philox per score run on the CUDA cores.
 //
-// Design (first, simple version). The row 5 kernel (self_attention.cu)
-// stages a head's whole K and V per block: at N = 577, hd = 64 in fp32 that
-// is about 300 KB, above the 227 KB a block may have. Here every block holds
-// fixed-size tiles only:
+// The CUDA-core body (first, simple version). Every block holds fixed-size
+// tiles only:
 //   forward, one 256-thread block per (query tile of kTile rows, head, row
 //     b), each of its 8 warps owning kTile / 8 query rows. Pass 1 streams
 //     the K tiles and keeps each query row's running max and sum (an online
@@ -58,11 +74,10 @@
 //       the mask tile, max, sum and D staged) recomputing p and ds bit for
 //       bit as the rows kernel computed them (the same fma chains), then
 //       dv = round(p_drop)^T . dO and dk = round(ds)^T . (q * scale).
-//   D is the JAX kernel's rowsum(dp * p). FlashAttention's rowsum(dO * O)
-//   is the same sum in exact arithmetic and saves pass A, but from O rounded
-//   to bf16 it moves about a fifth of the bf16 dq and dk elements by a
-//   rounding (tests/test_torch_self_attention.py shows it).
 #include "common.cuh"
+#include "self_attention_mma.cuh"
+
+#include <algorithm>
 
 namespace emvm {
 namespace {
@@ -122,18 +137,6 @@ __device__ __forceinline__ void stage_tile(T* __restrict__ dst, const T* __restr
     const T x = src[size_t(r0 + r) * hd + e];
     dst[r * ks + e] = scaled ? from_float<T>(to_float(x) * scale_t) : x;
   }
-}
-
-struct Heads {
-  size_t qkv;   // element offset of (b, h) in q, k, v and their gradients
-  size_t out;   // element offset of (b, h) in out and dout
-  size_t stat;  // (b * nH + h)
-};
-
-__device__ __forceinline__ Heads heads(long long bs, int n, int nh, int hd) {
-  const int h = blockIdx.y, b = blockIdx.z;
-  return {size_t(b) * bs + size_t(h) * n * hd, (size_t(b) * nh + h) * n * hd,
-          size_t(b) * nh + h};
 }
 
 // ---------------------------------------------------------------------------
@@ -534,12 +537,6 @@ __global__ void __launch_bounds__(kAttnThreads)
   }
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, long long bs, const void* mask,
                long long mask_sb, long long mask_sr, void* out, void* stats, int b, int n,
@@ -589,6 +586,18 @@ int launch_bwd(const void* q, const void* k, const void* v, void* dq, void* dk, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The body rule (ops/window_attention.py `_sa_body` mirrors it): bf16 at hd
+// 32, 64 or 128 runs on the tensor cores, everything else on the CUDA cores.
+bool tensor_core_body(int dtype, int hd) {
+  return dtype == kBFloat16 && (hd == 32 || hd == 64 || hd == 128);
+}
+
+template <int HD>
+size_t mma_smem_bytes(bool backward) {
+  return backward ? std::max(sa_mma::rows_smem<HD>(), sa_mma::cols_smem<HD>())
+                  : sa_mma::fwd_smem<HD>();
+}
+
 }  // namespace
 }  // namespace emvm
 
@@ -606,6 +615,12 @@ extern "C" int emvm_tiled_self_attention_fwd(int dtype, const void* q, const voi
                                              float scale_t, const void* seed,
                                              unsigned threshold, float inv_keep, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (emvm::tensor_core_body(dtype, hd)) {
+    auto fwd = hd == 32 ? emvm::sa_mma::launch_fwd<32>
+               : hd == 64 ? emvm::sa_mma::launch_fwd<64> : emvm::sa_mma::launch_fwd<128>;
+    return fwd(q, k, v, bs, mask, mask_sb, mask_sr, out, stats, b, n, nh, scale_t, seed,
+               threshold, inv_keep, s);
+  }
   switch (dtype) {
     case emvm::kFloat32:
       return emvm::launch_fwd<float>(q, k, v, bs, mask, mask_sb, mask_sr, out, stats, b, n, nh,
@@ -631,6 +646,12 @@ extern "C" int emvm_tiled_self_attention_bwd(int dtype, const void* q, const voi
                                              float scale_f, const void* seed,
                                              unsigned threshold, float inv_keep, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (emvm::tensor_core_body(dtype, hd)) {
+    auto bwd = hd == 32 ? emvm::sa_mma::launch_bwd<32>
+               : hd == 64 ? emvm::sa_mma::launch_bwd<64> : emvm::sa_mma::launch_bwd<128>;
+    return bwd(q, k, v, dq, dk, dv, bs, mask, mask_sb, mask_sr, dout, stats, dsum, b, n, nh,
+               scale_t, scale_f, seed, threshold, inv_keep, s);
+  }
   switch (dtype) {
     case emvm::kFloat32:
       return emvm::launch_bwd<float>(q, k, v, dq, dk, dv, bs, mask, mask_sb, mask_sr, dout,
@@ -646,8 +667,12 @@ extern "C" int emvm_tiled_self_attention_bwd(int dtype, const void* q, const voi
 }
 
 // Dynamic shared memory of the largest block the forward (backward = 0) or
-// the backward launches; it depends on hd only.
+// the backward launches, in the body that dtype and hd pick; it depends on
+// hd only.
 extern "C" size_t emvm_tiled_self_attention_smem_bytes(int dtype, int hd, int backward) {
+  if (emvm::tensor_core_body(dtype, hd))
+    return hd == 32 ? emvm::mma_smem_bytes<32>(backward)
+           : hd == 64 ? emvm::mma_smem_bytes<64>(backward) : emvm::mma_smem_bytes<128>(backward);
   if (dtype == emvm::kFloat32)
     return backward ? emvm::cols_smem_bytes<float>(hd) : emvm::fwd_smem_bytes<float>(hd);
   return backward ? emvm::cols_smem_bytes<__nv_bfloat16>(hd)

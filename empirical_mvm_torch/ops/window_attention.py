@@ -1026,8 +1026,19 @@ def lane_sa_attention_fits(b: int, l: int, c: int, nh: int) -> bool:
 # packed_self_attention and fused_self_attention
 # ---------------------------------------------------------------------------
 
-# hd up to 4 channels a lane (csrc/self_attention_tiled.cu kMaxHd)
+# hd up to 128: the CUDA-core body holds up to 4 channels a lane
+# (csrc/self_attention_tiled.cu kMaxHd); the tensor-core body takes
+# TENSOR_CORE_HDS
 MAX_TILED_HD = 128
+TENSOR_CORE_HDS = (32, 64, 128)
+
+
+def _sa_body(dtype: torch.dtype, hd: int) -> str:
+    """The body of the tiled kernel that a launch runs, by the rule its C
+    entry points apply: bf16 at hd 32, 64 or 128 on the tensor cores
+    (``csrc/self_attention_mma.cuh``); fp32, whose limits need fp32
+    products, and bf16 at any other hd on the CUDA cores."""
+    return "tensor_core" if dtype == torch.bfloat16 and hd in TENSOR_CORE_HDS else "cuda_core"
 
 
 def _check_sa(b, n, mask, p_drop, seed):

@@ -19,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import FP32_LIMITS, OUTPUTS, _excess, _sa_calls, _tuple, bf16_check
+from chip_smoke import (FP32_LIMITS, OUTPUTS, PLANTED_TILED, _excess, _sa_calls, _tuple,
+                        bf16_check, plant)
 from empirical_mvm_torch.models.video_swin import _shift_attn_mask
 from empirical_mvm_torch.ops import _build
 from empirical_mvm_torch.ops import layernorm as tln
@@ -361,15 +362,20 @@ def _sa_setup(rs, cuda, b, nh, n, hd):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,nh,n,hd", [
     # N = 70: a key tile of 6; N = 577, hd = 64: DPT at 384^2, whose fp32
-    # heads row 5's shared memory cannot hold
+    # heads row 5's shared memory cannot hold; N = 350: the multiple-choice
+    # fusion's heads; N = 129: one key in the last tile, at hd = 128 (the
+    # columns kernel's blocks of 32 keys)
     (3, 4, 70, 32),
     (2, 16, 577, 64),
+    (2, 12, 350, 64),
+    (2, 4, 129, 128),
 ])
 @pytest.mark.parametrize("p_drop", [0.0, 0.1])
 def test_tiled_self_attention_kernels(cuda, dtype, b, nh, n, hd, p_drop):
     """Row 11 forward and backward against their plain versions, with and
-    without dropout (the same (seed, offset)); two runs give bit-identical
-    outputs (no atomics)."""
+    without dropout (the same (seed, offset)), on the body that dtype and hd
+    pick (bf16: the tensor cores at every hd here; fp32: the CUDA cores);
+    two runs give bit-identical outputs (no atomics)."""
     rs = np.random.RandomState(11)
     qkv, do, mask = _sa_setup(rs, cuda, b, nh, n, hd)
     scale = hd ** -0.5
@@ -383,6 +389,36 @@ def test_tiled_self_attention_kernels(cuda, dtype, b, nh, n, hd, p_drop):
     _check(backward, backward_plain, qkv, dtype, "sa_bwd")
     a = qkv.to(dtype)
     assert torch.equal(forward(a), forward(a)) and torch.equal(backward(a), backward(a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("p_drop", [0.0, 0.1])
+def test_tiled_columns_p_equals_rows_p(cuda, hd, p_drop):
+    """The tensor-core backward's columns kernel forms each p bit for bit as
+    the rows of the forward formed it (the rows kernel runs the forward's
+    code for p). Read on one tile of 64 keys (j0 ...) and 64 queries (i0 ...)
+    through one-hot operands: v[j0 + d, d] = 1 makes out[i, d] the forward's
+    rounded p_drop[i, j0 + d]; dO[i0 + d, d] = 1 makes dv[j, d] the columns
+    kernel's rounded p_drop[i0 + d, j]. Each is one exact term."""
+    rs = np.random.RandomState(21)
+    b, nh, n = 2, 3, 350
+    qkv, _, mask = _sa_setup(rs, cuda, b, nh, n, hd)
+    i0, j0 = 64, 128
+    eye = torch.eye(64, hd, device=cuda)
+    qkv[:, 2 * nh:] = 0
+    qkv[:, 2 * nh:, j0:j0 + 64] = eye
+    do = torch.zeros(b, nh, n, hd, device=cuda)
+    do[:, :, i0:i0 + 64] = eye
+    a = qkv.to(torch.bfloat16)
+    seed = torch.tensor([99, 5], dtype=torch.int32, device=cuda) if p_drop else None
+    out, stats = twa._packed_sa_fwd(a, mask, nh, hd ** -0.5, p_drop, seed)
+    dv = twa._packed_sa_bwd(a, mask, do.to(torch.bfloat16), stats, nh, hd ** -0.5, p_drop,
+                            seed)[:, 2 * nh:]
+    rows_p = out[:, :, i0:i0 + 64, :64]                      # [i - i0, j - j0]
+    cols_p = dv[:, :, j0:j0 + 64, :64].transpose(-1, -2)     # [i - i0, j - j0]
+    assert (rows_p != 0).float().mean() > 0.5
+    assert torch.equal(rows_p, cols_p)
 
 
 @pytest.mark.cuda
@@ -454,8 +490,9 @@ PLANTED = {
     "bias_dropped": ("window_attention.cu", "bias_h + size_t(t) * n,", "nullptr,"),
     "packed_mask_slot": ("packed_window_attention.cu", "mask + (win % nw) * n * n",
                          "mask + ((win + 1) % nw) * n * n"),
-    "tiled_p_not_rounded": ("self_attention_tiled.cu", "pw[jj] = to_float(from_float<T>(p));",
-                            "pw[jj] = p;"),
+    # the tensor-core body's normalisation moved after P.V (chip_smoke's
+    # planted forward fault)
+    "tiled_p_rounded_before_normalising": PLANTED_TILED["forward p rounded before normalising"],
     # row 12 with row 7's rounding: q * scale rounded to bf16 (the scores
     # then divided back by the scale that row 12 multiplies them by)
     "row12_q_scaled": ("common.cuh", "qb[d] = to_float(q_row[d]);",
@@ -465,7 +502,7 @@ PLANTED = {
 PACKED_ONLY = {"packed_mask_slot"}
 # faults of the tiled self-attention alone, checked at the multiple-choice
 # fusion shape (8 rows of 350, 12 heads, p = 0.1)
-TILED_ONLY = {"tiled_p_not_rounded"}
+TILED_ONLY = {"tiled_p_rounded_before_normalising"}
 # faults that change row 12 (lane_attention), checked at lanebench's stage 2
 # in small (16 windows of 196 tokens, 16 heads, nW = 4); row12_q_scaled
 # changes it alone
@@ -495,12 +532,9 @@ def test_bf16_check_catches_planted_faults(cuda, tmp_path, monkeypatch, fault):
     ROW12_FAULTS at lanebench's stage 2 in small (a row-12 fault there
     alone). The readings are printed (run with -s)."""
     if fault in PLANTED:
-        name, good, bad = PLANTED[fault]
         src = tmp_path / "csrc"
         shutil.copytree(_build.CSRC, src)
-        text = (src / name).read_text()
-        assert text.count(good) == 1
-        (src / name).write_text(text.replace(good, bad))
+        plant(src, *PLANTED[fault])
         monkeypatch.setattr(_build, "CSRC", src)
         monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
         monkeypatch.setattr(_build, "_lib", None)
@@ -625,12 +659,12 @@ PLANTED_BWD = {
     # k, v and their gradients addressed with dout's window stride
     "packed_kv_dout_stride": ("packed_window_attention.cu", "return seg == 3 ?",
                               "return seg >= 1 ?"),
-    "tiled_ds_not_rounded": ("self_attention_tiled.cu",
-                             "ds = to_float(from_float<T>(p * (dp - dd[r])));",
-                             "ds = p * (dp - dd[r]);"),
-    "tiled_dq_scale_dropped": ("self_attention_tiled.cu",
-                               "from_float<T>(acc[r][c] * scale_f);",
-                               "from_float<T>(acc[r][c]);"),
+    # the tensor-core body: dk from q as stored, the scale on the fp32
+    # product (chip_smoke's planted backward fault), and dq's scale dropped
+    "tiled_dk_q_scale_not_rounded": PLANTED_TILED["backward q * scale not rounded before dk"],
+    "tiled_dq_scale_dropped": ("self_attention_mma.cuh",
+                               "pack(acc[dt][2 * r] * scale_f, acc[dt][2 * r + 1] * scale_f)",
+                               "pack(acc[dt][2 * r], acc[dt][2 * r + 1])"),
 }
 
 
@@ -643,14 +677,13 @@ def test_bf16_check_catches_planted_backward_faults(cuda, tmp_path, monkeypatch,
     dropout); a fault of the shared window backward also at the trained 2D
     swin's stage 2 (lane window, 4 frames of 4 windows of 49 tokens,
     shifted) and at the violet swin's stage 0 (the packed backward), where
-    a fault of the packed kernel alone is planted. The readings are printed
-    (run with -s)."""
-    name, good, bad = PLANTED_BWD[fault]
+    a fault of the packed kernel alone is planted; a fault of the tiled
+    self-attention's tensor-core body at the multiple-choice rows (N = 350)
+    with 24 heads of 32, p = 0.1. The readings are printed (run with -s)."""
+    name = PLANTED_BWD[fault][0]
     src = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, src)
-    text = (src / name).read_text()
-    assert text.count(good) == 1
-    (src / name).write_text(text.replace(good, bad))
+    plant(src, *PLANTED_BWD[fault])
     monkeypatch.setattr(_build, "CSRC", src)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_lib", None)
@@ -687,8 +720,9 @@ def test_bf16_check_catches_planted_backward_faults(cuda, tmp_path, monkeypatch,
             lambda a: twa.lane_window_attention_backward_plain(a, wbias, wmask, dw.to(a.dtype),
                                                                16, nh, scale),
             xw, "attention_bwd")
-    elif name == "self_attention_tiled.cu":
-        p, nh, n, hd = 8, 12, 350, 64
+    elif name == "self_attention_mma.cuh":
+        # hd 32, where the scale (and so q * scale) rounds in bf16
+        p, nh, n, hd = 8, 24, 350, 32
         xt, _, mt = _sa_setup(np.random.RandomState(13), cuda, p, nh, n, hd)
         dt = torch.randn(p, nh, n, hd, device=cuda, generator=gen).to(torch.bfloat16)
         seed = torch.tensor([78, 2], dtype=torch.int32, device=cuda)

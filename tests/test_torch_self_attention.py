@@ -9,6 +9,9 @@ the CPU; inputs from numpy with a seed.
   BERT's attention taking the kernel that rule names in both packages.
 * Dropout: the keep fraction at p = 0.1, and the autograd backward against
   the plain backward under the same (seed, offset).
+* The tensor-core forward's arithmetic, emulated, against chip_smoke's
+  ``sa`` limit at N = 577 and at the multiple-choice head shape; its planted
+  fault against the mismatch limit; the rule that picks the body.
 """
 
 import collections
@@ -208,39 +211,105 @@ def test_wrappers_on_cpu_launch_nothing_and_refuse_bad_input():
         twa.fused_self_attention(*qkv[:, :4].chunk(2, dim=1), qkv[:, :1], mask, 0.3)
 
 
-def test_tiled_forward_arithmetic_fits_its_bf16_limit():
-    """The tiled forward's arithmetic, emulated in torch at DPT's 384^2
-    head shape (N = 577, hd = 64, bf16): per-row max and an online sum over
-    64-key tiles, p = exp(s - max) / sum rounded to bf16, fp32 P.V. Against
-    the plain version run in bf16 it breaks the one-step limit of the other
-    attention kernels at a few cancelling outputs (a p that rounds the other
-    way), and holds chip_smoke's ``sa`` limit, 1e-3 of the scale above it,
-    with room; its elements differ from plain far less than BF16_MISMATCH."""
-    from chip_smoke import BF16_LIMITS, BF16_MISMATCH, _excess
-    b, nh, n, hd = 2, 16, 577, 64
-    qkv, mask, _ = _inputs(b, nh, n, hd, seed=11)
+def _tensor_core_forward(qkv16, mask, nh, normalise_first=True):
+    """The tensor-core forward's arithmetic (csrc/self_attention_mma.cuh),
+    emulated in torch on bf16 qkv: q * scale rounded to bf16; the scores
+    summed over d in 16-wide k-steps; per thread of a quad, a running max and
+    sum over its keys (key % 8 // 2 == thread), chunk by chunk of 16 keys,
+    the chunk's four terms added in the kernel's order; the quad's four
+    combined as shfl_xor 1 then 2 combine them; p = exp(s - max) / sum
+    rounded to bf16; P.V in fp32 over 16-key k-steps; out rounded to bf16.
+    With ``normalise_first`` False, the planted fault: exp(s - max) rounded
+    and the division moved after P.V."""
+    q, k, v = qkv16.chunk(3, dim=1)
+    b, _, n, hd = q.shape
+    qs = (q * twa._scale_in(q.dtype, hd ** -0.5)).float()
+    kf, vf = k.float(), v.float()
+    s = torch.zeros(b, nh, n, n)
+    for d0 in range(0, hd, 16):
+        s = s + qs[..., d0:d0 + 16] @ kf[..., d0:d0 + 16].transpose(-1, -2)
+    s = s + mask[:, None]
+    padded = -(-n // 64) * 64
+    sp = torch.nn.functional.pad(s, (0, padded - n), value=-float("inf"))
+    # (..., n, chunk, nt, thread, u) -> (..., n, thread, chunk, (nt, u))
+    sv = sp.view(b, nh, n, padded // 16, 2, 4, 2).permute(0, 1, 2, 5, 3, 4, 6)
+    sv = sv.reshape(b, nh, n, 4, padded // 16, 4)
+    mx = torch.full((b, nh, n, 4), -float("inf"))
+    total = torch.zeros(b, nh, n, 4)
+    for c in range(padded // 16):
+        vals = sv[..., c, :]
+        m = torch.maximum(mx, vals.max(-1).values)
+        total = torch.where(m != mx, total * torch.exp(mx - m), total)
+        mx = m
+        for u in range(4):
+            total = total + torch.where(m == -float("inf"), 0.0, torch.exp(vals[..., u] - m))
+    row_max = mx.max(-1, keepdim=True).values
+    part = torch.where(mx == row_max, total, total * torch.exp(mx - row_max))
+    row_sum = (part[..., 0] + part[..., 1]) + (part[..., 2] + part[..., 3])
+    e = torch.exp(s - row_max)
+    p = (e / row_sum[..., None] if normalise_first else e).to(torch.bfloat16).float()
+    o = torch.zeros(b, nh, n, hd)
+    for j0 in range(0, n, 16):
+        o = o + p[..., j0:j0 + 16] @ vf[..., j0:j0 + 16, :]
+    if not normalise_first:
+        o = o / row_sum[..., None]
+    return o.to(torch.bfloat16).float()
+
+
+def _held_to_sa_limit(b, nh, n, hd, seed, normalise_first=True):
+    """The emulated forward against the plain version run in bf16: the
+    excess over the other attention kernels' one-step limit, over the
+    ``sa`` limit, and the share of elements that differ."""
+    from chip_smoke import BF16_LIMITS, _excess
+    qkv, mask, _ = _inputs(b, nh, n, hd, seed=seed)
     a16 = T(qkv).to(torch.bfloat16)
     want = twa.packed_self_attention_plain(a16, T(mask), nh, hd ** -0.5).float()
-    q, k, v = a16.chunk(3, dim=1)
-    s = (q * hd ** -0.5).float() @ k.float().transpose(-1, -2) + T(mask)[:, None]
-    mx = s.max(-1, keepdim=True).values
-    total = torch.zeros_like(mx)
-    run = torch.full_like(mx, -float("inf"))
-    for j0 in range(0, n, 64):
-        tile = s[..., j0:j0 + 64]
-        new = torch.maximum(run, tile.max(-1, keepdim=True).values)
-        total = total * torch.exp(run - new) + torch.exp(tile - new).sum(-1, keepdim=True)
-        run = new
-    p = (torch.exp(s - mx) / total).to(torch.bfloat16).float()
-    got = (p @ v.float()).to(torch.bfloat16).float()
+    got = _tensor_core_forward(a16, T(mask), nh, normalise_first)
     d = (got - want).abs()
     _, same, _ = BF16_LIMITS["attention"]["out"]
     _, same_sa, _ = BF16_LIMITS["sa"]["out"]
-    over = _excess(d, want, **same)
-    room = _excess(d, want, **same_sa)
-    print(f"one-step limit exceeded by {over:.3g}; sa limit left {-room:.3g}; "
-          f"differing share {(d > 0).float().mean().item():.3g}")
-    assert over > 0 and room < 0 and (d > 0).float().mean().item() < BF16_MISMATCH
+    share = (d > 0).float().mean().item()
+    print(f"one-step limit exceeded by {_excess(d, want, **same):.3g}; sa limit exceeded by "
+          f"{_excess(d, want, **same_sa):.3g}; differing share {share:.3g}")
+    return _excess(d, want, **same), _excess(d, want, **same_sa), share
+
+
+def test_tiled_forward_arithmetic_fits_its_bf16_limit():
+    """The tensor-core forward's arithmetic, emulated in torch at DPT's
+    384^2 head shape (N = 577, hd = 64, bf16), against the plain version run
+    in bf16: it breaks the one-step limit of the other attention kernels at
+    a few cancelling outputs (a p that rounds the other way), and holds
+    chip_smoke's ``sa`` limit, 1e-3 of the scale above it; its elements
+    differ from plain less than SA_MISMATCH."""
+    from chip_smoke import SA_MISMATCH
+    over, over_sa, share = _held_to_sa_limit(2, 16, 577, 64, seed=11)
+    assert over > 0 and over_sa < 0 and share < SA_MISMATCH
+
+
+def test_tiled_forward_arithmetic_fits_its_bf16_limit_at_the_mc_shape():
+    """The same at the multiple-choice fusion's head shape (N = 350, hd = 64,
+    rows padded from their own lengths on)."""
+    from chip_smoke import SA_MISMATCH
+    _, over_sa, share = _held_to_sa_limit(4, 12, 350, 64, seed=12)
+    assert over_sa < 0 and share < SA_MISMATCH
+
+
+def test_planted_forward_fault_breaks_the_mismatch_limit():
+    """chip_smoke's planted forward fault, emulated: with the division moved
+    after P.V, the rounded probability is the unnormalised one, and far more
+    elements than BF16_MISMATCH (and SA_MISMATCH) differ from plain bf16."""
+    from chip_smoke import BF16_MISMATCH, SA_MISMATCH
+    *_, share = _held_to_sa_limit(4, 12, 350, 64, seed=12, normalise_first=False)
+    assert share > 10 * max(BF16_MISMATCH, SA_MISMATCH)
+
+
+def test_body_rule():
+    """bf16 at hd 32, 64, 128 runs the tensor-core body; fp32 at every hd
+    and bf16 at any other hd the CUDA-core body (the C entry's rule)."""
+    for hd in (8, 16, 24, 32, 48, 64, 96, 128):
+        want = "tensor_core" if hd in (32, 64, 128) else "cuda_core"
+        assert twa._sa_body(torch.bfloat16, hd) == want, hd
+        assert twa._sa_body(torch.float32, hd) == "cuda_core", hd
 
 
 def test_bf16_backward_needs_the_jax_rowsum():
