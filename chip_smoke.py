@@ -4,13 +4,14 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --compare-build OTHER/empirical_mvm_torch/csrc
 
-The second form only compares the backward kernels that share
-csrc/attention_bwd.cuh's body and the forward kernels that share
-csrc/common.cuh's ``attend_row`` (``compare_builds``) between this
-checkout's sources and another's (for example the parent commit, unpacked
-with ``git archive``): outputs bit for bit and times in turns, on one card;
-and row 11 (the tiled self-attention) at the multiple-choice shape: fp32
-bit for bit, each build's bf16 held to the bf16 limits, times in turns.
+The second form only compares kernels between this checkout's sources and
+another's (for example the parent commit, unpacked with ``git archive``),
+on one card, times in turns (``compare_builds``): the forward kernels that
+share csrc/common.cuh's ``attend_row``, bit for bit; the backwards whose
+bf16 runs a tensor-core body (rows 4, 8, 9 and 10 on
+csrc/attention_bwd_mma.cuh, row 6 on row 11's body), fp32 bit for bit and
+each build's bf16 held to the bf16 limits; and row 11 (the tiled
+self-attention) at the multiple-choice shape, fp32 and bf16 bit for bit.
 
 Phases, each of which records its failures; the script exits non-zero,
 before the final line, if any phase failed:
@@ -44,9 +45,12 @@ before the final line, if any phase failed:
    p = 0.1 and its backward at the multiple-choice fusion shape, with the
    dropout keep fraction, at DPT-Large's 384^2 shape (fp32 and bf16) and at
    N = 129, ``fused_self_attention`` (the same kernel on q, k, v apart),
-   each record naming the body that ran (``tensor_core`` for bf16,
-   ``cuda_core`` for fp32), and a copy of csrc/ with two planted faults of
-   the tensor-core body, which must fail the bf16 limits; the LayerNorm at
+   and two copies of csrc/ with planted faults of the tensor-core bodies
+   (``PLANTED_TILED``: two of row 11's, one of the window backward's, one of
+   row 6's), each of which must fail the bf16 limits. The records of rows 4,
+   6, 8, 9, 10 and 11 name the body each dtype ran (``tensor_core`` for
+   bf16 at the paths' head widths, ``cuda_core`` for fp32); the window
+   backwards' bf16 is held to the ``window_bwd_tc`` limits. The LayerNorm at
    the 3D teacher's final norm and at the CLIP teacher's sites,
    ``lane_self_attention`` at the CLIP teacher's shape (80 frames of 50
    tokens, p = 0); ``lane_attention`` (row 12, the
@@ -153,6 +157,7 @@ before the final line, if any phase failed:
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import functools
 import itertools
@@ -375,6 +380,31 @@ BF16_LIMITS["sa"] = {"out": (BF16_VS_FP32["attention"],
                              dict(atol=1e-5, rtol=2.0 ** -7, scale=1e-3), SA_MISMATCH)}
 BF16_LIMITS["sa_bwd"] = {"dqkv": BF16_LIMITS["attention_bwd"]["dx3"][:2] + (SA_MISMATCH,)}
 BF16_LIMITS["sa_bwd_qkv"] = {g: BF16_LIMITS["sa_bwd"]["dqkv"] for g in ("dq", "dk", "dv")}
+# The window-attention backward's tensor-core body (rows 4, 8, 9, 10 in
+# bf16 at hd 32, csrc/attention_bwd_mma.cuh; kind "window_bwd_tc"): against
+# plain bf16 one bf16 step plus WINDOW_TC_STEP_SCALE of the output's scale.
+# Its scores and dp sum on the tensor cores, in another order than the plain
+# version's fp32 chains (and with the tensor cores' own alignment of the
+# products, which torch's CPU sums do not reproduce: the CPU emulation in
+# tests/test_torch_bwd_mma.py reads no element over one step at N = 196), so
+# a p near a bf16 rounding boundary may round the other way and move a dv
+# element by ulp(p) |do|: with N = 49 and a shift mask, p reaches 1/2 and
+# |do| 4. On the H100 the largest reading is 1.03e-3 of dx3's scale (2D swin
+# stage 1, shifted; 1.6e-5 of the elements above one step, PERF.md), above
+# the CUDA-core body's 1e-3; the limit is about three times that. The
+# mismatch share (BF16_BWD_MISMATCH) and the dbias limits are the CUDA-core
+# body's: the planted fault of the body (ds rounded before dbias) moves
+# dbias far past 1e-4 of its scale.
+WINDOW_TC_STEP_SCALE = 3e-3
+FP32_LIMITS["window_bwd_tc"] = FP32_LIMITS["attention_bwd"]
+FP32_LIMITS["window_bwd_tc_qkv"] = FP32_LIMITS["attention_bwd_qkv"]
+BF16_LIMITS["window_bwd_tc"] = {
+    "dx3": (dict(scale=2e-2), dict(rtol=2.0 ** -7, scale=WINDOW_TC_STEP_SCALE),
+            BF16_BWD_MISMATCH),
+    "dbias": BF16_LIMITS["attention_bwd"]["dbias"]}
+BF16_LIMITS["window_bwd_tc_qkv"] = {
+    **{g: BF16_LIMITS["window_bwd_tc"]["dx3"] for g in ("dq", "dk", "dv")},
+    "dbias": BF16_LIMITS["attention_bwd"]["dbias"]}
 OUTPUTS = {kind: tuple(lim) for kind, lim in FP32_LIMITS.items()}
 # dropout keep fraction: 1 - p within 5 binomial standard deviations
 KEEP_SIGMAS = 5.0
@@ -589,6 +619,20 @@ def _grad_call(out, inputs, grad):
     return lambda: torch.autograd.grad(out, inputs, grad, retain_graph=True)
 
 
+def _window_bwd_kind(hd, split=False):
+    """The limits of a window-attention backward record: those of its bf16
+    body (``window_bwd_tc`` for the tensor cores), dq, dk, dv apart when
+    ``split``."""
+    tc = wa._window_bwd_body(torch.bfloat16, hd) == "tensor_core"
+    return ("window_bwd_tc" if tc else "attention_bwd") + ("_qkv" if split else "")
+
+
+def _bodies(rule, hd):
+    """The body each dtype of a record ran (fp32 in the check against
+    plain, bf16 in the bf16 check and the timing), by the C entries' rule."""
+    return {str(dt)[6:]: rule(dt, hd) for dt in (torch.float32, torch.bfloat16)}
+
+
 def _direct_sdpa(a, win, b, nw, nh):
     """q, k, v of SDPA on (B, nW * nH, N, hd) from the 5D x3 map: a clip's
     windows and heads on one axis (4D, which SDPA's fused kernels take)."""
@@ -703,13 +747,14 @@ def _bf16_values(t):
     return t.to(torch.bfloat16).float()
 
 
-def _direct_bwd_inputs(dev, gen, swin=SwinConfig.base(), stages=range(4)):
+def _direct_bwd_inputs(dev, gen, swin=SwinConfig.base(), stages=range(4), b=TRAIN_B,
+                       t=TRAIN_T):
     """The direct backward's inputs at the swin stages ``stages`` (of
     ``swin``'s widths) of the train step: B = 20 clips of T = 4 frames at
-    224^2, window (4, 7, 7), N = 196, hd = 32; x3, do and bias drawn once a
-    stage, for its unshifted and shifted block. Yields (stage, window, nH,
+    224^2, window (4, 7, 7), N = 196, hd = 32 (the multiple-choice step: 8
+    clips of 5 frames, window (5, 7, 7), N = 245); x3, do and bias drawn once
+    a stage, for its unshifted and shifted block. Yields (stage, window, nH,
     x3, do, bias, mask or None)."""
-    b, t = TRAIN_B, TRAIN_T
     for stage in stages:
         hw, c, nh = 56 >> stage, swin.embed_dim << stage, swin.num_heads[stage]
         win, shift = get_window_size((t, hw, hw), (8, 7, 7), (4, 3, 3))
@@ -725,12 +770,14 @@ def _direct_bwd_inputs(dev, gen, swin=SwinConfig.base(), stages=range(4)):
             yield stage, win, nh, x3, do, bias, mask
 
 
-def direct_bwd_cases(dev, gen, path="", swin=SwinConfig.base(), stages=range(4)):
+def direct_bwd_cases(dev, gen, path="", swin=SwinConfig.base(), stages=range(4), b=TRAIN_B,
+                     t=TRAIN_T):
     """The direct backward at the train step's swin stages
-    (``_direct_bwd_inputs``): every stage of Swin-base, or the violet
-    swin's stages 2 and 3."""
+    (``_direct_bwd_inputs``): every stage of Swin-base, the violet swin's
+    stages 2 and 3, or every stage of the multiple-choice step's Swin-base
+    (b = 8 clips of t = 5 frames)."""
     recs = []
-    for stage, win, nh, x3, do, bias, mask in _direct_bwd_inputs(dev, gen, swin, stages):
+    for stage, win, nh, x3, do, bias, mask in _direct_bwd_inputs(dev, gen, swin, stages, b, t):
         b, t, hp, _, c3 = x3.shape
         c, n = c3 // 3, bias.shape[-1]
         hd, nw = c // nh, (hp // win[1]) * (hp // win[2])
@@ -758,8 +805,9 @@ def direct_bwd_cases(dev, gen, path="", swin=SwinConfig.base(), stages=range(4))
         nbytes = (2 * x3.numel() + do.numel()) * 2 + 2 * bias.numel() * 4 + (
             0 if mask is None else mask.numel() * 4)
         recs.append(measure("direct_window_attention_bwd", label, x3, kernel, plain,
-                            library, torch.bfloat16, "attention_bwd", ops,
+                            library, torch.bfloat16, _window_bwd_kind(hd), ops,
                             "bf16_tensor", nbytes))
+        recs[-1]["body"] = _bodies(wa._window_bwd_body, hd)
     return recs
 
 
@@ -828,6 +876,7 @@ def lane_train_cases(dev, gen):
     bwd = measure("lane_self_attention_bwd", label, x3, bwd_kernel, bwd_plain,
                   bwd_library, torch.bfloat16, "attention_bwd", 2.5 * ops, "bf16_tensor",
                   (2 * x3.numel() + do.numel()) * 2 + p * l * 4)
+    bwd["body"] = _bodies(wa._sa_body, hd)
     return [fwd, bwd]
 
 
@@ -944,8 +993,8 @@ def lane_window_bwd_cases(dev, gen):
         nbytes = (2 * x3.numel() + do.numel()) * 2 + 2 * bias.numel() * 4 + (
             0 if mk is None else mk.numel() * 4)
         recs.append(measure("lane_window_attention_bwd", label, x3, kernel, plain, library,
-                            torch.bfloat16, "attention_bwd", ops, "bf16_tensor", nbytes))
-        recs[-1]["launches_per_step"] = blocks
+                            torch.bfloat16, _window_bwd_kind(hd), ops, "bf16_tensor", nbytes))
+        recs[-1].update(launches_per_step=blocks, body=_bodies(wa._window_bwd_body, hd))
     return recs
 
 
@@ -1032,8 +1081,10 @@ def packed_cases(dev, gen):
                       fwd_library, torch.bfloat16, "attention", ops, "bf16_tensor",
                       (qkv.numel() + do.numel()) * 2 + extra)
         bwd = measure("packed_window_attention_bwd", label, qkv, bwd_kernel, bwd_plain,
-                      bwd_library, torch.bfloat16, "attention_bwd", 2.5 * ops, "bf16_tensor",
-                      (2 * qkv.numel() + do.numel()) * 2 + extra + bias.numel() * 4)
+                      bwd_library, torch.bfloat16, _window_bwd_kind(hd), 2.5 * ops,
+                      "bf16_tensor", (2 * qkv.numel() + do.numel()) * 2 + extra
+                      + bias.numel() * 4)
+        bwd["body"] = _bodies(wa._window_bwd_body, hd)
         for rec in (fwd, bwd):
             rec["launches_per_step"] = blocks
             if not blocks:
@@ -1084,8 +1135,10 @@ def fused_cases(qkv, do, bias, mk, nw, nh, label):
                   torch.bfloat16, "attention", ops, "bf16_tensor",
                   (stack.numel() + do.numel()) * 2 + extra)
     bwd = measure("fused_window_attention_bwd", label, stack, bwd_kernel, bwd_plain,
-                  bwd_library, torch.bfloat16, "attention_bwd_qkv", 2.5 * ops, "bf16_tensor",
-                  (2 * stack.numel() + do.numel()) * 2 + extra + bias.numel() * 4)
+                  bwd_library, torch.bfloat16, _window_bwd_kind(hd, split=True), 2.5 * ops,
+                  "bf16_tensor", (2 * stack.numel() + do.numel()) * 2 + extra
+                  + bias.numel() * 4)
+    bwd["body"] = _bodies(wa._window_bwd_body, hd)
     return [fwd, bwd]
 
 
@@ -1221,14 +1274,19 @@ def c128_cases(dev, gen):
     return recs
 
 
-# Faults planted in a copy of csrc/ for phase 3 (file, correct texts,
-# planted texts), each a rounding point of the JAX kernels that the
-# tensor-core body of the tiled self-attention could move (its roundings of
-# p and ds are structural: an mma operand is bf16). Forward: the
-# normalisation moved after P.V, so the unnormalised p is rounded. Backward:
-# dk from q as stored, the scale applied to the fp32 product, so q * scale
-# is not rounded before dk (a fault only where the scale is inexact in
-# bf16: hd 32, not 64, whose scale 0.125 is a power of two).
+# Faults planted in copies of csrc/ for phase 3 (file, correct texts,
+# planted texts), each a rounding point or term of the JAX kernels that a
+# tensor-core body could move (its roundings of p and ds are structural: an
+# mma operand is bf16). Row 11's body, forward: the normalisation moved after
+# P.V, so the unnormalised p is rounded. Backward: dk from q as stored, the
+# scale applied to the fp32 product, so q * scale is not rounded before dk
+# (a fault only where the scale is inexact in bf16: hd 32, not 64, whose
+# scale 0.125 is a power of two). The window backward's body: ds rounded to
+# bf16 before it enters dbias (the JAX kernels sum the fp32 ds). Row 6 on
+# row 11's backward: the keep mask dropped from dp in the rows kernel (D, ds
+# and dq of every dropped score). The first two are planted in one copy, the
+# last two in another (the keep-mask fault would also fail row 11's backward
+# check, whose own fault it must not hide).
 PLANTED_TILED = {
     "forward p rounded before normalising": (
         "self_attention_mma.cuh",
@@ -1241,7 +1299,19 @@ PLANTED_TILED = {
         ("product_nn<HD, G::kColDTiles>(ak, sa, qs,", "pack(ak[dt][2 * r], ak[dt][2 * r + 1])"),
         ("product_nn<HD, G::kColDTiles>(ak, sa, qb,",
          "pack(ak[dt][2 * r] * scale_t, ak[dt][2 * r + 1] * scale_t)")),
+    "window backward ds rounded before dbias": (
+        "attention_bwd_mma.cuh",
+        "part[size_t(rows[r]) * n + j] = first_window ? ds : __fadd_rn(old[nt][e], ds);",
+        "ds = __bfloat162float(__float2bfloat16(ds));\n"
+        "part[size_t(rows[r]) * n + j] = first_window ? ds : __fadd_rn(old[nt][e], ds);"),
+    "lane backward keep mask dropped from dp in the rows kernel": (
+        "self_attention_mma.cuh",
+        "const float d = drop.on ? drop_scale(keep[r][e & 1], dp[nt][e], drop.inv_keep)\n"
+        "                                  : dp[nt][e];",
+        "const float d = dp[nt][e];"),
 }
+# the faults of each planted copy of csrc/
+PLANTED_COPIES = (tuple(PLANTED_TILED)[:2], tuple(PLANTED_TILED)[2:])
 
 
 def plant(src: Path, name: str, good, bad) -> None:
@@ -1367,7 +1437,7 @@ def tiled_sa_cases(dev, gen):
         for rec in mine:
             rec.setdefault("off_path", not on_path)
             dtype = getattr(torch, rec["dtype"])
-            rec["body"] = wa._sa_body(dtype, hd)
+            rec["body"] = _bodies(wa._sa_body, hd)
             rec["smem_bytes"] = _build.library().emvm_tiled_self_attention_smem_bytes(
                 _build.dtype_code(dtype), hd, int(rec["kernel"].endswith("_bwd")))
         recs += mine
@@ -1419,19 +1489,29 @@ def split_sa_cases(qkv, do, mask, nh, p_drop, seed, label):
     return [fwd_rec, bwd_rec]
 
 
-def planted_tiled_check(dev, gen):
-    """Build a copy of csrc/ with both ``PLANTED_TILED`` faults and hold its
-    tiled forward at the multiple-choice shape in small (8 rows of 350, 12
-    heads of 64, p = 0.1) and its backward at the same rows with 24 heads of
-    32 (where q * scale rounds), to the bf16 limits: each must fail them.
-    Returns the faults that passed."""
-    src = _build.BUILD_DIR / "planted_csrc"
+def _planted_library(tag, faults):
+    """Build a copy of csrc/ with the ``PLANTED_TILED`` faults named in
+    ``faults``; returns the loaded library."""
+    src = _build.BUILD_DIR / f"planted_csrc_{tag}"
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(_build.CSRC, src)
-    for name, good, bad in PLANTED_TILED.values():
-        plant(src, name, good, bad)
+    for fault in faults:
+        plant(src, *PLANTED_TILED[fault])
+    return _build.load(_build.build(csrc=src))
+
+
+def planted_tiled_check(dev, gen):
+    """Build the ``PLANTED_COPIES`` of csrc/ (at once) and hold each fault's
+    kernel to the bf16 limits, which it must fail: row 11's forward at the
+    multiple-choice shape in small (8 rows of 350, 12 heads of 64, p = 0.1)
+    and its backward at the same rows with 24 heads of 32 (where q * scale
+    rounds); the direct window backward at a Video Swin stage-2 shape in
+    small (2 clips, N = 196, 16 heads of 32, shifted); row 6 at the fusion's
+    shape in small (8 rows of 232, 12 heads of 64, p = 0.1). Returns the
+    faults that passed."""
     t0 = time.perf_counter()
-    planted = _build.load(_build.build(csrc=src))
+    with concurrent.futures.ThreadPoolExecutor(len(PLANTED_COPIES)) as pool:
+        row11, rows4_6 = pool.map(_planted_library, ("row11", "rows4_6"), PLANTED_COPIES)
     build_s = time.perf_counter() - t0
     b, n = 8, QAMC_L
     mask = _padding_mask(dev, gen, b, n, 100, 8)
@@ -1442,12 +1522,33 @@ def planted_tiled_check(dev, gen):
         do = _bf16_values(torch.randn(b, nh, n, hd, device=dev, generator=gen))
         cases.append((qkv, _sa_calls(mask, nh, hd ** -0.5, P_ATTN, seed, do)))
     (q64, ((fwd, fwd_plain, _), _)), (q32, (_, (bwd, bwd_plain, _))) = cases
+    win, nh, c, hp = (4, 7, 7), 16, 512, 14
+    x3 = torch.randn(2, 4, hp, hp, 3 * c, device=dev, generator=gen) * 0.5
+    dw = _bf16_values(torch.randn(2, 4, hp, hp, c, device=dev, generator=gen))
+    bias = torch.randn(nh, 196, 196, device=dev, generator=gen) * 0.02
+    wmask = torch.from_numpy(_shift_attn_mask((4, hp, hp), win, (0, 3, 3))).to(dev)
+    lb, ll = 8, TRAIN_L
+    xl = torch.randn(lb, ll, 3 * 768, device=dev, generator=gen) * 0.5
+    dl = _bf16_values(torch.randn(lb, ll, 768, device=dev, generator=gen))
+    lmask = _padding_mask(dev, gen, lb, ll, 32, 6)
+    lseed = torch.tensor([77, 1], dtype=torch.int32, device=dev)
+    window = (lambda a: wa._direct_bwd(a, bias, wmask, dw.to(a.dtype), win, nh, 32 ** -0.5),
+              lambda a: wa.direct_window_attention_backward_plain(
+                  a, bias, wmask, dw.to(a.dtype), win, nh, 32 ** -0.5),
+              x3, _window_bwd_kind(32))
+    lane = (lambda a: wa._lane_bwd(a, lmask, dl.to(a.dtype), 12, 0.125, P_ATTN, lseed),
+            lambda a: wa.lane_self_attention_backward_plain(a, lmask, dl.to(a.dtype), 12, 0.125,
+                                                            P_ATTN, lseed),
+            xl, "attention_bwd")
+    checks = ((row11, ((fwd, fwd_plain, q64, "sa"), (bwd, bwd_plain, q32, "sa_bwd"))),
+              (rows4_6, (window, lane)))
     real = _build.library()
-    _build._lib = planted
+    caught = {}
     try:
-        fwd_fault, bwd_fault = PLANTED_TILED
-        caught = {fwd_fault: bf16_check(fwd, fwd_plain, q64, "sa"),
-                  bwd_fault: bf16_check(bwd, bwd_plain, q32, "sa_bwd")}
+        for (lib, lib_checks), faults in zip(checks, PLANTED_COPIES):
+            _build._lib = lib
+            for fault, check in zip(faults, lib_checks):
+                caught[fault] = bf16_check(*check)
     finally:
         _build._lib = real
     print(json.dumps({"planted_tiled_faults": {k: dict(readings=r, failures=f)
@@ -1979,21 +2080,69 @@ def lanebench_phase():
 
 
 def _shared_bwd_calls(dev, gen):
-    """(kernel, label, x3, call) of each backward that runs
-    attention_bwd.cuh's body, at the shapes phase 3 times it
-    (``_direct_bwd_inputs``, ``_window_bwd_inputs``); ``call(a)`` launches
-    the kernel on a (a dtype of x3) with the shape's do, bias and mask."""
+    """(kernel, label, x3, call, plain, kind) of each backward whose bf16 runs
+    a tensor-core body, at the shapes phase 3 times it: the window backwards
+    of attention_bwd_mma.cuh (rows 4 and 8: ``_direct_bwd_inputs``,
+    ``_window_bwd_inputs``; rows 9 and 10: ``_packed_shapes``, the split
+    entry at the violet stage-0 shifted shape) and row 6 (the fusion of the
+    train step, p = 0.1); ``call(a)`` launches the kernel on a (a dtype of
+    x3) with the shape's do, bias and mask, ``plain(a)`` its plain version,
+    ``kind`` names the bf16 limits."""
     for stage, win, nh, x3, do, bias, mask in _direct_bwd_inputs(dev, gen):
-        scale = (x3.shape[-1] // 3 // nh) ** -0.5
+        hd = x3.shape[-1] // 3 // nh
+        args = (bias, mask, do, win, nh, hd ** -0.5)
         yield ("direct_window_attention_bwd",
                f"stage{stage} {'shifted' if mask is not None else 'unshifted'}", x3,
-               lambda a, do=do, bias=bias, mask=mask, win=win, nh=nh, scale=scale:
-               wa._direct_bwd(a, bias, mask, do.to(a.dtype), win, nh, scale))
+               functools.partial(_with_do, wa._direct_bwd, args),
+               functools.partial(_with_do, wa.direct_window_attention_backward_plain, args),
+               _window_bwd_kind(hd))
     for stage, nw, nh, x3, do, bias, mk, _ in _window_bwd_inputs(dev, gen):
+        args = (bias, mk, do, nw if mk is not None else 1, nh, 32 ** -0.5)
         yield ("lane_window_attention_bwd",
                f"2d stage{stage} {'shifted' if mk is not None else 'unshifted'}", x3,
-               lambda a, do=do, bias=bias, mk=mk, nw=nw if mk is not None else 1, nh=nh:
-               wa._lane_window_bwd(a, bias, mk, do.to(a.dtype), nw, nh, 32 ** -0.5))
+               functools.partial(_with_do, wa._lane_window_bwd, args),
+               functools.partial(_with_do, wa.lane_window_attention_backward_plain, args),
+               _window_bwd_kind(32))
+    for label, nw, c, nh, n, mk, _ in _packed_shapes():
+        qkv = torch.randn(TRAIN_B * nw, 3 * nh, n, 32, device=dev, generator=gen) * 0.5
+        do = _bf16_values(torch.randn(TRAIN_B * nw, nh, n, 32, device=dev, generator=gen))
+        bias = torch.randn(nh, n, n, device=dev, generator=gen) * 0.02
+        mk = None if mk is None else torch.from_numpy(mk).to(dev)
+        args = (bias, mk, do, nw if mk is not None else 1, nh, 32 ** -0.5)
+        label = f"{label} {'shifted' if mk is not None else 'unshifted'}"
+        yield ("packed_window_attention_bwd", label, qkv,
+               functools.partial(_with_do, wa._packed_bwd, args),
+               functools.partial(_with_do, wa.packed_window_attention_backward_plain, args),
+               _window_bwd_kind(32))
+        if label == "violet stage0 shifted":
+            stack = qkv.reshape(-1, 3, nh, n, 32).transpose(0, 1).contiguous()
+            args = (bias, mk, do, nw, 32 ** -0.5)
+            yield ("fused_window_attention_bwd", label, stack,
+                   functools.partial(_with_do, _split(wa._fused_bwd), args),
+                   functools.partial(_with_do, _split(wa.fused_window_attention_backward_plain),
+                                     args),
+                   _window_bwd_kind(32, split=True))
+    b, l = 4 * TRAIN_B, TRAIN_L
+    x3 = torch.randn(b, l, 3 * 768, device=dev, generator=gen) * 0.5
+    do = _bf16_values(torch.randn(b, l, 768, device=dev, generator=gen))
+    seed = torch.tensor([20261016, 7], dtype=torch.int32, device=dev)
+    args = (_padding_mask(dev, gen, b, l, 32, 6), do, 12, 0.125, P_ATTN, seed)
+    yield ("lane_self_attention_bwd", f"train p_drop={P_ATTN}", x3,
+           functools.partial(_with_do, wa._lane_bwd, args, at=1),
+           functools.partial(_with_do, wa.lane_self_attention_backward_plain, args, at=1),
+           "attention_bwd")
+
+
+def _with_do(fn, args, a, at=2):
+    """fn(a, *args) with args[at], the cotangent, cast to a's dtype."""
+    args = list(args)
+    args[at] = args[at].to(a.dtype)
+    return fn(a, *args)
+
+
+def _split(fn):
+    """fn on a (3, ...) stack of q, k, v: fn(q, k, v, ...)."""
+    return lambda a, *args: fn(*a.unbind(0), *args)
 
 
 def _attend_row_calls(dev, gen):
@@ -2056,17 +2205,19 @@ def _tiled_calls(dev, gen):
 
 
 def compare_builds(base_csrc: Path) -> None:
-    """Build the kernel library from ``base_csrc`` too and hold the backward
-    kernels of attention_bwd.cuh's body (``_shared_bwd_calls``) and the
-    forward kernels of common.cuh's ``attend_row`` (``_attend_row_calls``)
-    of this checkout's build against it: every output bit-identical in fp32
-    and bf16 (same inputs), and the bf16 times of both builds with CUDA
-    events in turns (base, new, new, base). Row 11 (``_tiled_calls``), whose
-    bf16 body may sum in another order: fp32 bit-identical, each build's
-    bf16 output held to the bf16 limits against the plain version, and the
-    bf16 times in turns. Prints one JSON line per shape and the sums per
-    kernel with new / base; exits non-zero if an output differs or a limit
-    is exceeded."""
+    """Build the kernel library from ``base_csrc`` too and hold this
+    checkout's build against it, times of both builds' bf16 calls taken with
+    CUDA events in turns (base, new, new, base):
+    * the forward kernels of common.cuh's ``attend_row``
+      (``_attend_row_calls``): every output bit-identical in fp32 and bf16;
+    * the backwards whose bf16 runs a tensor-core body (``_shared_bwd_calls``:
+      rows 4, 6, 8, 9, 10): fp32 bit-identical (the CUDA-core bodies), each
+      build's bf16 held to its bf16 limits against the plain version;
+    * row 11 (``_tiled_calls``): fp32 and bf16 bit-identical (row 6 runs its
+      tensor-core kernels in another layout, which must not move row 11's),
+      each build's bf16 held to the bf16 limits.
+    Prints one JSON line per shape and the sums per kernel with new / base;
+    exits non-zero if an output differs or a limit is exceeded."""
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(_nvidia_smi(), flush=True)
@@ -2089,32 +2240,51 @@ def compare_builds(base_csrc: Path) -> None:
         for w, v in ms.items():
             tot[f"{w}_ms"] += float(np.mean(v))
 
-    for kernel, label, x3, call in itertools.chain(_shared_bwd_calls(dev, gen),
-                                                   _attend_row_calls(dev, gen)):
+    def outputs(calls, a):
+        """Each build's outputs of calls[build](a)."""
         outs = {}
         for which, lib in libs.items():
             _build._lib = lib
-            outs[which] = [u for dt in (torch.float32, torch.bfloat16)
-                           for u in _tuple(call(x3.to(dt)))]
-        same = all(torch.equal(u, v) for u, v in zip(outs["base"], outs["new"]))
-        del outs
-        record(kernel, label, in_turns({w: call for w in libs}, x3.to(torch.bfloat16)),
-               bit_identical=same)
+            outs[which] = _tuple(calls[which](a))
+        return outs
+
+    def equal(outs):
+        return all(torch.equal(u, v) for u, v in zip(outs["base"], outs["new"]))
+
+    for kernel, label, x3, call in _attend_row_calls(dev, gen):
+        calls = {w: call for w in libs}
+        same = all(equal(outputs(calls, x3.to(dt))) for dt in (torch.float32, torch.bfloat16))
+        record(kernel, label, in_turns(calls, x3.to(torch.bfloat16)), bit_identical=same)
         differ += [] if same else [f"{kernel} [{label}]"]
-    for kernel, label, qkv, calls, kind in _tiled_calls(dev, gen):
-        outs, readings, kernel_calls = {}, {}, {}
+
+    def held(kernel, label, calls, plains, a, kind):
+        """Each build's bf16 readings against the plain version; failures
+        are collected."""
+        readings = {}
         for which, lib in libs.items():
             _build._lib = lib
-            call, plain = calls()
-            kernel_calls[which] = call
-            outs[which] = _tuple(call(qkv))
-            readings[which], failed = bf16_check(call, plain, qkv, kind)
-            failures += [f"{which} build {kernel} [{label}] {f}" for f in failed]
-        same = all(torch.equal(u, v) for u, v in zip(outs["base"], outs["new"]))
-        del outs
-        record(kernel, label, in_turns(kernel_calls, qkv.to(torch.bfloat16)),
-               fp32_bit_identical=same, bf16=readings)
+            readings[which], failed = bf16_check(calls[which], plains[which], a, kind)
+            failures.extend(f"{which} build {kernel} [{label}] {f}" for f in failed)
+        return readings
+
+    for kernel, label, x3, call, plain, kind in _shared_bwd_calls(dev, gen):
+        calls = {w: call for w in libs}
+        same = equal(outputs(calls, x3))
+        readings = held(kernel, label, calls, {w: plain for w in libs}, x3, kind)
+        record(kernel, label, in_turns(calls, x3.to(torch.bfloat16)), fp32_bit_identical=same,
+               bf16=readings)
         differ += [] if same else [f"{kernel} [{label}] fp32"]
+    for kernel, label, qkv, calls, kind in _tiled_calls(dev, gen):
+        pairs = {w: calls() for w in libs}        # each build's backward from its own stats
+        kernel_calls = {w: c for w, (c, _) in pairs.items()}
+        same = {dt: equal(outputs(kernel_calls, qkv.to(dt)))
+                for dt in (torch.float32, torch.bfloat16)}
+        readings = held(kernel, label, kernel_calls, {w: pl for w, (_, pl) in pairs.items()}, qkv,
+                        kind)
+        record(kernel, label, in_turns(kernel_calls, qkv.to(torch.bfloat16)),
+               fp32_bit_identical=same[torch.float32], bf16_bit_identical=same[torch.bfloat16],
+               bf16=readings)
+        differ += [f"{kernel} [{label}] {str(dt)[6:]}" for dt, ok in same.items() if not ok]
     _build._lib = libs["new"]
     for tot in sums.values():
         tot["new_over_base"] = tot["new_ms"] / tot["base_ms"]
@@ -2145,8 +2315,9 @@ def kernels_line(recs, runs):
         # the window kernels: each shape weighted by its blocks in a step
         step = {f"{k}_step": sum(r[k] * r["launches_per_step"] for r in mine)
                 for k in tot} if "launches_per_step" in mine[0] else {}
-        # row 11: the body each dtype ran (tensor_core or cuda_core)
-        body = {"body": {r["dtype"]: r["body"] for r in checked}} if "body" in checked[0] else {}
+        # rows 4, 6, 8-11: the body each dtype ran (tensor_core or cuda_core)
+        body = {"body": {k: v for r in checked for k, v in r["body"].items()}} if (
+            "body" in checked[0]) else {}
         line.append({"name": name, "route": "cuda", **meta,
                      "launches": next((n[name] for n in runs.values() if n.get(name)), 0),
                      **{f"launches_{run}": n.get(name, 0) for run, n in runs.items()},
@@ -2209,6 +2380,7 @@ def main() -> None:
             + direct_cases(dev, gen, TRAIN_B, TRAIN_T, "violet train", SwinConfig.violet(),
                            (2, 3))
             + direct_bwd_cases(dev, gen, "violet ", SwinConfig.violet(), (2, 3))
+            + direct_bwd_cases(dev, gen, "mc ", b=QAMC_B, t=5)
             + tiled_sa_cases(dev, gen)
             + ln_cases(dev, gen, TEACHER3D_LN[len(TEACHER_LN):], "train 3d teacher")
             + clip_lane_case(dev, gen) + ln_cases(dev, gen, CLIP_LN, "train clip teacher")

@@ -11,7 +11,9 @@
 // theirs; 3: dout) of the window the block visits at `step`. The direct and the lane
 // window kernels pass x3, x3 + C, x3 + 2C as the bases of one (rows, 3C)
 // array; the packed kernel the three (N, hd) head tiles of its
-// (B_, 3nH, N, hd) array, or three separate arrays.
+// (B_, 3nH, N, hd) array, or three separate arrays. The callers run this
+// body for fp32 and for bf16 at hd other than 32; bf16 at hd 32 runs the
+// tensor-core body of attention_bwd_mma.cuh, which has the same interface.
 //
 // Algebra and roundings of the JAX backward kernels (`_direct_bwd_kernel`,
 // `_lane_bwd_kernel`, `_attn_bwd_kernel`): qs = q * scale in T; p =
@@ -188,9 +190,11 @@ __global__ void sum_slices_kernel(const float* __restrict__ part, float* __restr
 }
 
 // Chunks of the backward grid: enough (head, slot, chunk) blocks to fill the
-// card twice over, at most one chunk per window of a slot.
-inline int attention_bwd_chunks(int steps, int nh, int slots) {
-  const int want = (2 * 132 + nh * slots - 1) / (nh * slots);
+// card `waves` times over (this body: twice; the tensor-core body of
+// attention_bwd_mma.cuh, whose blocks are half as large: 4 times), at most
+// one chunk per window of a slot.
+inline int attention_bwd_chunks(int steps, int nh, int slots, int waves = 2) {
+  const int want = (waves * 132 + nh * slots - 1) / (nh * slots);
   return want < 1 ? 1 : (want > steps ? steps : want);
 }
 

@@ -41,6 +41,7 @@
 // 4.9 MFLOP on 8 * n * hd = 50 KB of x3 and out, about 98 operations per
 // byte: memory bound on the card's ~295, as above.
 #include "attention_bwd.cuh"
+#include "attention_bwd_mma.cuh"
 #include "common.cuh"
 
 namespace emvm {
@@ -122,11 +123,13 @@ int launch(const void* x3, const void* bias, const void* mask, void* out, long l
 // own dbias slice and a second kernel sums the chunks * nW slices of every
 // head in a fixed order (no atomics). The stage-0 shifted block of a
 // 4-frame clip has nW = 4 x 64 = 256 slots: 1,024 blocks of one chunk, and
-// 9.8 MB of slices.
+// 9.8 MB of slices. bf16 at hd = 32 runs the tensor-core body
+// (attention_bwd_mma.cuh) on the same blocks, 128 threads each.
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(kAttnThreads)
+template <typename T, bool kMma>
+__global__ void __launch_bounds__(kMma ? win_mma::kThreads : kAttnThreads,
+                                  kMma ? win_mma::kMinBlocks : 1)
     lane_window_attention_bwd_kernel(const T* __restrict__ x3,
                                      const float* __restrict__ bias,
                                      const float* __restrict__ mask,
@@ -142,27 +145,36 @@ __global__ void __launch_bounds__(kAttnThreads)
     const size_t row = (size_t(p) * nw + slot) * n + t;
     return row * (seg == 3 ? c : 3 * c) + h * hd;
   };
-  attention_bwd_block<T>(x3, x3 + c, x3 + 2 * c, bias + size_t(h) * n * n,
-                         mask ? mask + size_t(slot) * n * n : nullptr, dout, dx3, dx3 + c,
-                         dx3 + 2 * c, dbias_part + ((size_t(chunk) * nw + slot) * nh + h) * n * n,
-                         n, hd, chunk, periods, nchunk, addr, scale_t, scale_f);
+  const float* bias_h = bias + size_t(h) * n * n;
+  const float* mask_w = mask ? mask + size_t(slot) * n * n : nullptr;
+  float* part = dbias_part + ((size_t(chunk) * nw + slot) * nh + h) * n * n;
+  if constexpr (kMma)
+    win_mma::attention_bwd_block(x3, x3 + c, x3 + 2 * c, bias_h, mask_w, dout, dx3, dx3 + c,
+                                 dx3 + 2 * c, part, n, chunk, periods, nchunk, addr, scale_t,
+                                 scale_f);
+  else
+    attention_bwd_block<T>(x3, x3 + c, x3 + 2 * c, bias_h, mask_w, dout, dx3, dx3 + c,
+                           dx3 + 2 * c, part, n, hd, chunk, periods, nchunk, addr, scale_t,
+                           scale_f);
 }
 
-template <typename T>
+template <typename T, bool kMma = false>
 int launch_bwd(const void* x3, const void* bias, const void* mask, const void* dout, void* dx3,
                void* dbias, void* part, long long windows, int n, int c, int nh, int nw,
                float scale_t, float scale_f, cudaStream_t stream) {
   if (!mask) nw = 1;
   if (windows < 1 || nw < 1 || windows % nw || windows / nw > 0x7fffffffLL || nw > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (kMma && !(sa_mma::aligned16(x3) && sa_mma::aligned16(dout) && sa_mma::aligned16(dx3)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const int periods = static_cast<int>(windows / nw);
-  const size_t smem = attention_bwd_smem_bytes<T>(n, c / nh);
-  auto kernel = lane_window_attention_bwd_kernel<T>;
+  const size_t smem = kMma ? win_mma::smem_bytes(n) : attention_bwd_smem_bytes<T>(n, c / nh);
+  auto kernel = lane_window_attention_bwd_kernel<T, kMma>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int chunks = attention_bwd_chunks(periods, nh, nw);
-  kernel<<<dim3(nh, nw, chunks), kAttnThreads, smem, stream>>>(
+  const int chunks = attention_bwd_chunks(periods, nh, nw, kMma ? win_mma::kWaves : 2);
+  kernel<<<dim3(nh, nw, chunks), kMma ? win_mma::kThreads : kAttnThreads, smem, stream>>>(
       static_cast<const T*>(x3), static_cast<const float*>(bias),
       static_cast<const float*>(mask), static_cast<const T*>(dout), static_cast<T*>(dx3),
       static_cast<float*>(part), periods, n, c, nh, scale_t, scale_f);
@@ -222,6 +234,9 @@ extern "C" int emvm_lane_window_attention_bwd(int dtype, const void* x3, const v
                                               int c, int nh, int nw, float scale_t,
                                               float scale_f, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (nh > 0 && c % nh == 0 && emvm::win_mma::takes(dtype, c / nh))
+    return emvm::launch_bwd<__nv_bfloat16, true>(x3, bias, mask, dout, dx3, dbias, part,
+                                                 windows, n, c, nh, nw, scale_t, scale_f, s);
   switch (dtype) {
     case emvm::kFloat32:
       return emvm::launch_bwd<float>(x3, bias, mask, dout, dx3, dbias, part, windows, n, c, nh,
@@ -234,15 +249,19 @@ extern "C" int emvm_lane_window_attention_bwd(int dtype, const void* x3, const v
   }
 }
 
-// nw as for emvm_lane_window_attention_bwd: 1 for an unshifted block.
+// nw as for emvm_lane_window_attention_bwd: 1 for an unshifted block. Enough
+// for either body.
 extern "C" long long emvm_lane_window_attention_bwd_scratch(long long windows, int n, int nh,
                                                             int nw) {
   if (nw < 1 || windows < nw) return 0;
   const int periods = static_cast<int>(windows / nw);
-  return static_cast<long long>(emvm::attention_bwd_chunks(periods, nh, nw)) * nw * nh * n * n;
+  return static_cast<long long>(
+             emvm::attention_bwd_chunks(periods, nh, nw, emvm::win_mma::kWaves)) *
+         nw * nh * n * n;
 }
 
 extern "C" size_t emvm_lane_window_attention_bwd_smem_bytes(int dtype, int n, int hd) {
+  if (emvm::win_mma::takes(dtype, hd)) return emvm::win_mma::smem_bytes(n);
   return dtype == emvm::kFloat32 ? emvm::attention_bwd_smem_bytes<float>(n, hd)
                                  : emvm::attention_bwd_smem_bytes<__nv_bfloat16>(n, hd);
 }

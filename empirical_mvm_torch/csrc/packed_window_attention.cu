@@ -32,6 +32,7 @@
 // N (196 and 49 are no powers of two). Products on the CUDA cores; tensor
 // cores are later work.
 #include "attention_bwd.cuh"
+#include "attention_bwd_mma.cuh"
 #include "common.cuh"
 
 namespace emvm {
@@ -110,11 +111,13 @@ int launch(const void* q, const void* k, const void* v, long long window_stride,
 // h * N * hd + t * hd in q, k, v and their gradients, and (b_ * nH + h) * N
 // * hd + t * hd in dout. Each block adds into its own dbias slice and
 // sum_slices_kernel sums the chunks * nW slices of every head in a fixed
-// order (no atomics).
+// order (no atomics). bf16 at hd = 32 runs the tensor-core body
+// (attention_bwd_mma.cuh) on the same blocks, 128 threads each.
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(kAttnThreads)
+template <typename T, bool kMma>
+__global__ void __launch_bounds__(kMma ? win_mma::kThreads : kAttnThreads,
+                                  kMma ? win_mma::kMinBlocks : 1)
     packed_window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                        const T* __restrict__ v, long long window_stride,
                                        const float* __restrict__ bias,
@@ -132,13 +135,18 @@ __global__ void __launch_bounds__(kAttnThreads)
     const size_t row = size_t(h) * n + t;
     return seg == 3 ? (win * nh * n + row) * hd : win * window_stride + row * hd;
   };
-  attention_bwd_block<T>(q, k, v, bias + size_t(h) * n * n,
-                         mask ? mask + size_t(slot) * n * n : nullptr, dout, dq, dk, dv,
-                         dbias_part + ((size_t(chunk) * nw + slot) * nh + h) * n * n, n, hd,
-                         chunk, periods, nchunk, addr, scale_t, scale_f);
+  const float* bias_h = bias + size_t(h) * n * n;
+  const float* mask_w = mask ? mask + size_t(slot) * n * n : nullptr;
+  float* part = dbias_part + ((size_t(chunk) * nw + slot) * nh + h) * n * n;
+  if constexpr (kMma)
+    win_mma::attention_bwd_block(q, k, v, bias_h, mask_w, dout, dq, dk, dv, part, n, chunk,
+                                 periods, nchunk, addr, scale_t, scale_f);
+  else
+    attention_bwd_block<T>(q, k, v, bias_h, mask_w, dout, dq, dk, dv, part, n, hd, chunk,
+                           periods, nchunk, addr, scale_t, scale_f);
 }
 
-template <typename T>
+template <typename T, bool kMma = false>
 int launch_bwd(const void* q, const void* k, const void* v, void* dq, void* dk, void* dv,
                long long window_stride, const void* bias, const void* mask, const void* dout,
                void* dbias, void* part, long long windows, int n, int nh, int hd, int nw,
@@ -146,14 +154,18 @@ int launch_bwd(const void* q, const void* k, const void* v, void* dq, void* dk, 
   if (!mask) nw = 1;
   if (windows < 1 || nw < 1 || windows % nw || windows / nw > 0x7fffffffLL || nw > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (kMma && !(sa_mma::aligned16(q) && sa_mma::aligned16(k) && sa_mma::aligned16(v) &&
+                sa_mma::aligned16(dq) && sa_mma::aligned16(dk) && sa_mma::aligned16(dv) &&
+                sa_mma::aligned16(dout) && window_stride % 8 == 0))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const int periods = static_cast<int>(windows / nw);
-  const size_t smem = attention_bwd_smem_bytes<T>(n, hd);
-  auto kernel = packed_window_attention_bwd_kernel<T>;
+  const size_t smem = kMma ? win_mma::smem_bytes(n) : attention_bwd_smem_bytes<T>(n, hd);
+  auto kernel = packed_window_attention_bwd_kernel<T, kMma>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int chunks = attention_bwd_chunks(periods, nh, nw);
-  kernel<<<dim3(nh, nw, chunks), kAttnThreads, smem, stream>>>(
+  const int chunks = attention_bwd_chunks(periods, nh, nw, kMma ? win_mma::kWaves : 2);
+  kernel<<<dim3(nh, nw, chunks), kMma ? win_mma::kThreads : kAttnThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       window_stride, static_cast<const float*>(bias), static_cast<const float*>(mask),
       static_cast<const T*>(dout), static_cast<T*>(dq), static_cast<T*>(dk),
@@ -204,6 +216,10 @@ extern "C" int emvm_packed_window_attention_bwd(int dtype, const void* q, const 
                                                 int n, int nh, int hd, int nw, float scale_t,
                                                 float scale_f, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (emvm::win_mma::takes(dtype, hd))
+    return emvm::launch_bwd<__nv_bfloat16, true>(q, k, v, dq, dk, dv, window_stride, bias, mask,
+                                                 dout, dbias, part, windows, n, nh, hd, nw,
+                                                 scale_t, scale_f, s);
   switch (dtype) {
     case emvm::kFloat32:
       return emvm::launch_bwd<float>(q, k, v, dq, dk, dv, window_stride, bias, mask, dout,
@@ -217,15 +233,19 @@ extern "C" int emvm_packed_window_attention_bwd(int dtype, const void* q, const 
   }
 }
 
-// nw as for emvm_packed_window_attention_bwd: 1 for an unshifted block.
+// nw as for emvm_packed_window_attention_bwd: 1 for an unshifted block. Enough
+// for either body.
 extern "C" long long emvm_packed_window_attention_bwd_scratch(long long windows, int n, int nh,
                                                               int nw) {
   if (nw < 1 || windows < nw) return 0;
   const int periods = static_cast<int>(windows / nw);
-  return static_cast<long long>(emvm::attention_bwd_chunks(periods, nh, nw)) * nw * nh * n * n;
+  return static_cast<long long>(
+             emvm::attention_bwd_chunks(periods, nh, nw, emvm::win_mma::kWaves)) *
+         nw * nh * n * n;
 }
 
 extern "C" size_t emvm_packed_window_attention_bwd_smem_bytes(int dtype, int n, int hd) {
+  if (emvm::win_mma::takes(dtype, hd)) return emvm::win_mma::smem_bytes(n);
   return dtype == emvm::kFloat32 ? emvm::attention_bwd_smem_bytes<float>(n, hd)
                                  : emvm::attention_bwd_smem_bytes<__nv_bfloat16>(n, hd);
 }

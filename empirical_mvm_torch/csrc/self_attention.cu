@@ -38,9 +38,27 @@
 // Holding Q, K, V and dO of one head at once would need 4 * L * hd * 4 bytes
 // in fp32 (238 KB at L = 232), above the 227 KB a block may have; each
 // kernel holds two.
+// Those two backward kernels run fp32, and bf16 at an hd the tensor cores do
+// not take. bf16 at hd 32, 64 or 128 (BERT-base: 64) runs the tensor-core
+// backward of the tiled self-attention (self_attention_mma.cuh, row 11's
+// body) on x3's strides: a statistics pass (the forward's pass 1: the rows'
+// max and sum, which this forward does not save), then its rows kernel
+// (D = rowsum(dp * p), then ds and dq) and columns kernel (dk, dv). Same
+// roundings; the keep mask from the same Philox counter (j / 4, i, h, b).
 #include "common.cuh"
 
 namespace emvm {
+
+// self_attention_tiled.cu, where the tensor-core body's kernels are
+// instantiated
+bool tensor_core_body(int dtype, int hd);
+int lane_self_attention_bwd_mma(const void* x3, const void* mask, long long mask_sb,
+                                long long mask_sr, const void* dout, void* dx3, void* scratch,
+                                int b, int l, int dm, int nh, float scale_t, float scale_f,
+                                const void* seed, unsigned threshold, float inv_keep,
+                                cudaStream_t stream);
+size_t lane_self_attention_bwd_mma_smem(int hd);
+
 namespace {
 
 constexpr int kQueryTile = 64;
@@ -353,7 +371,9 @@ extern "C" int emvm_lane_self_attention_fwd(int dtype, const void* x3, const voi
 }
 
 // Backward: dx3 (x3's shape and dtype) from do (B, L, D). stats is fp32
-// scratch of 3 * B * nH * L floats; scale_f is the fp32 scale for dq.
+// scratch of 3 * B * nH * L floats (the CUDA-core body's (B, nH, 3, L) row
+// statistics; the tensor-core body's (B, nH, 2, L) max and sum, then the
+// (B, nH, L) rowsums D); scale_f is the fp32 scale for dq.
 extern "C" int emvm_lane_self_attention_bwd(int dtype, const void* x3, const void* mask,
                                             long long mask_sb, long long mask_sr,
                                             const void* dout, void* dx3, void* stats, int b,
@@ -361,6 +381,10 @@ extern "C" int emvm_lane_self_attention_bwd(int dtype, const void* x3, const voi
                                             const void* seed, unsigned threshold,
                                             float inv_keep, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (nh > 0 && dm % nh == 0 && emvm::tensor_core_body(dtype, dm / nh))
+    return emvm::lane_self_attention_bwd_mma(x3, mask, mask_sb, mask_sr, dout, dx3, stats, b,
+                                             l, dm, nh, scale_t, scale_f, seed, threshold,
+                                             inv_keep, s);
   switch (dtype) {
     case emvm::kFloat32:
       return emvm::launch_bwd<float>(x3, mask, mask_sb, mask_sr, dout, dx3, stats, b, l, dm,
@@ -375,6 +399,7 @@ extern "C" int emvm_lane_self_attention_bwd(int dtype, const void* x3, const voi
 }
 
 extern "C" size_t emvm_lane_self_attention_bwd_smem_bytes(int dtype, int l, int hd) {
+  if (emvm::tensor_core_body(dtype, hd)) return emvm::lane_self_attention_bwd_mma_smem(hd);
   return dtype == emvm::kFloat32 ? emvm::lane_bwd_smem_bytes<float>(l, hd)
                                  : emvm::lane_bwd_smem_bytes<__nv_bfloat16>(l, hd);
 }

@@ -38,6 +38,15 @@
 // Every kernel reads the mask from global memory through its two strides at
 // each score (the padding mask's stride-0 rows stay in the L1 cache); only
 // the columns kernel's stats rows come through the cp.async ring.
+//
+// Layouts (`Layout`, a template parameter): row 11's (B, nH, N, hd) head
+// tiles, and row 6's lane layout, x3 (B, L, 3D) with a head's rows 3D apart
+// and out (B, L, D) (`launch_lane_bwd`). Each fixes the (row b, head h,
+// token) strides of q, k, v (and dq, dk, dv) and of out (and dout); row 11's
+// are compile-time constants, as before row 6 shared the kernels. Row 6's
+// forward saves no softmax statistics, so its backward first runs the
+// forward's pass 1 alone (`sa_fwd_mma_kernel` with kStatsOnly), writing the
+// rows' max and sum as the row-11 forward does.
 #pragma once
 
 #include "common.cuh"
@@ -56,6 +65,31 @@ __device__ __forceinline__ Heads heads(long long bs, int n, int nh, int hd) {
   const int h = blockIdx.y, b = blockIdx.z;
   return {size_t(b) * bs + size_t(h) * n * hd, (size_t(b) * nh + h) * n * hd,
           size_t(b) * nh + h};
+}
+
+// The layouts of the tensor-core body. kTiles: q, k, v (B, nH, N, hd) head
+// tiles, rows b `bs` elements apart (3nH * N * hd packed, nH * N * hd
+// split), out (B, nH, N, hd): (row b, head h, token) strides {bs, N hd, hd}
+// and {nH N hd, N hd, hd}. kLane: x3 (B, N, 3D) with k and v D and 2D after
+// q, out (B, N, D), D = nH hd: {3 N D, hd, 3D} and {N D, hd, D}. Every row
+// starts on 16 bytes where D is a multiple of 8.
+enum class Layout { kTiles, kLane };
+
+template <Layout L, int HD>
+__device__ __forceinline__ Heads layout_heads(long long bs, int n, int nh) {
+  if constexpr (L == Layout::kTiles) {
+    return heads(bs, n, nh, HD);
+  } else {
+    const int h = blockIdx.y, b = blockIdx.z;
+    return {size_t(b) * n * 3 * nh * HD + size_t(h) * HD,
+            size_t(b) * n * nh * HD + size_t(h) * HD, size_t(b) * nh + h};
+  }
+}
+
+// elements between the token rows of a head: in q, k, v (kQkv) or in out
+template <Layout L, int HD, bool kQkv>
+__device__ __forceinline__ int row_stride(int nh) {
+  return L == Layout::kTiles ? HD : (kQkv ? 3 : 1) * nh * HD;
 }
 
 template <typename K>
@@ -233,16 +267,17 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&c)[2][4]) {
 
 // --- staging -----------------------------------------------------------------
 
-// rows [r0, r0 + rows) of a (N, HD) head tile into shared rows of kStride,
-// by 16-byte cp.async; rows past n are zero-filled
+// rows [r0, r0 + rows) of an (N, HD) head whose rows are `sr` elements
+// apart into shared rows of kStride, by 16-byte cp.async; rows past n are
+// zero-filled
 template <int HD>
 __device__ __forceinline__ void stage(bf16* dst, const bf16* __restrict__ src, int r0, int rows,
-                                      int n) {
+                                      int n, int sr) {
   constexpr int kChunks = HD / 8;
   for (int x = threadIdx.x; x < rows * kChunks; x += kThreads) {
     const int r = x / kChunks, c = x % kChunks, row = r0 + r;
     const bool full = row < n;
-    cp_async16(dst + r * Geo<HD>::kStride + c * 8, src + size_t(full ? row : 0) * HD + c * 8,
+    cp_async16(dst + r * Geo<HD>::kStride + c * 8, src + size_t(full ? row : 0) * sr + c * 8,
                full);
   }
 }
@@ -342,7 +377,25 @@ __device__ __forceinline__ void keep_cols(const Dropout& d, int b, int h, int ja
 // Forward
 // ---------------------------------------------------------------------------
 
-template <int HD>
+// The row's max and sum from the four partial ones of a quad (max, then sum
+// of sum * exp(max - row max), shfl_xor 1 then 2), and 1 / sum.
+__device__ __forceinline__ void quad_stats(float (&mx)[2], float (&sum)[2], float (&rcp)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float m = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    float part = mx[r] == m ? sum[r] : sum[r] * expf(mx[r] - m);
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    mx[r] = m;
+    sum[r] = part;
+    rcp[r] = __frcp_rn(part);
+  }
+}
+
+// kStatsOnly: pass 1 alone, writing the rows' max and sum and no output
+// (the statistics pass of row 6's backward).
+template <int HD, Layout L = Layout::kTiles, bool kStatsOnly = false>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     sa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, long long bs, const float* __restrict__ mask,
@@ -357,19 +410,20 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int b = blockIdx.z, h = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tq = lane & 3;
-  const Heads hs = heads(bs, n, nh, HD);
+  const Heads hs = layout_heads<L, HD>(bs, n, nh);
   const bf16 *qh = q + hs.qkv, *kh = k + hs.qkv, *vh = v + hs.qkv;
+  const int qsr = row_stride<L, HD, true>(nh);
   const int i0 = blockIdx.x * kTile;
   const int rows[2] = {i0 + warp * 16 + g, i0 + warp * 16 + g + 8};
   const float* mrow[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) mrow[r] = mask + b * mask_sb + min(rows[r], n - 1) * mask_sr;
   const Dropout drop(seed, threshold, inv_keep);
-  const int n_tiles = (n + kTile - 1) / kTile, stages = 2 * n_tiles;
+  const int n_tiles = (n + kTile - 1) / kTile, stages = (kStatsOnly ? 1 : 2) * n_tiles;
 
-  stage<HD>(qt, qh, i0, kTile, n);
+  stage<HD>(qt, qh, i0, kTile, n, qsr);
   cp_async_commit();
-  stage<HD>(kt, kh, 0, kTile, n);
+  stage<HD>(kt, kh, 0, kTile, n, qsr);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
@@ -384,8 +438,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   for (int s = 0; s < stages; ++s) {
     if (s + 1 < stages) {
       const int nx = s + 1, t1 = nx < n_tiles ? nx : nx - n_tiles;
-      stage<HD>(kt + (nx & 1) * G::kTileElems, kh, t1 * kTile, kTile, n);
-      if (nx >= n_tiles) stage<HD>(vt + (nx & 1) * G::kTileElems, vh, t1 * kTile, kTile, n);
+      stage<HD>(kt + (nx & 1) * G::kTileElems, kh, t1 * kTile, kTile, n, qsr);
+      if (nx >= n_tiles) stage<HD>(vt + (nx & 1) * G::kTileElems, vh, t1 * kTile, kTile, n, qsr);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -396,20 +450,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     const int j0 = (second ? s - n_tiles : s) * kTile;
     const bf16* kb = kt + (s & 1) * G::kTileElems;
     const bf16* vb = vt + (s & 1) * G::kTileElems;
-    if (s == n_tiles) {
-      // the row's max and sum from the quad's four partial ones
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float m = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-        float part = mx[r] == m ? sum[r] : sum[r] * expf(mx[r] - m);
-        part += __shfl_xor_sync(0xffffffffu, part, 1);
-        part += __shfl_xor_sync(0xffffffffu, part, 2);
-        mx[r] = m;
-        sum[r] = part;
-        rcp[r] = __frcp_rn(part);
-      }
-    }
+    if (s == n_tiles) quad_stats(mx, sum, rcp);
 #pragma unroll
     for (int c = 0; c < kTile / kChunk; ++c) {
       // the mask terms first, so that their loads are in flight during the
@@ -429,7 +470,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[nt][e] = __fadd_rn(sc[nt][e], mv[nt][e]);
-      if (!second) {
+      if (kStatsOnly || !second) {
         // running max and sum of this thread's keys of each row
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -472,15 +513,19 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     __syncthreads();                                // the buffer is reloaded next stage
   }
 
+  if constexpr (kStatsOnly) quad_stats(mx, sum, rcp);
   bf16* oh = out + hs.out;
   float* st = stats + hs.stat * 2 * n;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= n) continue;
+    if constexpr (!kStatsOnly) {
 #pragma unroll
-    for (int dt = 0; dt < G::kDTiles; ++dt)
-      *reinterpret_cast<uint32_t*>(oh + size_t(rows[r]) * HD + dt * 8 + 2 * tq) =
-          pack(o[dt][2 * r], o[dt][2 * r + 1]);
+      for (int dt = 0; dt < G::kDTiles; ++dt)
+        *reinterpret_cast<uint32_t*>(oh + size_t(rows[r]) * row_stride<L, HD, false>(nh) +
+                                     dt * 8 + 2 * tq) =
+            pack(o[dt][2 * r], o[dt][2 * r + 1]);
+    }
     if (tq == 0) {
       st[rows[r]] = mx[r];
       st[n + rows[r]] = sum[r];
@@ -492,7 +537,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 // Backward, rows: D = rowsum(dp * p) (pass A), then ds and dq (pass B)
 // ---------------------------------------------------------------------------
 
-template <int HD>
+template <int HD, Layout L = Layout::kTiles>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     sa_bwd_rows_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, bf16* __restrict__ dq, long long bs,
@@ -510,8 +555,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int b = blockIdx.z, h = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tq = lane & 3;
-  const Heads hs = heads(bs, n, nh, HD);
+  const Heads hs = layout_heads<L, HD>(bs, n, nh);
   const bf16 *qh = q + hs.qkv, *kh = k + hs.qkv, *vh = v + hs.qkv, *doh = dout + hs.out;
+  const int qsr = row_stride<L, HD, true>(nh);
   const float* st = stats + hs.stat * 2 * n;
   const int i0 = blockIdx.x * kTile;
   const int rows[2] = {i0 + warp * 16 + g, i0 + warp * 16 + g + 8};
@@ -527,11 +573,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const Dropout drop(seed, threshold, inv_keep);
   const int n_tiles = (n + kTile - 1) / kTile, stages = 2 * n_tiles;
 
-  stage<HD>(qt, qh, i0, kTile, n);
-  stage<HD>(dt_, doh, i0, kTile, n);
+  stage<HD>(qt, qh, i0, kTile, n, qsr);
+  stage<HD>(dt_, doh, i0, kTile, n, row_stride<L, HD, false>(nh));
   cp_async_commit();
-  stage<HD>(kt, kh, 0, kTile, n);
-  stage<HD>(vt, vh, 0, kTile, n);
+  stage<HD>(kt, kh, 0, kTile, n, qsr);
+  stage<HD>(vt, vh, 0, kTile, n, qsr);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
@@ -545,8 +591,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   for (int s = 0; s < stages; ++s) {
     if (s + 1 < stages) {
       const int nx = s + 1, t1 = nx < n_tiles ? nx : nx - n_tiles;
-      stage<HD>(kt + (nx & 1) * G::kTileElems, kh, t1 * kTile, kTile, n);
-      stage<HD>(vt + (nx & 1) * G::kTileElems, vh, t1 * kTile, kTile, n);
+      stage<HD>(kt + (nx & 1) * G::kTileElems, kh, t1 * kTile, kTile, n, qsr);
+      stage<HD>(vt + (nx & 1) * G::kTileElems, vh, t1 * kTile, kTile, n, qsr);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -604,7 +650,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     if (rows[r] >= n) continue;
 #pragma unroll
     for (int dt = 0; dt < G::kDTiles; ++dt)
-      *reinterpret_cast<uint32_t*>(dqh + size_t(rows[r]) * HD + dt * 8 + 2 * tq) =
+      *reinterpret_cast<uint32_t*>(dqh + size_t(rows[r]) * qsr + dt * 8 + 2 * tq) =
           pack(acc[dt][2 * r] * scale_f, acc[dt][2 * r + 1] * scale_f);
   }
 }
@@ -613,7 +659,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 // Backward, columns: dk and dv of kColKeys keys over every query tile
 // ---------------------------------------------------------------------------
 
-template <int HD>
+template <int HD, Layout L = Layout::kTiles>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     sa_bwd_cols_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, bf16* __restrict__ dk,
@@ -634,8 +680,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tq = lane & 3;
   const int kw = warp / G::kSplit, dpart = warp % G::kSplit;
-  const Heads hs = heads(bs, n, nh, HD);
+  const Heads hs = layout_heads<L, HD>(bs, n, nh);
   const bf16 *qh = q + hs.qkv, *kh = k + hs.qkv, *vh = v + hs.qkv, *doh = dout + hs.out;
+  const int qsr = row_stride<L, HD, true>(nh);
   const float* st = stats + hs.stat * 2 * n;
   const float* dsh = dsum + hs.stat * n;
   const float* mask_b = mask + b * mask_sb;
@@ -646,8 +693,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
   auto stage_queries = [&](int t) {
     const int q0 = t * kTile;
-    stage<HD>(qr + (t & 1) * G::kTileElems, qh, q0, kTile, n);
-    stage<HD>(dr + (t & 1) * G::kTileElems, doh, q0, kTile, n);
+    stage<HD>(qr + (t & 1) * G::kTileElems, qh, q0, kTile, n, qsr);
+    stage<HD>(dr + (t & 1) * G::kTileElems, doh, q0, kTile, n, row_stride<L, HD, false>(nh));
     float* s3 = sr + (t & 1) * 4 * kTile;
     for (int x = threadIdx.x; x < 3 * kTile; x += kThreads) {
       const int which = x / kTile, i = q0 + x % kTile;
@@ -657,8 +704,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     }
   };
 
-  stage<HD>(kt, kh, key0, G::kColKeys, n);
-  stage<HD>(vt, vh, key0, G::kColKeys, n);
+  stage<HD>(kt, kh, key0, G::kColKeys, n, qsr);
+  stage<HD>(vt, vh, key0, G::kColKeys, n, qsr);
   cp_async_commit();
   stage_queries(0);
   cp_async_commit();
@@ -728,7 +775,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     if (keys[r] >= n) continue;
 #pragma unroll
     for (int dt = 0; dt < G::kColDTiles; ++dt) {
-      const size_t o = size_t(keys[r]) * HD + (dpart * G::kColDTiles + dt) * 8 + 2 * tq;
+      const size_t o = size_t(keys[r]) * qsr + (dpart * G::kColDTiles + dt) * 8 + 2 * tq;
       *reinterpret_cast<uint32_t*>(dkh + o) = pack(ak[dt][2 * r], ak[dt][2 * r + 1]);
       *reinterpret_cast<uint32_t*>(dvh + o) = pack(av[dt][2 * r], av[dt][2 * r + 1]);
     }
@@ -739,14 +786,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <int HD>
+template <int HD, Layout L = Layout::kTiles, bool kStatsOnly = false>
 int launch_fwd(const void* q, const void* k, const void* v, long long bs, const void* mask,
                long long mask_sb, long long mask_sr, void* out, void* stats, int b, int n,
                int nh, float scale_t, const void* seed, unsigned threshold, float inv_keep,
                cudaStream_t stream) {
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  auto kernel = sa_fwd_mma_kernel<HD>;
+  auto kernel = sa_fwd_mma_kernel<HD, L, kStatsOnly>;
   cudaError_t err = allow_smem(kernel, fwd_smem<HD>());
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + kTile - 1) / kTile, nh, b);
@@ -758,7 +805,7 @@ int launch_fwd(const void* q, const void* k, const void* v, long long bs, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+template <int HD, Layout L = Layout::kTiles>
 int launch_bwd(const void* q, const void* k, const void* v, void* dq, void* dk, void* dv,
                long long bs, const void* mask, long long mask_sb, long long mask_sr,
                const void* dout, const void* stats, void* dsum, int b, int n, int nh,
@@ -767,8 +814,8 @@ int launch_bwd(const void* q, const void* k, const void* v, void* dq, void* dk, 
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dq) || !aligned16(dk) ||
       !aligned16(dv) || !aligned16(dout))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  auto rows = sa_bwd_rows_mma_kernel<HD>;
-  auto cols = sa_bwd_cols_mma_kernel<HD>;
+  auto rows = sa_bwd_rows_mma_kernel<HD, L>;
+  auto cols = sa_bwd_cols_mma_kernel<HD, L>;
   cudaError_t err = allow_smem(rows, rows_smem<HD>());
   if (err == cudaSuccess) err = allow_smem(cols, cols_smem<HD>());
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -788,6 +835,30 @@ int launch_bwd(const void* q, const void* k, const void* v, void* dq, void* dk, 
       static_cast<const float*>(stats), static_cast<const float*>(dsum), n, nh, scale_t, sd,
       threshold, inv_keep);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Row 6, lane_self_attention's backward (self_attention.cu), in the kLane
+// layout: x3 and dx3 (B, L, 3D), dout (B, L, D), D = nH * HD a multiple of
+// 8. scratch: 3 * B * nH * L floats, the rows' max and sum (B, nH, 2, L) of
+// the statistics pass (the forward's pass 1 alone), then D (B, nH, L).
+template <int HD>
+int launch_lane_bwd(const void* x3, const void* mask, long long mask_sb, long long mask_sr,
+                    const void* dout, void* dx3, void* scratch, int b, int l, int dm, int nh,
+                    float scale_t, float scale_f, const void* seed, unsigned threshold,
+                    float inv_keep, cudaStream_t stream) {
+  if (dm != nh * HD || dm % 8) return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* q = static_cast<const bf16*>(x3);
+  bf16* dq = static_cast<bf16*>(dx3);
+  float* stats = static_cast<float*>(scratch);
+  const long long bs = 3LL * l * dm;
+  const int err = launch_fwd<HD, Layout::kLane, true>(q, q + dm, q + 2 * dm, bs, mask, mask_sb,
+                                                      mask_sr, dq, stats, b, l, nh, scale_t,
+                                                      seed, threshold, inv_keep, stream);
+  if (err) return err;
+  return launch_bwd<HD, Layout::kLane>(q, q + dm, q + 2 * dm, dq, dq + dm, dq + 2 * dm, bs, mask,
+                                       mask_sb, mask_sr, dout, stats, stats + 2LL * b * nh * l,
+                                       b, l, nh, scale_t, scale_f, seed, threshold, inv_keep,
+                                       stream);
 }
 
 }  // namespace sa_mma

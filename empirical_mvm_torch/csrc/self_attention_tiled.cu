@@ -586,12 +586,6 @@ int launch_bwd(const void* q, const void* k, const void* v, void* dq, void* dk, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The body rule (ops/window_attention.py `_sa_body` mirrors it): bf16 at hd
-// 32, 64 or 128 runs on the tensor cores, everything else on the CUDA cores.
-bool tensor_core_body(int dtype, int hd) {
-  return dtype == kBFloat16 && (hd == 32 || hd == 64 || hd == 128);
-}
-
 template <int HD>
 size_t mma_smem_bytes(bool backward) {
   return backward ? std::max(sa_mma::rows_smem<HD>(), sa_mma::cols_smem<HD>())
@@ -599,6 +593,36 @@ size_t mma_smem_bytes(bool backward) {
 }
 
 }  // namespace
+
+// The body rule (ops/window_attention.py `_sa_body` mirrors it): bf16 at hd
+// 32, 64 or 128 runs on the tensor cores, everything else on the CUDA cores.
+// Row 6's backward (self_attention.cu) takes the same rule.
+bool tensor_core_body(int dtype, int hd) {
+  return dtype == kBFloat16 && (hd == 32 || hd == 64 || hd == 128);
+}
+
+// Row 6's backward on the tensor-core body (sa_mma::launch_lane_bwd), for
+// self_attention.cu's C entry, so that the body's kernels are instantiated in
+// this file alone; hd as tensor_core_body takes it.
+int lane_self_attention_bwd_mma(const void* x3, const void* mask, long long mask_sb,
+                                long long mask_sr, const void* dout, void* dx3, void* scratch,
+                                int b, int l, int dm, int nh, float scale_t, float scale_f,
+                                const void* seed, unsigned threshold, float inv_keep,
+                                cudaStream_t stream) {
+  const int hd = dm / nh;
+  auto bwd = hd == 32   ? sa_mma::launch_lane_bwd<32>
+             : hd == 64 ? sa_mma::launch_lane_bwd<64>
+                        : sa_mma::launch_lane_bwd<128>;
+  return bwd(x3, mask, mask_sb, mask_sr, dout, dx3, scratch, b, l, dm, nh, scale_t, scale_f,
+             seed, threshold, inv_keep, stream);
+}
+
+// Shared memory of the largest block of row 6's tensor-core backward.
+size_t lane_self_attention_bwd_mma_smem(int hd) {
+  return hd == 32 ? mma_smem_bytes<32>(true)
+         : hd == 64 ? mma_smem_bytes<64>(true) : mma_smem_bytes<128>(true);
+}
+
 }  // namespace emvm
 
 // q, k, v: base pointers of the (B, nH, N, hd) head tiles, rows b `bs`

@@ -25,6 +25,7 @@
 // CUDA cores. N is not a power of two; every loop bounds itself by N.
 // Tensor cores (mma/wgmma over 64-row tiles) are later work.
 #include "attention_bwd.cuh"
+#include "attention_bwd_mma.cuh"
 #include "common.cuh"
 
 namespace emvm {
@@ -103,17 +104,21 @@ int launch(const void* x3, const void* bias, const void* mask, void* out, int b,
 // Bound on the H100: at the swin shapes (N = 196, hd = 32) one window-head
 // does about 10 * N^2 * hd operations (2.5x the forward) on 14 * N * hd
 // bytes of x3, do and dx3 in bf16, about 140 per byte against the card's
-// ~295, so the floor is the bytes over 3.35 TB/s; this version, on CUDA
-// cores, is far above it.
+// ~295, so the floor is the bytes over 3.35 TB/s; both bodies are far above
+// it (the tensor-core one by its bias, mask and dbias traffic, PERF.md).
 //
-// Design: one 256-thread block per (head, window, batch chunk), running
-// `attention_bwd_block` (attention_bwd.cuh, shared with the lane window
-// backward) over the batches of its chunk, each token's 5D address computed
-// in place; dbias from per-block fp32 slices summed in a fixed order.
+// Design: one block per (head, window, batch chunk), running the shared
+// body over the batches of its chunk, each token's 5D address computed in
+// place; dbias from per-block fp32 slices summed in a fixed order. bf16 at
+// hd = 32 (every Swin's head) runs the tensor-core body
+// (attention_bwd_mma.cuh, 128 threads); fp32 and other hd the CUDA-core one
+// (attention_bwd.cuh, 256 threads), both shared with the lane window and
+// packed backwards.
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(kAttnThreads)
+template <typename T, bool kMma>
+__global__ void __launch_bounds__(kMma ? win_mma::kThreads : kAttnThreads,
+                                  kMma ? win_mma::kMinBlocks : 1)
     direct_window_attention_bwd_kernel(const T* __restrict__ x3,
                                        const float* __restrict__ bias,
                                        const float* __restrict__ mask,
@@ -135,25 +140,34 @@ __global__ void __launch_bounds__(kAttnThreads)
         ((size_t(b) * d + tt) * hp + strip * wh + r / ww) * size_t(wp) + col * ww + r % ww;
     return row * (seg == 3 ? c : 3 * c) + h * hd;
   };
-  attention_bwd_block<T>(x3, x3 + c, x3 + 2 * c, bias + size_t(h) * n * n,
-                         mask ? mask + size_t(w) * n * n : nullptr, dout, dx3, dx3 + c,
-                         dx3 + 2 * c, dbias_part + ((size_t(chunk) * nw + w) * nh + h) * n * n,
-                         n, hd, chunk, bsz, nchunk, addr, scale_t, scale_f);
+  const float* bias_h = bias + size_t(h) * n * n;
+  const float* mask_w = mask ? mask + size_t(w) * n * n : nullptr;
+  float* part = dbias_part + ((size_t(chunk) * nw + w) * nh + h) * n * n;
+  if constexpr (kMma)
+    win_mma::attention_bwd_block(x3, x3 + c, x3 + 2 * c, bias_h, mask_w, dout, dx3, dx3 + c,
+                                 dx3 + 2 * c, part, n, chunk, bsz, nchunk, addr, scale_t,
+                                 scale_f);
+  else
+    attention_bwd_block<T>(x3, x3 + c, x3 + 2 * c, bias_h, mask_w, dout, dx3, dx3 + c,
+                           dx3 + 2 * c, part, n, hd, chunk, bsz, nchunk, addr, scale_t,
+                           scale_f);
 }
 
-template <typename T>
+template <typename T, bool kMma = false>
 int launch_bwd(const void* x3, const void* bias, const void* mask, const void* dout, void* dx3,
                void* dbias, void* part, int b, int d, int hp, int wp, int c, int nh, int wh,
                int ww, float scale_t, float scale_f, cudaStream_t stream) {
   const int n = d * wh * ww;
   const int nw = (hp / wh) * (wp / ww);
-  const size_t smem = attention_bwd_smem_bytes<T>(n, c / nh);
-  auto kernel = direct_window_attention_bwd_kernel<T>;
+  if (kMma && !(sa_mma::aligned16(x3) && sa_mma::aligned16(dout) && sa_mma::aligned16(dx3)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const size_t smem = kMma ? win_mma::smem_bytes(n) : attention_bwd_smem_bytes<T>(n, c / nh);
+  auto kernel = direct_window_attention_bwd_kernel<T, kMma>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int chunks = attention_bwd_chunks(b, nh, nw);
-  kernel<<<dim3(nh, nw, chunks), kAttnThreads, smem, stream>>>(
+  const int chunks = attention_bwd_chunks(b, nh, nw, kMma ? win_mma::kWaves : 2);
+  kernel<<<dim3(nh, nw, chunks), kMma ? win_mma::kThreads : kAttnThreads, smem, stream>>>(
       static_cast<const T*>(x3), static_cast<const float*>(bias),
       static_cast<const float*>(mask), static_cast<const T*>(dout), static_cast<T*>(dx3),
       static_cast<float*>(part), b, d, hp, wp, c, nh, wh, ww, scale_t, scale_f);
@@ -199,6 +213,9 @@ extern "C" int emvm_direct_window_attention_bwd(int dtype, const void* x3, const
                                                 int wp, int c, int nh, int wh, int ww,
                                                 float scale_t, float scale_f, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (nh > 0 && c % nh == 0 && emvm::win_mma::takes(dtype, c / nh))
+    return emvm::launch_bwd<__nv_bfloat16, true>(x3, bias, mask, dout, dx3, dbias, part, b, d,
+                                                 hp, wp, c, nh, wh, ww, scale_t, scale_f, s);
   switch (dtype) {
     case emvm::kFloat32:
       return emvm::launch_bwd<float>(x3, bias, mask, dout, dx3, dbias, part, b, d, hp, wp, c,
@@ -211,14 +228,20 @@ extern "C" int emvm_direct_window_attention_bwd(int dtype, const void* x3, const
   }
 }
 
+// Floats of scratch enough for either body (the tensor-core body's chunks
+// are at least the CUDA-core body's).
 extern "C" long long emvm_direct_window_attention_bwd_scratch(int b, int d, int hp, int wp,
                                                               int nh, int wh, int ww) {
   const int nw = (hp / wh) * (wp / ww);
   const long long n = static_cast<long long>(d) * wh * ww;
-  return static_cast<long long>(emvm::attention_bwd_chunks(b, nh, nw)) * nw * nh * n * n;
+  return static_cast<long long>(emvm::attention_bwd_chunks(b, nh, nw, emvm::win_mma::kWaves)) *
+         nw * nh * n * n;
 }
 
+// Dynamic shared memory of the backward's block, in the body dtype and hd
+// pick.
 extern "C" size_t emvm_direct_window_attention_bwd_smem_bytes(int dtype, int n, int hd) {
+  if (emvm::win_mma::takes(dtype, hd)) return emvm::win_mma::smem_bytes(n);
   return dtype == emvm::kFloat32 ? emvm::attention_bwd_smem_bytes<float>(n, hd)
                                  : emvm::attention_bwd_smem_bytes<__nv_bfloat16>(n, hd);
 }

@@ -38,6 +38,13 @@ kernels the retrieval eval and the pretrain step run:
   ``_lane_kernel``, the benchmark tool's forward-only window attention off
   the qkv GEMM output; ``empirical_mvm_torch/tools/lanebench.py`` runs it.
 
+The backwards of the direct, lane window and packed window attention share
+one body: bf16 at hd 32 runs on the tensor cores
+(``csrc/attention_bwd_mma.cuh``), fp32 and other hd on the CUDA cores
+(:func:`_window_bwd_body`); the lane self-attention's backward in bf16 runs
+the tiled self-attention's tensor-core kernels on x3's strides
+(:func:`_sa_body`).
+
 Each is a ``torch.autograd.Function``. A CPU tensor takes the plain versions
 (forward and backward); a CUDA tensor launches the kernels or raises. The
 plain versions repeat the kernels' rounding (q scaled in the input dtype,
@@ -448,6 +455,8 @@ def _lane_fwd(x3, mask, n_heads, scale, p_drop, seed):
 
 
 def _lane_bwd(x3, mask, do, n_heads, scale, p_drop, seed):
+    """Launch the lane backward: bf16 at hd 32, 64 or 128 on row 11's
+    tensor-core body (``_sa_body``), the rest on the CUDA-core kernels."""
     (mptr, msb, msr), drop = _lane_args(x3, mask, seed, p_drop)
     dev = _build.check_tensors(x3, do)
     if do.dtype != x3.dtype:
@@ -459,7 +468,10 @@ def _lane_bwd(x3, mask, do, n_heads, scale, p_drop, seed):
     _build.check_smem(lib.emvm_lane_self_attention_bwd_smem_bytes(code, l, c // n_heads),
                       f"the backward of a sequence of {l} tokens")
     dx3 = torch.empty_like(x3)
-    stats = torch.empty((b, n_heads, 3, l), dtype=torch.float32, device=dev)
+    # the rows' statistics and D: (B, nH, 3, L) for the CUDA-core body; for the
+    # tensor-core body (``_sa_body``, row 11's) the max and sum (B, nH, 2, L)
+    # of its statistics pass, then D (B, nH, L)
+    stats = torch.empty(3 * b * n_heads * l, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _build.record_launch(lib.emvm_lane_self_attention_bwd(
             code, x3.data_ptr(), mptr, msb, msr, do.data_ptr(), dx3.data_ptr(),
@@ -589,6 +601,14 @@ def _lane_window_fwd(x3, bias, mask, n_windows, n_heads, scale):
             out.data_ptr(), b_, n, c, n_heads, n_windows,
             _scale_in(x3.dtype, scale), _build.stream_ptr(dev)), "lane_window_attention")
     return out
+
+
+def _window_bwd_body(dtype: torch.dtype, hd: int) -> str:
+    """The body of the window-attention backward (rows 4, 8, 9 and 10) that
+    a launch runs, by the rule of the C entry points: bf16 at hd 32 (every
+    Swin's head) on the tensor cores (``csrc/attention_bwd_mma.cuh``), fp32
+    and bf16 at any other hd on the CUDA cores (``csrc/attention_bwd.cuh``)."""
+    return "tensor_core" if dtype == torch.bfloat16 and hd == 32 else "cuda_core"
 
 
 def _lane_window_bwd(x3, bias, mask, do, n_windows, n_heads, scale):

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from chip_smoke import (FP32_LIMITS, OUTPUTS, PLANTED_TILED, _excess, _sa_calls, _tuple,
-                        bf16_check, plant)
+                        _window_bwd_kind, bf16_check, plant)
 from empirical_mvm_torch.models.video_swin import _shift_attn_mask
 from empirical_mvm_torch.ops import _build
 from empirical_mvm_torch.ops import layernorm as tln
@@ -421,6 +421,113 @@ def test_tiled_columns_p_equals_rows_p(cuda, hd, p_drop):
     assert torch.equal(rows_p, cols_p)
 
 
+def _window_bwd_call(caller, n, nh, masked, rs, cuda):
+    """The window backward of ``caller`` (direct, lane_window, packed) at
+    windows of n tokens (49: (1, 7, 7); 196: (4, 7, 7); 245: (5, 7, 7)),
+    nh heads of 32, 2 clips of 4 windows a frame, the shift mask or none:
+    (input, kernel call, plain version)."""
+    wd = n // 49
+    d, hp, nw = wd, 14, 4
+    rng = np.random.RandomState(rs)
+    bias = _randn(rng, nh, n, n, scale=0.1).to(cuda)
+    mask = (torch.from_numpy(_shift_attn_mask((d, hp, hp), (wd, 7, 7), (0, 3, 3))).to(cuda)
+            if masked else None)
+    c, scale, b = nh * 32, 32 ** -0.5, 2
+    if caller == "direct":
+        x = _randn(rng, b, d, hp, hp, 3 * c, scale=0.5).to(cuda)
+        do = _randn(rng, b, d, hp, hp, c).to(cuda)
+        args = (bias, mask, do, (wd, 7, 7), nh, scale)
+        return x, twa._direct_bwd, twa.direct_window_attention_backward_plain, args
+    w = 1 if mask is None else nw
+    if caller == "lane_window":
+        x = _randn(rng, b * nw, n, 3 * c, scale=0.5).to(cuda)
+        do = _randn(rng, b * nw, n, c).to(cuda)
+        return x, twa._lane_window_bwd, twa.lane_window_attention_backward_plain, (
+            bias, mask, do, w, nh, scale)
+    x = _randn(rng, b * nw, 3 * nh, n, 32, scale=0.5).to(cuda)
+    do = _randn(rng, b * nw, nh, n, 32).to(cuda)
+    return x, twa._packed_bwd, twa.packed_window_attention_backward_plain, (
+        bias, mask, do, w, nh, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caller", ["direct", "lane_window", "packed"])
+@pytest.mark.parametrize("n", [49, 196, 245])
+@pytest.mark.parametrize("masked", [True, False])
+def test_window_bwd_tensor_core_body(cuda, caller, n, masked):
+    """The window backward's tensor-core body (bf16, hd 32) through each of
+    its three callers at N = 49, 196 and 245 (none a multiple of 16), with
+    and without the shift mask, against the plain version at chip_smoke's
+    ``window_bwd_tc`` limits; fp32 (the CUDA-core body) at FP32_LIMITS; dx3
+    and dbias bit-identical over two runs (fixed-order sums, no atomics)."""
+    x, kernel, plain, args = _window_bwd_call(caller, n, 3, masked, n + masked, cuda)
+    assert twa._window_bwd_body(torch.bfloat16, 32) == "tensor_core"
+
+    def run(fn):
+        return lambda a: fn(a, args[0], args[1], args[2].to(a.dtype), *args[3:])
+
+    for dtype in (torch.float32, torch.bfloat16):
+        _check(run(kernel), run(plain), x, dtype, _window_bwd_kind(32))
+    first, second = run(kernel)(x.to(torch.bfloat16)), run(kernel)(x.to(torch.bfloat16))
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_drop", [0.0, 0.1])
+def test_lane_bwd_tensor_core_at_the_train_shape(cuda, p_drop):
+    """Row 6 at the train step's fusion shape, 80 rows of L = 232, 12 heads
+    of 64, with the stride-0 view of the padding mask, bf16 on row 11's
+    tensor-core body, p = 0 and 0.1: within chip_smoke's attention_bwd
+    limits; dx3 bit-identical over two runs."""
+    rs = np.random.RandomState(14)
+    b, l, c, nh = 80, 232, 768, 12
+    x3, do, mask = _lane_setup(rs, cuda, b, l, c)
+    assert mask.stride(1) == 0 and twa._sa_body(torch.bfloat16, c // nh) == "tensor_core"
+    seed = torch.tensor([2026, 9], dtype=torch.int32, device=cuda) if p_drop else None
+    scale = (c // nh) ** -0.5
+
+    def kernel(a):
+        return twa._lane_bwd(a, mask, do.to(a.dtype), nh, scale, p_drop, seed)
+
+    _check(kernel, lambda a: twa.lane_self_attention_backward_plain(
+        a, mask, do.to(a.dtype), nh, scale, p_drop, seed), x3, torch.bfloat16, "attention_bwd")
+    a = x3.to(torch.bfloat16)
+    assert torch.equal(kernel(a), kernel(a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_drop", [0.0, 0.1])
+def test_lane_columns_p_equals_rows_p(cuda, p_drop):
+    """Row 6's columns kernel forms each p bit for bit as its rows kernel
+    does. The rows kernel runs the tiled forward's code for p from the
+    statistics pass (the forward's pass 1), so the tiled forward on the same
+    heads, packed, shows the rows' p: with v[j0 + d, d] = 1 its out[i, d] is
+    the rounded p_drop[i, j0 + d]; with dO[i0 + d, d] = 1 row 6's dv[j, d] is
+    the columns kernel's rounded p_drop[i0 + d, j]. Each is one exact term."""
+    rs = np.random.RandomState(22)
+    b, l, c, nh = 2, 232, 768, 12
+    hd = c // nh
+    x3, _, mask = _lane_setup(rs, cuda, b, l, c)
+    i0, j0 = 128, 0                      # keys 0-63 are not padded in any row b
+    eye = torch.eye(64, hd, device=cuda)
+    heads = x3.view(b, l, 3, nh, hd)
+    heads[:, :, 2] = 0
+    heads[:, j0:j0 + 64, 2] = eye[:, None]
+    do = torch.zeros(b, l, nh, hd, device=cuda)
+    do[:, i0:i0 + 64] = eye[:, None]
+    a = x3.to(torch.bfloat16)
+    seed = torch.tensor([99, 5], dtype=torch.int32, device=cuda) if p_drop else None
+    packed = a.view(b, l, 3 * nh, hd).transpose(1, 2).contiguous()
+    out, _ = twa._packed_sa_fwd(packed, mask, nh, hd ** -0.5, p_drop, seed)
+    dx3 = twa._lane_bwd(a, mask, do.reshape(b, l, c).to(torch.bfloat16), nh, hd ** -0.5, p_drop,
+                        seed)
+    dv = dx3.view(b, l, 3, nh, hd)[:, :, 2].transpose(1, 2)          # (b, nh, l, hd)
+    rows_p = out[:, :, i0:i0 + 64, :64]                              # [i - i0, j - j0]
+    cols_p = dv[:, :, j0:j0 + 64, :64].transpose(-1, -2)             # [i - i0, j - j0]
+    assert (rows_p != 0).float().mean() > 0.5
+    assert torch.equal(rows_p, cols_p)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tiled_self_attention_through_autograd(cuda, dtype):
@@ -641,8 +748,13 @@ def _packed_setup(gen, cuda):
 # Faults planted in the backward kernels: the rounding of ds before its
 # products, of p before dv, and the scale on dq (`_direct_bwd_kernel`
 # :1499-1501, `_lane_bwd_kernel` :897-906, `_lane_sa_bwd_kernel`
-# :1173-1175). The faults in attention_bwd.cuh change the direct and the
-# lane window backward, which share its body; both must catch them.
+# :1173-1175). bf16 runs the CUDA-core bodies (attention_bwd.cuh,
+# self_attention.cu) only at a head width the tensor-core bodies do not take,
+# so their faults are checked there (hd 64 for the window backwards, 48 for
+# the lane self-attention); the faults in attention_bwd.cuh change the
+# direct, the lane window and the packed backward, which share its body, and
+# all three must catch them. The tensor-core bodies' faults are checked at
+# the path's head widths (hd 32 for the windows, 64 for row 6).
 PLANTED_BWD = {
     "direct_ds_not_rounded": ("attention_bwd.cuh", "rb[j] = to_float(from_float<T>(ds));",
                               "rb[j] = ds;"),
@@ -656,30 +768,41 @@ PLANTED_BWD = {
                             "sm.rb[j] = sm.ra[j] * (sm.rb[j] - dsum);"),
     "lane_dq_scale_dropped": ("self_attention.cu", "dq[e] = from_float<T>(acc * scale_f);",
                               "dq[e] = from_float<T>(acc);"),
-    # k, v and their gradients addressed with dout's window stride
+    # k, v and their gradients addressed with dout's window stride (the
+    # packed kernel's `addr`, which both window bodies take)
     "packed_kv_dout_stride": ("packed_window_attention.cu", "return seg == 3 ?",
                               "return seg >= 1 ?"),
-    # the tensor-core body: dk from q as stored, the scale on the fp32
-    # product (chip_smoke's planted backward fault), and dq's scale dropped
+    # the tensor-core body of row 11 (and row 6): dk from q as stored, the
+    # scale on the fp32 product (chip_smoke's planted backward fault), and
+    # dq's scale dropped
     "tiled_dk_q_scale_not_rounded": PLANTED_TILED["backward q * scale not rounded before dk"],
     "tiled_dq_scale_dropped": ("self_attention_mma.cuh",
                                "pack(acc[dt][2 * r] * scale_f, acc[dt][2 * r + 1] * scale_f)",
                                "pack(acc[dt][2 * r], acc[dt][2 * r + 1])"),
+    # chip_smoke's planted faults of the window backward's tensor-core body
+    # and of row 6
+    "window_ds_rounded_into_dbias": PLANTED_TILED["window backward ds rounded before dbias"],
+    "lane_keep_dropped_in_rows": PLANTED_TILED[
+        "lane backward keep mask dropped from dp in the rows kernel"],
 }
+# the faults checked at the lane self-attention's shape too
+LANE_BWD_FAULTS = {"lane_ds_not_rounded", "lane_dq_scale_dropped", "tiled_dq_scale_dropped",
+                   "lane_keep_dropped_in_rows"}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fault", list(PLANTED_BWD))
 def test_bf16_check_catches_planted_backward_faults(cuda, tmp_path, monkeypatch, fault):
     """Each planted backward fault, built from a copy of the sources, fails
-    chip_smoke's bf16 backward limits at a train-path shape (swin stage 2,
-    shifted: N = 196, hd = 32; or the fusion shape L = 232, hd = 64, with
-    dropout); a fault of the shared window backward also at the trained 2D
-    swin's stage 2 (lane window, 4 frames of 4 windows of 49 tokens,
-    shifted) and at the violet swin's stage 0 (the packed backward), where
-    a fault of the packed kernel alone is planted; a fault of the tiled
-    self-attention's tensor-core body at the multiple-choice rows (N = 350)
-    with 24 heads of 32, p = 0.1. The readings are printed (run with -s)."""
+    chip_smoke's bf16 backward limits at a train-path shape, on the body
+    that runs it: a window fault at swin stage 2, shifted (N = 196, the
+    direct backward), at the trained 2D swin's stage 2 (lane window, 4
+    frames of 4 windows of 49 tokens, shifted) and at the violet swin's
+    stage 0 (the packed backward, where a fault of the packed kernel alone
+    is planted); a lane fault at the fusion shape L = 232 with dropout; a
+    fault of the tiled self-attention's tensor-core body at the
+    multiple-choice rows (N = 350) with 24 heads of 32, p = 0.1. The
+    readings are printed (run with -s)."""
     name = PLANTED_BWD[fault][0]
     src = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, src)
@@ -689,26 +812,32 @@ def test_bf16_check_catches_planted_backward_faults(cuda, tmp_path, monkeypatch,
     monkeypatch.setattr(_build, "_lib", None)
     gen = torch.Generator(cuda).manual_seed(0)
     cases = {}
-    if name in ("attention_bwd.cuh", "packed_window_attention.cu"):
-        xp, pbias, pmask = _packed_setup(gen, cuda)
-        dp = torch.randn(128, 3, 196, 32, device=cuda, generator=gen).to(torch.bfloat16)
+    window_hd = 64 if name == "attention_bwd.cuh" else 32
+    if name in ("attention_bwd.cuh", "attention_bwd_mma.cuh", "packed_window_attention.cu"):
+        ph = 3                                       # the violet stage 0's heads
+        xp = torch.randn(128, 3 * ph, 196, window_hd, device=cuda, generator=gen) * 0.5
+        pbias = torch.randn(ph, 196, 196, device=cuda, generator=gen) * 0.02
+        pmask = _packed_setup(gen, cuda)[2]
+        dp = torch.randn(128, ph, 196, window_hd, device=cuda, generator=gen).to(torch.bfloat16)
+        pscale = window_hd ** -0.5
         cases["packed"] = bf16_check(
-            lambda a: twa._packed_bwd(a, pbias, pmask, dp.to(a.dtype), 64, 3, 32 ** -0.5),
+            lambda a: twa._packed_bwd(a, pbias, pmask, dp.to(a.dtype), 64, ph, pscale),
             lambda a: twa.packed_window_attention_backward_plain(a, pbias, pmask, dp.to(a.dtype),
-                                                                 64, 3, 32 ** -0.5),
-            xp, "attention_bwd")
-    if name == "attention_bwd.cuh":
-        win, nh, c, hp = (4, 7, 7), 16, 512, 14
+                                                                 64, ph, pscale),
+            xp, _window_bwd_kind(window_hd))
+    if name in ("attention_bwd.cuh", "attention_bwd_mma.cuh"):
+        win, c, hp = (4, 7, 7), 512, 14
+        nh = c // window_hd
         x3 = torch.randn(2, 4, hp, hp, 3 * c, device=cuda, generator=gen) * 0.5
         do = torch.randn(2, 4, hp, hp, c, device=cuda, generator=gen).to(torch.bfloat16)
         bias = torch.randn(nh, 196, 196, device=cuda, generator=gen) * 0.02
         mask = torch.from_numpy(_shift_attn_mask((4, hp, hp), win, (0, 3, 3))).to(cuda)
-        scale = (c // nh) ** -0.5
+        scale = window_hd ** -0.5
         cases["direct"] = bf16_check(
             lambda a: twa._direct_bwd(a, bias, mask, do.to(a.dtype), win, nh, scale),
             lambda a: twa.direct_window_attention_backward_plain(a, bias, mask, do.to(a.dtype),
                                                                  win, nh, scale),
-            x3, "attention_bwd")
+            x3, _window_bwd_kind(window_hd))
         wb, wn = 64, 49                              # stage 2 of the 2D swin: nW = 4 x 4
         wmask = torch.from_numpy(_shift_attn_mask((4, hp, hp), (1, 7, 7), (0, 3, 3))
                                  ).to(cuda)
@@ -719,8 +848,8 @@ def test_bf16_check_catches_planted_backward_faults(cuda, tmp_path, monkeypatch,
             lambda a: twa._lane_window_bwd(a, wbias, wmask, dw.to(a.dtype), 16, nh, scale),
             lambda a: twa.lane_window_attention_backward_plain(a, wbias, wmask, dw.to(a.dtype),
                                                                16, nh, scale),
-            xw, "attention_bwd")
-    elif name == "self_attention_mma.cuh":
+            xw, _window_bwd_kind(window_hd))
+    if name == "self_attention_mma.cuh":
         # hd 32, where the scale (and so q * scale) rounds in bf16
         p, nh, n, hd = 8, 24, 350, 32
         xt, _, mt = _sa_setup(np.random.RandomState(13), cuda, p, nh, n, hd)
@@ -728,8 +857,10 @@ def test_bf16_check_catches_planted_backward_faults(cuda, tmp_path, monkeypatch,
         seed = torch.tensor([78, 2], dtype=torch.int32, device=cuda)
         cases["tiled"] = bf16_check(*_sa_calls(mt, nh, hd ** -0.5, 0.1, seed, dt)[1][:2], xt,
                                     "sa_bwd")
-    elif name == "self_attention.cu":
-        p, l, d, lh = 8, 232, 768, 12
+    if fault in LANE_BWD_FAULTS:
+        # the CUDA-core body at hd 48, the tensor-core body at BERT's hd 64
+        p, l, d = 8, 232, 768
+        lh = 16 if name == "self_attention.cu" else 12
         x3 = torch.randn(p, l, 3 * d, device=cuda, generator=gen) * 0.5
         do = torch.randn(p, l, d, device=cuda, generator=gen).to(torch.bfloat16)
         keep = torch.ones(p, l, device=cuda)
@@ -742,6 +873,7 @@ def test_bf16_check_catches_planted_backward_faults(cuda, tmp_path, monkeypatch,
             lambda a: twa.lane_self_attention_backward_plain(a, lmask, do.to(a.dtype), lh,
                                                              scale, 0.1, seed),
             x3, "attention_bwd")
+    assert cases
     for case, (readings, failures) in cases.items():
         print(f"planted {fault} [{case}]: {readings} failures={failures}")
         assert failures, f"planted fault {fault} passes the bf16 backward limits at {case}"
