@@ -6,12 +6,17 @@
 
 The second form only compares kernels between this checkout's sources and
 another's (for example the parent commit, unpacked with ``git archive``),
-on one card, times in turns (``compare_builds``): the forward kernels that
-share csrc/common.cuh's ``attend_row``, bit for bit; the backwards whose
-bf16 runs a tensor-core body (rows 4, 8, 9 and 10 on
-csrc/attention_bwd_mma.cuh, row 6 on row 11's body), fp32 bit for bit and
-each build's bf16 held to the bf16 limits; and row 11 (the tiled
-self-attention) at the multiple-choice shape, fp32 and bf16 bit for bit.
+on one card, times in turns (``compare_builds``): the forwards that keep
+csrc/common.cuh's ``attend_row`` (rows 7 and 12), bit for bit in fp32 and
+bf16; the forwards whose bf16 runs a tensor-core body (rows 3, 9 and 10 on
+csrc/attention_fwd_mma.cuh, row 5 on row 11's forward), fp32 bit for bit
+and each build's bf16 held to the bf16 limits; the backwards whose bf16
+runs a tensor-core body (rows 4, 8, 9 and 10 on csrc/attention_bwd_mma.cuh,
+row 6 on row 11's body) and row 11 (the tiled self-attention) at the
+multiple-choice shape, fp32 and bf16 bit for bit; and the pixel and violet
+train steps and the multiple-choice step at full width, each build's steps
+timed in turns, so that a change of kernel time shows in step time on one
+card.
 
 Phases, each of which records its failures; the script exits non-zero,
 before the final line, if any phase failed:
@@ -46,11 +51,14 @@ before the final line, if any phase failed:
    dropout keep fraction, at DPT-Large's 384^2 shape (fp32 and bf16) and at
    N = 129, ``fused_self_attention`` (the same kernel on q, k, v apart),
    and two copies of csrc/ with planted faults of the tensor-core bodies
-   (``PLANTED_TILED``: two of row 11's, one of the window backward's, one of
-   row 6's), each of which must fail the bf16 limits. The records of rows 4,
-   6, 8, 9, 10 and 11 name the body each dtype ran (``tensor_core`` for
-   bf16 at the paths' head widths, ``cuda_core`` for fp32); the window
-   backwards' bf16 is held to the ``window_bwd_tc`` limits. The LayerNorm at
+   (``PLANTED_TILED``: two of row 11's, the forward one also held at row
+   5, one of the window backward's, one of row 6's, one of the window
+   forward's held at rows 3 and 9), each of which must fail the bf16
+   limits. The records of rows 3-6 and 8-11 name the body each dtype ran
+   (``tensor_core`` for bf16 at the paths' head widths, ``cuda_core`` for
+   fp32); the window forwards' bf16 is held to the ``window_fwd_tc``
+   limits, row 5's to row 11's ``sa``, the window backwards' to
+   ``window_bwd_tc``. The LayerNorm at
    the 3D teacher's final norm and at the CLIP teacher's sites,
    ``lane_self_attention`` at the CLIP teacher's shape (80 frames of 50
    tokens, p = 0); ``lane_attention`` (row 12, the
@@ -405,6 +413,23 @@ BF16_LIMITS["window_bwd_tc"] = {
 BF16_LIMITS["window_bwd_tc_qkv"] = {
     **{g: BF16_LIMITS["window_bwd_tc"]["dx3"] for g in ("dq", "dk", "dv")},
     "dbias": BF16_LIMITS["attention_bwd"]["dbias"]}
+# The window forwards' tensor-core body (rows 3, 9, 10 in bf16 at hd 32,
+# csrc/attention_fwd_mma.cuh; kind "window_fwd_tc"): row 11's forward limits
+# (``sa``), for row 11's reason. Its scores sum on the tensor cores, in
+# another order than the plain version's fp32 chain, and its row sums over
+# the lanes and a warp butterfly, so a p near a bf16 rounding boundary may
+# round the other way and move an output that cancels to near 0 by ulp(p)
+# |v|, above one bf16 step of that output. The CPU emulation
+# (tests/test_torch_fwd_mma.py) exceeds the CUDA-core one-step limit by up
+# to 1.5e-5 (1.6e-4 of the elements over a step) and differs from plain
+# bf16 in up to 8.3e-4 of the elements, near BF16_MISMATCH. On the H100 the
+# body exceeds one step by up to 2.5e-4 at the paths' shapes (3.0e-4 at
+# the 2D Swin-tiny's N = 49, off the paths), at under 3e-5 of the
+# elements, and up to 3.8e-4 of its elements differ: the readings of row
+# 11's forward, whose limits these are. The planted fault of the body moves
+# 55 % of the elements.
+FP32_LIMITS["window_fwd_tc"] = FP32_LIMITS["attention"]
+BF16_LIMITS["window_fwd_tc"] = BF16_LIMITS["sa"]
 OUTPUTS = {kind: tuple(lim) for kind, lim in FP32_LIMITS.items()}
 # dropout keep fraction: 1 - p within 5 binomial standard deviations
 KEEP_SIGMAS = 5.0
@@ -627,10 +652,24 @@ def _window_bwd_kind(hd, split=False):
     return ("window_bwd_tc" if tc else "attention_bwd") + ("_qkv" if split else "")
 
 
-def _bodies(rule, hd):
+def _window_fwd_kind(hd, n):
+    """The limits of a direct or packed window forward record (rows 3, 9,
+    10): ``window_fwd_tc`` where its bf16 runs the tensor-core body."""
+    tc = wa._window_fwd_body(torch.bfloat16, hd, n) == "tensor_core"
+    return "window_fwd_tc" if tc else "attention"
+
+
+def _lane_fwd_kind(hd):
+    """The limits of a lane self-attention forward record (row 5): row 11's
+    ``sa`` where its bf16 runs row 11's tensor-core forward."""
+    return "sa" if wa._sa_body(torch.bfloat16, hd) == "tensor_core" else "attention"
+
+
+def _bodies(rule, *shape):
     """The body each dtype of a record ran (fp32 in the check against
-    plain, bf16 in the bf16 check and the timing), by the C entries' rule."""
-    return {str(dt)[6:]: rule(dt, hd) for dt in (torch.float32, torch.bfloat16)}
+    plain, bf16 in the bf16 check and the timing), by the C entries' rule
+    (``rule(dtype, *shape)``)."""
+    return {str(dt)[6:]: rule(dt, *shape) for dt in (torch.float32, torch.bfloat16)}
 
 
 def _direct_sdpa(a, win, b, nw, nh):
@@ -681,8 +720,9 @@ def direct_cases(dev, gen, b, t, path, swin=SwinConfig.base(), stages=range(4)):
             nbytes = x3.numel() * 2 + b * t * hp * hp * c * 2 + bias.numel() * 4 + (
                 0 if mask is None else mask.numel() * 4)
             recs.append(measure("direct_window_attention", label, x3, kernel, plain,
-                                library, torch.bfloat16, "attention", ops, "bf16_tensor",
-                                nbytes))
+                                library, torch.bfloat16, _window_fwd_kind(c // nh, n), ops,
+                                "bf16_tensor", nbytes))
+            recs[-1]["body"] = _bodies(wa._window_fwd_body, c // nh, n)
     return recs
 
 
@@ -712,7 +752,9 @@ def lane_case(dev, gen):
     ops = 4 * p * nh * l * l * (d // nh)
     nbytes = x3.numel() * 2 + p * l * d * 2 + p * l * 4
     rec = measure("lane_self_attention", f"eval x3=({p},{l},{3 * d}) nH={nh}", x3, kernel,
-                  plain, library, torch.bfloat16, "attention", ops, "bf16_tensor", nbytes)
+                  plain, library, torch.bfloat16, _lane_fwd_kind(d // nh), ops, "bf16_tensor",
+                  nbytes)
+    rec["body"] = _bodies(wa._sa_body, d // nh)
     return [rec]
 
 
@@ -865,9 +907,9 @@ def lane_train_cases(dev, gen):
 
     ops = 4 * p * nh * l * l * hd
     fwd = measure("lane_self_attention_dropout", label, x3, fwd_kernel, fwd_plain,
-                  fwd_library, torch.bfloat16, "attention", ops, "bf16_tensor",
+                  fwd_library, torch.bfloat16, _lane_fwd_kind(hd), ops, "bf16_tensor",
                   x3.numel() * 2 + p * l * d * 2 + p * l * 4)
-    fwd["keep_fraction"] = frac
+    fwd.update(keep_fraction=frac, body=_bodies(wa._sa_body, hd))
     if abs(frac - (1 - P_ATTN)) > KEEP_SIGMAS * sigma:
         fwd["failures"].append(f"dropout keep fraction {frac} is not {1 - P_ATTN} "
                                f"+- {KEEP_SIGMAS} sigma ({sigma:.3g})")
@@ -1078,8 +1120,9 @@ def packed_cases(dev, gen):
         ops = 4 * b_ * nh * n * n * hd
         extra = bias.numel() * 4 + (0 if mk is None else mk.numel() * 4)
         fwd = measure("packed_window_attention", label, qkv, fwd_kernel, fwd_plain,
-                      fwd_library, torch.bfloat16, "attention", ops, "bf16_tensor",
-                      (qkv.numel() + do.numel()) * 2 + extra)
+                      fwd_library, torch.bfloat16, _window_fwd_kind(hd, n), ops,
+                      "bf16_tensor", (qkv.numel() + do.numel()) * 2 + extra)
+        fwd["body"] = _bodies(wa._window_fwd_body, hd, n)
         bwd = measure("packed_window_attention_bwd", label, qkv, bwd_kernel, bwd_plain,
                       bwd_library, torch.bfloat16, _window_bwd_kind(hd), 2.5 * ops,
                       "bf16_tensor", (2 * qkv.numel() + do.numel()) * 2 + extra
@@ -1132,8 +1175,9 @@ def fused_cases(qkv, do, bias, mk, nw, nh, label):
     extra = bias.numel() * 4 + mk.numel() * 4
     label = label.replace("qkv=", "q,k,v=3x").replace(f",{3 * nh},", f",{nh},")
     fwd = measure("fused_window_attention", label, stack, fwd_kernel, fwd_plain, fwd_library,
-                  torch.bfloat16, "attention", ops, "bf16_tensor",
+                  torch.bfloat16, _window_fwd_kind(hd, n), ops, "bf16_tensor",
                   (stack.numel() + do.numel()) * 2 + extra)
+    fwd["body"] = _bodies(wa._window_fwd_body, hd, n)
     bwd = measure("fused_window_attention_bwd", label, stack, bwd_kernel, bwd_plain,
                   bwd_library, torch.bfloat16, _window_bwd_kind(hd, split=True), 2.5 * ops,
                   "bf16_tensor", (2 * stack.numel() + do.numel()) * 2 + extra
@@ -1164,9 +1208,11 @@ def clip_lane_case(dev, gen):
 
     ops = 4 * p * nh * l * l * (d // nh)
     nbytes = x3.numel() * 2 + p * l * d * 2 + _span_bytes(mask)
-    return [measure("lane_self_attention", f"2d_clip teacher x3=({p},{l},{3 * d}) nH={nh}", x3,
-                    kernel, plain, library, torch.bfloat16, "attention", ops, "bf16_tensor",
-                    nbytes)]
+    rec = measure("lane_self_attention", f"2d_clip teacher x3=({p},{l},{3 * d}) nH={nh}", x3,
+                  kernel, plain, library, torch.bfloat16, _lane_fwd_kind(d // nh), ops,
+                  "bf16_tensor", nbytes)
+    rec["body"] = _bodies(wa._sa_body, d // nh)
+    return [rec]
 
 
 def _shift_like_mask(dev, gen, nw, n):
@@ -1278,15 +1324,18 @@ def c128_cases(dev, gen):
 # planted texts), each a rounding point or term of the JAX kernels that a
 # tensor-core body could move (its roundings of p and ds are structural: an
 # mma operand is bf16). Row 11's body, forward: the normalisation moved after
-# P.V, so the unnormalised p is rounded. Backward: dk from q as stored, the
-# scale applied to the fp32 product, so q * scale is not rounded before dk
-# (a fault only where the scale is inexact in bf16: hd 32, not 64, whose
-# scale 0.125 is a power of two). The window backward's body: ds rounded to
-# bf16 before it enters dbias (the JAX kernels sum the fp32 ds). Row 6 on
-# row 11's backward: the keep mask dropped from dp in the rows kernel (D, ds
-# and dq of every dropped score). The first two are planted in one copy, the
-# last two in another (the keep-mask fault would also fail row 11's backward
-# check, whose own fault it must not hide).
+# P.V, so the unnormalised p is rounded; row 5 runs the same forward and must
+# fail too. Backward: dk from q as stored, the scale applied to the fp32
+# product, so q * scale is not rounded before dk (a fault only where the scale
+# is inexact in bf16: hd 32, not 64, whose scale 0.125 is a power of two).
+# The window backward's body: ds rounded to bf16 before it enters dbias (the
+# JAX kernels sum the fp32 ds). Row 6 on row 11's backward: the keep mask
+# dropped from dp in the rows kernel (D, ds and dq of every dropped score).
+# The window forward's body (rows 3, 9, 10): e = exp(s - max) rounded to bf16
+# before it is normalised (and p rounded again). The first two are planted in
+# one copy, the last three in another (the keep-mask fault would also fail
+# row 11's backward check, whose own fault it must not hide; each of the
+# others moves only its own kernels).
 PLANTED_TILED = {
     "forward p rounded before normalising": (
         "self_attention_mma.cuh",
@@ -1309,6 +1358,10 @@ PLANTED_TILED = {
         "const float d = drop.on ? drop_scale(keep[r][e & 1], dp[nt][e], drop.inv_keep)\n"
         "                                  : dp[nt][e];",
         "const float d = dp[nt][e];"),
+    "window forward e rounded before normalising": (
+        "attention_fwd_mma.cuh",
+        "const float p = sa_mma::div_rn(sv[u], sum, rcp);",
+        "const float p = __fdiv_rn(__bfloat162float(__float2bfloat16(sv[u])), sum);"),
 }
 # the faults of each planted copy of csrc/
 PLANTED_COPIES = (tuple(PLANTED_TILED)[:2], tuple(PLANTED_TILED)[2:])
@@ -1502,16 +1555,19 @@ def _planted_library(tag, faults):
 
 def planted_tiled_check(dev, gen):
     """Build the ``PLANTED_COPIES`` of csrc/ (at once) and hold each fault's
-    kernel to the bf16 limits, which it must fail: row 11's forward at the
-    multiple-choice shape in small (8 rows of 350, 12 heads of 64, p = 0.1)
-    and its backward at the same rows with 24 heads of 32 (where q * scale
+    kernels to the bf16 limits, each of which must fail: row 11's forward at
+    the multiple-choice shape in small (8 rows of 350, 12 heads of 64, p =
+    0.1) and row 5 at the fusion's (8 rows of 232, p = 0.1); row 11's
+    backward at the multiple-choice rows with 24 heads of 32 (where q * scale
     rounds); the direct window backward at a Video Swin stage-2 shape in
     small (2 clips, N = 196, 16 heads of 32, shifted); row 6 at the fusion's
-    shape in small (8 rows of 232, 12 heads of 64, p = 0.1). Returns the
-    faults that passed."""
+    shape in small (8 rows of 232, 12 heads of 64, p = 0.1); the direct
+    window forward at the eval's stage 2 in small (2 clips, N = 245, 16 heads
+    of 32, shifted) and the packed forward at the violet stage 0 (2 clips,
+    N = 196, 3 heads, shifted). Returns the faults that passed a check."""
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(PLANTED_COPIES)) as pool:
-        row11, rows4_6 = pool.map(_planted_library, ("row11", "rows4_6"), PLANTED_COPIES)
+        row11, rest = pool.map(_planted_library, ("row11", "rest"), PLANTED_COPIES)
     build_s = time.perf_counter() - t0
     b, n = 8, QAMC_L
     mask = _padding_mask(dev, gen, b, n, 100, 8)
@@ -1540,21 +1596,42 @@ def planted_tiled_check(dev, gen):
             lambda a: wa.lane_self_attention_backward_plain(a, lmask, dl.to(a.dtype), 12, 0.125,
                                                             P_ATTN, lseed),
             xl, "attention_bwd")
-    checks = ((row11, ((fwd, fwd_plain, q64, "sa"), (bwd, bwd_plain, q32, "sa_bwd"))),
-              (rows4_6, (window, lane)))
+    row5 = (lambda a: wa._lane_fwd(a, lmask, 12, 0.125, P_ATTN, lseed),
+            lambda a: wa.lane_self_attention_plain(a, lmask, 12, 0.125, P_ATTN, lseed),
+            xl, _lane_fwd_kind(64))
+    ewin = (5, 7, 7)
+    xe = torch.randn(2, 5, hp, hp, 3 * c, device=dev, generator=gen) * 0.5
+    ebias = torch.randn(nh, 245, 245, device=dev, generator=gen) * 0.02
+    emask = torch.from_numpy(_shift_attn_mask((5, hp, hp), ewin, (0, 3, 3))).to(dev)
+    direct_fwd = (lambda a: wa._direct_fwd(a, ebias, emask, ewin, nh, 32 ** -0.5),
+                  lambda a: wa.direct_window_attention_plain(a, ebias, emask, ewin, nh,
+                                                             32 ** -0.5),
+                  xe, _window_fwd_kind(32, 245))
+    pbias = torch.randn(3, 196, 196, device=dev, generator=gen) * 0.02
+    pmask = torch.from_numpy(_shift_attn_mask((4, 56, 56), win, (0, 3, 3))).to(dev)
+    xp = torch.randn(128, 9, 196, 32, device=dev, generator=gen) * 0.5
+    packed_fwd = (lambda a: wa._packed_fwd(a, pbias, pmask, 64, 3, 32 ** -0.5),
+                  lambda a: wa.packed_window_attention_plain(a, pbias, pmask, 64, 3, 32 ** -0.5),
+                  xp, _window_fwd_kind(32, 196))
+    checks = ((row11, {"row 11 forward": (fwd, fwd_plain, q64, "sa"), "row 5": row5},
+               {"row 11 backward": (bwd, bwd_plain, q32, "sa_bwd")}),
+              (rest, {"direct backward": window}, {"row 6": lane},
+               {"direct forward": direct_fwd, "packed forward": packed_fwd}))
     real = _build.library()
     caught = {}
     try:
-        for (lib, lib_checks), faults in zip(checks, PLANTED_COPIES):
+        for (lib, *per_fault), faults in zip(checks, PLANTED_COPIES):
             _build._lib = lib
-            for fault, check in zip(faults, lib_checks):
-                caught[fault] = bf16_check(*check)
+            for fault, fault_checks in zip(faults, per_fault):
+                caught[fault] = {where: bf16_check(*check)
+                                 for where, check in fault_checks.items()}
     finally:
         _build._lib = real
-    print(json.dumps({"planted_tiled_faults": {k: dict(readings=r, failures=f)
-                                               for k, (r, f) in caught.items()},
-                      "build_s": build_s}), flush=True)
-    return [f"planted fault passes the bf16 limits: {k}" for k, (_, f) in caught.items() if not f]
+    print(json.dumps({"planted_tiled_faults": {
+        k: {where: dict(readings=r, failures=f) for where, (r, f) in v.items()}
+        for k, v in caught.items()}, "build_s": build_s}), flush=True)
+    return [f"planted fault passes the bf16 limits: {k} [{where}]"
+            for k, v in caught.items() for where, (_, f) in v.items() if not f]
 
 
 def ln_bwd_cases(dev, gen):
@@ -2147,37 +2224,82 @@ def _split(fn):
 
 def _attend_row_calls(dev, gen):
     """(kernel, label, x3, call) of each forward that runs common.cuh's
-    ``attend_row`` (rows 3, 5, 7 and 9), at the shapes phase 3 times it: the
-    direct forward at the train step's stages (``_direct_bwd_inputs``), the
-    lane self-attention at the eval's fusion shape and at the train step's
-    with dropout, the lane window forward at the 2D swin's shapes
-    (``_window_bwd_inputs``), the packed forward at ``_packed_shapes``."""
-    for stage, win, nh, x3, _, bias, mask in _direct_bwd_inputs(dev, gen):
-        scale = (x3.shape[-1] // 3 // nh) ** -0.5
-        yield ("direct_window_attention",
-               f"stage{stage} {'shifted' if mask is not None else 'unshifted'}", x3,
-               lambda a, bias=bias, mask=mask, win=win, nh=nh, scale=scale:
-               wa._direct_fwd(a, bias, mask, win, nh, scale))
-    seed = torch.tensor([20261016, 7], dtype=torch.int32, device=dev)
-    for label, b, l, text, p_drop in (("eval", CHUNK, 275, 25, 0.0),
-                                      ("train", 4 * TRAIN_B, TRAIN_L, 32, P_ATTN)):
-        x3 = torch.randn(b, l, 3 * 768, device=dev, generator=gen) * 0.5
-        mask = _padding_mask(dev, gen, b, l, text, 3)
-        yield ("lane_self_attention", f"{label} p_drop={p_drop}", x3,
-               lambda a, mask=mask, p_drop=p_drop: wa._lane_fwd(a, mask, 12, 64 ** -0.5, p_drop,
-                                                               seed if p_drop else None))
+    ``attend_row`` in both dtypes (rows 7 and 12), at the shapes phase 3
+    times it: the lane window forward at the 2D swin's shapes
+    (``_window_bwd_inputs``), ``lane_attention`` at the lanebench tool's
+    stage shapes with its zero mask and a shift-like mask."""
     for stage, nw, nh, x3, _, bias, mk, _ in _window_bwd_inputs(dev, gen):
         yield ("lane_window_attention",
                f"2d stage{stage} {'shifted' if mk is not None else 'unshifted'}", x3,
                lambda a, bias=bias, mk=mk, nw=nw if mk is not None else 1, nh=nh:
                wa._lane_window_fwd(a, bias, mk, nw, nh, 32 ** -0.5))
+    for stage, sh in lanebench.SHAPES.items():
+        b_, n, c, nh, nw = (sh[k] for k in ("b_", "n", "c", "nh", "nw"))
+        x3 = torch.randn(b_, n, 3 * c, device=dev, generator=gen) * 0.5
+        bias = torch.randn(nh, n, n, device=dev, generator=gen) * 0.1
+        for name, mask in (("zero mask", torch.zeros(nw, n, n, device=dev)),
+                           ("shift-like mask", _shift_like_mask(dev, gen, nw, n))):
+            yield ("lane_attention", f"lanebench stage{stage} {name}", x3,
+                   lambda a, bias=bias, mask=mask, nh=nh, hd=c // nh:
+                   wa.lane_attention(a, bias, mask, nh, hd ** -0.5))
+
+
+def _redesigned_fwd_calls(dev, gen):
+    """(kernel, label, x3, call, plain, kind) of each forward whose bf16 runs
+    a tensor-core body since rows 3, 5, 9 and 10 were redesigned, at the
+    main-path shapes phase 3 times: the direct forward (row 3) at the train
+    step's stages (``_direct_bwd_inputs``), the eval's (32 clips of 5
+    frames, N = 245) and the violet step's stages 2 and 3; the lane
+    self-attention (row 5) at the eval's fusion (p = 0), the train step's (p
+    = 0.1) and the CLIP teacher's shape; the packed forward (row 9) at
+    ``_packed_shapes``; the fused forward (row 10) at the violet stage-0
+    shifted shape. ``kind`` names the bf16 limits of this checkout's body."""
+    direct = itertools.chain(
+        (("train", *x) for x in _direct_bwd_inputs(dev, gen)),
+        (("eval", *x) for x in _direct_bwd_inputs(dev, gen, b=ITEMS * CLIPS, t=5)),
+        (("violet", *x) for x in _direct_bwd_inputs(dev, gen, SwinConfig.violet(), (2, 3))))
+    for path, stage, win, nh, x3, _, bias, mask in direct:
+        hd, n = x3.shape[-1] // 3 // nh, bias.shape[-1]
+        args = (bias, mask, win, nh, hd ** -0.5)
+        yield ("direct_window_attention",
+               f"{path} stage{stage} {'shifted' if mask is not None else 'unshifted'}", x3,
+               functools.partial(_with_args, wa._direct_fwd, args),
+               functools.partial(_with_args, wa.direct_window_attention_plain, args),
+               _window_fwd_kind(hd, n))
+    seed = torch.tensor([20261016, 7], dtype=torch.int32, device=dev)
+    for label, b, l, text, p_drop in (("eval", CHUNK, 275, 25, 0.0),
+                                      ("train", 4 * TRAIN_B, TRAIN_L, 32, P_ATTN),
+                                      ("2d_clip teacher", TRAIN_B * TRAIN_T, 50, 0, 0.0)):
+        x3 = torch.randn(b, l, 3 * 768, device=dev, generator=gen) * 0.5
+        mask = (_padding_mask(dev, gen, b, l, text, 3) if text
+                else torch.zeros(1, 1, l, device=dev).expand(b, l, l))
+        args = (mask, 12, 0.125, p_drop, seed if p_drop else None)
+        yield ("lane_self_attention" if p_drop == 0 else "lane_self_attention_dropout",
+               f"{label} p_drop={p_drop}", x3, functools.partial(_with_args, wa._lane_fwd, args),
+               functools.partial(_with_args, wa.lane_self_attention_plain, args),
+               _lane_fwd_kind(64))
     for label, nw, c, nh, n, mk, _ in _packed_shapes():
         qkv = torch.randn(TRAIN_B * nw, 3 * nh, n, 32, device=dev, generator=gen) * 0.5
         bias = torch.randn(nh, n, n, device=dev, generator=gen) * 0.02
         mk = None if mk is None else torch.from_numpy(mk).to(dev)
-        yield ("packed_window_attention", f"{label} {'shifted' if mk is not None else ''}", qkv,
-               lambda a, bias=bias, mk=mk, nw=nw if mk is not None else 1, nh=nh:
-               wa._packed_fwd(a, bias, mk, nw, nh, 32 ** -0.5))
+        args = (bias, mk, nw if mk is not None else 1, nh, 32 ** -0.5)
+        label = f"{label} {'shifted' if mk is not None else 'unshifted'}"
+        yield ("packed_window_attention", label, qkv,
+               functools.partial(_with_args, wa._packed_fwd, args),
+               functools.partial(_with_args, wa.packed_window_attention_plain, args),
+               _window_fwd_kind(32, n))
+        if label == "violet stage0 shifted":
+            stack = qkv.reshape(-1, 3, nh, n, 32).transpose(0, 1).contiguous()
+            args = (bias, mk, nw, 32 ** -0.5)
+            yield ("fused_window_attention", label, stack,
+                   functools.partial(_with_args, _split(wa._fused_fwd), args),
+                   functools.partial(_with_args, _split(wa.fused_window_attention_plain), args),
+                   _window_fwd_kind(32, n))
+
+
+def _with_args(fn, args, a):
+    """fn(a, *args)."""
+    return fn(a, *args)
 
 
 def _tiled_calls(dev, gen):
@@ -2204,24 +2326,87 @@ def _tiled_calls(dev, gen):
                    "sa_bwd")
 
 
+# train steps of each build in --compare-build: STEP_TURNS steps a turn,
+# after one warm-up step with each build
+STEP_TURNS = 3
+
+
+def _step_calls(dev):
+    """(label, one_step) of the pixel and violet pretrain steps and the
+    multiple-choice step at full width, each model built once: one_step()
+    runs one step, ending in a synchronise (the parameters move from step to
+    step, which the times do not depend on)."""
+    run = load_run_config(str(PRETRAIN_CONFIG))
+    for label, r in (("pixel", run), ("violet", with_violet_backbone(run))):
+        model = VioletPretrain.from_run_config(r, dtype=torch.bfloat16, device=dev,
+                                               seed=TRAIN_SEED)
+        opt = build_optimizer(model, r.train, TRAIN_MAX_ITER)
+        step = make_pretrain_train_step(model, opt)
+        batch = synthetic_pretrain_batch(r.train.size_batch, r.model, seed=3, device=dev)
+        yield f"train step {label}", _stepper(step, create_train_state(model, opt), batch)
+        del model, opt, step, batch
+        torch.cuda.empty_cache()
+    run = load_run_config(str(QAMC_CONFIG))
+    model = VioletQAMC(run.model, dtype=torch.bfloat16, device=dev, seed=TRAIN_SEED)
+    opt = build_optimizer(model, run.train, TRAIN_MAX_ITER)
+    step = make_supervised_train_step(model, opt, "ce")
+    batch = synthetic_qamc_batch(run.train.size_batch, run.model, seed=6, device=dev)
+    yield "train step qamc", _stepper(step, create_train_state(model, opt), batch)
+
+
+def _kernel_ms(one_step):
+    """The ms that CUDA kernels ran during one call of ``one_step``
+    (torch.profiler, CUDA activity alone); the rest of the step's time the
+    device waits for the host."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        one_step()
+    return sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+               for e in prof.key_averages() if str(e.device_type).endswith("CUDA")) / 1e3
+
+
+def _stepper(step, state, batch):
+    """A zero-argument call of one train step on ``state``, synchronised."""
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], batch, TRAIN_SEED)
+        torch.cuda.synchronize()
+
+    return one_step
+
+
 def compare_builds(base_csrc: Path) -> None:
     """Build the kernel library from ``base_csrc`` too and hold this
     checkout's build against it, times of both builds' bf16 calls taken with
     CUDA events in turns (base, new, new, base):
-    * the forward kernels of common.cuh's ``attend_row``
-      (``_attend_row_calls``): every output bit-identical in fp32 and bf16;
+    * the forwards that keep common.cuh's ``attend_row`` in both dtypes
+      (``_attend_row_calls``: rows 7 and 12): every output bit-identical in
+      fp32 and bf16;
+    * the forwards whose bf16 runs a tensor-core body since their redesign
+      (``_redesigned_fwd_calls``: rows 3, 5, 9, 10): fp32 bit-identical (the
+      CUDA-core bodies), each build's bf16 held to the bf16 limits of this
+      checkout's body (which take the CUDA-core body's readings too);
     * the backwards whose bf16 runs a tensor-core body (``_shared_bwd_calls``:
-      rows 4, 6, 8, 9, 10): fp32 bit-identical (the CUDA-core bodies), each
-      build's bf16 held to its bf16 limits against the plain version;
-    * row 11 (``_tiled_calls``): fp32 and bf16 bit-identical (row 6 runs its
-      tensor-core kernels in another layout, which must not move row 11's),
-      each build's bf16 held to the bf16 limits.
-    Prints one JSON line per shape and the sums per kernel with new / base;
-    exits non-zero if an output differs or a limit is exceeded."""
+      rows 4, 6, 8, 9, 10) and row 11 forward and backward (``_tiled_calls``):
+      fp32 and bf16 bit-identical, each build's bf16 held to its limits;
+    * the pixel and violet train steps and the multiple-choice step
+      (``_step_calls``): host seconds of ``STEP_TURNS`` steps a turn, after
+      one warm-up step with each build, their medians per build; then one
+      step of each build under torch.profiler: the ms its kernels ran, and
+      the device's idle share of the median step (``_kernel_ms``).
+    Size queries that the base build predates (``*_smem_bytes`` entry
+    points, which feed only the wrappers' shared-memory check before a
+    launch) are answered by this build's. Prints one JSON line per shape and
+    the sums per kernel with new / base; exits non-zero if an output differs
+    or a limit is exceeded."""
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(_nvidia_smi(), flush=True)
     libs = {"new": _build.library(), "base": _build.load(_build.build(csrc=base_csrc), False)}
+    for name in _build._SIGNATURES:
+        if name.endswith("_smem_bytes") and not hasattr(libs["base"], name):
+            setattr(libs["base"], name, getattr(libs["new"], name))
     gen = torch.Generator(dev).manual_seed(0)
     differ, failures, sums = [], [], {}
 
@@ -2251,11 +2436,8 @@ def compare_builds(base_csrc: Path) -> None:
     def equal(outs):
         return all(torch.equal(u, v) for u, v in zip(outs["base"], outs["new"]))
 
-    for kernel, label, x3, call in _attend_row_calls(dev, gen):
-        calls = {w: call for w in libs}
-        same = all(equal(outputs(calls, x3.to(dt))) for dt in (torch.float32, torch.bfloat16))
-        record(kernel, label, in_turns(calls, x3.to(torch.bfloat16)), bit_identical=same)
-        differ += [] if same else [f"{kernel} [{label}]"]
+    def same_in(calls, a, dtypes):
+        return {dt: equal(outputs(calls, a.to(dt))) for dt in dtypes}
 
     def held(kernel, label, calls, plains, a, kind):
         """Each build's bf16 readings against the plain version; failures
@@ -2267,28 +2449,71 @@ def compare_builds(base_csrc: Path) -> None:
             failures.extend(f"{which} build {kernel} [{label}] {f}" for f in failed)
         return readings
 
+    both = (torch.float32, torch.bfloat16)
+    for kernel, label, x3, call in _attend_row_calls(dev, gen):
+        calls = {w: call for w in libs}
+        same = same_in(calls, x3, both)
+        record(kernel, label, in_turns(calls, x3.to(torch.bfloat16)),
+               bit_identical=all(same.values()))
+        differ += [f"{kernel} [{label}] {str(dt)[6:]}" for dt, ok in same.items() if not ok]
+    for kernel, label, x3, call, plain, kind in _redesigned_fwd_calls(dev, gen):
+        calls = {w: call for w in libs}
+        same = same_in(calls, x3, (torch.float32,))
+        readings = held(kernel, label, calls, {w: plain for w in libs}, x3, kind)
+        record(kernel, label, in_turns(calls, x3.to(torch.bfloat16)),
+               fp32_bit_identical=same[torch.float32], bf16=readings)
+        differ += [] if same[torch.float32] else [f"{kernel} [{label}] fp32"]
     for kernel, label, x3, call, plain, kind in _shared_bwd_calls(dev, gen):
         calls = {w: call for w in libs}
-        same = equal(outputs(calls, x3))
+        same = same_in(calls, x3, both)
         readings = held(kernel, label, calls, {w: plain for w in libs}, x3, kind)
-        record(kernel, label, in_turns(calls, x3.to(torch.bfloat16)), fp32_bit_identical=same,
+        record(kernel, label, in_turns(calls, x3.to(torch.bfloat16)),
+               fp32_bit_identical=same[torch.float32], bf16_bit_identical=same[torch.bfloat16],
                bf16=readings)
-        differ += [] if same else [f"{kernel} [{label}] fp32"]
+        differ += [f"{kernel} [{label}] {str(dt)[6:]}" for dt, ok in same.items() if not ok]
     for kernel, label, qkv, calls, kind in _tiled_calls(dev, gen):
         pairs = {w: calls() for w in libs}        # each build's backward from its own stats
         kernel_calls = {w: c for w, (c, _) in pairs.items()}
-        same = {dt: equal(outputs(kernel_calls, qkv.to(dt)))
-                for dt in (torch.float32, torch.bfloat16)}
+        same = same_in(kernel_calls, qkv, both)
         readings = held(kernel, label, kernel_calls, {w: pl for w, (_, pl) in pairs.items()}, qkv,
                         kind)
         record(kernel, label, in_turns(kernel_calls, qkv.to(torch.bfloat16)),
                fp32_bit_identical=same[torch.float32], bf16_bit_identical=same[torch.bfloat16],
                bf16=readings)
         differ += [f"{kernel} [{label}] {str(dt)[6:]}" for dt, ok in same.items() if not ok]
+    steps = {}
+    for label, one_step in _step_calls(dev):
+        ms = {"base": [], "new": []}
+        for which in ("base", "new"):
+            _build._lib = libs[which]
+            one_step()                                  # warm-up
+        for which in ("base", "new", "new", "base"):
+            _build._lib = libs[which]
+            for _ in range(STEP_TURNS):
+                t0 = time.perf_counter()
+                one_step()
+                ms[which].append((time.perf_counter() - t0) * 1e3)
+        steps[label] = {**{f"{w}_ms_median": float(np.median(v)) for w, v in ms.items()},
+                        **{f"{w}_ms": v for w, v in ms.items()}}
+        steps[label]["new_minus_base_ms"] = (steps[label]["new_ms_median"]
+                                             - steps[label]["base_ms_median"])
+        for which in ("base", "new"):
+            _build._lib = libs[which]
+            kms = _kernel_ms(one_step)
+            steps[label][f"{which}_kernel_ms"] = kms
+            steps[label][f"{which}_device_idle_share"] = 1 - kms / steps[label][
+                f"{which}_ms_median"]
+        print(json.dumps({"step": label, **steps[label]}), flush=True)
+        del one_step
+        torch.cuda.empty_cache()
     _build._lib = libs["new"]
     for tot in sums.values():
         tot["new_over_base"] = tot["new_ms"] / tot["base_ms"]
-    print(json.dumps({"compare_build": str(base_csrc), "per_kernel": sums}), flush=True)
+    print(json.dumps({"compare_build": str(base_csrc), "per_kernel": sums,
+                      "steps": {k: {w: v[w] for w in (
+                          "base_ms_median", "new_ms_median", "new_minus_base_ms",
+                          "base_kernel_ms", "new_kernel_ms", "base_device_idle_share",
+                          "new_device_idle_share")} for k, v in steps.items()}}), flush=True)
     require(not differ, f"outputs differ from the base build: {differ}")
     require(not failures, f"bf16 limits exceeded: {failures}")
 

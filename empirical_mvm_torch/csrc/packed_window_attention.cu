@@ -23,67 +23,84 @@
 // hd = 32, bf16) one (window, head) does 4 * N^2 * hd = 4.9 MFLOP on
 // 8 * N * hd = 50 KB of q, k, v and out (bias and mask are shared by every
 // window), about 98 operations per byte against the card's ~295.
-// Design (first, simple version): one 256-thread block per (head, window),
-// heads fastest; the block stages K (rows padded one word) and V of its
-// tile in shared memory, and its 8 warps walk the query rows with
-// `attend_row` (common.cuh), the routine of the direct and lane window
-// kernels: q * scale rounded to the storage type, fp32 scores, bias, mask
-// and softmax, probabilities rounded before P.V. Every loop bounds itself by
-// N (196 and 49 are no powers of two). Products on the CUDA cores; tensor
-// cores are later work.
+// Design: one block per (head, window), heads fastest. bf16 at hd = 32 and
+// N <= 256 runs the tensor-core body (attention_fwd_mma.cuh, 128 threads: K
+// and V staged by cp.async, S and P.V by mma.sync, the bias and mask rows
+// read once and coalesced); fp32, and bf16 at other hd or N, the CUDA-core
+// one: K (rows padded one word) and V of the tile in shared memory, 8 warps
+// walking the query rows with `attend_row` (common.cuh), the routine of the
+// direct and lane window kernels. Both: q * scale rounded to the storage
+// type, fp32 scores, bias, mask and softmax, probabilities rounded before
+// P.V. Every loop bounds itself by N (196 and 49 are no powers of two).
 #include "attention_bwd.cuh"
 #include "attention_bwd_mma.cuh"
+#include "attention_fwd_mma.cuh"
 #include "common.cuh"
 
 namespace emvm {
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(kAttnThreads)
+// KI: the key iterations of the tensor-core body (win_fwd_mma::key_iters),
+// or 0 for the CUDA-core body
+template <typename T, int KI>
+__global__ void __launch_bounds__(KI ? win_fwd_mma::kThreads : kAttnThreads,
+                                  KI ? win_fwd_mma::kMinBlocks : 1)
     packed_window_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                        const T* __restrict__ v, long long window_stride,
                                        const float* __restrict__ bias,
                                        const float* __restrict__ mask, T* __restrict__ out,
                                        int n, int hd, int nh, int nw, float scale_t) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int h = static_cast<int>(blockIdx.x % nh);
   const size_t win = blockIdx.x / nh;             // b_
   const size_t tile = win * window_stride + size_t(h) * n * hd;
-  const AttnSmem<T> sm(smem_raw, n, hd);
-
-  const int ks = k_row_stride<T>(hd);
-  for (int idx = threadIdx.x; idx < n * hd; idx += blockDim.x) {
-    const int t = idx / hd, e = idx % hd;
-    sm.k[size_t(t) * ks + e] = k[tile + idx];
-    sm.v[size_t(t) * hd + e] = v[tile + idx];
-  }
-  __syncthreads();
-
   const float* bias_h = bias + size_t(h) * n * n;
   const float* mask_w = mask ? mask + (win % nw) * n * n : nullptr;
-  const T* qs = q + tile;
-  T* os = out + (win * nh + h) * n * hd;
-  const Dropout no_drop(nullptr, 0u, 1.f);
-  for (int i = threadIdx.x >> 5; i < n; i += kAttnWarps) {
-    attend_row<T>(qs + size_t(i) * hd, scale_t, sm, n, hd, bias_h + size_t(i) * n,
-                  mask_w ? mask_w + size_t(i) * n : nullptr, os + size_t(i) * hd, no_drop, 0,
-                  h, i);
+  const size_t out_tile = (win * nh + h) * n * hd;
+  if constexpr (KI > 0) {
+    // offset of token t: in q, k, v from the segment's base, or in out
+    auto addr = [=](int seg, int t) -> size_t {
+      return (seg == 3 ? out_tile : tile) + size_t(t) * hd;
+    };
+    win_fwd_mma::attention_fwd_block<KI>(q, k, v, bias_h, mask_w, out, n, addr, scale_t);
+  } else {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const AttnSmem<T> sm(smem_raw, n, hd);
+    const int ks = k_row_stride<T>(hd);
+    for (int idx = threadIdx.x; idx < n * hd; idx += blockDim.x) {
+      const int t = idx / hd, e = idx % hd;
+      sm.k[size_t(t) * ks + e] = k[tile + idx];
+      sm.v[size_t(t) * hd + e] = v[tile + idx];
+    }
+    __syncthreads();
+
+    const T* qs = q + tile;
+    T* os = out + out_tile;
+    const Dropout no_drop(nullptr, 0u, 1.f);
+    for (int i = threadIdx.x >> 5; i < n; i += kAttnWarps) {
+      attend_row<T>(qs + size_t(i) * hd, scale_t, sm, n, hd, bias_h + size_t(i) * n,
+                    mask_w ? mask_w + size_t(i) * n : nullptr, os + size_t(i) * hd, no_drop, 0,
+                    h, i);
+    }
   }
 }
 
-template <typename T>
+template <typename T, int KI = 0>
 int launch(const void* q, const void* k, const void* v, long long window_stride,
            const void* bias, const void* mask, void* out, long long windows, int n, int nh,
            int hd, int nw, float scale_t, cudaStream_t stream) {
   const long long blocks = windows * nh;
   if (windows < 1 || blocks > 0x7fffffffLL || (mask && nw < 1))
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = attn_smem_bytes<T>(n, hd);
-  auto kernel = packed_window_attention_fwd_kernel<T>;
+  if (KI && !(sa_mma::aligned16(q) && sa_mma::aligned16(k) && sa_mma::aligned16(v) &&
+              sa_mma::aligned16(out) && window_stride % 8 == 0))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const size_t smem = KI ? win_fwd_mma::smem_bytes(n) : attn_smem_bytes<T>(n, hd);
+  auto kernel = packed_window_attention_fwd_kernel<T, KI>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(blocks), kAttnThreads, smem, stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), KI ? win_fwd_mma::kThreads : kAttnThreads, smem,
+           stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       window_stride, static_cast<const float*>(bias), static_cast<const float*>(mask),
       static_cast<T*>(out), n, hd, nh, mask ? nw : 1, scale_t);
@@ -183,13 +200,22 @@ int launch_bwd(const void* q, const void* k, const void* v, void* dq, void* dk, 
 // head h of a segment starts window_stride * b_ + h * N * hd elements after
 // its base. out (windows, nh, n, hd). mask (nw, n, n) or null; window b_
 // takes mask[b_ % nw]. scale_t is the softmax scale already rounded to the
-// storage dtype.
+// storage dtype. bf16 at hd 32 and N <= 256 runs the tensor-core body
+// (win_fwd_mma::takes), the rest attend_row; the shared memory of a block is
+// emvm_window_attention_fwd_smem_bytes (window_attention.cu).
 extern "C" int emvm_packed_window_attention_fwd(int dtype, const void* q, const void* k,
                                                 const void* v, long long window_stride,
                                                 const void* bias, const void* mask, void* out,
                                                 long long windows, int n, int nh, int hd,
                                                 int nw, float scale_t, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (emvm::win_fwd_mma::takes(dtype, hd, n)) {
+    const int ki = emvm::win_fwd_mma::key_iters(n);
+    auto fwd = ki == 4    ? emvm::launch<__nv_bfloat16, 4>
+               : ki == 13 ? emvm::launch<__nv_bfloat16, 13>
+                          : emvm::launch<__nv_bfloat16, 16>;
+    return fwd(q, k, v, window_stride, bias, mask, out, windows, n, nh, hd, nw, scale_t, s);
+  }
   switch (dtype) {
     case emvm::kFloat32:
       return emvm::launch<float>(q, k, v, window_stride, bias, mask, out, windows, n, nh, hd,

@@ -20,13 +20,19 @@
 // bf16) one (sequence, head) does 4 * L^2 * hd operations forward (10 *
 // L^2 * hd backward) on 8 * L * hd bytes of x3 and out (14 * L * hd backward:
 // x3, do, dx3), 120 to 180 operations per byte against the card's ~295, so
-// the floor is memory. This version runs far above that floor, because its
-// products run on the CUDA cores, not the tensor cores.
-// Design (first, simple version), forward: one 256-thread block per (query
-// tile of 64 rows, head, sequence). The block stages K and V of its head
-// (L x hd, 35 KB each in bf16) in shared memory, and each of its 8 warps
-// walks query rows of the tile: dot products, fp32 softmax, dropout, P.V,
-// all bounded by L, which is not a power of two.
+// the floor is memory.
+// Forward: bf16 at hd 32, 64 or 128 (BERT-base and CLIP: 64) runs the
+// tensor-core forward of the tiled self-attention (self_attention_mma.cuh,
+// row 11's body) on x3's strides (`launch_lane_fwd`): one 128-thread block
+// per (64 query rows, head, sequence), K and V streamed in 64-key tiles, the
+// normalised p formed in a second pass, products by mma.sync; the same
+// roundings and the keep mask from the same Philox counter (j / 4, i, h, b),
+// and no statistics stored. fp32, and bf16 at any other hd, run the
+// CUDA-core kernel below: one 256-thread block per (query tile of 64 rows,
+// head, sequence), K and V of its head (L x hd, 35 KB each in bf16) in shared
+// memory, each of its 8 warps walking query rows of the tile (`attend_row`):
+// dot products, fp32 softmax, dropout, P.V, all bounded by L, which is not a
+// power of two.
 // Backward, two kernels per call, each over (tile of 64, head, sequence):
 //   rows: K and V resident; per query row the scores, softmax, dp = do.v^T
 //     under the keep mask, ds = p * (dp - rowsum(dp * p)), dq = (round(ds).k)
@@ -52,12 +58,16 @@ namespace emvm {
 // self_attention_tiled.cu, where the tensor-core body's kernels are
 // instantiated
 bool tensor_core_body(int dtype, int hd);
+int lane_self_attention_fwd_mma(const void* x3, const void* mask, long long mask_sb,
+                                long long mask_sr, void* out, int b, int l, int dm, int nh,
+                                float scale_t, const void* seed, unsigned threshold,
+                                float inv_keep, cudaStream_t stream);
 int lane_self_attention_bwd_mma(const void* x3, const void* mask, long long mask_sb,
                                 long long mask_sr, const void* dout, void* dx3, void* scratch,
                                 int b, int l, int dm, int nh, float scale_t, float scale_f,
                                 const void* seed, unsigned threshold, float inv_keep,
                                 cudaStream_t stream);
-size_t lane_self_attention_bwd_mma_smem(int hd);
+size_t lane_self_attention_mma_smem(int hd, bool backward);
 
 namespace {
 
@@ -351,13 +361,17 @@ int launch_bwd(const void* x3, const void* mask, long long mask_sb, long long ma
 // (its key axis must be contiguous). scale_t is the softmax scale already
 // rounded to the storage dtype. seed: two int32 (seed, offset) in device
 // memory, or null for no dropout; threshold = floor(p * 2^32), inv_keep =
-// 1 / (1 - p).
+// 1 / (1 - p). bf16 at hd 32, 64 or 128 runs row 11's tensor-core forward
+// (tensor_core_body), the rest the CUDA-core kernel.
 extern "C" int emvm_lane_self_attention_fwd(int dtype, const void* x3, const void* mask,
                                             long long mask_sb, long long mask_sr, void* out,
                                             int b, int l, int dm, int nh, float scale_t,
                                             const void* seed, unsigned threshold,
                                             float inv_keep, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (nh > 0 && dm % nh == 0 && emvm::tensor_core_body(dtype, dm / nh))
+    return emvm::lane_self_attention_fwd_mma(x3, mask, mask_sb, mask_sr, out, b, l, dm, nh,
+                                             scale_t, seed, threshold, inv_keep, s);
   switch (dtype) {
     case emvm::kFloat32:
       return emvm::launch<float>(x3, mask, mask_sb, mask_sr, out, b, l, dm, nh, scale_t, seed,
@@ -398,8 +412,16 @@ extern "C" int emvm_lane_self_attention_bwd(int dtype, const void* x3, const voi
   }
 }
 
+// Shared memory of the largest block of the forward, in the body that dtype
+// and hd pick.
+extern "C" size_t emvm_lane_self_attention_fwd_smem_bytes(int dtype, int l, int hd) {
+  if (emvm::tensor_core_body(dtype, hd)) return emvm::lane_self_attention_mma_smem(hd, false);
+  return dtype == emvm::kFloat32 ? emvm::attn_smem_bytes<float>(l, hd)
+                                 : emvm::attn_smem_bytes<__nv_bfloat16>(l, hd);
+}
+
 extern "C" size_t emvm_lane_self_attention_bwd_smem_bytes(int dtype, int l, int hd) {
-  if (emvm::tensor_core_body(dtype, hd)) return emvm::lane_self_attention_bwd_mma_smem(hd);
+  if (emvm::tensor_core_body(dtype, hd)) return emvm::lane_self_attention_mma_smem(hd, true);
   return dtype == emvm::kFloat32 ? emvm::lane_bwd_smem_bytes<float>(l, hd)
                                  : emvm::lane_bwd_smem_bytes<__nv_bfloat16>(l, hd);
 }

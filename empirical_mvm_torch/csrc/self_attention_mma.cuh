@@ -40,13 +40,14 @@
 // the columns kernel's stats rows come through the cp.async ring.
 //
 // Layouts (`Layout`, a template parameter): row 11's (B, nH, N, hd) head
-// tiles, and row 6's lane layout, x3 (B, L, 3D) with a head's rows 3D apart
-// and out (B, L, D) (`launch_lane_bwd`). Each fixes the (row b, head h,
-// token) strides of q, k, v (and dq, dk, dv) and of out (and dout); row 11's
-// are compile-time constants, as before row 6 shared the kernels. Row 6's
-// forward saves no softmax statistics, so its backward first runs the
-// forward's pass 1 alone (`sa_fwd_mma_kernel` with kStatsOnly), writing the
-// rows' max and sum as the row-11 forward does.
+// tiles, and the lane layout of rows 5 and 6, x3 (B, L, 3D) with a head's
+// rows 3D apart and out (B, L, D) (`launch_lane_fwd`, `launch_lane_bwd`).
+// Each fixes the (row b, head h, token) strides of q, k, v (and dq, dk, dv)
+// and of out (and dout); row 11's are compile-time constants, as before rows
+// 5 and 6 shared the kernels. Row 5, the lane forward, runs the forward
+// without storing the rows' statistics (kStats false); so row 6's backward
+// first runs the forward's pass 1 alone (`sa_fwd_mma_kernel` with
+// kStatsOnly), writing the rows' max and sum as the row-11 forward does.
 #pragma once
 
 #include "common.cuh"
@@ -394,8 +395,9 @@ __device__ __forceinline__ void quad_stats(float (&mx)[2], float (&sum)[2], floa
 }
 
 // kStatsOnly: pass 1 alone, writing the rows' max and sum and no output
-// (the statistics pass of row 6's backward).
-template <int HD, Layout L = Layout::kTiles, bool kStatsOnly = false>
+// (the statistics pass of row 6's backward). kStats false: no statistics
+// stored (row 5, whose backward recomputes them; stats may be null).
+template <int HD, Layout L = Layout::kTiles, bool kStatsOnly = false, bool kStats = true>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     sa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, long long bs, const float* __restrict__ mask,
@@ -515,7 +517,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
   if constexpr (kStatsOnly) quad_stats(mx, sum, rcp);
   bf16* oh = out + hs.out;
-  float* st = stats + hs.stat * 2 * n;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= n) continue;
@@ -526,9 +527,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                                      dt * 8 + 2 * tq) =
             pack(o[dt][2 * r], o[dt][2 * r + 1]);
     }
-    if (tq == 0) {
-      st[rows[r]] = mx[r];
-      st[n + rows[r]] = sum[r];
+    if constexpr (kStats) {
+      if (tq == 0) {
+        float* st = stats + hs.stat * 2 * n;
+        st[rows[r]] = mx[r];
+        st[n + rows[r]] = sum[r];
+      }
     }
   }
 }
@@ -786,14 +790,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <int HD, Layout L = Layout::kTiles, bool kStatsOnly = false>
+template <int HD, Layout L = Layout::kTiles, bool kStatsOnly = false, bool kStats = true>
 int launch_fwd(const void* q, const void* k, const void* v, long long bs, const void* mask,
                long long mask_sb, long long mask_sr, void* out, void* stats, int b, int n,
                int nh, float scale_t, const void* seed, unsigned threshold, float inv_keep,
                cudaStream_t stream) {
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  auto kernel = sa_fwd_mma_kernel<HD, L, kStatsOnly>;
+  auto kernel = sa_fwd_mma_kernel<HD, L, kStatsOnly, kStats>;
   cudaError_t err = allow_smem(kernel, fwd_smem<HD>());
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + kTile - 1) / kTile, nh, b);
@@ -835,6 +839,21 @@ int launch_bwd(const void* q, const void* k, const void* v, void* dq, void* dk, 
       static_cast<const float*>(stats), static_cast<const float*>(dsum), n, nh, scale_t, sd,
       threshold, inv_keep);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Row 5, lane_self_attention's forward (self_attention.cu), in the kLane
+// layout: x3 (B, L, 3D), out (B, L, D), D = nH * HD a multiple of 8; the
+// mask through its (batch, row) strides; no statistics stored.
+template <int HD>
+int launch_lane_fwd(const void* x3, const void* mask, long long mask_sb, long long mask_sr,
+                    void* out, int b, int l, int dm, int nh, float scale_t, const void* seed,
+                    unsigned threshold, float inv_keep, cudaStream_t stream) {
+  if (dm != nh * HD || dm % 8) return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* q = static_cast<const bf16*>(x3);
+  return launch_fwd<HD, Layout::kLane, false, false>(q, q + dm, q + 2 * dm, 3LL * l * dm, mask,
+                                                     mask_sb, mask_sr, out, nullptr, b, l, nh,
+                                                     scale_t, seed, threshold, inv_keep,
+                                                     stream);
 }
 
 // Row 6, lane_self_attention's backward (self_attention.cu), in the kLane

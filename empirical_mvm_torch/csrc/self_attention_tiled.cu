@@ -596,9 +596,24 @@ size_t mma_smem_bytes(bool backward) {
 
 // The body rule (ops/window_attention.py `_sa_body` mirrors it): bf16 at hd
 // 32, 64 or 128 runs on the tensor cores, everything else on the CUDA cores.
-// Row 6's backward (self_attention.cu) takes the same rule.
+// Rows 5 and 6, the lane forward and backward (self_attention.cu), take the
+// same rule.
 bool tensor_core_body(int dtype, int hd) {
   return dtype == kBFloat16 && (hd == 32 || hd == 64 || hd == 128);
+}
+
+// Row 5's forward on the tensor-core body (sa_mma::launch_lane_fwd), for
+// self_attention.cu's C entry; hd as tensor_core_body takes it.
+int lane_self_attention_fwd_mma(const void* x3, const void* mask, long long mask_sb,
+                                long long mask_sr, void* out, int b, int l, int dm, int nh,
+                                float scale_t, const void* seed, unsigned threshold,
+                                float inv_keep, cudaStream_t stream) {
+  const int hd = dm / nh;
+  auto fwd = hd == 32   ? sa_mma::launch_lane_fwd<32>
+             : hd == 64 ? sa_mma::launch_lane_fwd<64>
+                        : sa_mma::launch_lane_fwd<128>;
+  return fwd(x3, mask, mask_sb, mask_sr, out, b, l, dm, nh, scale_t, seed, threshold, inv_keep,
+             stream);
 }
 
 // Row 6's backward on the tensor-core body (sa_mma::launch_lane_bwd), for
@@ -617,10 +632,11 @@ int lane_self_attention_bwd_mma(const void* x3, const void* mask, long long mask
              seed, threshold, inv_keep, stream);
 }
 
-// Shared memory of the largest block of row 6's tensor-core backward.
-size_t lane_self_attention_bwd_mma_smem(int hd) {
-  return hd == 32 ? mma_smem_bytes<32>(true)
-         : hd == 64 ? mma_smem_bytes<64>(true) : mma_smem_bytes<128>(true);
+// Shared memory of the largest block of row 5's tensor-core forward
+// (backward false) or row 6's backward.
+size_t lane_self_attention_mma_smem(int hd, bool backward) {
+  return hd == 32 ? mma_smem_bytes<32>(backward)
+         : hd == 64 ? mma_smem_bytes<64>(backward) : mma_smem_bytes<128>(backward);
 }
 
 }  // namespace emvm

@@ -15,76 +15,92 @@
 // hd = 32, bf16) one window-head does 4 * N^2 * hd = 7.7 MFLOP on 8 * N * hd
 // = 63 KB of x3 and out (bias and mask are shared by every batch row), about
 // 120 operations per byte against the card's ~295, so the floor is the bytes
-// of x3 and out over 3.35 TB/s. This version runs far above that floor,
-// because its products run on the CUDA cores, not the tensor cores.
-// Design (first, simple version): one 256-thread block per (head, window,
-// batch). The block computes each token's 5D address itself (no window
-// partition or reverse through device memory), stages K and V of its head
-// (N x hd, 16 KB each in bf16) in shared memory, and each of its 8 warps
-// walks query rows, doing the dot products, the fp32 softmax and P.V on the
-// CUDA cores. N is not a power of two; every loop bounds itself by N.
-// Tensor cores (mma/wgmma over 64-row tiles) are later work.
+// of x3 and out over 3.35 TB/s.
+// Design: one block per (head, window, batch). The block computes each
+// token's 5D address itself (no window partition or reverse through device
+// memory). bf16 at hd = 32 (every Swin's head) and N <= 256 runs the
+// tensor-core body (attention_fwd_mma.cuh, 128 threads: K and V staged by
+// cp.async, S and P.V by mma.sync, the bias and mask rows read once and
+// coalesced); fp32, and bf16 at other hd or N, the CUDA-core one: K and V of
+// the head (N x hd) staged in shared memory and 8 warps walking the query
+// rows with `attend_row` (common.cuh), the dot products, the fp32 softmax and
+// P.V on the CUDA cores. N is not a power of two; every loop bounds itself
+// by N.
 #include "attention_bwd.cuh"
 #include "attention_bwd_mma.cuh"
+#include "attention_fwd_mma.cuh"
 #include "common.cuh"
 
 namespace emvm {
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(kAttnThreads)
+// KI: the key iterations of the tensor-core body (win_fwd_mma::key_iters),
+// or 0 for the CUDA-core body
+template <typename T, int KI>
+__global__ void __launch_bounds__(KI ? win_fwd_mma::kThreads : kAttnThreads,
+                                  KI ? win_fwd_mma::kMinBlocks : 1)
     direct_window_attention_fwd_kernel(const T* __restrict__ x3,
                                        const float* __restrict__ bias,
                                        const float* __restrict__ mask,
                                        T* __restrict__ out, int d, int hp, int wp, int c,
                                        int nh, int wh, int ww, float scale_t) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int h = blockIdx.x, w = blockIdx.y, b = blockIdx.z;
   const int hd = c / nh;
   const int hw = wh * ww;
   const int n = d * hw;
   const int strip = w / (wp / ww), col = w % (wp / ww);
-  const AttnSmem<T> sm(smem_raw, n, hd);
 
   // row index of window token t in the (B, D, Hp, Wp) feature map
   auto token_row = [&](int t) -> size_t {
     const int tt = t / hw, r = t % hw;
     return ((size_t(b) * d + tt) * hp + strip * wh + r / ww) * size_t(wp) + col * ww + r % ww;
   };
-
   const size_t c3 = size_t(3) * c;
-  const int ks = k_row_stride<T>(hd);
-  for (int idx = threadIdx.x; idx < n * hd; idx += blockDim.x) {
-    const int t = idx / hd, e = idx % hd;
-    const T* src = x3 + token_row(t) * c3 + h * hd + e;
-    sm.k[size_t(t) * ks + e] = src[c];
-    sm.v[size_t(t) * hd + e] = src[2 * c];
-  }
-  __syncthreads();
-
   const float* bias_h = bias + size_t(h) * n * n;
   const float* mask_w = mask ? mask + size_t(w) * n * n : nullptr;
-  const Dropout no_drop(nullptr, 0u, 1.f);
-  for (int t = threadIdx.x >> 5; t < n; t += kAttnWarps) {
-    const size_t r = token_row(t);
-    attend_row<T>(x3 + r * c3 + h * hd, scale_t, sm, n, hd, bias_h + size_t(t) * n,
-                  mask_w ? mask_w + size_t(t) * n : nullptr, out + r * c + h * hd, no_drop,
-                  b, h, t);
+  if constexpr (KI > 0) {
+    // offset of head h of token t: in x3 from the q, k or v column base, or in out
+    auto addr = [=](int seg, int t) -> size_t {
+      return token_row(t) * (seg == 3 ? size_t(c) : c3) + h * hd;
+    };
+    win_fwd_mma::attention_fwd_block<KI>(x3, x3 + c, x3 + 2 * c, bias_h, mask_w, out, n, addr,
+                                         scale_t);
+  } else {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const AttnSmem<T> sm(smem_raw, n, hd);
+    const int ks = k_row_stride<T>(hd);
+    for (int idx = threadIdx.x; idx < n * hd; idx += blockDim.x) {
+      const int t = idx / hd, e = idx % hd;
+      const T* src = x3 + token_row(t) * c3 + h * hd + e;
+      sm.k[size_t(t) * ks + e] = src[c];
+      sm.v[size_t(t) * hd + e] = src[2 * c];
+    }
+    __syncthreads();
+
+    const Dropout no_drop(nullptr, 0u, 1.f);
+    for (int t = threadIdx.x >> 5; t < n; t += kAttnWarps) {
+      const size_t r = token_row(t);
+      attend_row<T>(x3 + r * c3 + h * hd, scale_t, sm, n, hd, bias_h + size_t(t) * n,
+                    mask_w ? mask_w + size_t(t) * n : nullptr, out + r * c + h * hd, no_drop,
+                    b, h, t);
+    }
   }
 }
 
-template <typename T>
+template <typename T, int KI = 0>
 int launch(const void* x3, const void* bias, const void* mask, void* out, int b, int d,
            int hp, int wp, int c, int nh, int wh, int ww, float scale_t,
            cudaStream_t stream) {
   const int n = d * wh * ww;
-  const size_t smem = attn_smem_bytes<T>(n, c / nh);
-  auto kernel = direct_window_attention_fwd_kernel<T>;
+  if (KI && !(sa_mma::aligned16(x3) && sa_mma::aligned16(out) && c % 8 == 0))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const size_t smem = KI ? win_fwd_mma::smem_bytes(n) : attn_smem_bytes<T>(n, c / nh);
+  auto kernel = direct_window_attention_fwd_kernel<T, KI>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(nh, (hp / wh) * (wp / ww), b);
-  kernel<<<grid, kAttnThreads, smem, stream>>>(
+  kernel<<<grid, KI ? win_fwd_mma::kThreads : kAttnThreads, smem, stream>>>(
       static_cast<const T*>(x3), static_cast<const float*>(bias),
       static_cast<const float*>(mask), static_cast<T*>(out), d, hp, wp, c, nh, wh, ww,
       scale_t);
@@ -181,12 +197,21 @@ int launch_bwd(const void* x3, const void* bias, const void* mask, const void* d
 }  // namespace emvm
 
 // mask may be null (unshifted blocks). scale_t is the softmax scale already
-// rounded to the storage dtype.
+// rounded to the storage dtype. bf16 at hd 32 and N <= 256 runs the
+// tensor-core body (win_fwd_mma::takes), the rest attend_row.
 extern "C" int emvm_direct_window_attention_fwd(int dtype, const void* x3, const void* bias,
                                                 const void* mask, void* out, int b, int d,
                                                 int hp, int wp, int c, int nh, int wh,
                                                 int ww, float scale_t, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  const int n = d * wh * ww;
+  if (nh > 0 && c % nh == 0 && emvm::win_fwd_mma::takes(dtype, c / nh, n)) {
+    const int ki = emvm::win_fwd_mma::key_iters(n);
+    auto fwd = ki == 4    ? emvm::launch<__nv_bfloat16, 4>
+               : ki == 13 ? emvm::launch<__nv_bfloat16, 13>
+                          : emvm::launch<__nv_bfloat16, 16>;
+    return fwd(x3, bias, mask, out, b, d, hp, wp, c, nh, wh, ww, scale_t, s);
+  }
   switch (dtype) {
     case emvm::kFloat32:
       return emvm::launch<float>(x3, bias, mask, out, b, d, hp, wp, c, nh, wh, ww, scale_t, s);
@@ -198,9 +223,18 @@ extern "C" int emvm_direct_window_attention_fwd(int dtype, const void* x3, const
   }
 }
 
+// Shared memory of a block of the CUDA-core forwards (attend_row: the direct,
+// lane window, packed, lane_attention and lane self-attention kernels).
 extern "C" size_t emvm_attention_smem_bytes(int dtype, int n, int hd) {
   return dtype == emvm::kFloat32 ? emvm::attn_smem_bytes<float>(n, hd)
                                  : emvm::attn_smem_bytes<__nv_bfloat16>(n, hd);
+}
+
+// Shared memory of a block of the direct or packed window forward, in the
+// body that dtype, hd and n pick.
+extern "C" size_t emvm_window_attention_fwd_smem_bytes(int dtype, int n, int hd) {
+  if (emvm::win_fwd_mma::takes(dtype, hd, n)) return emvm::win_fwd_mma::smem_bytes(n);
+  return emvm_attention_smem_bytes(dtype, n, hd);
 }
 
 // Backward: dx3 (x3's shape and dtype) and dbias (nH, N, N) fp32. part is

@@ -60,6 +60,7 @@ _SIGNATURES = {
         (_I, _P, _P, _LL, _LL, _P, _I, _I, _I, _I, _F, _P, _U, _F, _P), _I),
     "emvm_lane_self_attention_bwd": (
         (_I, _P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _U, _F, _P), _I),
+    "emvm_lane_self_attention_fwd_smem_bytes": ((_I, _I, _I), _SZ),
     "emvm_lane_self_attention_bwd_smem_bytes": ((_I, _I, _I), _SZ),
     "emvm_lane_window_attention_fwd": (
         (_I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P), _I),
@@ -82,6 +83,7 @@ _SIGNATURES = {
          _U, _F, _P), _I),
     "emvm_tiled_self_attention_smem_bytes": ((_I, _I, _I), _SZ),
     "emvm_attention_smem_bytes": ((_I, _I, _I), _SZ),
+    "emvm_window_attention_fwd_smem_bytes": ((_I, _I, _I), _SZ),
     "emvm_error_string": ((_I,), ctypes.c_char_p),
 }
 

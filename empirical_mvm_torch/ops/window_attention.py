@@ -38,11 +38,15 @@ kernels the retrieval eval and the pretrain step run:
   ``_lane_kernel``, the benchmark tool's forward-only window attention off
   the qkv GEMM output; ``empirical_mvm_torch/tools/lanebench.py`` runs it.
 
-The backwards of the direct, lane window and packed window attention share
-one body: bf16 at hd 32 runs on the tensor cores
+The forwards of the direct and packed window attention (rows 3, 9, 10)
+share one body: bf16 at hd 32 (N up to 256) runs on the tensor cores
+(``csrc/attention_fwd_mma.cuh``), fp32 and other hd on the CUDA cores
+(``attend_row``, :func:`_window_fwd_body`); the lane window forward and
+``lane_attention`` (rows 7, 12) keep ``attend_row``. Their backwards (and
+the lane window's) share another: bf16 at hd 32 on the tensor cores
 (``csrc/attention_bwd_mma.cuh``), fp32 and other hd on the CUDA cores
-(:func:`_window_bwd_body`); the lane self-attention's backward in bf16 runs
-the tiled self-attention's tensor-core kernels on x3's strides
+(:func:`_window_bwd_body`). The lane self-attention in bf16 runs the tiled
+self-attention's tensor-core kernels on x3's strides, forward and backward
 (:func:`_sa_body`).
 
 Each is a ``torch.autograd.Function``. A CPU tensor takes the plain versions
@@ -274,6 +278,16 @@ def direct_window_attention_backward_plain(x3, bias, mask, do, window_eff, n_hea
     return window_reverse(dqkv, window_eff, b, d, hp, wp), dbias
 
 
+def _window_fwd_body(dtype: torch.dtype, hd: int, n: int) -> str:
+    """The body of the direct and packed window forwards (rows 3, 9 and 10)
+    that a launch runs, by the rule of their C entry points: bf16 at hd 32
+    (every Swin's head) and N <= 256 (49, 196 and 245 on the paths) on the
+    tensor cores (``csrc/attention_fwd_mma.cuh``), fp32 and any other bf16
+    on the CUDA cores (``attend_row``)."""
+    tc = dtype == torch.bfloat16 and hd == 32 and 1 <= n <= 256
+    return "tensor_core" if tc else "cuda_core"
+
+
 def _direct_fwd(x3, bias, mask, window_eff, n_heads, scale):
     tensors = (x3, bias) if mask is None else (x3, bias, mask)
     if any(t.dtype != torch.float32 for t in tensors[1:]):
@@ -284,7 +298,8 @@ def _direct_fwd(x3, bias, mask, window_eff, n_heads, scale):
     wd, wh, ww = window_eff
     c = c3 // 3
     lib = _build.library()
-    _build.check_smem(lib.emvm_attention_smem_bytes(code, wd * wh * ww, c // n_heads),
+    _build.check_smem(lib.emvm_window_attention_fwd_smem_bytes(code, wd * wh * ww,
+                                                               c // n_heads),
                       f"a window of {wd * wh * ww} tokens")
     out = torch.empty((b, d, hp, wp, c), dtype=x3.dtype, device=dev)
     with torch.cuda.device(dev):
@@ -437,13 +452,15 @@ def _lane_args(x3, mask, seed, p_drop):
 
 
 def _lane_fwd(x3, mask, n_heads, scale, p_drop, seed):
+    """Launch the lane forward: bf16 at hd 32, 64 or 128 on row 11's
+    tensor-core forward (``_sa_body``), the rest on the CUDA-core kernel."""
     (mptr, msb, msr), drop = _lane_args(x3, mask, seed, p_drop)
     dev = _build.check_tensors(x3)
     code = _build.dtype_code(x3.dtype)
     b, l, c3 = x3.shape
     c = c3 // 3
     lib = _build.library()
-    _build.check_smem(lib.emvm_attention_smem_bytes(code, l, c // n_heads),
+    _build.check_smem(lib.emvm_lane_self_attention_fwd_smem_bytes(code, l, c // n_heads),
                       f"a sequence of {l} tokens")
     out = torch.empty((b, l, c), dtype=x3.dtype, device=dev)
     with torch.cuda.device(dev):
@@ -837,7 +854,8 @@ def _tiles_fwd(q, k, v, window_stride, b_, n_heads, bias, mask, n_windows, scale
     storage, their windows ``window_stride`` elements apart)."""
     lib, code, dev, nw = _tiles_launch_args(q, bias, mask, n_windows)
     n, hd = q.shape[-2:]
-    _build.check_smem(lib.emvm_attention_smem_bytes(code, n, hd), f"a window of {n} tokens")
+    _build.check_smem(lib.emvm_window_attention_fwd_smem_bytes(code, n, hd),
+                      f"a window of {n} tokens")
     out = torch.empty((b_, n_heads, n, hd), dtype=q.dtype, device=dev)
     with torch.cuda.device(dev):
         _build.record_launch(lib.emvm_packed_window_attention_fwd(

@@ -19,8 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (FP32_LIMITS, OUTPUTS, PLANTED_TILED, _excess, _sa_calls, _tuple,
-                        _window_bwd_kind, bf16_check, plant)
+from chip_smoke import (FP32_LIMITS, OUTPUTS, PLANTED_TILED, _excess, _lane_fwd_kind, _sa_calls,
+                        _tuple, _window_bwd_kind, _window_fwd_kind, bf16_check, plant)
 from empirical_mvm_torch.models.video_swin import _shift_attn_mask
 from empirical_mvm_torch.ops import _build
 from empirical_mvm_torch.ops import layernorm as tln
@@ -79,7 +79,7 @@ def test_direct_window_attention_kernel(cuda, dtype, shape):
         _check(lambda a: twa.direct_window_attention(a, bias, m, win, nh, (c // nh) ** -0.5),
                lambda a: twa.direct_window_attention_plain(a, bias, m, win, nh,
                                                            (c // nh) ** -0.5),
-               x3, dtype, "attention")
+               x3, dtype, _window_fwd_kind(c // nh, n))
     assert _build.launch_counts["direct_window_attention"] == before + 2
 
 
@@ -95,7 +95,7 @@ def test_lane_self_attention_kernel(cuda, dtype, b, l, c, nh):
     mask = bias[:, None, :].expand(b, l, l)         # the broadcast view BERT passes
     _check(lambda a: twa.lane_self_attention(a, mask, nh, (c // nh) ** -0.5),
            lambda a: twa.lane_self_attention_plain(a, mask, nh, (c // nh) ** -0.5),
-           x3, dtype, "attention")
+           x3, dtype, _lane_fwd_kind(c // nh))
 
 
 @pytest.mark.cuda
@@ -255,7 +255,7 @@ def test_packed_window_attention_kernels(cuda, dtype, b_, nh, n, nw):
     for m, w in ((mask, nw), (None, 1)):
         _check(lambda a: twa.packed_window_attention(a, bias, m, w, nh, scale),
                lambda a: twa.packed_window_attention_plain(a, bias, m, w, nh, scale),
-               qkv, dtype, "attention")
+               qkv, dtype, _window_fwd_kind(32, n))
         _check(lambda a: twa._packed_bwd(a, bias, m, do.to(a.dtype), w, nh, scale),
                lambda a: twa.packed_window_attention_backward_plain(
                    a, bias, m, do.to(a.dtype), w, nh, scale), qkv, dtype, "attention_bwd")
@@ -288,7 +288,7 @@ def test_fused_window_attention_kernels(cuda, dtype):
     before = dict(_build.launch_counts)
     _check(lambda a: twa.fused_window_attention(*a.unbind(0), bias, mask, nw, scale),
            lambda a: twa.fused_window_attention_plain(*a.unbind(0), bias, mask, nw, scale),
-           qkv, dtype, "attention")
+           qkv, dtype, _window_fwd_kind(32, n))
     _check(lambda a: twa._fused_bwd(*a.unbind(0), bias, mask, do.to(a.dtype), nw, scale),
            lambda a: twa.fused_window_attention_backward_plain(*a.unbind(0), bias, mask,
                                                                do.to(a.dtype), nw, scale),
@@ -322,7 +322,7 @@ def test_lane_self_attention_dropout_and_bwd_kernels(cuda, dtype, b, l, c, nh, p
     if p_drop:
         _check(lambda a: twa._lane_fwd(a, mask, nh, scale, p_drop, seed),
                lambda a: twa.lane_self_attention_plain(a, mask, nh, scale, p_drop, seed),
-               x3, dtype, "attention")
+               x3, dtype, _lane_fwd_kind(c // nh))
     _check(lambda a: twa._lane_bwd(a, mask, do.to(a.dtype), nh, scale, p_drop, seed),
            lambda a: twa.lane_self_attention_backward_plain(a, mask, do.to(a.dtype), nh,
                                                             scale, p_drop, seed),
@@ -528,6 +528,102 @@ def test_lane_columns_p_equals_rows_p(cuda, p_drop):
     assert torch.equal(rows_p, cols_p)
 
 
+def _window_fwd_call(caller, n, nh, masked, rs, cuda):
+    """The window forward of ``caller`` (direct, packed, fused) at windows of
+    n tokens (49: (1, 7, 7); 196: (4, 7, 7); 245: (5, 7, 7)), nh heads of 32,
+    2 clips of 4 windows a frame, the shift mask or none (the fused entry,
+    which always adds a mask: a zero mask of one slot): (input, kernel call,
+    plain version)."""
+    wd = n // 49
+    d, hp, nw = wd, 14, 4
+    rng = np.random.RandomState(rs)
+    bias = _randn(rng, nh, n, n, scale=0.1).to(cuda)
+    mask = (torch.from_numpy(_shift_attn_mask((d, hp, hp), (wd, 7, 7), (0, 3, 3))).to(cuda)
+            if masked else None)
+    c, scale, b = nh * 32, 32 ** -0.5, 2
+    if caller == "direct":
+        x = _randn(rng, b, d, hp, hp, 3 * c, scale=0.5).to(cuda)
+        args = (bias, mask, (wd, 7, 7), nh, scale)
+        return x, twa._direct_fwd, twa.direct_window_attention_plain, args
+    w = 1 if mask is None else nw
+    if caller == "packed":
+        x = _randn(rng, b * nw, 3 * nh, n, 32, scale=0.5).to(cuda)
+        return x, twa._packed_fwd, twa.packed_window_attention_plain, (bias, mask, w, nh, scale)
+    x = _randn(rng, 3, b * nw, nh, n, 32, scale=0.5).to(cuda)
+    mask = torch.zeros(1, n, n, device=cuda) if mask is None else mask
+    return (x, lambda a, *r: twa._fused_fwd(*a.unbind(0), *r),
+            lambda a, *r: twa.fused_window_attention_plain(*a.unbind(0), *r),
+            (bias, mask, w, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caller", ["direct", "packed", "fused"])
+@pytest.mark.parametrize("n", [49, 196, 245])
+@pytest.mark.parametrize("masked", [True, False])
+def test_window_fwd_tensor_core_body(cuda, caller, n, masked):
+    """The window forward's tensor-core body (bf16, hd 32) through row 3's
+    (direct) and rows 9-10's (packed, fused) callers at N = 49, 196 and 245
+    (none a multiple of 16), with and without the shift mask, against the
+    plain version at chip_smoke's ``window_fwd_tc`` limits; fp32 (the
+    CUDA-core body) at FP32_LIMITS; the output bit-identical over two
+    runs."""
+    x, kernel, plain, args = _window_fwd_call(caller, n, 3, masked, n + masked, cuda)
+    assert twa._window_fwd_body(torch.bfloat16, 32, n) == "tensor_core"
+    assert _window_fwd_kind(32, n) == "window_fwd_tc"
+    for dtype in (torch.float32, torch.bfloat16):
+        _check(lambda a: kernel(a, *args), lambda a: plain(a, *args), x, dtype,
+               "window_fwd_tc")
+    a = x.to(torch.bfloat16)
+    assert torch.equal(kernel(a, *args), kernel(a, *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["train", "eval", "clip"])
+@pytest.mark.parametrize("p_drop", [0.0, 0.1])
+def test_lane_fwd_tensor_core_at_the_path_shapes(cuda, shape, p_drop):
+    """Row 5 at the main paths' shapes (the train step's 80 rows of L = 232,
+    the eval's 64 of 275 and the CLIP teacher's 80 of 50, 12 heads of 64),
+    bf16 on row 11's tensor-core forward within the ``sa`` limits, fp32 (the
+    CUDA-core kernel) within FP32_LIMITS, with and without dropout; the
+    output bit-identical over two runs."""
+    b, l = {"train": (80, 232), "eval": (64, 275), "clip": (80, 50)}[shape]
+    c, nh = 768, 12
+    x3, _, mask = _lane_setup(np.random.RandomState(l), cuda, b, l, c)
+    if shape == "clip":
+        mask = torch.zeros(1, 1, l, device=cuda).expand(b, l, l)
+    seed = torch.tensor([2026, 10], dtype=torch.int32, device=cuda) if p_drop else None
+    scale = (c // nh) ** -0.5
+    assert twa._sa_body(torch.bfloat16, c // nh) == "tensor_core"
+
+    def kernel(a):
+        return twa._lane_fwd(a, mask, nh, scale, p_drop, seed)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        _check(kernel, lambda a: twa.lane_self_attention_plain(a, mask, nh, scale, p_drop, seed),
+               x3, dtype, _lane_fwd_kind(c // nh))
+    a = x3.to(torch.bfloat16)
+    assert torch.equal(kernel(a), kernel(a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("p_drop", [0.0, 0.1])
+def test_lane_fwd_equals_tiled_fwd(cuda, hd, p_drop):
+    """Row 5 is row 11's tensor-core forward in the lane layout: on the same
+    heads, rearranged to (B, 3nH, L, hd), with the same mask view and seed,
+    row 11's output is row 5's bit for bit (the keep mask from the same
+    Philox counter)."""
+    b, l, c = 4, 232, 768
+    nh = c // hd
+    x3, _, mask = _lane_setup(np.random.RandomState(hd), cuda, b, l, c)
+    seed = torch.tensor([31, 7], dtype=torch.int32, device=cuda) if p_drop else None
+    a = x3.to(torch.bfloat16)
+    lane = twa._lane_fwd(a, mask, nh, hd ** -0.5, p_drop, seed)
+    packed = a.view(b, l, 3 * nh, hd).transpose(1, 2).contiguous()
+    tiled, _ = twa._packed_sa_fwd(packed, mask, nh, hd ** -0.5, p_drop, seed)
+    assert torch.equal(lane, tiled.transpose(1, 2).reshape(b, l, c))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tiled_self_attention_through_autograd(cuda, dtype):
@@ -598,46 +694,59 @@ PLANTED = {
     "packed_mask_slot": ("packed_window_attention.cu", "mask + (win % nw) * n * n",
                          "mask + ((win + 1) % nw) * n * n"),
     # the tensor-core body's normalisation moved after P.V (chip_smoke's
-    # planted forward fault)
+    # planted forward fault of row 11, whose forward row 5 runs)
     "tiled_p_rounded_before_normalising": PLANTED_TILED["forward p rounded before normalising"],
     # row 12 with row 7's rounding: q * scale rounded to bf16 (the scores
     # then divided back by the scale that row 12 multiplies them by)
     "row12_q_scaled": ("common.cuh", "qb[d] = to_float(q_row[d]);",
                        "qb[d] = to_float(from_float<T>(to_float(q_row[d]) * scale_t)) / scale_t;"),
+    # chip_smoke's planted fault of the window forward's tensor-core body
+    # (rows 3, 9, 10)
+    "window_e_rounded_before_normalising": PLANTED_TILED[
+        "window forward e rounded before normalising"],
 }
+# faults of attend_row (common.cuh) and of the direct kernel's CUDA-core
+# call: bf16 runs attend_row in the direct, packed and lane self-attention
+# forwards only at a head width that their tensor-core bodies do not take, so
+# these are checked there, at hd 48 (whose scale, unlike hd 64's 0.125, is
+# inexact in bf16); rows 7 and 12 run attend_row at every width
+ATTEND_ROW_FAULTS = {"probabilities_not_rounded", "q_scaled_in_fp32", "bias_dropped"}
 # faults of the packed kernel alone, which the direct kernel does not run
 PACKED_ONLY = {"packed_mask_slot"}
-# faults of the tiled self-attention alone, checked at the multiple-choice
-# fusion shape (8 rows of 350, 12 heads, p = 0.1)
+# faults of the tiled self-attention's forward, checked at the
+# multiple-choice fusion shape (8 rows of 350, 12 heads, p = 0.1) and, in the
+# lane layout of row 5, at the fusion shape
 TILED_ONLY = {"tiled_p_rounded_before_normalising"}
 # faults that change row 12 (lane_attention), checked at lanebench's stage 2
 # in small (16 windows of 196 tokens, 16 heads, nW = 4); row12_q_scaled
 # changes it alone
 ROW12_ONLY = {"row12_q_scaled"}
 ROW12_FAULTS = {"probabilities_not_rounded"} | ROW12_ONLY
-# faults that also change the lane kernel at the fusion shape; at hd = 64 the
-# scale is 0.125, so q * scale is exact in bf16 and q_scaled_in_fp32 is no
-# fault there
-LANE_FAULTS = {"probabilities_not_rounded"}
+# faults that also change the lane self-attention at the fusion shape; at hd
+# = 64 the scale is 0.125, so q * scale is exact in bf16 and q_scaled_in_fp32
+# is no fault there
+LANE_FAULTS = {"probabilities_not_rounded"} | TILED_ONLY
 # faults that change the lane window kernel (its rows run attend_row too) at
 # the 2D teacher's shape, hd = 32
 WINDOW_FAULTS = {"probabilities_not_rounded", "q_scaled_in_fp32", "scale_not_rounded"}
-# faults that change the packed kernel (attend_row, its own mask slot) at
-# the violet swin's stage 0 (N = 196, hd = 32, shifted)
-PACKED_FAULTS = WINDOW_FAULTS | PACKED_ONLY
+# faults that change the packed kernel (either body, its own mask slot) at
+# the violet swin's stage 0 (N = 196, shifted)
+PACKED_FAULTS = WINDOW_FAULTS | PACKED_ONLY | {"window_e_rounded_before_normalising"}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fault", [*PLANTED, "scale_not_rounded"])
 def test_bf16_check_catches_planted_faults(cuda, tmp_path, monkeypatch, fault):
     """Each planted fault, built from a copy of the sources, fails the bf16
-    limits at a main-path shape (swin stage 2, shifted: N = 245, hd = 32)
-    and, for LANE_FAULTS, at the fusion shape; for WINDOW_FAULTS at the 2D
-    teacher's stage 2 (4 frames of 4 windows of 49 tokens, shifted); for
-    PACKED_FAULTS at the violet swin's stage 0 (2 clips of 64 shifted
-    windows of 196 tokens, 3 heads; a packed-only fault there alone); for
-    ROW12_FAULTS at lanebench's stage 2 in small (a row-12 fault there
-    alone). The readings are printed (run with -s)."""
+    limits at a main-path shape (swin stage 2, shifted: N = 245; at hd 32,
+    the tensor-core body, or hd 48 for ATTEND_ROW_FAULTS) and, for
+    LANE_FAULTS, at the fusion shape (hd 64, row 5 on the tensor cores, or 48
+    for ATTEND_ROW_FAULTS); for WINDOW_FAULTS at the 2D teacher's stage 2 (4
+    frames of 4 windows of 49 tokens, shifted); for PACKED_FAULTS at the
+    violet swin's stage 0 (2 clips of 64 shifted windows of 196 tokens, 3
+    heads, at the direct case's head width; a packed-only fault there
+    alone); for ROW12_FAULTS at lanebench's stage 2 in small (a row-12 fault
+    there alone). The readings are printed (run with -s)."""
     if fault in PLANTED:
         src = tmp_path / "csrc"
         shutil.copytree(_build.CSRC, src)
@@ -650,12 +759,13 @@ def test_bf16_check_catches_planted_faults(cuda, tmp_path, monkeypatch, fault):
         return scale if fault == "scale_not_rounded" else twa._scale_in(a.dtype, scale)
 
     gen = torch.Generator(cuda).manual_seed(0)
-    win, nh, c, hp = (5, 7, 7), 16, 512, 14
-    n = 5 * 7 * 7
+    hd = 48 if fault in ATTEND_ROW_FAULTS else 32
+    win, c, hp = (5, 7, 7), {32: 512, 48: 384}[hd], 14
+    nh, n = c // hd, 5 * 7 * 7
     x3 = torch.randn(2, 5, hp, hp, 3 * c, device=cuda, generator=gen) * 0.5
     bias = torch.randn(nh, n, n, device=cuda, generator=gen) * 0.02
     mask = torch.from_numpy(_shift_attn_mask((5, hp, hp), win, (0, 3, 3))).to(cuda)
-    scale = (c // nh) ** -0.5
+    scale = hd ** -0.5
 
     def direct(a):
         lib = _build.library()
@@ -668,78 +778,81 @@ def test_bf16_check_catches_planted_faults(cuda, tmp_path, monkeypatch, fault):
 
     cases = {} if fault in PACKED_ONLY | TILED_ONLY | ROW12_ONLY else {"direct": bf16_check(
         direct, lambda a: twa.direct_window_attention_plain(a, bias, mask, win, nh, scale),
-        x3, "attention")}
+        x3, _window_fwd_kind(hd, n))}
     if fault in LANE_FAULTS:
-        p, l, d, lh = 16, 275, 768, 12
+        p, l, d = 16, 275, 768
+        lh = 16 if fault in ATTEND_ROW_FAULTS else 12
         xl = torch.randn(p, l, 3 * d, device=cuda, generator=gen) * 0.5
         keep = torch.ones(p, l, device=cuda)
         keep[:, 260:] = 0
         lmask = ((1.0 - keep) * torch.finfo(torch.float32).min)[:, None, :].expand(p, l, l)
+        lseed = torch.tensor([78, 3], dtype=torch.int32, device=cuda)
         cases["lane"] = bf16_check(
-            lambda a: twa.lane_self_attention(a, lmask, lh, (d // lh) ** -0.5),
-            lambda a: twa.lane_self_attention_plain(a, lmask, lh, (d // lh) ** -0.5),
-            xl, "attention")
+            lambda a: twa._lane_fwd(a, lmask, lh, (d // lh) ** -0.5, 0.1, lseed),
+            lambda a: twa.lane_self_attention_plain(a, lmask, lh, (d // lh) ** -0.5, 0.1, lseed),
+            xl, _lane_fwd_kind(d // lh))
     if fault in WINDOW_FAULTS:
-        wb, wn = 64, 49                              # stage 2 of the teacher: nW = 4 x 4
+        wb, wn, wh, wc = 64, 49, 16, 512             # stage 2 of the teacher: nW = 4 x 4
         wmask = torch.from_numpy(_shift_attn_mask((4, hp, hp), (1, 7, 7), (0, 3, 3))
                                  ).to(cuda)
-        xw = torch.randn(wb, wn, 3 * c, device=cuda, generator=gen) * 0.5
-        wbias = torch.randn(nh, wn, wn, device=cuda, generator=gen) * 0.02
+        xw = torch.randn(wb, wn, 3 * wc, device=cuda, generator=gen) * 0.5
+        wbias = torch.randn(wh, wn, wn, device=cuda, generator=gen) * 0.02
 
         def window(a):
             lib = _build.library()
-            out = torch.empty(a.shape[:-1] + (c,), dtype=a.dtype, device=cuda)
+            out = torch.empty(a.shape[:-1] + (wc,), dtype=a.dtype, device=cuda)
             _build.record_launch(lib.emvm_lane_window_attention_fwd(
                 _build.dtype_code(a.dtype), a.data_ptr(), wbias.data_ptr(),
-                wmask.data_ptr(), out.data_ptr(), wb, wn, c, nh, 16,
-                scale_for(a, scale), _build.stream_ptr(cuda)), "lane_window_attention")
+                wmask.data_ptr(), out.data_ptr(), wb, wn, wc, wh, 16,
+                scale_for(a, 32 ** -0.5), _build.stream_ptr(cuda)), "lane_window_attention")
             return out
 
         cases["window"] = bf16_check(
-            window, lambda a: twa.lane_window_attention_reference(a, wbias, wmask, 16, nh,
-                                                                  scale),
+            window, lambda a: twa.lane_window_attention_reference(a, wbias, wmask, 16, wh,
+                                                                  32 ** -0.5),
             xw, "attention")
     if fault in PACKED_FAULTS:
-        xp, pbias, pmask = _packed_setup(gen, cuda)
+        xp, pbias, pmask = _packed_setup(gen, cuda, hd)
 
         def packed(a):
             lib = _build.library()
-            out = torch.empty(a.shape[0], 3, 196, 32, dtype=a.dtype, device=cuda)
+            out = torch.empty(a.shape[0], 3, 196, hd, dtype=a.dtype, device=cuda)
             seg = a[0, :3].numel() * a.element_size()
             _build.record_launch(lib.emvm_packed_window_attention_fwd(
                 _build.dtype_code(a.dtype), a.data_ptr(), a.data_ptr() + seg,
                 a.data_ptr() + 2 * seg, a[0].numel(), pbias.data_ptr(), pmask.data_ptr(),
-                out.data_ptr(), a.shape[0], 196, 3, 32, 64, scale_for(a, 32 ** -0.5),
+                out.data_ptr(), a.shape[0], 196, 3, hd, 64, scale_for(a, scale),
                 _build.stream_ptr(cuda)), "packed_window_attention")
             return out
 
         cases["packed"] = bf16_check(
-            packed, lambda a: twa.packed_window_attention_plain(a, pbias, pmask, 64, 3,
-                                                                32 ** -0.5),
-            xp, "attention")
+            packed, lambda a: twa.packed_window_attention_plain(a, pbias, pmask, 64, 3, scale),
+            xp, _window_fwd_kind(hd, 196))
     if fault in TILED_ONLY:
-        p, nh, n, hd = 8, 12, 350, 64
-        xt, _, mt = _sa_setup(np.random.RandomState(13), cuda, p, nh, n, hd)
+        p, th, tn, thd = 8, 12, 350, 64
+        xt, _, mt = _sa_setup(np.random.RandomState(13), cuda, p, th, tn, thd)
         seed = torch.tensor([78, 2], dtype=torch.int32, device=cuda)
-        cases["tiled"] = bf16_check(*_sa_calls(mt, nh, hd ** -0.5, 0.1, seed, None)[0][:2], xt,
+        cases["tiled"] = bf16_check(*_sa_calls(mt, th, thd ** -0.5, 0.1, seed, None)[0][:2], xt,
                                     "sa")
     if fault in ROW12_FAULTS:
-        xr = torch.randn(16, 196, 3 * c, device=cuda, generator=gen) * 0.5
-        rbias = torch.randn(nh, 196, 196, device=cuda, generator=gen) * 0.1
+        rh = 16
+        xr = torch.randn(16, 196, 3 * 512, device=cuda, generator=gen) * 0.5
+        rbias = torch.randn(rh, 196, 196, device=cuda, generator=gen) * 0.1
         rmask = torch.where(torch.rand(4, 196, 196, device=cuda, generator=gen) < 0.3, -100.0,
                             0.0)
         cases["lane_attention"] = bf16_check(
-            lambda a: twa.lane_attention(a, rbias, rmask, nh, scale),
-            lambda a: twa.lane_attention_reference(a, rbias, rmask, nh, scale), xr, "attention")
+            lambda a: twa.lane_attention(a, rbias, rmask, rh, 32 ** -0.5),
+            lambda a: twa.lane_attention_reference(a, rbias, rmask, rh, 32 ** -0.5), xr,
+            "attention")
     for case, (readings, failures) in cases.items():
         print(f"planted {fault} [{case}]: {readings} failures={failures}")
         assert failures, f"planted fault {fault} passes the bf16 limits at {case}"
 
 
-def _packed_setup(gen, cuda):
+def _packed_setup(gen, cuda, hd=32):
     """qkv, bias and mask of the violet swin's stage 0, shifted, for 2
-    clips: (128, 9, 196, 32), 3 heads, nW = 64."""
-    qkv = torch.randn(128, 9, 196, 32, device=cuda, generator=gen) * 0.5
+    clips: (128, 9, 196, hd), 3 heads, nW = 64."""
+    qkv = torch.randn(128, 9, 196, hd, device=cuda, generator=gen) * 0.5
     bias = torch.randn(3, 196, 196, device=cuda, generator=gen) * 0.02
     mask = torch.from_numpy(_shift_attn_mask((4, 56, 56), (4, 7, 7), (0, 3, 3))).to(cuda)
     return qkv, bias, mask
