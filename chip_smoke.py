@@ -6,17 +6,17 @@
 
 The second form only compares kernels between this checkout's sources and
 another's (for example the parent commit, unpacked with ``git archive``),
-on one card, times in turns (``compare_builds``): the forwards that keep
-csrc/common.cuh's ``attend_row`` (rows 7 and 12), bit for bit in fp32 and
-bf16; the forwards whose bf16 runs a tensor-core body (rows 3, 9 and 10 on
+on one card, times in turns (``compare_builds``): the forwards whose bf16
+runs a tensor-core body (rows 3, 7, 9, 10 and 12 on
 csrc/attention_fwd_mma.cuh, row 5 on row 11's forward), fp32 bit for bit
 and each build's bf16 held to the bf16 limits; the backwards whose bf16
 runs a tensor-core body (rows 4, 8, 9 and 10 on csrc/attention_bwd_mma.cuh,
 row 6 on row 11's body) and row 11 (the tiled self-attention) at the
-multiple-choice shape, fp32 and bf16 bit for bit; and the pixel and violet
-train steps and the multiple-choice step at full width, each build's steps
-timed in turns, so that a change of kernel time shows in step time on one
-card.
+multiple-choice shape, fp32 and bf16 bit for bit; and the pixel, violet,
+2d_feature and swin2d train steps and the multiple-choice step at full
+width, each build's steps timed in turns, with each step's kernel time
+under torch.profiler, so that a change of kernel time shows in step time
+on one card.
 
 Phases, each of which records its failures; the script exits non-zero,
 before the final line, if any phase failed:
@@ -53,12 +53,12 @@ before the final line, if any phase failed:
    and two copies of csrc/ with planted faults of the tensor-core bodies
    (``PLANTED_TILED``: two of row 11's, the forward one also held at row
    5, one of the window backward's, one of row 6's, one of the window
-   forward's held at rows 3 and 9), each of which must fail the bf16
-   limits. The records of rows 3-6 and 8-11 name the body each dtype ran
+   forward's held at rows 3, 7, 9 and 12), each of which must fail the bf16
+   limits. The records of rows 3-12 name the body each dtype ran
    (``tensor_core`` for bf16 at the paths' head widths, ``cuda_core`` for
-   fp32); the window forwards' bf16 is held to the ``window_fwd_tc``
-   limits, row 5's to row 11's ``sa``, the window backwards' to
-   ``window_bwd_tc``. The LayerNorm at
+   fp32); the window forwards' bf16 (rows 3, 7, 9, 10, 12) is held to the
+   ``window_fwd_tc`` limits, row 5's to row 11's ``sa``, the window
+   backwards' to ``window_bwd_tc``. The LayerNorm at
    the 3D teacher's final norm and at the CLIP teacher's sites,
    ``lane_self_attention`` at the CLIP teacher's shape (80 frames of 50
    tokens, p = 0); ``lane_attention`` (row 12, the
@@ -100,7 +100,8 @@ before the final line, if any phase failed:
 8. The pretrain train step for the 2d_feature MVM target, as phase 6 with
    ``train.mvm_target`` replaced by ("2d_feature",) (as bench.py builds
    it): the frozen 2D Swin-base teacher runs forward on the unmasked clip
-   (the ``lane_window_attention`` kernel in its 24 blocks, kernel
+   (the ``lane_window_attention`` kernel, bf16 on the tensor-core window
+   body, in its 24 blocks, kernel
    LayerNorms at its 52 sites), and 4-group AdamW leaves it out. Launches of
    one step held to ``TRAIN_2D_LAUNCHES``; the teacher gets no gradient and
    stays bit-unchanged; every other parameter with a gradient changes.
@@ -143,8 +144,9 @@ before the final line, if any phase failed:
    each batch launches ``EVAL_QAMC_LAUNCHES``.
 17. The lanebench tool, ``empirical_mvm_torch.tools.lanebench.main(
    ["--stage", "-1", "--grad"])`` in this process: its lines; each path's
-   error against the tool's fp32 oracle within phase 3's bf16 attention
-   limit; ``lane_attention`` launched (its counts are the kernels line's
+   error against the tool's fp32 oracle within phase 3's bf16 limit against
+   plain fp32 (``BF16_VS_FP32["attention"]``, which the ``window_fwd_tc``
+   kind of the tool's bodies shares); ``lane_attention`` launched (its counts are the kernels line's
    ``launches_lanebench``).
 18-20. The pretrain train step at full width for the 3d_feature (the
    frozen Video Swin-base teacher: the direct kernel in its 24 blocks, the
@@ -413,8 +415,8 @@ BF16_LIMITS["window_bwd_tc"] = {
 BF16_LIMITS["window_bwd_tc_qkv"] = {
     **{g: BF16_LIMITS["window_bwd_tc"]["dx3"] for g in ("dq", "dk", "dv")},
     "dbias": BF16_LIMITS["attention_bwd"]["dbias"]}
-# The window forwards' tensor-core body (rows 3, 9, 10 in bf16 at hd 32,
-# csrc/attention_fwd_mma.cuh; kind "window_fwd_tc"): row 11's forward limits
+# The window forwards' tensor-core body (rows 3, 7, 9, 10, 12 in bf16 at hd
+# 32, csrc/attention_fwd_mma.cuh; kind "window_fwd_tc"): row 11's forward limits
 # (``sa``), for row 11's reason. Its scores sum on the tensor cores, in
 # another order than the plain version's fp32 chain, and its row sums over
 # the lanes and a warp butterfly, so a p near a bf16 rounding boundary may
@@ -653,8 +655,8 @@ def _window_bwd_kind(hd, split=False):
 
 
 def _window_fwd_kind(hd, n):
-    """The limits of a direct or packed window forward record (rows 3, 9,
-    10): ``window_fwd_tc`` where its bf16 runs the tensor-core body."""
+    """The limits of a window forward record (rows 3, 7, 9, 10, 12):
+    ``window_fwd_tc`` where its bf16 runs the tensor-core body."""
     tc = wa._window_fwd_body(torch.bfloat16, hd, n) == "tensor_core"
     return "window_fwd_tc" if tc else "attention"
 
@@ -955,7 +957,8 @@ def lane_window_cases(dev, gen):
     (``_window_shapes``). SDPA, the yardstick, runs on (clips, nW * nH, 49,
     32), a clip's windows and heads on one axis, with the broadcast
     ``_window_sdpa_mask``. Each record carries its shape's launches in one
-    step's 24 blocks (``launches_per_step``)."""
+    step's 24 blocks (``launches_per_step``) and the body each dtype ran; its
+    bf16 is held to the limits of that body (``_window_fwd_kind``)."""
     b, n, hd = TRAIN_B, 49, 32
     recs = []
     for stage, nw, c, nh, mk, blocks in _window_shapes():
@@ -983,8 +986,9 @@ def lane_window_cases(dev, gen):
         nbytes = x3.numel() * 2 + b * nw * n * c * 2 + bias.numel() * 4 + (
             0 if mk is None else mk.numel() * 4)
         recs.append(measure("lane_window_attention", label, x3, kernel, plain, library,
-                            torch.bfloat16, "attention", ops, "bf16_tensor", nbytes))
-        recs[-1]["launches_per_step"] = blocks
+                            torch.bfloat16, _window_fwd_kind(hd, n), ops, "bf16_tensor",
+                            nbytes))
+        recs[-1].update(launches_per_step=blocks, body=_bodies(wa._window_fwd_body, hd, n))
     return recs
 
 
@@ -1227,7 +1231,9 @@ def _lane_attention_record(label, x3, bias, mask, nh):
     """Row 12 (``lane_attention``) on (B_, N, 3C) ``x3`` against its plain
     version and SDPA (4D: (B_ / nW, nW * nH, N, hd) with the broadcast
     ``_window_sdpa_mask``), and row 7 (``lane_window_attention``, the scale
-    on q) timed on the same bf16 x3, bias and mask (``lane_window_ms``)."""
+    on q) timed on the same bf16 x3, bias and mask (``lane_window_ms``). The
+    bf16 limits are those of the body bf16 ran (``_window_fwd_kind``), named
+    in the record's ``body``."""
     b_, n, c3 = x3.shape
     c = c3 // 3
     hd, nw = c // nh, mask.shape[0]
@@ -1248,7 +1254,8 @@ def _lane_attention_record(label, x3, bias, mask, nh):
     ops = 4 * b_ * n * n * c
     nbytes = x3.numel() * 2 + b_ * n * c * 2 + bias.numel() * 4 + mask.numel() * 4
     rec = measure("lane_attention", label, x3, kernel, plain, library, torch.bfloat16,
-                  "attention", ops, "bf16_tensor", nbytes)
+                  _window_fwd_kind(hd, n), ops, "bf16_tensor", nbytes)
+    rec["body"] = _bodies(wa._window_fwd_body, hd, n)
     a16 = x3.to(torch.bfloat16)
     rec["lane_window_ms"] = time_ms(
         lambda: wa.lane_window_attention(a16, bias, mask, nw, nh, scale))
@@ -1331,8 +1338,8 @@ def c128_cases(dev, gen):
 # The window backward's body: ds rounded to bf16 before it enters dbias (the
 # JAX kernels sum the fp32 ds). Row 6 on row 11's backward: the keep mask
 # dropped from dp in the rows kernel (D, ds and dq of every dropped score).
-# The window forward's body (rows 3, 9, 10): e = exp(s - max) rounded to bf16
-# before it is normalised (and p rounded again). The first two are planted in
+# The window forward's body (rows 3, 7, 9, 10, 12): e = exp(s - max) rounded
+# to bf16 before it is normalised (and p rounded again). The first two are planted in
 # one copy, the last three in another (the keep-mask fault would also fail
 # row 11's backward check, whose own fault it must not hide; each of the
 # others moves only its own kernels).
@@ -1563,8 +1570,13 @@ def planted_tiled_check(dev, gen):
     small (2 clips, N = 196, 16 heads of 32, shifted); row 6 at the fusion's
     shape in small (8 rows of 232, 12 heads of 64, p = 0.1); the direct
     window forward at the eval's stage 2 in small (2 clips, N = 245, 16 heads
-    of 32, shifted) and the packed forward at the violet stage 0 (2 clips,
-    N = 196, 3 heads, shifted). Returns the faults that passed a check."""
+    of 32, shifted), the packed forward at the violet stage 0 (2 clips,
+    N = 196, 3 heads, shifted), the lane window forward (row 7) at the 2D
+    swin's stage 2 in small (2 clips of 4 frames: 32 windows of 49 tokens,
+    16 heads of 32, the 4-frame shift mask) and ``lane_attention`` (row 12)
+    at the lanebench tool's stage 2 in small (16 windows of 196 tokens, 16
+    heads of 32, a shift-like mask over 4 slots). Returns the faults that
+    passed a check."""
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(PLANTED_COPIES)) as pool:
         row11, rest = pool.map(_planted_library, ("row11", "rest"), PLANTED_COPIES)
@@ -1613,10 +1625,23 @@ def planted_tiled_check(dev, gen):
     packed_fwd = (lambda a: wa._packed_fwd(a, pbias, pmask, 64, 3, 32 ** -0.5),
                   lambda a: wa.packed_window_attention_plain(a, pbias, pmask, 64, 3, 32 ** -0.5),
                   xp, _window_fwd_kind(32, 196))
+    xw = torch.randn(32, 49, 3 * c, device=dev, generator=gen) * 0.5
+    wbias = torch.randn(nh, 49, 49, device=dev, generator=gen) * 0.02
+    wmask2d = torch.from_numpy(_shift_attn_mask((4, hp, hp), (1, 7, 7), (0, 3, 3))).to(dev)
+    row7 = (lambda a: wa._lane_window_fwd(a, wbias, wmask2d, 16, nh, 32 ** -0.5),
+            lambda a: wa.lane_window_attention_reference(a, wbias, wmask2d, 16, nh, 32 ** -0.5),
+            xw, _window_fwd_kind(32, 49))
+    xr = torch.randn(16, 196, 3 * c, device=dev, generator=gen) * 0.5
+    rbias = torch.randn(nh, 196, 196, device=dev, generator=gen) * 0.1
+    rmask = _shift_like_mask(dev, gen, 4, 196)
+    row12 = (lambda a: wa._lane_attention_fwd(a, rbias, rmask, nh, 32 ** -0.5),
+             lambda a: wa.lane_attention_reference(a, rbias, rmask, nh, 32 ** -0.5),
+             xr, _window_fwd_kind(32, 196))
     checks = ((row11, {"row 11 forward": (fwd, fwd_plain, q64, "sa"), "row 5": row5},
                {"row 11 backward": (bwd, bwd_plain, q32, "sa_bwd")}),
               (rest, {"direct backward": window}, {"row 6": lane},
-               {"direct forward": direct_fwd, "packed forward": packed_fwd}))
+               {"direct forward": direct_fwd, "packed forward": packed_fwd, "row 7": row7,
+                "row 12": row12}))
     real = _build.library()
     caught = {}
     try:
@@ -2135,7 +2160,8 @@ def lanebench_phase():
     """Phase 17: the lanebench tool (``empirical_mvm_torch.tools.lanebench``)
     as its command line runs it, ``--stage -1 --grad``, in this process: its
     lines, and each path's largest error against the tool's fp32 oracle held
-    to phase 3's bf16 attention limit against plain fp32. Returns the tool's
+    to phase 3's bf16 limit against plain fp32 (``BF16_VS_FP32["attention"]``,
+    shared by the ``attention`` and ``window_fwd_tc`` kinds). Returns the tool's
     launch counts, in which ``lane_attention`` must appear."""
     _build.launch_counts.clear()
     t0 = time.perf_counter()
@@ -2222,38 +2248,19 @@ def _split(fn):
     return lambda a, *args: fn(*a.unbind(0), *args)
 
 
-def _attend_row_calls(dev, gen):
-    """(kernel, label, x3, call) of each forward that runs common.cuh's
-    ``attend_row`` in both dtypes (rows 7 and 12), at the shapes phase 3
-    times it: the lane window forward at the 2D swin's shapes
-    (``_window_bwd_inputs``), ``lane_attention`` at the lanebench tool's
-    stage shapes with its zero mask and a shift-like mask."""
-    for stage, nw, nh, x3, _, bias, mk, _ in _window_bwd_inputs(dev, gen):
-        yield ("lane_window_attention",
-               f"2d stage{stage} {'shifted' if mk is not None else 'unshifted'}", x3,
-               lambda a, bias=bias, mk=mk, nw=nw if mk is not None else 1, nh=nh:
-               wa._lane_window_fwd(a, bias, mk, nw, nh, 32 ** -0.5))
-    for stage, sh in lanebench.SHAPES.items():
-        b_, n, c, nh, nw = (sh[k] for k in ("b_", "n", "c", "nh", "nw"))
-        x3 = torch.randn(b_, n, 3 * c, device=dev, generator=gen) * 0.5
-        bias = torch.randn(nh, n, n, device=dev, generator=gen) * 0.1
-        for name, mask in (("zero mask", torch.zeros(nw, n, n, device=dev)),
-                           ("shift-like mask", _shift_like_mask(dev, gen, nw, n))):
-            yield ("lane_attention", f"lanebench stage{stage} {name}", x3,
-                   lambda a, bias=bias, mask=mask, nh=nh, hd=c // nh:
-                   wa.lane_attention(a, bias, mask, nh, hd ** -0.5))
-
-
 def _redesigned_fwd_calls(dev, gen):
     """(kernel, label, x3, call, plain, kind) of each forward whose bf16 runs
-    a tensor-core body since rows 3, 5, 9 and 10 were redesigned, at the
-    main-path shapes phase 3 times: the direct forward (row 3) at the train
-    step's stages (``_direct_bwd_inputs``), the eval's (32 clips of 5
+    a tensor-core body since rows 3, 5, 7, 9, 10 and 12 were redesigned, at
+    the main-path shapes phase 3 times: the direct forward (row 3) at the
+    train step's stages (``_direct_bwd_inputs``), the eval's (32 clips of 5
     frames, N = 245) and the violet step's stages 2 and 3; the lane
     self-attention (row 5) at the eval's fusion (p = 0), the train step's (p
     = 0.1) and the CLIP teacher's shape; the packed forward (row 9) at
     ``_packed_shapes``; the fused forward (row 10) at the violet stage-0
-    shifted shape. ``kind`` names the bf16 limits of this checkout's body."""
+    shifted shape; the lane window forward (row 7) at the 2D swin's shapes
+    (``_window_bwd_inputs``); ``lane_attention`` (row 12) at the lanebench
+    tool's stage shapes with its zero mask and a shift-like mask. ``kind``
+    names the bf16 limits of this checkout's body."""
     direct = itertools.chain(
         (("train", *x) for x in _direct_bwd_inputs(dev, gen)),
         (("eval", *x) for x in _direct_bwd_inputs(dev, gen, b=ITEMS * CLIPS, t=5)),
@@ -2295,6 +2302,24 @@ def _redesigned_fwd_calls(dev, gen):
                    functools.partial(_with_args, _split(wa._fused_fwd), args),
                    functools.partial(_with_args, _split(wa.fused_window_attention_plain), args),
                    _window_fwd_kind(32, n))
+    for stage, nw, nh, x3, _, bias, mk, _ in _window_bwd_inputs(dev, gen):
+        args = (bias, mk, nw if mk is not None else 1, nh, 32 ** -0.5)
+        yield ("lane_window_attention",
+               f"2d stage{stage} {'shifted' if mk is not None else 'unshifted'}", x3,
+               functools.partial(_with_args, wa._lane_window_fwd, args),
+               functools.partial(_with_args, wa.lane_window_attention_reference, args),
+               _window_fwd_kind(32, x3.shape[1]))
+    for stage, sh in lanebench.SHAPES.items():
+        b_, n, c, nh, nw = (sh[k] for k in ("b_", "n", "c", "nh", "nw"))
+        x3 = torch.randn(b_, n, 3 * c, device=dev, generator=gen) * 0.5
+        bias = torch.randn(nh, n, n, device=dev, generator=gen) * 0.1
+        for name, mask in (("zero mask", torch.zeros(nw, n, n, device=dev)),
+                           ("shift-like mask", _shift_like_mask(dev, gen, nw, n))):
+            args = (bias, mask, nh, (c // nh) ** -0.5)
+            yield ("lane_attention", f"lanebench stage{stage} {name}", x3,
+                   functools.partial(_with_args, wa._lane_attention_fwd, args),
+                   functools.partial(_with_args, wa.lane_attention_reference, args),
+                   _window_fwd_kind(c // nh, n))
 
 
 def _with_args(fn, args, a):
@@ -2332,12 +2357,15 @@ STEP_TURNS = 3
 
 
 def _step_calls(dev):
-    """(label, one_step) of the pixel and violet pretrain steps and the
-    multiple-choice step at full width, each model built once: one_step()
-    runs one step, ending in a synchronise (the parameters move from step to
-    step, which the times do not depend on)."""
+    """(label, one_step) of the pixel, violet, 2d_feature (the frozen 2D
+    teacher on row 7) and swin2d (the trained 2D swin on rows 7 and 8)
+    pretrain steps and the multiple-choice step at full width, each model
+    built once: one_step() runs one step, ending in a synchronise (the
+    parameters move from step to step, which the times do not depend on)."""
     run = load_run_config(str(PRETRAIN_CONFIG))
-    for label, r in (("pixel", run), ("violet", with_violet_backbone(run))):
+    for label, r in (("pixel", run), ("violet", with_violet_backbone(run)),
+                     ("2d_feature", with_mvm_target(run, ("2d_feature",))),
+                     ("swin2d", with_swin2d_backbone(run))):
         model = VioletPretrain.from_run_config(r, dtype=torch.bfloat16, device=dev,
                                                seed=TRAIN_SEED)
         opt = build_optimizer(model, r.train, TRAIN_MAX_ITER)
@@ -2380,21 +2408,21 @@ def compare_builds(base_csrc: Path) -> None:
     """Build the kernel library from ``base_csrc`` too and hold this
     checkout's build against it, times of both builds' bf16 calls taken with
     CUDA events in turns (base, new, new, base):
-    * the forwards that keep common.cuh's ``attend_row`` in both dtypes
-      (``_attend_row_calls``: rows 7 and 12): every output bit-identical in
-      fp32 and bf16;
     * the forwards whose bf16 runs a tensor-core body since their redesign
-      (``_redesigned_fwd_calls``: rows 3, 5, 9, 10): fp32 bit-identical (the
-      CUDA-core bodies), each build's bf16 held to the bf16 limits of this
-      checkout's body (which take the CUDA-core body's readings too);
+      (``_redesigned_fwd_calls``: rows 3, 5, 7, 9, 10, 12): fp32
+      bit-identical (the CUDA-core bodies), each build's bf16 held to the
+      bf16 limits of this checkout's body (which take the CUDA-core body's
+      readings too), and whether bf16 is bit-identical printed (a body
+      that neither build changed reads true);
     * the backwards whose bf16 runs a tensor-core body (``_shared_bwd_calls``:
       rows 4, 6, 8, 9, 10) and row 11 forward and backward (``_tiled_calls``):
       fp32 and bf16 bit-identical, each build's bf16 held to its limits;
-    * the pixel and violet train steps and the multiple-choice step
-      (``_step_calls``): host seconds of ``STEP_TURNS`` steps a turn, after
-      one warm-up step with each build, their medians per build; then one
-      step of each build under torch.profiler: the ms its kernels ran, and
-      the device's idle share of the median step (``_kernel_ms``).
+    * the pixel, violet, 2d_feature and swin2d train steps and the
+      multiple-choice step (``_step_calls``): host seconds of ``STEP_TURNS``
+      steps a turn, after one warm-up step with each build, their medians
+      per build; then two steps of each build under torch.profiler, in
+      turns: the mean ms their kernels ran, and the device's idle share of
+      the median step (``_kernel_ms``).
     Size queries that the base build predates (``*_smem_bytes`` entry
     points, which feed only the wrappers' shared-memory check before a
     launch) are answered by this build's. Prints one JSON line per shape and
@@ -2450,18 +2478,13 @@ def compare_builds(base_csrc: Path) -> None:
         return readings
 
     both = (torch.float32, torch.bfloat16)
-    for kernel, label, x3, call in _attend_row_calls(dev, gen):
-        calls = {w: call for w in libs}
-        same = same_in(calls, x3, both)
-        record(kernel, label, in_turns(calls, x3.to(torch.bfloat16)),
-               bit_identical=all(same.values()))
-        differ += [f"{kernel} [{label}] {str(dt)[6:]}" for dt, ok in same.items() if not ok]
     for kernel, label, x3, call, plain, kind in _redesigned_fwd_calls(dev, gen):
         calls = {w: call for w in libs}
-        same = same_in(calls, x3, (torch.float32,))
+        same = same_in(calls, x3, both)
         readings = held(kernel, label, calls, {w: plain for w in libs}, x3, kind)
         record(kernel, label, in_turns(calls, x3.to(torch.bfloat16)),
-               fp32_bit_identical=same[torch.float32], bf16=readings)
+               fp32_bit_identical=same[torch.float32], bf16_bit_identical=same[torch.bfloat16],
+               bf16=readings)
         differ += [] if same[torch.float32] else [f"{kernel} [{label}] fp32"]
     for kernel, label, x3, call, plain, kind in _shared_bwd_calls(dev, gen):
         calls = {w: call for w in libs}
@@ -2497,11 +2520,14 @@ def compare_builds(base_csrc: Path) -> None:
                         **{f"{w}_ms": v for w, v in ms.items()}}
         steps[label]["new_minus_base_ms"] = (steps[label]["new_ms_median"]
                                              - steps[label]["base_ms_median"])
-        for which in ("base", "new"):
+        kernel_ms = {"base": [], "new": []}
+        for which in ("base", "new", "new", "base"):
             _build._lib = libs[which]
-            kms = _kernel_ms(one_step)
-            steps[label][f"{which}_kernel_ms"] = kms
-            steps[label][f"{which}_device_idle_share"] = 1 - kms / steps[label][
+            kernel_ms[which].append(_kernel_ms(one_step))
+        for which, kms in kernel_ms.items():
+            steps[label][f"{which}_kernel_ms_each"] = kms
+            steps[label][f"{which}_kernel_ms"] = float(np.mean(kms))
+            steps[label][f"{which}_device_idle_share"] = 1 - np.mean(kms) / steps[label][
                 f"{which}_ms_median"]
         print(json.dumps({"step": label, **steps[label]}), flush=True)
         del one_step

@@ -2,16 +2,19 @@
 // (common.cuh) and with the interface of the backward's tensor-core body
 // (attention_bwd_mma.cuh): one block of 4 warps computes one (window, head);
 // the caller's `addr(seg, t)` gives token t's head row (seg 0-2: in q, k, v
-// from their bases; seg 3: in out). The direct (window_attention.cu, row 3)
-// and packed (packed_window_attention.cu, rows 9 and 10) forwards take it
-// for bf16 at hd = 32, the head width of every Swin on their paths, and
+// from their bases; seg 3: in out). The direct (window_attention.cu, row 3),
+// packed (packed_window_attention.cu, rows 9 and 10) and lane window
+// (lane_window_attention.cu, row 7, and lane_attention, row 12) forwards take
+// it for bf16 at hd = 32, the head width of every Swin on their paths, and
 // N <= kMaxKeys (49, 196 and 245 on the paths); fp32, and bf16 at any other
-// hd or N, keep attend_row, as the lane window forward and lane_attention
-// (rows 7 and 12) do in both dtypes.
+// hd or N, keep attend_row.
 //
 // Same rounding points as the JAX kernels (`_direct_fwd_kernel`,
-// `_attn_kernel`): qs = round(q * scale_t); s = (qs.k^T + bias) + mask in
-// fp32, the two terms added in that order; p = exp(s - max) / sum, normalised
+// `_attn_kernel`, `_lane_fwd_kernel`): qs = round(q * scale_t); s = (qs.k^T +
+// bias) + mask in fp32, the two terms added in that order; with kScoreScale
+// (row 12, tools/lanebench.py `_lane_kernel`, attend_row's switch of the same
+// name) q stays as stored and s = ((q.k^T) * scale + bias) + mask, the fp32
+// product times the fp32 scale; p = exp(s - max) / sum, normalised
 // in fp32 and then rounded to bf16 (a one-pass online softmax would round the
 // unnormalised p); P.V accumulated in fp32; the output rounded once. Both
 // products are `mma.sync` m16n8k16 on bf16 operands, exact in fp32, so only
@@ -93,8 +96,10 @@ __device__ __forceinline__ float half_sum(float v) {
 }
 
 // The body; KI = key_iters(n). bias_h (n, n) is the head's bias, mask_w
-// (n, n) the window's mask or null. Inlined into each caller's kernel.
-template <int KI, typename Addr>
+// (n, n) the window's mask or null. scale_t is the scale rounded to bf16
+// that multiplies q, or with kScoreScale the fp32 scale that multiplies the
+// scores. Inlined into each caller's kernel.
+template <int KI, bool kScoreScale = false, typename Addr>
 __device__ __forceinline__ void attention_fwd_block(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const float* __restrict__ bias_h, const float* __restrict__ mask_w, bf16* __restrict__ out,
@@ -172,14 +177,20 @@ __device__ __forceinline__ void attention_fwd_block(
   for (int rb = warp; rb < blocks16; rb += kWarps) {
     const int r0 = rb * 16;
     // (A) S = qs.k^T, q * scale rounded to bf16 (the product of two bf16 is
-    // exact), added to the staged bias; then the next row block's q loaded
+    // exact), added to the staged bias (with kScoreScale S = q.k^T, then
+    // S * scale + bias); then the next row block's q loaded
     sa_mma::AFrags<kHd, true> qa;
 #pragma unroll
     for (int ks = 0; ks < G::kKSteps; ++ks)
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qw[ks][u]));
-        qa.r[ks][u] = sa_mma::pack(f.x * scale_t, f.y * scale_t);
+        if constexpr (kScoreScale) {
+          qa.r[ks][u] = qw[ks][u];
+        } else {
+          const float2 f =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qw[ks][u]));
+          qa.r[ks][u] = sa_mma::pack(f.x * scale_t, f.y * scale_t);
+        }
       }
     sa_mma::cp_async_wait<0>();
     __syncwarp();
@@ -194,7 +205,11 @@ __device__ __forceinline__ void attention_fwd_block(
           float2* sp =
               reinterpret_cast<float2*>(sbuf + (g + 8 * r) * ss + c * 16 + nt * 8 + 2 * tq);
           const float2 b = *sp;
-          *sp = make_float2(__fadd_rn(sc[nt][2 * r], b.x), __fadd_rn(sc[nt][2 * r + 1], b.y));
+          if constexpr (kScoreScale)
+            *sp = make_float2(__fadd_rn(__fmul_rn(sc[nt][2 * r], scale_t), b.x),
+                              __fadd_rn(__fmul_rn(sc[nt][2 * r + 1], scale_t), b.y));
+          else
+            *sp = make_float2(__fadd_rn(sc[nt][2 * r], b.x), __fadd_rn(sc[nt][2 * r + 1], b.y));
         }
     }
     if (rb + kWarps < blocks16) load_q(r0 + 16 * kWarps);

@@ -230,8 +230,8 @@ extern "C" size_t emvm_attention_smem_bytes(int dtype, int n, int hd) {
                                  : emvm::attn_smem_bytes<__nv_bfloat16>(n, hd);
 }
 
-// Shared memory of a block of the direct or packed window forward, in the
-// body that dtype, hd and n pick.
+// Shared memory of a block of the direct, packed or lane window forward or
+// of lane_attention, in the body that dtype, hd and n pick.
 extern "C" size_t emvm_window_attention_fwd_smem_bytes(int dtype, int n, int hd) {
   if (emvm::win_fwd_mma::takes(dtype, hd, n)) return emvm::win_fwd_mma::smem_bytes(n);
   return emvm_attention_smem_bytes(dtype, n, hd);

@@ -38,12 +38,12 @@ kernels the retrieval eval and the pretrain step run:
   ``_lane_kernel``, the benchmark tool's forward-only window attention off
   the qkv GEMM output; ``empirical_mvm_torch/tools/lanebench.py`` runs it.
 
-The forwards of the direct and packed window attention (rows 3, 9, 10)
+The window forwards (the direct row 3, the packed rows 9 and 10, the lane
+window row 7 and ``lane_attention``, row 12, with the scale on the scores)
 share one body: bf16 at hd 32 (N up to 256) runs on the tensor cores
 (``csrc/attention_fwd_mma.cuh``), fp32 and other hd on the CUDA cores
-(``attend_row``, :func:`_window_fwd_body`); the lane window forward and
-``lane_attention`` (rows 7, 12) keep ``attend_row``. Their backwards (and
-the lane window's) share another: bf16 at hd 32 on the tensor cores
+(``attend_row``, :func:`_window_fwd_body`). Their backwards (all but row
+12's, which has none) share another: bf16 at hd 32 on the tensor cores
 (``csrc/attention_bwd_mma.cuh``), fp32 and other hd on the CUDA cores
 (:func:`_window_bwd_body`). The lane self-attention in bf16 runs the tiled
 self-attention's tensor-core kernels on x3's strides, forward and backward
@@ -279,11 +279,12 @@ def direct_window_attention_backward_plain(x3, bias, mask, do, window_eff, n_hea
 
 
 def _window_fwd_body(dtype: torch.dtype, hd: int, n: int) -> str:
-    """The body of the direct and packed window forwards (rows 3, 9 and 10)
-    that a launch runs, by the rule of their C entry points: bf16 at hd 32
-    (every Swin's head) and N <= 256 (49, 196 and 245 on the paths) on the
-    tensor cores (``csrc/attention_fwd_mma.cuh``), fp32 and any other bf16
-    on the CUDA cores (``attend_row``)."""
+    """The body of the window forwards (the direct row 3, the packed rows 9
+    and 10, the lane window row 7 and ``lane_attention``, row 12) that a
+    launch runs, by the rule of their C entry points: bf16 at hd 32 (every
+    Swin's head) and N <= 256 (49, 196 and 245 on the paths) on the tensor
+    cores (``csrc/attention_fwd_mma.cuh``), fp32 and any other bf16 on the
+    CUDA cores (``attend_row``)."""
     tc = dtype == torch.bfloat16 and hd == 32 and 1 <= n <= 256
     return "tensor_core" if tc else "cuda_core"
 
@@ -609,7 +610,7 @@ def _lane_window_fwd(x3, bias, mask, n_windows, n_heads, scale):
     b_, n, c3 = x3.shape
     c = c3 // 3
     lib = _build.library()
-    _build.check_smem(lib.emvm_attention_smem_bytes(code, n, c // n_heads),
+    _build.check_smem(lib.emvm_window_attention_fwd_smem_bytes(code, n, c // n_heads),
                       f"a window of {n} tokens")
     out = torch.empty((b_, n, c), dtype=x3.dtype, device=dev)
     with torch.cuda.device(dev):
@@ -739,7 +740,7 @@ def _lane_attention_fwd(x3, bias, mask, n_heads, scale):
     b_, n, c3 = x3.shape
     c = c3 // 3
     lib = _build.library()
-    _build.check_smem(lib.emvm_attention_smem_bytes(code, n, c // n_heads),
+    _build.check_smem(lib.emvm_window_attention_fwd_smem_bytes(code, n, c // n_heads),
                       f"a window of {n} tokens")
     out = torch.empty((b_, n, c), dtype=x3.dtype, device=dev)
     with torch.cuda.device(dev):

@@ -163,7 +163,7 @@ def test_lane_window_attention_kernel(cuda, dtype, b_, nh, c, nw):
     for m, w in ((mask, nw), (None, 1)):
         _check(lambda a: twa.lane_window_attention(a, bias, m, w, nh, scale),
                lambda a: twa.lane_window_attention_reference(a, bias, m, w, nh, scale),
-               x3, dtype, "attention")
+               x3, dtype, _window_fwd_kind(c // nh, n))
     assert _build.launch_counts["lane_window_attention"] == before + 2
 
 
@@ -179,7 +179,9 @@ def test_lane_window_attention_kernel(cuda, dtype, b_, nh, c, nw):
 ])
 def test_lane_attention_kernel(cuda, dtype, b_, nh, c, nw):
     """Row 12 (the lanebench tool's kernel: the scale on the fp32 scores)
-    against its plain version, with a mask of entries 0 or -100."""
+    against its plain version, with a mask of entries 0 or -100, in bf16
+    within the limits of the body it runs (``_window_fwd_kind``: the
+    tensor cores at hd 32, attend_row at hd 64)."""
     rs = np.random.RandomState(12)
     n = 196
     x3 = _randn(rs, b_, n, 3 * c, scale=0.5).to(cuda)
@@ -190,7 +192,7 @@ def test_lane_attention_kernel(cuda, dtype, b_, nh, c, nw):
     before = _build.launch_counts["lane_attention"]
     _check(lambda a: twa.lane_attention(a, bias, mask, nh, scale),
            lambda a: twa.lane_attention_reference(a, bias, mask, nh, scale),
-           x3, dtype, "attention")
+           x3, dtype, _window_fwd_kind(c // nh, n))
     assert _build.launch_counts["lane_attention"] == before + 1
 
 
@@ -529,11 +531,12 @@ def test_lane_columns_p_equals_rows_p(cuda, p_drop):
 
 
 def _window_fwd_call(caller, n, nh, masked, rs, cuda):
-    """The window forward of ``caller`` (direct, packed, fused) at windows of
-    n tokens (49: (1, 7, 7); 196: (4, 7, 7); 245: (5, 7, 7)), nh heads of 32,
-    2 clips of 4 windows a frame, the shift mask or none (the fused entry,
-    which always adds a mask: a zero mask of one slot): (input, kernel call,
-    plain version)."""
+    """The window forward of ``caller`` (direct, packed, fused, lane_window,
+    lane_attention) at windows of n tokens (49: (1, 7, 7); 196: (4, 7, 7);
+    245: (5, 7, 7)), nh heads of 32, 2 clips of 4 windows a frame, the shift
+    mask or none (the fused and lane_attention entries, which always add a
+    mask: a zero mask of one slot): (input, kernel call, plain version,
+    arguments)."""
     wd = n // 49
     d, hp, nw = wd, 14, 4
     rng = np.random.RandomState(rs)
@@ -549,6 +552,14 @@ def _window_fwd_call(caller, n, nh, masked, rs, cuda):
     if caller == "packed":
         x = _randn(rng, b * nw, 3 * nh, n, 32, scale=0.5).to(cuda)
         return x, twa._packed_fwd, twa.packed_window_attention_plain, (bias, mask, w, nh, scale)
+    if caller == "lane_window":
+        x = _randn(rng, b * nw, n, 3 * c, scale=0.5).to(cuda)
+        return (x, twa._lane_window_fwd, twa.lane_window_attention_reference,
+                (bias, mask, w, nh, scale))
+    if caller == "lane_attention":
+        x = _randn(rng, b * nw, n, 3 * c, scale=0.5).to(cuda)
+        mask = torch.zeros(1, n, n, device=cuda) if mask is None else mask
+        return x, twa._lane_attention_fwd, twa.lane_attention_reference, (bias, mask, nh, scale)
     x = _randn(rng, 3, b * nw, nh, n, 32, scale=0.5).to(cuda)
     mask = torch.zeros(1, n, n, device=cuda) if mask is None else mask
     return (x, lambda a, *r: twa._fused_fwd(*a.unbind(0), *r),
@@ -557,12 +568,14 @@ def _window_fwd_call(caller, n, nh, masked, rs, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("caller", ["direct", "packed", "fused"])
+@pytest.mark.parametrize("caller", ["direct", "packed", "fused", "lane_window",
+                                    "lane_attention"])
 @pytest.mark.parametrize("n", [49, 196, 245])
 @pytest.mark.parametrize("masked", [True, False])
 def test_window_fwd_tensor_core_body(cuda, caller, n, masked):
     """The window forward's tensor-core body (bf16, hd 32) through row 3's
-    (direct) and rows 9-10's (packed, fused) callers at N = 49, 196 and 245
+    (direct), rows 9-10's (packed, fused), row 7's (lane_window) and row
+    12's (lane_attention, the score scale) callers at N = 49, 196 and 245
     (none a multiple of 16), with and without the shift mask, against the
     plain version at chip_smoke's ``window_fwd_tc`` limits; fp32 (the
     CUDA-core body) at FP32_LIMITS; the output bit-identical over two
@@ -700,16 +713,27 @@ PLANTED = {
     # then divided back by the scale that row 12 multiplies them by)
     "row12_q_scaled": ("common.cuh", "qb[d] = to_float(q_row[d]);",
                        "qb[d] = to_float(from_float<T>(to_float(q_row[d]) * scale_t)) / scale_t;"),
+    # the same in the tensor-core body's kScoreScale: q * scale rounded to
+    # bf16 into the A fragments, the scores then not scaled
+    "row12_tc_q_scaled": (
+        "attention_fwd_mma.cuh",
+        ("qa.r[ks][u] = qw[ks][u];",
+         "*sp = make_float2(__fadd_rn(__fmul_rn(sc[nt][2 * r], scale_t), b.x),\n"
+         "                              __fadd_rn(__fmul_rn(sc[nt][2 * r + 1], scale_t), b.y));"),
+        ("const float2 f =\n"
+         "              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qw[ks][u]));\n"
+         "          qa.r[ks][u] = sa_mma::pack(f.x * scale_t, f.y * scale_t);",
+         "*sp = make_float2(__fadd_rn(sc[nt][2 * r], b.x), __fadd_rn(sc[nt][2 * r + 1], b.y));")),
     # chip_smoke's planted fault of the window forward's tensor-core body
-    # (rows 3, 9, 10)
+    # (rows 3, 7, 9, 10, 12)
     "window_e_rounded_before_normalising": PLANTED_TILED[
         "window forward e rounded before normalising"],
 }
 # faults of attend_row (common.cuh) and of the direct kernel's CUDA-core
-# call: bf16 runs attend_row in the direct, packed and lane self-attention
-# forwards only at a head width that their tensor-core bodies do not take, so
-# these are checked there, at hd 48 (whose scale, unlike hd 64's 0.125, is
-# inexact in bf16); rows 7 and 12 run attend_row at every width
+# call: bf16 runs attend_row in the window forwards (rows 3, 7, 9, 10, 12)
+# and the lane self-attention only at a head width that their tensor-core
+# bodies do not take, so these are checked there, at hd 48 (whose scale,
+# unlike hd 64's 0.125, is inexact in bf16)
 ATTEND_ROW_FAULTS = {"probabilities_not_rounded", "q_scaled_in_fp32", "bias_dropped"}
 # faults of the packed kernel alone, which the direct kernel does not run
 PACKED_ONLY = {"packed_mask_slot"}
@@ -718,20 +742,22 @@ PACKED_ONLY = {"packed_mask_slot"}
 # lane layout of row 5, at the fusion shape
 TILED_ONLY = {"tiled_p_rounded_before_normalising"}
 # faults that change row 12 (lane_attention), checked at lanebench's stage 2
-# in small (16 windows of 196 tokens, 16 heads, nW = 4); row12_q_scaled
-# changes it alone
-ROW12_ONLY = {"row12_q_scaled"}
-ROW12_FAULTS = {"probabilities_not_rounded"} | ROW12_ONLY
+# in small (16 windows of 196 tokens, 16 heads, nW = 4), at hd 48 for the
+# faults of attend_row, else at hd 32 on the tensor-core body; the row12_
+# faults change it alone
+ROW12_ONLY = {"row12_q_scaled", "row12_tc_q_scaled"}
+ROW12_FAULTS = {"probabilities_not_rounded", "window_e_rounded_before_normalising"} | ROW12_ONLY
 # faults that also change the lane self-attention at the fusion shape; at hd
 # = 64 the scale is 0.125, so q * scale is exact in bf16 and q_scaled_in_fp32
 # is no fault there
 LANE_FAULTS = {"probabilities_not_rounded"} | TILED_ONLY
-# faults that change the lane window kernel (its rows run attend_row too) at
-# the 2D teacher's shape, hd = 32
-WINDOW_FAULTS = {"probabilities_not_rounded", "q_scaled_in_fp32", "scale_not_rounded"}
+# faults that change the lane window kernel (row 7, either body) at the 2D
+# teacher's stage 2, hd = 32 (hd 48 for the faults of attend_row)
+WINDOW_FAULTS = {"probabilities_not_rounded", "q_scaled_in_fp32", "scale_not_rounded",
+                 "window_e_rounded_before_normalising"}
 # faults that change the packed kernel (either body, its own mask slot) at
 # the violet swin's stage 0 (N = 196, shifted)
-PACKED_FAULTS = WINDOW_FAULTS | PACKED_ONLY | {"window_e_rounded_before_normalising"}
+PACKED_FAULTS = WINDOW_FAULTS | PACKED_ONLY
 
 
 @pytest.mark.cuda
@@ -742,10 +768,11 @@ def test_bf16_check_catches_planted_faults(cuda, tmp_path, monkeypatch, fault):
     the tensor-core body, or hd 48 for ATTEND_ROW_FAULTS) and, for
     LANE_FAULTS, at the fusion shape (hd 64, row 5 on the tensor cores, or 48
     for ATTEND_ROW_FAULTS); for WINDOW_FAULTS at the 2D teacher's stage 2 (4
-    frames of 4 windows of 49 tokens, shifted); for PACKED_FAULTS at the
-    violet swin's stage 0 (2 clips of 64 shifted windows of 196 tokens, 3
-    heads, at the direct case's head width; a packed-only fault there
-    alone); for ROW12_FAULTS at lanebench's stage 2 in small (a row-12 fault
+    frames of 4 windows of 49 tokens, shifted; the direct case's head
+    width); for PACKED_FAULTS at the violet swin's stage 0 (2 clips of 64
+    shifted windows of 196 tokens, 3 heads, at the direct case's head width;
+    a packed-only fault there alone); for ROW12_FAULTS at lanebench's stage
+    2 in small (hd 48 for the faults of attend_row, else 32; a row-12 fault
     there alone). The readings are printed (run with -s)."""
     if fault in PLANTED:
         src = tmp_path / "csrc"
@@ -792,7 +819,8 @@ def test_bf16_check_catches_planted_faults(cuda, tmp_path, monkeypatch, fault):
             lambda a: twa.lane_self_attention_plain(a, lmask, lh, (d // lh) ** -0.5, 0.1, lseed),
             xl, _lane_fwd_kind(d // lh))
     if fault in WINDOW_FAULTS:
-        wb, wn, wh, wc = 64, 49, 16, 512             # stage 2 of the teacher: nW = 4 x 4
+        wb, wn, wc = 64, 49, {32: 512, 48: 384}[hd]  # stage 2 of the teacher: nW = 4 x 4
+        wh = wc // hd
         wmask = torch.from_numpy(_shift_attn_mask((4, hp, hp), (1, 7, 7), (0, 3, 3))
                                  ).to(cuda)
         xw = torch.randn(wb, wn, 3 * wc, device=cuda, generator=gen) * 0.5
@@ -804,13 +832,12 @@ def test_bf16_check_catches_planted_faults(cuda, tmp_path, monkeypatch, fault):
             _build.record_launch(lib.emvm_lane_window_attention_fwd(
                 _build.dtype_code(a.dtype), a.data_ptr(), wbias.data_ptr(),
                 wmask.data_ptr(), out.data_ptr(), wb, wn, wc, wh, 16,
-                scale_for(a, 32 ** -0.5), _build.stream_ptr(cuda)), "lane_window_attention")
+                scale_for(a, scale), _build.stream_ptr(cuda)), "lane_window_attention")
             return out
 
         cases["window"] = bf16_check(
-            window, lambda a: twa.lane_window_attention_reference(a, wbias, wmask, 16, wh,
-                                                                  32 ** -0.5),
-            xw, "attention")
+            window, lambda a: twa.lane_window_attention_reference(a, wbias, wmask, 16, wh, scale),
+            xw, _window_fwd_kind(hd, wn))
     if fault in PACKED_FAULTS:
         xp, pbias, pmask = _packed_setup(gen, cuda, hd)
 
@@ -835,15 +862,15 @@ def test_bf16_check_catches_planted_faults(cuda, tmp_path, monkeypatch, fault):
         cases["tiled"] = bf16_check(*_sa_calls(mt, th, thd ** -0.5, 0.1, seed, None)[0][:2], xt,
                                     "sa")
     if fault in ROW12_FAULTS:
-        rh = 16
-        xr = torch.randn(16, 196, 3 * 512, device=cuda, generator=gen) * 0.5
+        rh, rhd = 16, 48 if fault in ATTEND_ROW_FAULTS | {"row12_q_scaled"} else 32
+        xr = torch.randn(16, 196, 3 * rh * rhd, device=cuda, generator=gen) * 0.5
         rbias = torch.randn(rh, 196, 196, device=cuda, generator=gen) * 0.1
         rmask = torch.where(torch.rand(4, 196, 196, device=cuda, generator=gen) < 0.3, -100.0,
                             0.0)
         cases["lane_attention"] = bf16_check(
-            lambda a: twa.lane_attention(a, rbias, rmask, rh, 32 ** -0.5),
-            lambda a: twa.lane_attention_reference(a, rbias, rmask, rh, 32 ** -0.5), xr,
-            "attention")
+            lambda a: twa.lane_attention(a, rbias, rmask, rh, rhd ** -0.5),
+            lambda a: twa.lane_attention_reference(a, rbias, rmask, rh, rhd ** -0.5), xr,
+            _window_fwd_kind(rhd, 196))
     for case, (readings, failures) in cases.items():
         print(f"planted {fault} [{case}]: {readings} failures={failures}")
         assert failures, f"planted fault {fault} passes the bf16 limits at {case}"
