@@ -20,6 +20,7 @@ attention backward) counts as one launch.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -50,6 +51,7 @@ _SIGNATURES = {
     "emvm_layer_norm_fwd": ((_I, _P, _P, _P, _P, _LL, _I, _F, _P), _I),
     "emvm_layer_norm_bwd": ((_I, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _P), _I),
     "emvm_layer_norm_bwd_scratch": ((_LL, _I), _LL),
+    "emvm_layer_norm_bwd_smem_bytes": ((_I, _I), _SZ),
     "emvm_direct_window_attention_fwd": (
         (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P), _I),
     "emvm_direct_window_attention_bwd": (
@@ -196,7 +198,21 @@ def check_tensors(*tensors: torch.Tensor) -> torch.device:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current stream's handle on ``device``, as
+    ``torch.cuda.current_stream(device).cuda_stream`` gives it, without
+    building a Stream object (the raw query the compiled code of
+    torch.compile makes before each launch)."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def on_device(device: torch.device):
+    """``torch.cuda.device(device)``, or no guard where ``device`` is the
+    current device already (the guard costs about 2 us of host time a
+    launch)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check_smem(nbytes: int, what: str) -> None:

@@ -11,6 +11,11 @@ autograd, as the JAX package keeps flax ``nn.LayerNorm`` there
 Numerics of both versions: fp32 mean and two-pass variance, fp32 affine
 transform with fp32 gamma/beta, output in the input's dtype. The backward
 recomputes mean and rstd from x.
+
+The kernels have two bodies, picked by dtype and C in their C entry points
+and mirrored by :func:`_ln_body`: the vectorized body at the widths the
+paths run (``VECTOR_WIDTHS``: the row read once in 16-byte vectors and kept
+in registers), the scalar body of the first slices at any other C.
 """
 
 from __future__ import annotations
@@ -54,6 +59,25 @@ def layer_norm_backward_reference(x: torch.Tensor, weight: torch.Tensor,
     return (dx.reshape(x.shape).to(x.dtype), (dyf * xhat).sum(0), dyf.sum(0))
 
 
+# widths the vectorized body is instantiated for (csrc/layer_norm.cu
+# `with_vec_shape`): every LayerNorm site of the paths (BERT and CLIP 768,
+# the 2D and 3D teachers' stages 128-1024 and merges 512-2048; fp32 for the
+# text embeddings). The backward, whose sites are all 768, stops at 1024: at
+# 2048 a lane's share of x, dy, dgamma and dbeta does not fit in registers.
+VECTOR_WIDTHS = {torch.bfloat16: (128, 256, 512, 768, 1024, 2048), torch.float32: (768,)}
+VECTOR_BWD_WIDTHS = {torch.bfloat16: (128, 256, 512, 768, 1024), torch.float32: (768,)}
+
+
+def _ln_body(dtype: torch.dtype, c: int, backward: bool = False) -> str:
+    """The body a launch over rows of ``c`` values of ``dtype`` runs, by the
+    rule of the C entry points: ``vectorized`` at ``VECTOR_WIDTHS`` (the
+    backward at ``VECTOR_BWD_WIDTHS``; with 16-byte aligned pointers, as
+    every tensor the paths pass: a view at another offset takes the scalar
+    body), ``scalar`` at any other C."""
+    widths = VECTOR_BWD_WIDTHS if backward else VECTOR_WIDTHS
+    return "vectorized" if c in widths.get(dtype, ()) else "scalar"
+
+
 def _ln_fwd(x, weight, bias, eps):
     if weight.dtype != torch.float32 or bias.dtype != torch.float32:
         raise TypeError("fused_layer_norm takes float32 weight and bias")
@@ -65,7 +89,7 @@ def _ln_fwd(x, weight, bias, eps):
     if rows == 0:
         return y
     lib = _build.library()
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         _build.record_launch(lib.emvm_layer_norm_fwd(
             code, x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
             rows, c, float(eps), _build.stream_ptr(dev)), "fused_layer_norm")
@@ -80,15 +104,16 @@ def _ln_bwd(x, weight, dy, eps):
     c = x.shape[-1]
     rows = x.numel() // c
     dx = torch.empty_like(x)
-    dgb = torch.zeros((2, c), dtype=torch.float32, device=dev)
     if rows == 0:
+        dgb = torch.zeros((2, c), dtype=torch.float32, device=dev)
         return dx, dgb[0], dgb[1]
-    # one block holds 8 warps' fp32 (dgamma, dbeta) rows of C
-    _build.check_smem(8 * 2 * c * 4, f"the LayerNorm backward over C={c}")
     lib = _build.library()
+    _build.check_smem(lib.emvm_layer_norm_bwd_smem_bytes(code, c),
+                      f"the LayerNorm backward over C={c}")
+    dgb = torch.empty((2, c), dtype=torch.float32, device=dev)
     part = torch.empty(lib.emvm_layer_norm_bwd_scratch(rows, c), dtype=torch.float32,
                        device=dev)
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         _build.record_launch(lib.emvm_layer_norm_bwd(
             code, x.data_ptr(), weight.data_ptr(), dy.data_ptr(), dx.data_ptr(),
             dgb.data_ptr(), part.data_ptr(), rows, c, float(eps), _build.stream_ptr(dev)),
@@ -128,7 +153,14 @@ def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if weight.shape != (c,) or bias.shape != (c,):
         raise ValueError(f"weight/bias must be ({c},), got {tuple(weight.shape)}"
                          f" and {tuple(bias.shape)}")
-    return _FusedLayerNorm.apply(x, weight, bias, float(eps))
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return _FusedLayerNorm.apply(x, weight, bias, float(eps))
+    # nothing to differentiate (the frozen teachers, the evals): the same
+    # call without the autograd node, whose host time the small sites feel
+    if x.device.type == "cpu":
+        return layer_norm_reference(x, weight, bias, eps)
+    return _ln_fwd(x, weight, bias, float(eps))
 
 
 class LayerNorm(nn.Module):

@@ -19,8 +19,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (FP32_LIMITS, OUTPUTS, PLANTED_TILED, _excess, _lane_fwd_kind, _sa_calls,
-                        _tuple, _window_bwd_kind, _window_fwd_kind, bf16_check, plant)
+from chip_smoke import (FP32_LIMITS, LARGE_MEAN, OUTPUTS, PLANTED_LN, PLANTED_TILED, _excess,
+                        _lane_fwd_kind, _sa_calls, _tuple, _window_bwd_kind, _window_fwd_kind,
+                        bf16_check, full_check, plant)
 from empirical_mvm_torch.models.video_swin import _shift_attn_mask
 from empirical_mvm_torch.ops import _build
 from empirical_mvm_torch.ops import layernorm as tln
@@ -98,16 +99,38 @@ def test_lane_self_attention_kernel(cuda, dtype, b, l, c, nh):
            x3, dtype, _lane_fwd_kind(c // nh))
 
 
+# LayerNorm shapes (rows, C, eps): the fusion width, the paths' other widths
+# (the 2D teacher's 128-2048, each on the vectorized body in bf16; fp32 runs
+# it at 768 alone, the scalar body at the others), a ragged row count, and
+# C = 96 (the scalar body in both dtypes)
+LN_SHAPES = [(40, 768, 1e-12), (250, 768, 1e-5), (7, 96, 1e-5), (333, 128, 1e-5),
+             (300, 256, 1e-5), (300, 512, 1e-5), (130, 1024, 1e-5), (70, 2048, 1e-5)]
+
+
+def _ln_inputs(rs, rows, c, cuda, mean=0.0, std=2.0):
+    x = (_randn(rs, rows, c, scale=std) + mean).to(cuda)
+    return x, _randn(rs, c, scale=0.1).to(cuda) + 1.0, _randn(rs, c, scale=0.1).to(cuda)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,c,eps", [(40, 768, 1e-12), (250, 768, 1e-5), (7, 96, 1e-5)])
+@pytest.mark.parametrize("rows,c,eps", LN_SHAPES)
 def test_fused_layer_norm_kernel(cuda, dtype, rows, c, eps):
+    """Each body against the plain version; in bf16 also at rows of
+    chip_smoke's ``LARGE_MEAN`` (mean 50, std 1), where a one-pass variance
+    fails."""
     rs = np.random.RandomState(2)
-    x = _randn(rs, rows, c, scale=2.0).to(cuda)
-    g = _randn(rs, c, scale=0.1).to(cuda) + 1.0
-    bt = _randn(rs, c, scale=0.1).to(cuda)
+    x, g, bt = _ln_inputs(rs, rows, c, cuda)
+    before = _build.launch_counts["fused_layer_norm"]
     _check(lambda a: tln.fused_layer_norm(a, g, bt, eps),
            lambda a: tln.layer_norm_reference(a, g, bt, eps), x, dtype, "layer_norm")
+    assert _build.launch_counts["fused_layer_norm"] > before
+    assert tln._ln_body(dtype, c) == ("vectorized" if c in tln.VECTOR_WIDTHS[dtype]
+                                      else "scalar")
+    if dtype == torch.bfloat16:
+        large = _ln_inputs(rs, rows, c, cuda, *LARGE_MEAN)[0]
+        _check(lambda a: tln.fused_layer_norm(a, g, bt, eps),
+               lambda a: tln.layer_norm_reference(a, g, bt, eps), large, dtype, "layer_norm")
 
 
 @pytest.mark.cuda
@@ -670,18 +693,39 @@ def test_tiled_self_attention_through_autograd(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,c,eps", [(40, 768, 1e-12), (4000, 768, 1e-5), (7, 96, 1e-5)])
+@pytest.mark.parametrize("rows,c,eps", LN_SHAPES + [(4000, 768, 1e-5)])
 def test_fused_layer_norm_bwd_kernel(cuda, dtype, rows, c, eps):
+    """Each body's backward against the plain version (in bf16 also at the
+    ``LARGE_MEAN`` rows); dx, dgamma and dbeta of two runs bit-identical."""
     rs = np.random.RandomState(6)
-    x = _randn(rs, rows, c, scale=2.0).to(cuda)
+    x, g, _ = _ln_inputs(rs, rows, c, cuda)
     dy = _randn(rs, rows, c).to(cuda).to(torch.bfloat16).float()
-    g = _randn(rs, c, scale=0.1).to(cuda) + 1.0
     _check(lambda a: tln._ln_bwd(a, g, dy.to(a.dtype), eps),
            lambda a: tln.layer_norm_backward_reference(a, g, dy.to(a.dtype), eps),
            x, dtype, "layer_norm_bwd")
+    if dtype == torch.bfloat16:
+        large = _ln_inputs(rs, rows, c, cuda, *LARGE_MEAN)[0]
+        _check(lambda a: tln._ln_bwd(a, g, dy.to(a.dtype), eps),
+               lambda a: tln.layer_norm_backward_reference(a, g, dy.to(a.dtype), eps),
+               large, dtype, "layer_norm_bwd")
     # two runs give bit-identical parameter gradients (no atomics)
     first, second = tln._ln_bwd(x, g, dy, eps), tln._ln_bwd(x, g, dy, eps)
     assert all(torch.equal(u, v) for u, v in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_bwd_bit_identical_at_the_fusion_site(cuda, dtype):
+    """dgamma and dbeta at the train fusion site (18,560 rows of 768: 262
+    partial rows on the H100) are bit-identical over three runs, and so is
+    dx."""
+    rs = np.random.RandomState(7)
+    x, g, _ = _ln_inputs(rs, 18560, 768, cuda)
+    x = x.to(dtype)
+    dy = _randn(rs, 18560, 768).to(cuda).to(dtype)
+    runs = [tln._ln_bwd(x, g, dy, 1e-12) for _ in range(3)]
+    for other in runs[1:]:
+        assert all(torch.equal(u, v) for u, v in zip(runs[0], other))
 
 
 @pytest.mark.cuda
@@ -728,6 +772,8 @@ PLANTED = {
     # (rows 3, 7, 9, 10, 12)
     "window_e_rounded_before_normalising": PLANTED_TILED[
         "window forward e rounded before normalising"],
+    # the LayerNorm's vectorized body: the one-pass variance E[x^2] - mean^2
+    "ln_one_pass_variance": PLANTED_LN["one-pass variance"],
 }
 # faults of attend_row (common.cuh) and of the direct kernel's CUDA-core
 # call: bf16 runs attend_row in the window forwards (rows 3, 7, 9, 10, 12)
@@ -737,6 +783,9 @@ PLANTED = {
 ATTEND_ROW_FAULTS = {"probabilities_not_rounded", "q_scaled_in_fp32", "bias_dropped"}
 # faults of the packed kernel alone, which the direct kernel does not run
 PACKED_ONLY = {"packed_mask_slot"}
+# faults of the LayerNorm forward, checked at the train fusion site (18,560
+# rows of 768, bf16) at chip_smoke's LARGE_MEAN rows
+LN_ONLY = {"ln_one_pass_variance"}
 # faults of the tiled self-attention's forward, checked at the
 # multiple-choice fusion shape (8 rows of 350, 12 heads, p = 0.1) and, in the
 # lane layout of row 5, at the fusion shape
@@ -773,7 +822,8 @@ def test_bf16_check_catches_planted_faults(cuda, tmp_path, monkeypatch, fault):
     shifted windows of 196 tokens, 3 heads, at the direct case's head width;
     a packed-only fault there alone); for ROW12_FAULTS at lanebench's stage
     2 in small (hd 48 for the faults of attend_row, else 32; a row-12 fault
-    there alone). The readings are printed (run with -s)."""
+    there alone); a LayerNorm fault (LN_ONLY) at the train fusion site at
+    the large-mean rows alone. The readings are printed (run with -s)."""
     if fault in PLANTED:
         src = tmp_path / "csrc"
         shutil.copytree(_build.CSRC, src)
@@ -803,7 +853,7 @@ def test_bf16_check_catches_planted_faults(cuda, tmp_path, monkeypatch, fault):
             _build.stream_ptr(cuda)), "direct_window_attention")
         return out
 
-    cases = {} if fault in PACKED_ONLY | TILED_ONLY | ROW12_ONLY else {"direct": bf16_check(
+    cases = {} if fault in PACKED_ONLY | TILED_ONLY | ROW12_ONLY | LN_ONLY else {"direct": bf16_check(
         direct, lambda a: twa.direct_window_attention_plain(a, bias, mask, win, nh, scale),
         x3, _window_fwd_kind(hd, n))}
     if fault in LANE_FAULTS:
@@ -871,6 +921,11 @@ def test_bf16_check_catches_planted_faults(cuda, tmp_path, monkeypatch, fault):
             lambda a: twa.lane_attention(a, rbias, rmask, rh, rhd ** -0.5),
             lambda a: twa.lane_attention_reference(a, rbias, rmask, rh, rhd ** -0.5), xr,
             _window_fwd_kind(rhd, 196))
+    if fault in LN_ONLY:
+        x, g, bt = _ln_inputs(np.random.RandomState(8), 18560, 768, cuda, *LARGE_MEAN)
+        cases["layer_norm"] = bf16_check(lambda a: tln.fused_layer_norm(a, g, bt, 1e-12),
+                                         lambda a: tln.layer_norm_reference(a, g, bt, 1e-12), x,
+                                         "layer_norm")
     for case, (readings, failures) in cases.items():
         print(f"planted {fault} [{case}]: {readings} failures={failures}")
         assert failures, f"planted fault {fault} passes the bf16 limits at {case}"
@@ -924,6 +979,10 @@ PLANTED_BWD = {
     "window_ds_rounded_into_dbias": PLANTED_TILED["window backward ds rounded before dbias"],
     "lane_keep_dropped_in_rows": PLANTED_TILED[
         "lane backward keep mask dropped from dp in the rows kernel"],
+    # the LayerNorm backward: the m2 term dropped from dx, and the first
+    # partial row left out of dgamma and dbeta
+    "ln_m2_dropped": PLANTED_LN["m2 dropped from dx"],
+    "ln_partial_missing": PLANTED_LN["first partial left out of dgamma and dbeta"],
 }
 # the faults checked at the lane self-attention's shape too
 LANE_BWD_FAULTS = {"lane_ds_not_rounded", "lane_dq_scale_dropped", "tiled_dq_scale_dropped",
@@ -941,8 +1000,9 @@ def test_bf16_check_catches_planted_backward_faults(cuda, tmp_path, monkeypatch,
     stage 0 (the packed backward, where a fault of the packed kernel alone
     is planted); a lane fault at the fusion shape L = 232 with dropout; a
     fault of the tiled self-attention's tensor-core body at the
-    multiple-choice rows (N = 350) with 24 heads of 32, p = 0.1. The
-    readings are printed (run with -s)."""
+    multiple-choice rows (N = 350) with 24 heads of 32, p = 0.1; a LayerNorm
+    fault at the train fusion site (18,560 rows of 768), held to the fp32
+    and the bf16 limits. The readings are printed (run with -s)."""
     name = PLANTED_BWD[fault][0]
     src = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, src)
@@ -1013,6 +1073,14 @@ def test_bf16_check_catches_planted_backward_faults(cuda, tmp_path, monkeypatch,
             lambda a: twa.lane_self_attention_backward_plain(a, lmask, do.to(a.dtype), lh,
                                                              scale, 0.1, seed),
             x3, "attention_bwd")
+    if name == "layer_norm.cu":
+        rs = np.random.RandomState(9)
+        x, g, _ = _ln_inputs(rs, 18560, 768, cuda)
+        dy = _randn(rs, 18560, 768).to(cuda).to(torch.bfloat16)
+        cases["layer_norm"] = full_check(
+            lambda a: tln._ln_bwd(a, g, dy.to(a.dtype), 1e-12),
+            lambda a: tln.layer_norm_backward_reference(a, g, dy.to(a.dtype), 1e-12), x,
+            "layer_norm_bwd")
     assert cases
     for case, (readings, failures) in cases.items():
         print(f"planted {fault} [{case}]: {readings} failures={failures}")
