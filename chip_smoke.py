@@ -69,9 +69,10 @@ before the final line, if any phase failed:
    fp32); the window forwards' bf16 (rows 3, 7, 9, 10, 12) is held to the
    ``window_fwd_tc`` limits, row 5's to row 11's ``sa``, the window
    backwards' to ``window_bwd_tc``. The LayerNorm at
-   the 3D teacher's final norm and at the CLIP teacher's sites,
-   ``lane_self_attention`` at the CLIP teacher's shape (80 frames of 50
-   tokens, p = 0); ``lane_attention`` (row 12, the
+   the 3D teacher's final norm and at the CLIP and DPT teachers' sites (the
+   DPT's 15,760 x 1024 in bf16 and fp32), ``lane_self_attention`` at the
+   CLIP teacher's shape (80 frames of 50 tokens, p = 0) and the DPT's (80
+   frames of 197 tokens, 16 heads of 64, p = 0); ``lane_attention`` (row 12, the
    lanebench tool's kernel) at the tool's three stage shapes with its zero
    mask and a seeded shift-like mask, each beside row 7's time on the same
    inputs; and, marked ``off_path``, what the C % 128 rule costs at the
@@ -171,7 +172,26 @@ before the final line, if any phase failed:
    run (the student cut, both teachers at full depth), both sides fed one
    hog target computed on the CPU; ``hog_image`` itself held card against
    CPU apart (``HOG_FLIP_SHARE``, ``HOG_CELL_SCALE``).
-22. The last line is ``{"ok": true, "device": {...}}``.
+22-24. The pretrain train step at full width for the depth target (the
+   frozen DPT-Large on each frame: lane_self_attention in its 24 blocks,
+   the kernel LayerNorm at their 48 sites), vq on the fly (the frozen dVAE,
+   n_hid 256 and 8192 tokens, on each frame), pre-extracted vq (seeded
+   tokens in the batch) and optical_flow (the frozen RAFT-large, 12
+   updates, on each pair of adjacent frames), each as phase 6; launches
+   held to ``TRAIN_DEPTH_LAUNCHES`` (the pixel step's, 48 LayerNorm and 24
+   lane self-attention launches more), ``TRAIN_VQ_LAUNCHES`` and
+   ``TRAIN_FLOW_LAUNCHES`` (the pixel step's); the teachers get no
+   gradient and stay bit-unchanged; each step's kernel time under the
+   profiler, the device time of one no-grad teacher call, and for the flow
+   step the share of frame pairs the 50-pixel filter keeps, printed.
+25. Whole train step for ("depth", "optical_flow", "vq" on the fly): phase 7
+   for that run with 2 clips, the DPT cut to ``DPT_CUT`` (4 blocks, each
+   captured) so that the CPU side stays short, RAFT and the dVAE at full
+   size; the DPT's depth and RAFT's flow held card against CPU apart
+   (``TEACHER_FP32_SCALE``), so that the teachers are held even where the
+   loss reads them weakly, and the dVAE's tokens (``VQ_FLIP_SHARE``); both
+   steps fed the CPU's tokens.
+26. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -186,6 +206,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -193,6 +214,7 @@ import torch.nn.functional as F
 
 from empirical_mvm_torch.core.config import SwinConfig, load_run_config
 from empirical_mvm_torch.data.masking import draw_masks
+from empirical_mvm_torch.models import pretrain as pretrain_module
 from empirical_mvm_torch.models.encoders2d import swin2d_config
 from empirical_mvm_torch.models.pretrain import VioletPretrain, draw_negatives
 from empirical_mvm_torch.models.tasks import VioletQAMC, VioletRetrieval
@@ -204,6 +226,7 @@ from empirical_mvm_torch.ops import window_attention as wa
 from empirical_mvm_torch.ops.hog import hog_bins, hog_image
 from empirical_mvm_torch.ops.preprocess import maybe_normalize
 from empirical_mvm_torch.teachers.clip import renormalize_imagenet_to_clip
+from empirical_mvm_torch.teachers.dvae import map_pixels, unnormalize_imagenet
 from empirical_mvm_torch.tools import lanebench
 from empirical_mvm_torch.train.evaluators import qamc_accuracy, retrieval_two_stage_eval
 from empirical_mvm_torch.train.optimizer import build_optimizer
@@ -252,6 +275,11 @@ TEACHER_LN = tuple((f"teacher stage{s} norms", 80 * (56 >> s) ** 2, 128 << s, 1e
 # frames of 50 tokens (pre_ln, then ln1 and ln2 in each of 12 layers)
 TEACHER3D_LN = TEACHER_LN + (("teacher final norm", 80 * 49, 1024, 1e-5, torch.bfloat16),)
 CLIP_LN = (("clip pre_ln/ln1/ln2", 80 * 50, 768, 1e-5, torch.bfloat16),)
+# the depth step's DPT-Large (phase 22) normalizes 80 frames of 197 tokens
+# (the class token and 14 x 14 patches) of width 1024, eps 1e-6, at norm1
+# and norm2 of its 24 blocks; its fp32 run (phase 25) at the same shape
+DPT_LN = (("dpt norm1/norm2", 80 * 197, 1024, 1e-6, torch.bfloat16),
+          ("dpt norm1/norm2 fp32", 80 * 197, 1024, 1e-6, torch.float32))
 # Each LayerNorm site is also held, in bf16, at rows of mean 50 and std 1
 # (LARGE_MEAN), where a one-pass variance, E[x^2] - mean^2, cancels about
 # 11 bits and fails the bf16 limits (tests/test_torch_layernorm_body.py). In
@@ -297,8 +325,20 @@ TRAIN_CLIP_LAUNCHES = {**TRAIN_LAUNCHES, "fused_layer_norm": 27 + 1 + 2 * 12,
                        "lane_self_attention": 12}
 # the hog step (phase 20): HOG is torch ops; the kernels are the pixel step's
 TRAIN_HOG_LAUNCHES = dict(TRAIN_LAUNCHES)
-# MVM targets whose model holds a frozen teacher
-TEACHER_TARGETS = {"2d_feature", "3d_feature", "2d_clip"}
+# the depth step (phase 22) adds the frozen DPT-Large on 80 frames of 197
+# tokens: lane_self_attention (p = 0, lane_sa_attention_fits) in each of its
+# 24 blocks and the kernel LayerNorm at norm1 and norm2 of each; its
+# reassemble and fusion convolutions are cuDNN's
+TRAIN_DEPTH_LAUNCHES = {**TRAIN_LAUNCHES, "fused_layer_norm": 27 + 2 * 24,
+                        "lane_self_attention": 24}
+# the vq (phase 23) and optical_flow (phase 24) steps: the dVAE and RAFT
+# teachers are convolutions, products and gathers; the kernels are the
+# pixel step's
+TRAIN_VQ_LAUNCHES = dict(TRAIN_LAUNCHES)
+TRAIN_FLOW_LAUNCHES = dict(TRAIN_LAUNCHES)
+# MVM targets whose model holds a frozen teacher (vq only on the fly)
+TEACHER_TARGETS = {"2d_feature", "3d_feature", "2d_clip", "depth", "optical_flow"}
+TEACHERS = ("feature_model.", "clip_model.", "dpt.", "raft.", "dvae.")
 EVAL_KERNELS = ("fused_layer_norm", "direct_window_attention", "lane_self_attention")
 # The multiple-choice fine-tune step of configs/msrvtt-mc.json (phase 14):
 # batch 8 questions of 5 options over 5 frames of 224^2, so the fusion runs
@@ -491,6 +531,21 @@ ZERO_GRAD_ATOL = 1e-6
 # atan2 to the last bit, 64-term fp32 sums in another order).
 HOG_FLIP_SHARE = 1e-4
 HOG_CELL_SCALE = 1e-5
+# The DPT, RAFT and dVAE teachers, card fp32 against CPU fp32 on the same
+# weights and clips (phase 25). Depth and flow: within TEACHER_FP32_SCALE of
+# the output's largest value: the convolutions' fp32 sums in cuDNN's order
+# and oneDNN's (TF32 off), the kernels against the plain versions (within
+# 1e-4 and 1e-5, phase 3), through 4 ViT-L blocks and the fusion stack, or
+# through RAFT's 12 updates, whose lookups feed each update's error back
+# into the next. The dVAE tokens: at most VQ_FLIP_SHARE of the cells may
+# take another token, where the top two of a cell's 8192 logits lie within
+# the two sums' fp32 difference (about 1e-6 of the logits' scale); the
+# step is fed the CPU's tokens on both sides, as the hog step its target.
+TEACHER_FP32_SCALE = 1e-4
+VQ_FLIP_SHARE = 1e-3
+# the depth step's whole-step check (phase 25) runs the DPT cut to 4 blocks,
+# each captured, so that the CPU side stays short
+DPT_CUT = dict(vit_depth=4, hooks=(0, 1, 2, 3))
 
 # H100 SXM peaks (NVIDIA data sheet; at the full 700 W power limit)
 HBM_BYTES_S = 3.35e12
@@ -1308,12 +1363,14 @@ def fused_cases(qkv, do, bias, mk, nw, nh, label):
     return [fwd, bwd]
 
 
-def clip_lane_case(dev, gen):
-    """Row 5 at the CLIP teacher's shape in the 2d_clip step: 80 frames of
-    L = 50 tokens (the class token and 7 x 7 patches), ViT-B/32's 12 heads
-    of 64, p = 0, the zero mask ``CLIPAttention`` passes (a (1, 1, L) row
-    expanded). SDPA without a mask (the same function) is the yardstick."""
-    p, l, d, nh = TRAIN_B * TRAIN_T, 50, 768, 12
+def teacher_lane_case(dev, gen, teacher, l, d, nh):
+    """Row 5 at a frozen ViT teacher's shape: 80 frames of L tokens, p = 0,
+    the zero mask ``vit_self_attention`` passes (a (1, 1, L) row expanded):
+    the 2d_clip step's CLIP (L = 50: the class token and 7 x 7 patches;
+    ViT-B/32's 12 heads of 64) and the depth step's DPT-Large (L = 197: 14 x
+    14 patches; 16 heads of 64). SDPA without a mask (the same function) is
+    the yardstick."""
+    p = TRAIN_B * TRAIN_T
     x3 = torch.randn(p, l, 3 * d, device=dev, generator=gen) * 0.5
     mask = torch.zeros(1, 1, l, device=dev).expand(p, l, l)
     scale = (d // nh) ** -0.5
@@ -1330,7 +1387,7 @@ def clip_lane_case(dev, gen):
 
     ops = 4 * p * nh * l * l * (d // nh)
     nbytes = x3.numel() * 2 + p * l * d * 2 + _span_bytes(mask)
-    rec = measure("lane_self_attention", f"2d_clip teacher x3=({p},{l},{3 * d}) nH={nh}", x3,
+    rec = measure("lane_self_attention", f"{teacher} teacher x3=({p},{l},{3 * d}) nH={nh}", x3,
                   kernel, plain, library, torch.bfloat16, _lane_fwd_kind(d // nh), ops,
                   "bf16_tensor", nbytes)
     rec["body"] = _bodies(wa._sa_body, d // nh)
@@ -1913,6 +1970,15 @@ def synthetic_pretrain_batch(b, cfg, seed, device):
             "mask": torch.from_numpy((txt > 0).astype(np.int32)).to(device)}
 
 
+def synthetic_vq_tokens(b, cfg, size_vq, device):
+    """Seeded pre-extracted vq tokens (B, T*(1+h*w)), each frame's CLS slot
+    included (the masking gives it no answer)."""
+    hw = cfg.size_img // cfg.size_patch
+    rs = np.random.RandomState(8)
+    tokens = rs.randint(0, size_vq, (b, cfg.size_frame * (1 + hw * hw)))
+    return torch.from_numpy(tokens.astype(np.int64)).to(device)
+
+
 def with_mvm_target(run, target):
     """``run`` with ``train.mvm_target`` replaced, as bench.py builds the
     2d_feature model from configs/pretrain.json."""
@@ -1942,7 +2008,14 @@ def backbone_config(cfg):
 
 
 def _teacher(name):
-    return name.startswith(("feature_model.", "clip_model."))
+    return name.startswith(TEACHERS)
+
+
+def with_vq_on_the_fly(run):
+    """``run`` with the vq target and ``model.vq_on_the_fly``: the dVAE
+    teacher extracts the tokens in the step."""
+    run = with_mvm_target(run, ("vq",))
+    return dataclasses.replace(run, model=dataclasses.replace(run.model, vq_on_the_fly=True))
 
 
 def _event_ms(fn) -> float:
@@ -1957,30 +2030,51 @@ def _event_ms(fn) -> float:
 
 def target_times(model, img):
     """Device ms of one no-grad call of each MVM teacher of ``model`` on the
-    normalized clips ``img`` (``feature_model`` on the clips, ``clip_model``
-    on their frames, CLIP-normalized) and of ``hog_image``, as the step
-    makes its targets."""
+    normalized clips ``img`` (``feature_model`` on the clips; ``clip_model``
+    on their frames, CLIP-normalized; ``dpt`` on the frames; ``raft`` on the
+    adjacent frame pairs; the dVAE's ``extract_vq_tokens`` on the frames)
+    and of ``hog_image``, as the step makes its targets; with RAFT, also the
+    share of the pairs whose flow stays under the loss's 50 pixels."""
     b, t = img.shape[:2]
-    calls = {}
+    frames = img.reshape(b * t, *img.shape[2:])
+    calls, extra = {}, {}
     if hasattr(model, "feature_model"):
         calls["feature_model"] = lambda: model.feature_model(img)
     if hasattr(model, "clip_model"):
-        frames = renormalize_imagenet_to_clip(img.reshape(b * t, *img.shape[2:]))
-        calls["clip_model"] = lambda: model.clip_model.features(frames)
+        clip_frames = renormalize_imagenet_to_clip(frames)
+        calls["clip_model"] = lambda: model.clip_model.features(clip_frames)
+    if hasattr(model, "dpt"):
+        calls["dpt"] = lambda: model.dpt(frames)
+    if hasattr(model, "raft"):
+        pairs = (img[:, :-1].reshape(-1, *img.shape[2:]), img[:, 1:].reshape(-1, *img.shape[2:]))
+        calls["raft"] = lambda: model.raft(*pairs)
+    if hasattr(model, "dvae"):
+        calls["dvae"] = lambda: model.dvae.extract_vq_tokens(frames)
     if "hog" in model.mvm_target:
         calls["hog_image"] = lambda: hog_image(img)
     with torch.no_grad():
-        return {name: _event_ms(fn) for name, fn in calls.items()}
+        times = {name: _event_ms(fn) for name, fn in calls.items()}
+        if hasattr(model, "raft"):
+            flow = model.raft(*pairs)
+            extra["flow_pairs_kept_share"] = (flow.abs().amax(dim=(1, 2, 3)) < 50.0
+                                              ).float().mean().item()
+            extra["flow_max_abs"] = flow.abs().max().item()
+        if hasattr(model, "dvae"):
+            extra["vq_distinct_tokens"] = len(model.dvae.extract_vq_tokens(frames).unique())
+    return times, extra
 
 
 VTM_OUT_BIAS = "fc.3.bias"
 
 
 def train_phase(dev, run, want_launches):
-    """Phases 6, 8, 10, 12 and 18-20: the pretrain train step at full width
-    for the run's backbone and MVM target. Returns the launch counts of the
-    first timed step, which must equal ``want_launches``. After the timed
-    steps, the MVM teachers' and HOG's device time of one no-grad call each
+    """Phases 6, 8, 10, 12, 18-20 and 22-24: the pretrain train step at full
+    width for the run's backbone and MVM target (pre-extracted vq: seeded
+    tokens in the batch; the dVAE's logits centred on the first clip,
+    ``center_dvae_logits``). Returns the launch counts of the first timed step,
+    which must equal ``want_launches``. After the timed steps, the device
+    time of one more step's kernels under the profiler, and the MVM
+    teachers' and HOG's device time of one no-grad call each
     (``target_times``)."""
     cfg = run.model
     b = run.train.size_batch
@@ -1990,6 +2084,11 @@ def train_phase(dev, run, want_launches):
     state = create_train_state(model, opt)
     step = make_pretrain_train_step(model, opt)
     batch = synthetic_pretrain_batch(b, cfg, seed=3, device=dev)
+    target = run.train.mvm_target
+    if "vq" in target and not cfg.vq_on_the_fly:
+        batch["vq"] = synthetic_vq_tokens(b, cfg, model.fc_mvm[3].out_features, dev)
+    if hasattr(model, "dvae"):
+        center_dvae_logits((model,), maybe_normalize(batch["img"][0]))
     before = {n: p.detach().clone() for n, p in state.params.items()}
     t0 = time.perf_counter()
     state, ls = step(state, batch, TRAIN_SEED)             # warm-up: first launches, cuBLAS
@@ -2010,21 +2109,22 @@ def train_phase(dev, run, want_launches):
         losses.append({k: v.item() for k, v in ls.items()})
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     clips_s = [b / t for t in secs]
-    target = run.train.mvm_target
-    targets_ms = target_times(model, maybe_normalize(batch["img"]))
+    kernel_ms = _kernel_ms(_stepper(step, state, batch))
+    targets_ms, targets_info = target_times(model, maybe_normalize(batch["img"]))
     backbone = f"{cfg.vis_backbone}-{cfg.vis_backbone_size}"
     print(f"train-step {backbone} {target} launch counts: {launches}", flush=True)
     print(json.dumps({
         "slice": "pretrain_train_step", "config": PRETRAIN_CONFIG.name,
         "vis_backbone": cfg.vis_backbone, "vis_backbone_size": cfg.vis_backbone_size,
-        "mvm_target": list(target), "dtype": "bfloat16",
+        "mvm_target": list(target), "vq_on_the_fly": cfg.vq_on_the_fly, "dtype": "bfloat16",
         "batch": b, "frames": cfg.size_frame, "size_img": cfg.size_img,
         "size_txt": cfg.size_txt, "steps": TRAIN_STEPS, "warmup_step_s": warm_s,
         "clips_per_s": float(np.median(clips_s)), "clips_per_s_range": [min(clips_s),
                                                                           max(clips_s)],
         "step_ms_median": float(np.median(secs)) * 1e3, "step_s_each": secs,
         "peak_mem_gib": peak, "losses_each_step": losses,
-        "target_ms_one_call": targets_ms}), flush=True)
+        "kernel_ms_one_step": kernel_ms, "target_ms_one_call": targets_ms,
+        **targets_info}), flush=True)
     require(launches == want_launches,
             f"launches of one {backbone} {target} train step {launches}, "
             f"not {want_launches}")
@@ -2034,7 +2134,8 @@ def train_phase(dev, run, want_launches):
     # no gradient: the frame-order embedding, which the pretrain forward does
     # not use, and the frozen teachers, which must also be bit-unchanged
     teacher = {n for n in state.params if _teacher(n)}
-    require(bool(teacher) == bool(TEACHER_TARGETS & set(target)),
+    require(bool(teacher) == bool(TEACHER_TARGETS & set(target)
+                                  or ("vq" in target and cfg.vq_on_the_fly)),
             f"teacher parameters: {len(teacher)}")
     no_grad = {n for n, p in state.params.items() if p.grad is None}
     odr = {n for n in state.params if n.endswith(".emb_odr")}
@@ -2053,16 +2154,20 @@ def train_phase(dev, run, want_launches):
     require(zero <= {VTM_OUT_BIAS}, f"all-zero last gradients: {sorted(zero - {VTM_OUT_BIAS})}")
     unchanged = [n for n, p in state.params.items()
                  if n not in no_grad | zero and torch.equal(before[n], p.detach())]
-    require(not unchanged, f"parameters unchanged after {TRAIN_STEPS + 1} steps: {unchanged}")
+    require(not unchanged, f"parameters unchanged after {TRAIN_STEPS + 2} steps: {unchanged}")
     return launches
 
 
-def whole_step_phase(dev, run):
-    """Phases 7, 9, 11, 13 and 21: one train step of a depth-cut copy (the
-    student; the teachers keep their full depth), card fp32 (kernels)
-    against CPU fp32 (plain versions). With the hog target, both sides are
-    fed the same ``hog`` target, computed once on the CPU, and
-    ``hog_image`` is held card against CPU apart (``hog_check``)."""
+def whole_step_phase(dev, run, b=4):
+    """Phases 7, 9, 11, 13, 21 and 25: one train step of a depth-cut copy
+    (the student; the teachers keep their full depth but for the DPT, cut to
+    ``DPT_CUT``), ``b`` clips, card fp32 (kernels) against CPU fp32 (plain
+    versions). With the hog target, both sides are fed the same ``hog``
+    target, computed once on the CPU, and ``hog_image`` is held card against
+    CPU apart (``hog_check``); with the DPT, RAFT or dVAE teachers, those
+    are held card against CPU apart (``teachers_card_vs_cpu``; the dVAE's
+    logits centred first, ``center_dvae_logits``) and both sides are fed
+    the CPU's dVAE tokens."""
     cfg = run.model
     cut = dataclasses.replace(
         cfg, swin_custom=dataclasses.replace(backbone_config(cfg), depths=(2, 2, 2, 2),
@@ -2071,7 +2176,6 @@ def whole_step_phase(dev, run):
                                    attention_probs_dropout_prob=0.0),
         text=dataclasses.replace(cfg.text, hidden_dropout_prob=0.0))
     run_cut = dataclasses.replace(run, model=cut)
-    b = 4
     batch = synthetic_pretrain_batch(b, cut, seed=4, device="cpu")
     gen = torch.Generator().manual_seed(5)
     ps = cut.size_patch
@@ -2080,13 +2184,23 @@ def whole_step_phase(dev, run):
                        special_token_ids=VioletPretrain.special_token_ids,
                        mask_token_id=VioletPretrain.mask_token_id, p_mask=run.train.p_mask,
                        mask_types=run.train.pretrain_masks)
-    batch.update(draws=draws, neg_idx=draw_negatives(gen, b, 3))
+    batch.update(draws=draws,
+                 neg_idx=draw_negatives(gen, b, min(b, VioletPretrain.num_options) - 1))
     if "hog" in run.train.mvm_target:
         hog_check(dev, maybe_normalize(batch["img"]))
         batch["hog"] = hog_image(maybe_normalize(batch["img"]))
-    card = VioletPretrain.from_run_config(run_cut, dtype=torch.float32, device=dev, seed=1)
-    cpu = VioletPretrain.from_run_config(run_cut, dtype=torch.float32, device="cpu", seed=1)
+    with mock.patch.object(pretrain_module, "DPTDepth",
+                           functools.partial(pretrain_module.DPTDepth, **DPT_CUT)):
+        card = VioletPretrain.from_run_config(run_cut, dtype=torch.float32, device=dev, seed=1)
+        cpu = VioletPretrain.from_run_config(run_cut, dtype=torch.float32, device="cpu",
+                                             seed=1)
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    if hasattr(cpu, "dvae"):
+        center_dvae_logits((card, cpu), maybe_normalize(batch["img"][0]))
+    if any(hasattr(cpu, name) for name in ("dpt", "raft", "dvae")):
+        tokens = teachers_card_vs_cpu(dev, card, cpu, maybe_normalize(batch["img"]))
+        if tokens is not None:
+            batch["vq"] = tokens
     results, secs = {}, {}
     for name, model, device in (("card", card, dev), ("cpu", cpu, torch.device("cpu"))):
         for head in ("fc", "fc_mvm", "fc_mvm_clip"):  # the score heads' dropout, 0.1
@@ -2105,7 +2219,63 @@ def whole_step_phase(dev, run):
     hold_card_against_cpu(results, secs, {
         "vis_backbone": cut.vis_backbone, "vis_backbone_size": cut.vis_backbone_size,
         "mvm_target": list(run.train.mvm_target), "swin_depths": list(cut.swin.depths),
-        "fusion_layers": cut.fusion.num_hidden_layers, "batch": b})
+        "fusion_layers": cut.fusion.num_hidden_layers, "batch": b,
+        **({"dpt_depth": len(cpu.dpt.pretrained.model.blocks)} if hasattr(cpu, "dpt") else {})})
+
+
+def center_dvae_logits(models, frames):
+    """Set the dVAE output bias of each of ``models`` (the CPU one last) to
+    cancel the mean feature of ``frames`` (normalized, on the CPU). Seeded
+    random weights give the encoder's ReLU features a large common mean,
+    along which one of the 8192 tokens outscores the rest in every cell; so
+    centred, the cells' differences pick their tokens, and the card against
+    CPU check of the tokens sees many."""
+    dvae = models[-1].dvae
+    with torch.no_grad():
+        x = map_pixels(unnormalize_imagenet(frames.float()).clamp(0.0, 1.0))
+        mean = dvae.features(x).float().mean(dim=(0, 1, 2))
+        bias = -(dvae.blocks.output.conv.w[:, :, 0, 0] @ mean)
+        for m in models:
+            m.dvae.blocks.output.conv.b.copy_(bias)
+
+
+def teachers_card_vs_cpu(dev, card, cpu, img):
+    """The DPT (first clip's frames), RAFT (first clip's pairs) and dVAE
+    (every frame) of the card model against the CPU model's, fp32, on the
+    normalized clips ``img`` (on the CPU): depth and flow within
+    ``TEACHER_FP32_SCALE`` of their largest value, the dVAE's tokens
+    differing in at most ``VQ_FLIP_SHARE`` of the cells; the readings
+    printed. Returns the CPU's tokens (B, T, H/8, W/8), or None without the
+    dVAE."""
+    b, t = img.shape[:2]
+    frames = img.reshape(b * t, *img.shape[2:])
+    readings, fails, tokens = {}, [], None
+    with torch.no_grad():
+        outputs = {}
+        if hasattr(cpu, "dpt"):
+            outputs["dpt"] = (card.dpt(frames[:t].to(dev)).cpu(), cpu.dpt(frames[:t]))
+        if hasattr(cpu, "raft"):
+            pair = (img[0, :-1], img[0, 1:])
+            outputs["raft"] = (card.raft(*(x.to(dev) for x in pair)).cpu(), cpu.raft(*pair))
+        for name, (got, want) in outputs.items():
+            diff, scale = (got - want).abs().max().item(), want.abs().max().item()
+            readings[name] = {"max_abs_diff": diff, "max_abs": scale,
+                              "limit": TEACHER_FP32_SCALE * scale}
+            if not diff <= TEACHER_FP32_SCALE * scale:
+                fails.append(f"{name}: card and CPU {diff:.3g} apart, above "
+                             f"{TEACHER_FP32_SCALE} of {scale:.3g}")
+        if hasattr(cpu, "dvae"):
+            tokens = cpu.dvae.extract_vq_tokens(frames)
+            share = (card.dvae.extract_vq_tokens(frames.to(dev)).cpu() != tokens
+                     ).float().mean().item()
+            readings["dvae"] = {"cells": tokens.numel(), "share_other_token": share,
+                                "distinct_tokens": len(tokens.unique()),
+                                "limit": VQ_FLIP_SHARE}
+            if share > VQ_FLIP_SHARE:
+                fails.append(f"dvae: {share} of the cells take another token on the card")
+    print(json.dumps({"teachers_card_vs_cpu": readings}), flush=True)
+    require(not fails, "teachers, card against CPU:\n" + "\n".join(fails))
+    return None if tokens is None else tokens.reshape(b, t, *tokens.shape[1:])
 
 
 def hog_check(dev, img):
@@ -2437,7 +2607,7 @@ def _redesigned_fwd_calls(dev, gen):
     train step's stages (``_direct_bwd_inputs``), the eval's (32 clips of 5
     frames, N = 245) and the violet step's stages 2 and 3; the lane
     self-attention (row 5) at the eval's fusion (p = 0), the train step's (p
-    = 0.1) and the CLIP teacher's shape; the packed forward (row 9) at
+    = 0.1) and the CLIP and DPT teachers' shapes; the packed forward (row 9) at
     ``_packed_shapes``; the fused forward (row 10) at the violet stage-0
     shifted shape; the lane window forward (row 7) at the 2D swin's shapes
     (``_window_bwd_inputs``); ``lane_attention`` (row 12) at the lanebench
@@ -2456,13 +2626,15 @@ def _redesigned_fwd_calls(dev, gen):
                functools.partial(_with_args, wa.direct_window_attention_plain, args),
                _window_fwd_kind(hd, n))
     seed = torch.tensor([20261016, 7], dtype=torch.int32, device=dev)
-    for label, b, l, text, p_drop in (("eval", CHUNK, 275, 25, 0.0),
-                                      ("train", 4 * TRAIN_B, TRAIN_L, 32, P_ATTN),
-                                      ("2d_clip teacher", TRAIN_B * TRAIN_T, 50, 0, 0.0)):
-        x3 = torch.randn(b, l, 3 * 768, device=dev, generator=gen) * 0.5
+    for label, b, l, d, text, p_drop in (("eval", CHUNK, 275, 768, 25, 0.0),
+                                         ("train", 4 * TRAIN_B, TRAIN_L, 768, 32, P_ATTN),
+                                         ("2d_clip teacher", TRAIN_B * TRAIN_T, 50, 768, 0, 0.0),
+                                         ("depth teacher", TRAIN_B * TRAIN_T, 197, 1024, 0,
+                                          0.0)):
+        x3 = torch.randn(b, l, 3 * d, device=dev, generator=gen) * 0.5
         mask = (_padding_mask(dev, gen, b, l, text, 3) if text
                 else torch.zeros(1, 1, l, device=dev).expand(b, l, l))
-        args = (mask, 12, 0.125, p_drop, seed if p_drop else None)
+        args = (mask, d // 64, 0.125, p_drop, seed if p_drop else None)
         yield ("lane_self_attention" if p_drop == 0 else "lane_self_attention_dropout",
                f"{label} p_drop={p_drop}", x3, functools.partial(_with_args, wa._lane_fwd, args),
                functools.partial(_with_args, wa.lane_self_attention_plain, args),
@@ -2536,10 +2708,10 @@ def _tiled_calls(dev, gen):
 def _ln_sites():
     """(kernel, label, rows, C, eps, dtype) of every LayerNorm site of the
     paths: the forward at ``EVAL_LN``, ``TRAIN_LN``, ``TEACHER3D_LN`` (the
-    2D teacher's sites and the 3D teacher's final norm) and ``CLIP_LN``, the
-    backward at ``TRAIN_LN``."""
+    2D teacher's sites and the 3D teacher's final norm), ``CLIP_LN`` and
+    ``DPT_LN``, the backward at ``TRAIN_LN``."""
     for path, sites in (("eval", EVAL_LN), ("train", TRAIN_LN), ("teacher", TEACHER3D_LN),
-                        ("clip teacher", CLIP_LN)):
+                        ("clip teacher", CLIP_LN), ("dpt teacher", DPT_LN)):
         for label, rows, c, eps, work in sites:
             yield "fused_layer_norm", f"{path} {label} rows={rows} C={c}", rows, c, eps, work
     for label, rows, c, eps, work in TRAIN_LN:
@@ -2771,7 +2943,8 @@ def kernels_line(recs, runs):
     first run in ``runs`` (name -> launch counts of one step or call, in
     order: the 2d_feature step, the pixel step, the swin2d step, the violet
     step, the multiple-choice step, one eval, one multiple-choice eval, the
-    3d_feature, 2d_clip and hog steps, the lanebench tool's run) that
+    3d_feature, 2d_clip, hog, depth, vq (on the fly, pre-extracted) and
+    optical_flow steps, the lanebench tool's run) that
     launched the kernel, each run's beside it as ``launches_<name>``."""
     line = []
     for name, meta in KERNELS.items():
@@ -2853,7 +3026,10 @@ def main() -> None:
             + direct_bwd_cases(dev, gen, "mc ", b=QAMC_B, t=5)
             + tiled_sa_cases(dev, gen)
             + ln_cases(dev, gen, TEACHER3D_LN[len(TEACHER_LN):], "train 3d teacher")
-            + clip_lane_case(dev, gen) + ln_cases(dev, gen, CLIP_LN, "train clip teacher")
+            + teacher_lane_case(dev, gen, "2d_clip", 50, 768, 12)
+            + ln_cases(dev, gen, CLIP_LN, "train clip teacher")
+            + teacher_lane_case(dev, gen, "depth", 197, 1024, 16)
+            + ln_cases(dev, gen, DPT_LN, "train dpt teacher")
             + lane_attention_cases(dev, gen) + c128_cases(dev, gen))
     failures = [f for r in recs for f in r.pop("failures")]
     print(json.dumps({"kernel_shapes": recs}), flush=True)
@@ -3007,6 +3183,24 @@ def main() -> None:
     # 21. the whole train step for the three targets together, card fp32
     # against CPU fp32 (the teachers at full depth, one hog target for both)
     whole_step_phase(dev, with_mvm_target(run, ("hog", "3d_feature", "2d_clip")))
+    torch.cuda.empty_cache()
+
+    # 22-24. the pretrain train step at full width for the depth (the frozen
+    # DPT-Large), vq (the dVAE on the fly, then pre-extracted tokens) and
+    # optical_flow (RAFT-large, 12 updates) MVM targets
+    for name, r, want in (("depth", with_mvm_target(run, ("depth",)), TRAIN_DEPTH_LAUNCHES),
+                          ("vq_on_the_fly", with_vq_on_the_fly(run), TRAIN_VQ_LAUNCHES),
+                          ("vq", with_mvm_target(run, ("vq",)), TRAIN_VQ_LAUNCHES),
+                          ("optical_flow", with_mvm_target(run, ("optical_flow",)),
+                           TRAIN_FLOW_LAUNCHES)):
+        step_launches[f"train_step_{name}"] = train_phase(dev, r, want)
+        torch.cuda.empty_cache()
+
+    # 25. the whole train step for depth, optical_flow and vq on the fly
+    # together, card fp32 against CPU fp32 (the DPT cut to DPT_CUT; the
+    # teachers held card against CPU apart, the CPU's dVAE tokens for both)
+    run_teachers = with_vq_on_the_fly(run)
+    whole_step_phase(dev, with_mvm_target(run_teachers, ("depth", "optical_flow", "vq")), b=2)
     torch.cuda.empty_cache()
 
     require(not failures, "kernel checks failed:\n" + "\n".join(failures))

@@ -35,6 +35,7 @@ class MaskedBatch(NamedTuple):
     ans_mtm: torch.Tensor   # (B, X) original token at masked positions, else -1
     mvm_mask: torch.Tensor  # (B, T, H, W, 1) pixel-space cover in {0, 1}
     cov: torch.Tensor       # (B, T, h, w) patch-space cover in {0, 1}
+    ans_mvm: torch.Tensor   # (B, T*(1+h*w)) int32: the vq token where covered, else -1
 
 
 def _uniform(gen, shape, device):
@@ -111,16 +112,24 @@ def draw_masks(gen: torch.Generator, txt: torch.Tensor, t: int, h: int, w: int, 
     return MaskDraws(choice, torch.stack(covs), txt_sel)
 
 
-def apply_masking(draws: MaskDraws, img: torch.Tensor, txt: torch.Tensor, *,
-                  mask_token_id: int, patch_size: int = 32) -> MaskedBatch:
+def apply_masking(draws: MaskDraws, img: torch.Tensor, txt: torch.Tensor,
+                  vq: torch.Tensor | None = None, *, mask_token_id: int,
+                  patch_size: int = 32) -> MaskedBatch:
     """The deterministic part of the JAX ``apply_masking``: pick each sample's
-    cover, mask text and pixels."""
+    cover, mask text and pixels. ``vq`` (B, T*(1+h*w)), pre-extracted tokens
+    in the fused video-token order (each frame's CLS slot first), gives the
+    MVM-vq answers: the token where the patch is covered, -1 elsewhere and at
+    every CLS slot (ref: main_pretrain.py:357-361)."""
     b = txt.shape[0]
     cov = draws.covs[draws.choice, torch.arange(b, device=txt.device)]   # (B, T, h, w)
+    t = cov.shape[1]
+    cov_full = torch.cat([cov.new_zeros(b, t, 1), cov.reshape(b, t, -1)], dim=2).reshape(b, -1)
+    ans_mvm = (torch.full(cov_full.shape, -1, dtype=torch.int32, device=cov.device)
+               if vq is None else torch.where(cov_full > 0, vq, -1).to(torch.int32))
     sel = draws.txt_sel
     ans_mtm = torch.where(sel, txt, -1).to(torch.int32)
     new_txt = torch.where(sel, mask_token_id, txt).to(txt.dtype)
     pix = cov.repeat_interleave(patch_size, 2).repeat_interleave(patch_size, 3)
     pix = pix[..., None].to(img.dtype)                                  # (B, T, H, W, 1)
     return MaskedBatch(img=img * (1.0 - pix), txt=new_txt, ans_mtm=ans_mtm,
-                       mvm_mask=pix, cov=cov)
+                       mvm_mask=pix, cov=cov, ans_mvm=ans_mvm)

@@ -25,6 +25,26 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), b)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` on channel-last input (B, H, W, C) -> (B, H', W', O),
+    fp32 parameters cast to a compute dtype at use with the input (flax
+    ``nn.Conv(dtype=...)``). The permuted views are channels-last NCHW
+    tensors, which cuDNN convolves as they lie. ``padding`` is symmetric, as
+    torch pads."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=1,
+                 padding=0, bias: bool = True, compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), b, self.stride,
+                     self.padding)
+        return y.permute(0, 2, 3, 1)
+
+
 def dropout(x: torch.Tensor, p: float,
             generator: torch.Generator | None) -> torch.Tensor:
     """Inverted dropout drawn from ``generator`` (flax ``nn.Dropout``: keep

@@ -9,9 +9,12 @@ same name loads. Dense kernels (in, out) become Linear weights (out, in); the pa
 kernel (kd, kh, kw, C, E) becomes the Conv3d weight (E, C, kd, kh, kw);
 LayerNorm ``scale`` becomes ``weight``; embeddings' ``embedding`` becomes
 ``weight``. A pretrain tree's frozen ``feature_model`` teacher is carried
-too, and a ``clip_model`` teacher under HF ``CLIPVisionModel`` names
+too, a ``clip_model`` teacher under HF ``CLIPVisionModel`` names
 (:func:`clip_state_dict`, the inverse of the JAX package's
-``teachers/clip.clip_params_from_torch``).
+``teachers/clip.clip_params_from_torch``), and the DPT, dVAE and RAFT
+teachers under MiDaS, DALL-E and torchvision names (the inverses of the JAX
+``dpt_params_from_torch``, ``dvae_params_from_torch`` and
+``raft_params_from_torch``).
 :func:`swin2d_state_dict_from_hf` loads a HF ``SwinModel`` checkpoint
 into the same names: the 2D teacher's real weights (``prefix=
 "feature_model."``) or the trained 2D backbone's (``prefix="enc_img.swin."``). This module imports
@@ -158,6 +161,113 @@ def clip_state_dict(tree: Tree, prefix: str = "") -> dict:
     return sd
 
 
+def _conv(sd: dict, torch_prefix: str, tree: Tree, w: str = "weight", b: str = "bias") -> None:
+    """A flax conv kernel (kh, kw, in, out) as a torch (out, in, kh, kw)
+    weight, and its bias where the tree has one."""
+    _put(sd, f"{torch_prefix}.{w}", np.asarray(tree["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in tree:
+        _put(sd, f"{torch_prefix}.{b}", tree["bias"])
+
+
+def dpt_state_dict(tree: Tree, prefix: str = "") -> dict:
+    """Inverse of ``dpt_params_from_torch``: a ``DPTDepth`` tree to MiDaS /
+    timm names. The reassemble upsamplers' (kh, kw, in, out) kernels become
+    torch ``ConvTranspose2d`` (in, out, kh, kw) weights as the JAX importer
+    reads them; refinenet4 has no ``resConfUnit1`` (never run, so absent
+    from the tree)."""
+    p, vit = prefix, f"{prefix}pretrained.model."
+    sd: dict = {}
+    _conv(sd, f"{vit}patch_embed.proj", tree["patch_embed_proj"])
+    _put(sd, f"{vit}cls_token", tree["cls_token"])
+    _put(sd, f"{vit}pos_embed", tree["pos_embed"])
+    blocks = sorted((k for k in tree if k.startswith("block_")), key=lambda k: int(k[6:]))
+    for i, name in enumerate(blocks):
+        bt, tb = tree[name], f"{vit}blocks.{i}"
+        _layernorm(sd, f"{tb}.norm1", bt["norm1"])
+        _layernorm(sd, f"{tb}.norm2", bt["norm2"])
+        for flax_name, torch_name in (("qkv", "attn.qkv"), ("proj", "attn.proj"),
+                                      ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            _linear(sd, f"{tb}.{torch_name}", bt[flax_name])
+    for n in range(1, 5):
+        ap = f"{p}pretrained.act_postprocess{n}"
+        _linear(sd, f"{ap}.0.project.0", tree[f"readout_{n}"])
+        _conv(sd, f"{ap}.3", tree[f"reassemble_conv_{n}"])
+        if n in (1, 2):
+            up = tree[f"reassemble_up_{n}"]
+            _put(sd, f"{ap}.4.weight", np.asarray(up["kernel"]).transpose(2, 3, 0, 1))
+            _put(sd, f"{ap}.4.bias", up["bias"])
+        elif n == 4:
+            _conv(sd, f"{ap}.4", tree["reassemble_down_4"])
+        _conv(sd, f"{p}scratch.layer{n}_rn", tree[f"layer{n}_rn"])
+        rt, rp = tree[f"refinenet{n}"], f"{p}scratch.refinenet{n}"
+        for unit in ("resConfUnit1", "resConfUnit2"):
+            if unit in rt:
+                for conv in ("conv1", "conv2"):
+                    _conv(sd, f"{rp}.{unit}.{conv}", rt[unit][conv])
+        _conv(sd, f"{rp}.out_conv", rt["out_conv"])
+    for i, name in ((0, "head_conv1"), (2, "head_conv2"), (4, "head_conv3")):
+        _conv(sd, f"{p}scratch.output_conv.{i}", tree[name])
+    return sd
+
+
+def dvae_state_dict(tree: Tree, prefix: str = "") -> dict:
+    """Inverse of ``dvae_params_from_torch``: a ``DvaeEncoder`` tree to the
+    DALL-E encoder's names (``blocks.input.w``, ``blocks.group_{g}.block_{i}.
+    {id_path, res_path.conv_{j}}.{w, b}``, ``blocks.output.conv.{w, b}``)."""
+    p = f"{prefix}blocks."
+    sd: dict = {}
+
+    def conv(torch_prefix, t):
+        _conv(sd, torch_prefix, t["conv"], "w", "b")
+
+    conv(f"{p}input", tree["input"])
+    for name in (k for k in tree if k.startswith("group_")):
+        _, g, _, i = name.split("_")                      # group_{g}_block_{i}
+        bt, tb = tree[name], f"{p}group_{g}.block_{i}"
+        if "id_path" in bt:
+            conv(f"{tb}.id_path", bt["id_path"])
+        for j in range(1, 5):
+            conv(f"{tb}.res_path.conv_{j}", bt[f"conv_{j}"])
+    conv(f"{p}output.conv", tree["output"])
+    return sd
+
+
+def raft_state_dict(tree: Tree, prefix: str = "") -> dict:
+    """Inverse of ``raft_params_from_torch``: a ``RAFT`` tree to
+    torchvision's ``raft_large`` names; a ``Conv2dNormActivation`` is
+    ``{name}.0`` (the conv) and ``{name}.1`` (the batch norm, with its
+    ``running_mean`` and ``running_var``)."""
+    p = prefix
+    sd: dict = {}
+
+    def cna(torch_prefix, t):
+        _conv(sd, f"{torch_prefix}.0", t["conv"])
+        if "bn" in t:
+            for leaf, key in (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+                              ("running_var", "var")):
+                _put(sd, f"{torch_prefix}.1.{leaf}", t["bn"][key])
+
+    for enc in ("feature_encoder", "context_encoder"):
+        et = tree[enc]
+        cna(f"{p}{enc}.convnormrelu", et["convnormrelu"])
+        _conv(sd, f"{p}{enc}.conv", et["conv"])
+        for i in (1, 2, 3):
+            for j in (0, 1):
+                for part, t in et[f"layer{i}_{j}"].items():
+                    cna(f"{p}{enc}.layer{i}.{j}.{part}", t)
+    ub = f"{p}update_block"
+    for name, t in tree["motion_encoder"].items():
+        cna(f"{ub}.motion_encoder.{name}", t)
+    for gru, t in tree["recurrent_block"].items():
+        for conv, ct in t.items():
+            _conv(sd, f"{ub}.recurrent_block.{gru}.{conv}", ct)
+    for conv, ct in tree["flow_head"].items():
+        _conv(sd, f"{ub}.flow_head.{conv}", ct)
+    cna(f"{p}mask_predictor.convrelu", tree["mask_predictor"]["convrelu"])
+    _conv(sd, f"{p}mask_predictor.conv", tree["mask_predictor"]["conv"])
+    return sd
+
+
 def bert_embeddings_state_dict(tree: Tree, prefix: str = "") -> dict:
     """Inverse of ``bert_embeddings_params_from_torch``."""
     sd: dict = {}
@@ -215,7 +325,9 @@ def state_dict_from_flax(params: Tree, cfg: ModelConfig,
     ``"mlm_head"`` or ``"linear"``. A frozen ``feature_model`` teacher in
     the tree is carried under ``feature_model.`` (its depths read from the
     tree; a 2D teacher has no final norm, the 3D one has), a ``clip_model``
-    under ``clip_model.`` (:func:`clip_state_dict`)."""
+    under ``clip_model.`` (:func:`clip_state_dict`), and the ``dpt``,
+    ``dvae`` and ``raft`` teachers under their names (:func:`dpt_state_dict`,
+    :func:`dvae_state_dict`, :func:`raft_state_dict`)."""
     sd = enc_img_state_dict(params["enc_img"])
     sd.update(bert_embeddings_state_dict(params["enc_txt"]["emb_txt"],
                                          "enc_txt.emb_txt."))
@@ -226,6 +338,10 @@ def state_dict_from_flax(params: Tree, cfg: ModelConfig,
         sd.update(swin3d_state_dict(teacher, swin_depths(teacher), "feature_model."))
     if "clip_model" in params:
         sd.update(clip_state_dict(params["clip_model"], "clip_model."))
+    for name, carry in (("dpt", dpt_state_dict), ("dvae", dvae_state_dict),
+                        ("raft", raft_state_dict)):
+        if name in params:
+            sd.update(carry(params[name], f"{name}."))
     for name, kind in (heads or {}).items():
         tree = params[name]
         if kind == "score_head":

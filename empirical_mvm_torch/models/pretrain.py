@@ -1,25 +1,33 @@
-"""VIOLET pretraining model: MTM + VTM + MVM with the pixel, hog,
-3d_feature, 2d_feature and 2d_clip targets (counterpart of
-``empirical_mvm_tpu/models/pretrain.py``; ref: main_pretrain.py:140-267).
+"""VIOLET pretraining model: MTM + VTM + MVM with the pixel, hog, vq,
+depth, optical_flow, 3d_feature, 2d_feature and 2d_clip targets
+(counterpart of ``empirical_mvm_tpu/models/pretrain.py``; ref:
+main_pretrain.py:140-267).
 
 As in the JAX package, the VTM negatives are vectorised: each row pairs its
 video with its own caption (the positive, read from the MTM pass) and O-1
 other captions, and the B*(O-1) negative pairs ride one ``go_cross`` call
-with the B masked pairs. The pixel and hog decoders are a Linear on the
-fused patch tokens followed by the channel-major pixel shuffle; the hog
-target is :func:`hog_image` of the unmasked clip. The feature targets
-regress, through a score head, the features of a frozen teacher run on the
-unmasked clip under no_grad with its LayerNorms through the kernel:
-3d_feature a Video Swin-base and 2d_feature a 2D Swin-base (``fc_mvm``,
-``feature_model``; with both targets, as in the JAX package's ``if 3d ...
-elif 2d``, the one teacher is the 3D one and both losses read it), 2d_clip
-a CLIP ViT-B/32 frame by frame (``fc_mvm_clip``, ``clip_model``; ref:
-main_pretrain.py:153-174, 508-545).
+with the B masked pairs. The pixel, hog and depth decoders are a Linear on
+the fused patch tokens followed by the channel-major pixel shuffle; the
+flow decoder reads adjacent frames' tokens side by side. The hog target is
+:func:`hog_image` of the unmasked clip. The other targets come from frozen
+teachers run on the unmasked clip under no_grad, their LayerNorms and
+attention through the kernels where they have any: depth a DPT-Large per
+frame (``dpt``), optical_flow RAFT on adjacent frame pairs (``raft``; pairs
+whose flow reaches 50 pixels are left out of the loss), vq on the fly the
+dVAE's tokens per frame (``dvae``; each 8 x 8 cell's answer where the pixel
+cover touches it), classified from the shuffled ``decoder_vq`` output
+(ref: main_pretrain.py:178-209, 386-506); pre-extracted vq classifies the
+fused video tokens against the given tokens. The feature targets regress,
+through a score head, 3d_feature a Video Swin-base's and 2d_feature a 2D
+Swin-base's features (``fc_mvm``, ``feature_model``; with both targets, as
+in the JAX package's ``if 3d ... elif 2d``, the one teacher is the 3D one
+and both losses read it), 2d_clip a CLIP ViT-B/32's frame by frame
+(``fc_mvm_clip``, ``clip_model``; ref: main_pretrain.py:153-174, 508-545).
 
 The video backbone is the Video Swin (``vidswin``) or the trained 2D Swin
 (``swin2d``, concat fusion; mean fusion keeps one averaged frame of video
-tokens and so takes no MVM task). The vq, depth and optical_flow targets,
-``smtm``, ``am`` masking and the ``corrupt`` clip flag are not ported.
+tokens and so takes no MVM task). ``smtm``, ``am`` masking and the
+``corrupt`` clip flag are not ported.
 """
 
 from __future__ import annotations
@@ -36,6 +44,9 @@ from empirical_mvm_torch.models.violet import ScoreHead, VioletBase
 from empirical_mvm_torch.ops.hog import hog_image
 from empirical_mvm_torch.ops.preprocess import maybe_normalize
 from empirical_mvm_torch.teachers.clip import CLIPVisual, renormalize_imagenet_to_clip
+from empirical_mvm_torch.teachers.dpt import DPTDepth
+from empirical_mvm_torch.teachers.dvae import DvaeEncoder
+from empirical_mvm_torch.teachers.raft import RAFT
 from empirical_mvm_torch.train.losses import cross_entropy_ignore, masked_l1
 
 
@@ -62,22 +73,29 @@ class VioletPretrain(VioletBase):
     parameters drawn from ``seed``; load a converted checkpoint with
     ``load_state_dict`` to replace them. ``clip_arch`` is the 2d_clip
     teacher's (hidden, layers, heads, mlp); hidden is also the width
-    ``fc_mvm_clip`` regresses.
+    ``fc_mvm_clip`` regresses. The vq target classifies ``size_vq`` dVAE
+    tokens: with ``vq_on_the_fly`` the model holds the dVAE (``dvae``) and
+    predicts each ``vq_patch`` cell from ``decoder_vq``'s shuffled output,
+    else the step is given pre-extracted tokens.
     """
 
     special_token_ids = (101, 102, 0)     # [CLS], [SEP], [PAD] of bert-base
     mask_token_id = 103
     num_options = 4                       # VTM: 1 positive + 3 in-batch negatives
-    mvm_targets_ported = ("pixel", "2d_feature", "3d_feature", "2d_clip", "hog")
+    mvm_targets_ported = ("pixel", "2d_feature", "3d_feature", "2d_clip", "hog", "vq",
+                          "depth", "optical_flow")
 
     def __init__(self, config: ModelConfig, *, mvm_target=("pixel",),
                  pretrain_tasks=("mtm", "vtm", "mvm"), pretrain_masks=("bm", "rm"),
                  p_mask: float = 0.15, temp: float = 0.05,
-                 clip_arch=(768, 12, 12, 3072), dtype=torch.float32, device="cuda",
+                 clip_arch=(768, 12, 12, 3072), size_vq: int = 8192, vq_patch: int = 8,
+                 vq_on_the_fly: bool = False, dtype=torch.float32, device="cuda",
                  seed: int = 0):
         if not set(mvm_target) <= set(self.mvm_targets_ported):
             raise NotImplementedError(f"mvm_target {tuple(mvm_target)}: only "
                                       f"{self.mvm_targets_ported} are ported")
+        if "vq" in mvm_target and {"3d_feature", "2d_feature"} & set(mvm_target):
+            raise ValueError("the vq and feature targets would both name their head fc_mvm")
         if not set(pretrain_tasks) <= {"mtm", "vtm", "mvm"}:
             raise NotImplementedError(f"pretrain_tasks {tuple(pretrain_tasks)}: "
                                       "smtm is not ported")
@@ -95,6 +113,24 @@ class VioletPretrain(VioletBase):
                 self.decoder_pixel = Linear(d, ps * ps * 3, compute_dtype=dtype)
             if "hog" in mvm_target:
                 self.decoder_hog = Linear(d, ps * ps, compute_dtype=dtype)
+            if "optical_flow" in mvm_target:
+                self.decoder_flow = Linear(2 * d, ps * ps * 2, compute_dtype=dtype)
+                self.raft = RAFT(dtype=dtype)
+                self.raft.requires_grad_(False)
+            if "depth" in mvm_target:
+                self.decoder_depth = Linear(d, ps * ps, compute_dtype=dtype)
+                self.dpt = DPTDepth(dtype=dtype)
+                self.dpt.requires_grad_(False)
+            if "vq" in mvm_target:
+                if vq_on_the_fly:
+                    # conv1x1 D -> 2D + PixelShuffle(up): 2D / up^2 channels a cell
+                    up = ps // vq_patch
+                    self.decoder_vq = Linear(d, 2 * d, compute_dtype=dtype)
+                    self.fc_mvm = ScoreHead(2 * d // (up * up), size_vq, dtype)
+                    self.dvae = DvaeEncoder(dtype=dtype)
+                    self.dvae.requires_grad_(False)
+                else:
+                    self.fc_mvm = ScoreHead(d, size_vq, dtype)
             if {"3d_feature", "2d_feature"} & set(mvm_target):
                 teacher = (SwinConfig.base() if "3d_feature" in mvm_target
                            else swin2d_config("base"))
@@ -110,6 +146,7 @@ class VioletPretrain(VioletBase):
         self.pretrain_tasks = tuple(pretrain_tasks)
         self.pretrain_masks = tuple(pretrain_masks)
         self.p_mask, self.temp = p_mask, temp
+        self.vq_patch, self.vq_on_the_fly = vq_patch, vq_on_the_fly
         init_weights(self, torch.Generator(device).manual_seed(seed))
 
     @classmethod
@@ -118,7 +155,7 @@ class VioletPretrain(VioletBase):
         t = run.train
         return cls(run.model, mvm_target=t.mvm_target, pretrain_tasks=t.pretrain_tasks,
                    pretrain_masks=t.pretrain_masks, p_mask=t.p_mask, temp=t.temp,
-                   clip_arch=t.clip_arch, **kwargs)
+                   clip_arch=t.clip_arch, vq_on_the_fly=run.model.vq_on_the_fly, **kwargs)
 
     def patch_tokens(self, out_mvm, t, h, w):
         """Drop the per-frame CLS, return the (B, T, h, w, D) grid
@@ -131,6 +168,49 @@ class VioletPretrain(VioletBase):
 
     def decode_hog(self, grid):
         return pixel_shuffle_tokens(self.decoder_hog(grid), self.config.size_patch, 1)[..., 0]
+
+    def decode_depth(self, grid):
+        return pixel_shuffle_tokens(self.decoder_depth(grid), self.config.size_patch, 1)[..., 0]
+
+    def decode_flow(self, grid):
+        """Adjacent frames' tokens side by side, decoded to the 2-channel
+        flow of each pair (ref: main_pretrain.py:391-399)."""
+        pair = torch.cat([grid[:, :-1], grid[:, 1:]], dim=-1)
+        return pixel_shuffle_tokens(self.decoder_flow(pair), self.config.size_patch, 2)
+
+    def decode_vq_logits(self, grid):
+        """(ref: main_pretrain.py:492-500): 1x1 conv to 2D channels, shuffled
+        to the dVAE cell grid, classified ``size_vq`` ways (the score head's
+        dropout off, as the JAX package calls it)."""
+        up = self.config.size_patch // self.vq_patch
+        x = self.decoder_vq(grid)
+        return self.fc_mvm(pixel_shuffle_tokens(x, up, x.shape[-1] // (up * up)))
+
+    def vq_answers(self, img, mvm_mask, vq=None):
+        """The on-the-fly vq answers (B, T, H/8, W/8): the dVAE's token of
+        each frame's cell (``vq``, when given, in its place) where the pixel
+        cover touches the cell (its 8 x 8 max-pool), else -1
+        (ref: main_pretrain.py:480-491)."""
+        b, t, hh, ww = img.shape[:4]
+        if vq is None:
+            with torch.no_grad():
+                vq = self.dvae.extract_vq_tokens(img.reshape(b * t, hh, ww, 3))
+        p = self.vq_patch
+        cells = mvm_mask[..., 0].reshape(b, t, hh // p, p, ww // p, p).amax(dim=(3, 5))
+        return torch.where(cells > 0, vq.reshape(cells.shape), -1)
+
+    def flow_loss(self, img, grid, mvm_mask):
+        """RAFT's flow of each adjacent frame pair (under no_grad) against the
+        decoded flow, masked L1 over the pixels either frame covers, pairs
+        whose flow reaches 50 pixels left out (ref: main_pretrain.py:386-419)."""
+        b, t, hh, ww = img.shape[:4]
+        with torch.no_grad():
+            target = self.raft(img[:, :-1].reshape(-1, hh, ww, 3),
+                               img[:, 1:].reshape(-1, hh, ww, 3)).reshape(b, t - 1, hh, ww, 2)
+        keep = target.abs().amax(dim=(2, 3, 4)) < 50.0                      # (B, T-1)
+        cover = mvm_mask[:, :-1] + mvm_mask[:, 1:]
+        return masked_l1(self.decode_flow(grid), target,
+                         (cover > 0) & keep[:, :, None, None, None], channel_div=2.0)
 
     def forward(self, img, txt, mask, neg_idx=None, generator=None):
         """One pretrain forward (ref: main_pretrain.py:226-267) on a masked
@@ -161,7 +241,7 @@ class VioletPretrain(VioletBase):
         return {"out_mtm": self.fc_mtm(out_txt), "out_mvm": out_mvm, "out_vtm": out_vtm}
 
     def losses(self, img, txt, mask, *, generator=None, mask_generator=None,
-               draws: MaskDraws | None = None, neg_idx=None, hog=None) -> dict:
+               draws: MaskDraws | None = None, neg_idx=None, hog=None, vq=None) -> dict:
         """Masking, forward and every loss of one pretrain step
         (ref: main_pretrain.py:276-372, 374-553, 555-569).
 
@@ -170,7 +250,10 @@ class VioletPretrain(VioletBase):
         ``neg_idx`` are given; ``generator`` drives dropout and stochastic
         depth (None: the deterministic pass). ``hog`` (B, T, H, W), when
         given, is the hog target in place of :func:`hog_image` of the clip
-        (the JAX ``losses(hog=...)``). The JAX ``corrupt`` flag, which also
+        (the JAX ``losses(hog=...)``). ``vq`` is the vq target's tokens: the
+        pre-extracted (B, T*(1+h*w)) of the JAX ``losses(vq=...)``, or with
+        ``vq_on_the_fly`` the dVAE's (B, T, H/8, W/8) in place of the
+        teacher's own, as ``hog`` is. The JAX ``corrupt`` flag, which also
         drops corrupt clips from the hog loss, is not ported.
         """
         img = maybe_normalize(img)
@@ -182,7 +265,8 @@ class VioletPretrain(VioletBase):
                                special_token_ids=self.special_token_ids,
                                mask_token_id=self.mask_token_id, p_mask=self.p_mask,
                                mask_types=self.pretrain_masks)
-        mb = apply_masking(draws, img, txt, mask_token_id=self.mask_token_id, patch_size=ps)
+        mb = apply_masking(draws, img, txt, None if self.vq_on_the_fly else vq,
+                           mask_token_id=self.mask_token_id, patch_size=ps)
         o = min(b, self.num_options)
         if neg_idx is None and o > 1:
             neg_idx = draw_negatives(mask_generator, b, o - 1)
@@ -202,6 +286,22 @@ class VioletPretrain(VioletBase):
                     with torch.no_grad():
                         hog = hog_image(img)
                 ls["mvm_hog"] = masked_l1(self.decode_hog(grid), hog, mb.mvm_mask[..., 0])
+            if "vq" in self.mvm_target and self.vq_on_the_fly:
+                ls["mvm_vq"] = cross_entropy_ignore(self.decode_vq_logits(grid),
+                                                    self.vq_answers(img, mb.mvm_mask, vq))
+            elif "vq" in self.mvm_target:
+                ls["mvm_vq"] = cross_entropy_ignore(self.fc_mvm(out["out_mvm"], generator),
+                                                    mb.ans_mvm)
+            if "depth" in self.mvm_target:
+                # the reference's /3 channel quirk (main_pretrain.py:433-452
+                # divides by _in_C though depth has one channel)
+                with torch.no_grad():
+                    target = self.dpt(img.reshape(b * t, *img.shape[2:]))
+                ls["mvm_depth"] = masked_l1(self.decode_depth(grid),
+                                            target.reshape(b, t, *target.shape[1:]),
+                                            mb.mvm_mask[..., 0], channel_div=3.0)
+            if "optical_flow" in self.mvm_target and t > 1:
+                ls["mvm_flow"] = self.flow_loss(img, grid, mb.mvm_mask)
             if {"3d_feature", "2d_feature"} & set(self.mvm_target):
                 with torch.no_grad():               # the frozen teacher, unmasked clip
                     target = self.feature_model(img)

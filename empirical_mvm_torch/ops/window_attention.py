@@ -1061,6 +1061,23 @@ def lane_sa_attention_fits(b: int, l: int, c: int, nh: int) -> bool:
     return c % 128 == 0 and _lane_sa_bytes(l, c) <= LANE_BUDGET_BYTES
 
 
+def vit_self_attention(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """Unmasked self-attention of a frozen ViT (p = 0, a zero mask), routed
+    as the JAX teachers route it: :func:`lane_self_attention` off the fused
+    qkv where :func:`lane_sa_attention_fits`, else the transposed heads
+    through :func:`packed_self_attention`. qkv (B, L, 3D), last axis ordered
+    (3, nH, hd); returns (B, L, D) in qkv's dtype."""
+    b, l, c3 = qkv.shape
+    d = c3 // 3
+    hd = d // n_heads
+    zeros = torch.zeros((1, 1, l), dtype=torch.float32, device=qkv.device).expand(b, l, l)
+    if lane_sa_attention_fits(b, l, d, n_heads):
+        return lane_self_attention(qkv, zeros, n_heads, hd ** -0.5)
+    qkv = qkv.reshape(b, l, 3 * n_heads, hd).transpose(1, 2).contiguous()
+    ctx = packed_self_attention(qkv, zeros, n_heads, hd ** -0.5)
+    return ctx.transpose(1, 2).reshape(b, l, d)
+
+
 # ---------------------------------------------------------------------------
 # packed_self_attention and fused_self_attention
 # ---------------------------------------------------------------------------

@@ -29,9 +29,7 @@ from torch import nn
 
 from empirical_mvm_torch.models.common import Linear
 from empirical_mvm_torch.ops.layernorm import FusedLayerNorm
-from empirical_mvm_torch.ops.window_attention import (lane_sa_attention_fits,
-                                                      lane_self_attention,
-                                                      packed_self_attention)
+from empirical_mvm_torch.ops.window_attention import vit_self_attention
 
 # CLIP's own input normalization (OpenAI CLIP preprocessing); the pipeline
 # ships ImageNet-normalized clips
@@ -65,20 +63,11 @@ class CLIPAttention(nn.Module):
         self.out_proj = Linear(dim, dim, compute_dtype=dtype)
 
     def forward(self, x):
-        b, l, d = x.shape
-        nh, dt = self.num_heads, self.dtype
-        hd = d // nh
+        dt = self.dtype
         w3 = torch.cat([self.q_proj.weight, self.k_proj.weight, self.v_proj.weight]).to(dt)
         b3 = torch.cat([self.q_proj.bias, self.k_proj.bias, self.v_proj.bias]).to(dt)
         qkv = F.linear(x.to(dt), w3, b3)                                  # (B, L, 3D)
-        zeros = torch.zeros((1, 1, l), dtype=torch.float32, device=x.device).expand(b, l, l)
-        if lane_sa_attention_fits(b, l, d, nh):
-            ctx = lane_self_attention(qkv, zeros, nh, hd ** -0.5)
-        else:
-            qkv = qkv.reshape(b, l, 3 * nh, hd).transpose(1, 2).contiguous()
-            ctx = packed_self_attention(qkv, zeros, nh, hd ** -0.5)
-            ctx = ctx.transpose(1, 2).reshape(b, l, d)
-        return self.out_proj(ctx)
+        return self.out_proj(vit_self_attention(qkv, self.num_heads))
 
 
 class CLIPMLP(nn.Module):

@@ -47,10 +47,11 @@ def make_pretrain_train_step(model: nn.Module, optimizer: AdamW) -> Callable:
 
     ``batch``: img (B, T, H, W, 3) uint8 or normalized float, unmasked; txt
     (B, X) int; mask (B, X) int. Optional ``draws`` (a ``MaskDraws``) and
-    ``neg_idx`` replace the step's own mask and negative draws, and ``hog``
+    ``neg_idx`` replace the step's own mask and negative draws, ``hog``
     (B, T, H, W) the hog target the model would compute (as the JAX step
-    reads ``batch.get("hog")``). The losses are detached device tensors
-    (reading them waits for the step).
+    reads ``batch.get("hog")``), and ``vq`` is the vq target's tokens (the
+    JAX step's ``batch.get("vq")``; see ``VioletPretrain.losses``). The
+    losses are detached device tensors (reading them waits for the step).
     """
     device = next(model.parameters()).device
 
@@ -60,7 +61,8 @@ def make_pretrain_train_step(model: nn.Module, optimizer: AdamW) -> Callable:
             p.grad = None
         ls = model.losses(batch["img"], batch["txt"], batch["mask"], generator=drop_gen,
                           mask_generator=mask_gen, draws=batch.get("draws"),
-                          neg_idx=batch.get("neg_idx"), hog=batch.get("hog"))
+                          neg_idx=batch.get("neg_idx"), hog=batch.get("hog"),
+                          vq=batch.get("vq"))
         ls["total"].backward()
         opt_state = optimizer.update(state.params,
                                      {n: p.grad for n, p in state.params.items()},

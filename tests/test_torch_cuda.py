@@ -114,11 +114,12 @@ def _ln_inputs(rs, rows, c, cuda, mean=0.0, std=2.0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,c,eps", LN_SHAPES)
+@pytest.mark.parametrize("rows,c,eps", LN_SHAPES + [(80 * 197, 1024, 1e-6)])
 def test_fused_layer_norm_kernel(cuda, dtype, rows, c, eps):
-    """Each body against the plain version; in bf16 also at rows of
-    chip_smoke's ``LARGE_MEAN`` (mean 50, std 1), where a one-pass variance
-    fails."""
+    """Each body against the plain version, at the shapes above and at the
+    depth teacher's sites (the DPT-Large's 80 frames of 197 tokens of width
+    1024, eps 1e-6); in bf16 also at rows of chip_smoke's ``LARGE_MEAN``
+    (mean 50, std 1), where a one-pass variance fails."""
     rs = np.random.RandomState(2)
     x, g, bt = _ln_inputs(rs, rows, c, cuda)
     before = _build.launch_counts["fused_layer_norm"]
@@ -614,18 +615,20 @@ def test_window_fwd_tensor_core_body(cuda, caller, n, masked):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["train", "eval", "clip"])
+@pytest.mark.parametrize("shape", ["train", "eval", "clip", "dpt"])
 @pytest.mark.parametrize("p_drop", [0.0, 0.1])
 def test_lane_fwd_tensor_core_at_the_path_shapes(cuda, shape, p_drop):
     """Row 5 at the main paths' shapes (the train step's 80 rows of L = 232,
-    the eval's 64 of 275 and the CLIP teacher's 80 of 50, 12 heads of 64),
-    bf16 on row 11's tensor-core forward within the ``sa`` limits, fp32 (the
-    CUDA-core kernel) within FP32_LIMITS, with and without dropout; the
-    output bit-identical over two runs."""
-    b, l = {"train": (80, 232), "eval": (64, 275), "clip": (80, 50)}[shape]
-    c, nh = 768, 12
+    the eval's 64 of 275 and the CLIP teacher's 80 of 50, 12 heads of 64;
+    the DPT teacher's 80 of 197, 16 heads of 64, whose fp32 holds K and V
+    of L = 197 in shared memory), bf16 on row 11's tensor-core forward
+    within the ``sa`` limits, fp32 (the CUDA-core kernel) within
+    FP32_LIMITS, with and without dropout; the output bit-identical over two
+    runs."""
+    b, l, c, nh = {"train": (80, 232, 768, 12), "eval": (64, 275, 768, 12),
+                   "clip": (80, 50, 768, 12), "dpt": (80, 197, 1024, 16)}[shape]
     x3, _, mask = _lane_setup(np.random.RandomState(l), cuda, b, l, c)
-    if shape == "clip":
+    if shape in ("clip", "dpt"):
         mask = torch.zeros(1, 1, l, device=cuda).expand(b, l, l)
     seed = torch.tensor([2026, 10], dtype=torch.int32, device=cuda) if p_drop else None
     scale = (c // nh) ** -0.5

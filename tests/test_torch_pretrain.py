@@ -255,4 +255,4 @@ def test_pretrain_config_builds_the_slice():
     m = VioletPretrain.from_run_config(tiny, device="cpu")
     assert (m.temp, m.p_mask, set(m.pretrain_masks)) == (0.05, 0.15, {"rm", "bm"})
     with pytest.raises(NotImplementedError):
-        VioletPretrain(_model_cfg(tcfg), mvm_target=("depth",), device="cpu")
+        VioletPretrain(_model_cfg(tcfg), pretrain_tasks=("mtm", "smtm"), device="cpu")
