@@ -77,9 +77,15 @@ before the final line, if any phase failed:
    mask and a seeded shift-like mask, each beside row 7's time on the same
    inputs; and, marked ``off_path``, what the C % 128 rule costs at the
    violet stages 0-1: rows 12 and 7 on the partitioned windows against
-   ``_to_packed`` + row 9 + ``_from_packed``. Prints one
-   ``kernel_shapes`` line with the per-shape numbers and, at the end, one
-   ``kernels`` JSON line.
+   ``_to_packed`` + row 9 + ``_from_packed``; and the downstream heads'
+   shapes (phases 26-31): row 5 with dropout and row 6 at the retrieval
+   fusion (64 rows of 275, ``FINETUNE_LANE``), row 11 at the generative
+   multiple choice's 8 rows of 350 (forward at p = 0 and 0.1, backward),
+   the direct kernels forward and backward at the open-ended QA's 10 clips
+   of 5 frames, and the LayerNorm forward and backward at every fine-tune
+   site (``FINETUNE_LN``: the fusion, EncVideo, the MLM head, the fp32 text
+   embeddings). Prints one ``kernel_shapes`` line with the per-shape
+   numbers and, at the end, one ``kernels`` JSON line.
 4. The retrieval eval at full width: VioletRetrieval at
    configs/msrvtt-retrieval.json (Swin-base, 5 frames of 224^2, 25 text
    tokens, 12-layer BERT-base fusion), seeded random weights, bf16, runs
@@ -139,20 +145,21 @@ before the final line, if any phase failed:
    options of 100 text tokens, so the 12-layer BERT-base fusion runs 40 rows
    of 350 tokens on the tiled self-attention), seeded random weights, bf16,
    the ``ce`` step of ``make_supervised_train_step`` with the package's
-   ``build_optimizer``. One warm-up step, then ``TRAIN_STEPS`` timed steps:
-   questions/s (batch / step seconds) median and range, peak device memory,
-   every loss finite; the launches of the first timed step held to
+   ``build_optimizer`` (``finetune_phase``). One warm-up step, then
+   ``TRAIN_STEPS`` timed steps: questions/s (batch / step seconds) median
+   and range, peak device memory, every loss finite, one step's kernel time
+   under the profiler; the launches of the first timed step held to
    ``TRAIN_QAMC_LAUNCHES`` (12 + 12 tiled launches, no lane
    self-attention); every parameter with a gradient changed (the score
    head's output bias may instead have an all-zero gradient).
-15. Whole multiple-choice step: a depth-cut copy (swin depths (2, 2, 2, 2),
-   2 fusion layers, batch 2, every rate 0) at full widths and L = 350, card
-   fp32 against CPU fp32, as phase 7; the score head's output bias, whose
-   gradient is zero in exact arithmetic, is held to ``ZERO_GRAD_ATOL`` on
-   each side.
-16. The multiple-choice eval: ``make_eval_step`` on the trained model of
-   phase 14 over ``QAMC_EVAL_BATCHES`` seeded batches, ``qamc_accuracy``;
-   each batch launches ``EVAL_QAMC_LAUNCHES``.
+15. Whole multiple-choice step (``finetune_whole_step_phase``): a depth-cut
+   copy (swin depths (2, 2, 2, 2), 2 fusion layers, batch 2, every rate 0)
+   at full widths and L = 350, card fp32 against CPU fp32, as phase 7; the
+   score head's output bias, whose gradient is zero in exact arithmetic, is
+   held to ``ZERO_GRAD_ATOL`` on each side.
+16. The multiple-choice eval (``finetune_eval_phase``): ``make_eval_step``
+   on the trained model of phase 14 over ``QAMC_EVAL_BATCHES`` seeded
+   batches, ``qamc_accuracy``; each batch launches the step's forwards.
 17. The lanebench tool, ``empirical_mvm_torch.tools.lanebench.main(
    ["--stage", "-1", "--grad"])`` in this process: its lines; each path's
    error against the tool's fp32 oracle within phase 3's bf16 limit against
@@ -191,7 +198,34 @@ before the final line, if any phase failed:
    (``TEACHER_FP32_SCALE``), so that the teachers are held even where the
    loss reads them weakly, and the dVAE's tokens (``VQ_FLIP_SHARE``); both
    steps fed the CPU's tokens.
-26. The last line is ``{"ok": true, "device": {...}}``.
+26. The retrieval fine-tune step at full width: VioletRetrieval at
+   configs/msrvtt-retrieval.json (8 clips of 5 frames of 224^2 and 8
+   captions of 25 tokens; all 64 pairs fused, 64 rows of 275 tokens on
+   row 5 with dropout and row 6), the ``nce`` step at the run's ``temp``,
+   as phase 14 (clips/s; launches held to ``TRAIN_RET_LAUNCHES``; the score
+   head's output bias may end with an all-zero gradient); then
+   ``in_batch_retrieval_accuracy`` of the eval forward's (8, 8) scores.
+27. Whole nce step: phase 15 for the retrieval model (4 fusion rows of
+   275), the score head's output bias held to ``NCE_ZERO_GRAD_ATOL``.
+28. Open-ended QA at full width (configs/msrvtt-qa.json, 10 questions of
+   25 tokens, 10 fusion rows of 275 on row 5): VioletQAOE (the 1500-way
+   answer head) on ``ce`` and VioletQAOEMLMHead on ``mlm``, each as phase
+   14 (``TRAIN_QAOE_LAUNCHES``, ``TRAIN_QAOE_MLM_LAUNCHES``: the MLM head's
+   LayerNorm more), and each eval: the answer head's accuracy
+   (``masked_accuracy`` of the argmax), ``qaoe_mlm_topk`` at k = 1 and 5.
+29. Whole mlm steps of VioletQAOEMLMHead: with its task token
+   (``emb_task``, L = 276), then with a prompt of ``PROMPT_LEN`` tokens (L =
+   286; both still row 5), as phase 15.
+30. Multiple choice at full width (configs/tgif-action.json, on the tiled
+   self-attention as phase 14): VioletQAMCGen (8 rows of 350) and
+   VioletQAMCMLMHead (40 rows of 350) on ``mlm`` (``TRAIN_QAMC_MLM_LAUNCHES``),
+   VioletQAMC with the gumbel video-token selection (``GUMBEL_TOKENS``
+   heads) on ``ce`` (``TRAIN_QAMC_GUMBEL_LAUNCHES``; its projections get no
+   gradient, as in JAX), each as phase 14, and each eval:
+   ``qamc_gen_accuracy``, ``qamc_mlm_head_accuracy``, ``qamc_accuracy``.
+31. Whole gumbel ce step: phase 15 for VioletQAMC(num_video_tokens=12), the
+   same Gumbel noise injected on both sides.
+32. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -217,7 +251,9 @@ from empirical_mvm_torch.data.masking import draw_masks
 from empirical_mvm_torch.models import pretrain as pretrain_module
 from empirical_mvm_torch.models.encoders2d import swin2d_config
 from empirical_mvm_torch.models.pretrain import VioletPretrain, draw_negatives
-from empirical_mvm_torch.models.tasks import VioletQAMC, VioletRetrieval
+from empirical_mvm_torch.models.tasks import (VioletQAMC, VioletQAMCGen, VioletQAMCMLMHead,
+                                              VioletQAOE, VioletQAOEMLMHead, VioletRetrieval,
+                                              draw_gumbel, qamc_mlm_head_accuracy)
 from empirical_mvm_torch.models.video_swin import (_from_packed, _shift_attn_mask, _to_packed,
                                                   get_window_size)
 from empirical_mvm_torch.ops import _build
@@ -228,7 +264,10 @@ from empirical_mvm_torch.ops.preprocess import maybe_normalize
 from empirical_mvm_torch.teachers.clip import renormalize_imagenet_to_clip
 from empirical_mvm_torch.teachers.dvae import map_pixels, unnormalize_imagenet
 from empirical_mvm_torch.tools import lanebench
-from empirical_mvm_torch.train.evaluators import qamc_accuracy, retrieval_two_stage_eval
+from empirical_mvm_torch.train.evaluators import (in_batch_retrieval_accuracy, qamc_accuracy,
+                                                  qamc_gen_accuracy, qaoe_mlm_topk,
+                                                  retrieval_two_stage_eval)
+from empirical_mvm_torch.train.losses import masked_accuracy
 from empirical_mvm_torch.train.optimizer import build_optimizer
 from empirical_mvm_torch.train.train_step import (create_train_state, make_eval_step,
                                                   make_pretrain_train_step,
@@ -351,9 +390,63 @@ QAMC_B, QAMC_O, QAMC_L = 8, 5, 350
 TRAIN_QAMC_LAUNCHES = {"fused_layer_norm": 26, "fused_layer_norm_bwd": 26,
                        "direct_window_attention": 24, "direct_window_attention_bwd": 24,
                        "packed_self_attention": 12, "packed_self_attention_bwd": 12}
-EVAL_QAMC_LAUNCHES = {"fused_layer_norm": 26, "direct_window_attention": 24,
-                      "packed_self_attention": 12}
 QAMC_EVAL_BATCHES = 4
+# The downstream heads' fine-tune steps (phases 26-31), each at its shipped
+# config's batch, Swin-base on 5 frames of 224^2 (250 video tokens):
+# * retrieval (msrvtt-retrieval, ``nce``): 8 clips and 8 captions of 25
+#   tokens, all 64 pairs fused, 64 rows of L = 275: lane_self_attention
+#   (row 5 with dropout, row 6), as the pretrain step's fusion;
+# * open-ended QA (msrvtt-qa): 10 rows of L = 275, the 1500-way score head
+#   (``ce``) or the MLM head (``mlm``, one LayerNorm site more: its
+#   transform);
+# * multiple choice (tgif-action): the generative head on 8 rows of L = 350
+#   and the MLM head on 40 (``mlm``), and the gumbel video-token selection
+#   of VioletQAMC (``ce``, ``GUMBEL_TOKENS`` heads), all on the tiled
+#   self-attention (row 11), as phase 14.
+# LayerNorm: 24 fusion sites, EncVideo and the text embeddings (+ the MLM
+# head's); the swin's 24 blocks the direct kernels. Each eval runs the
+# forwards of its step.
+RET_CONFIG, QAOE_CONFIG, QAMC_GEN_CONFIG = CONFIG, REPO / "configs" / "msrvtt-qa.json", (
+    REPO / "configs" / "tgif-action.json")
+TRAIN_RET_LAUNCHES = {"fused_layer_norm": 26, "fused_layer_norm_bwd": 26,
+                      "direct_window_attention": 24, "direct_window_attention_bwd": 24,
+                      "lane_self_attention_dropout": 12, "lane_self_attention_bwd": 12}
+TRAIN_QAOE_LAUNCHES = dict(TRAIN_RET_LAUNCHES)
+TRAIN_QAOE_MLM_LAUNCHES = {**TRAIN_RET_LAUNCHES, "fused_layer_norm": 27,
+                           "fused_layer_norm_bwd": 27}
+TRAIN_QAMC_MLM_LAUNCHES = {**TRAIN_QAMC_LAUNCHES, "fused_layer_norm": 27,
+                           "fused_layer_norm_bwd": 27}
+TRAIN_QAMC_GUMBEL_LAUNCHES = dict(TRAIN_QAMC_LAUNCHES)
+GUMBEL_TOKENS = 12                  # num_video_tokens: 12 heads of 64 over 768
+FINETUNE_EVAL_BATCHES = 3
+# bert-base-uncased's ids of [MASK], of the digits "0" to "4" (the generative
+# multiple choice's answers) and of "true" / "false" (the MLM-head multiple
+# choice's); the port has no tokenizer yet, the synthetic batches use them
+MASK_ID, DIGIT_IDS, TRUE_ID, FALSE_ID = 103, (1014, 1015, 1016, 1017, 1018), 2995, 6270
+# the open-ended QA prompt of the whole-step check (phase 29): [CLS], 9
+# seeded tokens, [SEP], as the JAX get_prompt encodes "fill in the mask to
+# complete the sentence."
+PROMPT_LEN = 11
+# phase 3's records at the fine-tune steps' shapes: row 5 with dropout and
+# row 6 at the retrieval fusion (64 rows of 275, captions of 25); the
+# LayerNorm forward and backward at each step's sites (rows, C, eps): the
+# fusion, EncVideo, the MLM head (bf16) and the text embeddings (fp32); the
+# direct kernels at the open-ended QA's 10 clips (8 are the MC step's)
+FINETUNE_LANE = (64, 275, 25)
+FINETUNE_LN = (("retrieval fusion", 64 * 275, 768, 1e-12, torch.bfloat16),
+               ("qaoe fusion", 10 * 275, 768, 1e-12, torch.bfloat16),
+               ("qamc-gen fusion", 8 * 350, 768, 1e-12, torch.bfloat16),
+               ("mc fusion", 40 * 350, 768, 1e-12, torch.bfloat16),
+               ("enc_video 8 clips", 8 * 250, 768, 1e-5, torch.bfloat16),
+               ("enc_video 10 clips", 10 * 250, 768, 1e-5, torch.bfloat16),
+               ("qaoe mlm_head", 10 * 25, 768, 1e-12, torch.bfloat16),
+               ("qamc-gen mlm_head", 8 * 100, 768, 1e-12, torch.bfloat16),
+               ("qamc-mlm mlm_head", 40 * 100, 768, 1e-12, torch.bfloat16),
+               ("retrieval embeddings", 8 * 25, 768, 1e-12, torch.float32),
+               ("qaoe embeddings", 10 * 25, 768, 1e-12, torch.float32),
+               ("qamc-gen embeddings", 8 * 100, 768, 1e-12, torch.float32),
+               ("mc embeddings", 40 * 100, 768, 1e-12, torch.float32))
+QAOE_B = 10
 
 # Limits. A tolerance is dict(atol=..., rtol=..., scale=...): an element may
 # differ by atol + rtol * |reference| + scale * max|reference|. Gradients
@@ -522,6 +615,13 @@ WHOLE_STEP_TOL = dict(loss_rtol=1e-4, grad_scale=2e-3, grad_global=1e-6)
 # other side's roundoff, which the floor of WHOLE_STEP_TOL (1e-6 of a largest
 # gradient of 0.12) does not cover.
 ZERO_GRAD_ATOL = 1e-6
+# The retrieval score head's output bias shifts all B^2 scores alike, which
+# the bidirectional InfoNCE does not see: its gradient, the sum of the
+# scores' gradients, is zero in exact arithmetic. Each score's gradient is
+# up to 2 / (B temp) = 20 at the whole-step check's B = 2 and temp 0.05,
+# and fp32 sums of four of them round by a few ulp(20) = 1.9e-6: the bound
+# is ZERO_GRAD_ATOL scaled by 1 / temp.
+NCE_ZERO_GRAD_ATOL = ZERO_GRAD_ATOL / 0.05
 
 # hog_image, card against CPU on the same normalized clips (phase 21): a
 # pixel falls in another orientation bin only where its angle lies within
@@ -1028,17 +1128,20 @@ def direct_bwd_cases(dev, gen, path="", swin=SwinConfig.base(), stages=range(4),
     return recs
 
 
-def lane_train_cases(dev, gen):
-    """The fusion attention of the train step with dropout, forward and
-    backward: 20 positive + 60 negative pairs of L = 232 tokens (4 x 50
-    video + 32 text), BERT-base heads, p = 0.1, padding mask on the text."""
-    p, l, d, nh = 4 * TRAIN_B, TRAIN_L, 768, 12
+def lane_train_cases(dev, gen, p=4 * TRAIN_B, l=TRAIN_L, text=32, path=""):
+    """The fusion attention of a train step with dropout, forward and
+    backward: by default the pretrain step's 20 positive + 60 negative pairs
+    of L = 232 tokens (4 x 50 video + 32 text); the retrieval fine-tune's 8 x
+    8 pairs of L = 275 (5 x 50 video + 25 text) at ``FINETUNE_LANE``.
+    BERT-base heads, p = 0.1, a padding mask on the last ``text`` tokens
+    (captions of 6 tokens or more)."""
+    d, nh = 768, 12
     hd = d // nh
     x3 = torch.randn(p, l, 3 * d, device=dev, generator=gen) * 0.5
     do = _bf16_values(torch.randn(p, l, d, device=dev, generator=gen))
     keep = torch.ones(p, l, device=dev)
-    lens = torch.randint(6, 33, (p,), device=dev, generator=gen)
-    keep[:, 200:] = (torch.arange(32, device=dev)[None] < lens[:, None]).float()
+    lens = torch.randint(6, text + 1, (p,), device=dev, generator=gen)
+    keep[:, l - text:] = (torch.arange(text, device=dev)[None] < lens[:, None]).float()
     bias = (1.0 - keep) * torch.finfo(torch.float32).min
     mask = bias[:, None, :].expand(p, l, l)       # the view BertEncoder passes
     scale = hd ** -0.5
@@ -1047,7 +1150,7 @@ def lane_train_cases(dev, gen):
     frac = drop_keep.float().mean().item()
     sigma = (P_ATTN * (1 - P_ATTN) / drop_keep.numel()) ** 0.5
     del drop_keep
-    label = f"x3=({p},{l},{3 * d}) nH={nh} p_drop={P_ATTN}"
+    label = f"{path}x3=({p},{l},{3 * d}) nH={nh} p_drop={P_ATTN}"
 
     def fwd_kernel(a):
         return wa._lane_fwd(a, mask, nh, scale, P_ATTN, seed)
@@ -1641,14 +1744,17 @@ def tiled_sa_cases(dev, gen):
     (a) the multiple-choice fusion, 40 rows of 350 tokens (250 video + a
     question and option of 8 to 100 tokens), 12 heads of 64: forward at p = 0
     (the eval) and p = 0.1 (the fine-tune step), backward at p = 0.1, and the
-    dropout keep fraction; (b) DPT-Large at 384^2, 8 images of 577 tokens, 16
-    heads, no mask, forward in fp32 (which row 5's shared memory cannot hold)
-    and bf16, backward in bf16; (c) the split entry at (a)'s shape with
-    dropout; (d) N = 129, one key of the last tile. (b)-(d) are on no path of
+    dropout keep fraction; the same at the generative multiple choice's 8
+    rows of 350 (tgif-action, one row a question); (b) DPT-Large at 384^2,
+    8 images of 577 tokens, 16 heads, no mask, forward in fp32 (which row
+    5's shared memory cannot hold) and bf16, backward in bf16; (c) the
+    split entry at (a)'s shape with dropout; (d) N = 129, one key of the
+    last tile. (b)-(d) are on no path of
     this script (``off_path``). SDPA with ``attn_mask`` = mask[:, None] (and
     ``dropout_p``) is the yardstick."""
     recs = []
     shapes = (("mc fusion", QAMC_B * QAMC_O, 12, QAMC_L, 100, (0.0, P_ATTN)),
+              ("qamc-gen fusion", QAMC_B, 12, QAMC_L, 100, (0.0, P_ATTN)),
               ("dpt 384", 8, 16, 577, 0, (0.0,)),
               ("ragged", 16, 12, 129, 32, (P_ATTN,)))
     for label, b, nh, n, text, rates in shapes:
@@ -1661,7 +1767,7 @@ def tiled_sa_cases(dev, gen):
         seed = torch.tensor([20261016, 11], dtype=torch.int32, device=dev)
         ops = 4 * b * nh * n * n * hd
         mask_bytes = _span_bytes(mask)
-        on_path = label == "mc fusion"
+        on_path = label in ("mc fusion", "qamc-gen fusion")
         mine = []
         for p_drop in rates:
             (fwd, *fwd_rest), (bwd, *bwd_rest) = _sa_calls(mask, nh, scale, p_drop,
@@ -1687,7 +1793,7 @@ def tiled_sa_cases(dev, gen):
                 mine.append(measure("packed_self_attention_bwd", name, qkv, bwd, *bwd_rest,
                                     torch.bfloat16, "sa_bwd", 2.5 * ops, "bf16_tensor",
                                     (2 * qkv.numel() + do.numel()) * 2 + mask_bytes))
-            if on_path and p_drop:
+            if label == "mc fusion" and p_drop:
                 mine += split_sa_cases(qkv, do, mask, nh, p_drop, seed, name)
         for rec in mine:
             rec.setdefault("off_path", not on_path)
@@ -1902,16 +2008,18 @@ def planted_ln_check(dev, gen):
             if not any(msg.startswith(wants[k]) for msg in f)]
 
 
-def ln_bwd_cases(dev, gen):
-    """The LayerNorm backward at the four sites of the train step, each also
-    at ``LARGE_MEAN``; dgamma and dbeta of two runs bit-identical."""
+def ln_bwd_cases(dev, gen, sites=TRAIN_LN, path="", planted=True):
+    """The LayerNorm backward at ``sites`` (the four of the pretrain step, or
+    ``FINETUNE_LN``), each also at ``LARGE_MEAN``; dgamma and dbeta of two
+    runs bit-identical; with ``planted``, the ``PLANTED_LN`` faults at the
+    first site."""
     recs = []
-    for label, rows, c, eps, work in TRAIN_LN:
+    for label, rows, c, eps, work in sites:
         x, large, g, _ = _ln_inputs(dev, gen, rows, c)
         dy = _bf16_values(torch.randn(rows, c, device=dev, generator=gen))
         calls = _ln_bwd_calls(g, dy, eps, c)
         item = torch.finfo(work).bits // 8
-        rec = measure("fused_layer_norm_bwd", f"{label} rows={rows} C={c} eps={eps}", x,
+        rec = measure("fused_layer_norm_bwd", f"{path}{label} rows={rows} C={c} eps={eps}", x,
                       *calls, work, "layer_norm_bwd", 16 * rows * c, "fp32",
                       3 * rows * c * item + 3 * c * 4)
         rec = _ln_record(rec, "layer_norm_bwd", calls, x, large, c, work)
@@ -1922,7 +2030,8 @@ def ln_bwd_cases(dev, gen):
             rec["failures"].append(f"fused_layer_norm_bwd [{rec['shape']}] dgamma, dbeta differ "
                                    "between two runs")
         recs.append(rec)
-    recs[0]["failures"] += planted_ln_check(dev, gen)
+    if planted:
+        recs[0]["failures"] += planted_ln_check(dev, gen)
     return recs
 
 
@@ -2313,18 +2422,20 @@ def _step_results(model, ls):
              for n, p in model.named_parameters()})
 
 
-def hold_card_against_cpu(results, secs, info, zero=()):
+def hold_card_against_cpu(results, secs, info, zero=None):
     """Hold the card's step (``results["card"]``: losses, gradients) to the
     CPU's with ``WHOLE_STEP_TOL``; print the differences. The parameters in
-    ``zero`` have gradients that are zero in exact arithmetic: each side's
-    is held to ``ZERO_GRAD_ATOL`` instead of to the other's roundoff."""
+    ``zero`` (name -> bound) have gradients that are zero in exact
+    arithmetic: each side's is held to its bound instead of to the other's
+    roundoff."""
     (ls_c, g_c), (ls_r, g_r) = results["card"], results["cpu"]
     tol = WHOLE_STEP_TOL
+    zero = zero or {}
     g_all = max(g.abs().max().item() for g in g_r.values())
     worst, fails = [], []
-    for n in zero:
+    for n, bound in zero.items():
         got = max(g_c[n].abs().max().item(), g_r[n].abs().max().item())
-        if got > ZERO_GRAD_ATOL:
+        if got > bound:
             fails.append(f"{n}: gradient {got:.3g}, zero in exact arithmetic")
     for n, g in g_r.items():
         if n in zero:
@@ -2348,43 +2459,87 @@ def hold_card_against_cpu(results, secs, info, zero=()):
 
 
 # ---------------------------------------------------------------------------
-# phases 14-16: the multiple-choice QA fine-tune step and eval
+# phases 14-16 and 26-31: the downstream heads' fine-tune steps and evals
 # ---------------------------------------------------------------------------
 
-def synthetic_qamc_batch(b, cfg, seed, device):
-    """``b`` seeded uint8 clips, each with ``size_option`` rows of a question
-    and an option of 8 to size_txt tokens ([CLS] ... [SEP], zero-padded),
-    their padding mask, and a seeded answer per clip."""
+def synthetic_finetune_batch(kind, b, cfg, seed, device):
+    """``b`` seeded uint8 clips with the text and labels of a fine-tune
+    batch of ``kind``. Text rows are [CLS] ... [SEP] of 8 to size_txt
+    tokens, zero-padded, with their padding mask; ``ans`` is a seeded answer
+    per clip (an option, or for ``"oe"`` an answer of the vocabulary).
+    ``"mc"`` and ``"mc_mlm"`` give each clip ``size_option`` rows (B, O, X)
+    of a question and an option, the others one row (B, X): a caption
+    (``"retrieval"``) or a question. In ``"mc_mlm"``, ``"oe_mlm"`` and
+    ``"gen"`` the token before [SEP] is [MASK], and ``mask_ans`` holds there
+    the label the MLM head must give ("true" for the answer's option and
+    "false" for the others; a seeded word; the answer's digit), -1
+    elsewhere."""
     rs = np.random.RandomState(seed)
     o, x = cfg.size_option, cfg.size_txt
-    txt = np.zeros((b, o, x), np.int32)
-    for row in txt.reshape(b * o, x):
+    per_clip = o if kind in ("mc", "mc_mlm") else 1
+    txt = np.zeros((b * per_clip, x), np.int32)
+    for row in txt:
         n = rs.randint(8, x + 1)
         row[:n] = rs.randint(1000, cfg.text.vocab_size, n)
         row[0], row[n - 1] = 101, 102
     img = rs.randint(0, 256, (b, cfg.size_frame, cfg.size_img, cfg.size_img, 3))
-    return {"img": torch.from_numpy(img.astype(np.uint8)).to(device),
-            "txt": torch.from_numpy(txt).to(device),
-            "mask": torch.from_numpy((txt > 0).astype(np.int32)).to(device),
-            "ans": torch.from_numpy(rs.randint(0, o, b)).to(device)}
+    ans = rs.randint(0, cfg.size_vocab if kind == "oe" else o, b)
+    out = {"ans": ans}
+    if kind in ("mc_mlm", "oe_mlm", "gen"):
+        slot = (txt == 102).argmax(1) - 1
+        txt[np.arange(len(txt)), slot] = MASK_ID
+        label = (np.where(np.arange(o)[None] == ans[:, None], TRUE_ID, FALSE_ID).reshape(-1)
+                 if kind == "mc_mlm" else np.array(DIGIT_IDS)[ans] if kind == "gen"
+                 else rs.randint(1000, cfg.text.vocab_size, b))
+        out["mask_ans"] = np.where(np.arange(x)[None] == slot[:, None], label[:, None], -1)
+    shape = (b, o, x) if per_clip > 1 else (b, x)
+    out.update(img=img.astype(np.uint8), txt=txt, mask=(txt > 0).astype(np.int32))
+    return {k: torch.from_numpy(v.reshape(shape) if k in ("txt", "mask", "mask_ans") else v)
+            .to(device) for k, v in out.items()}
 
 
-# the score head's output bias: shared by the options, so its gradient under
-# the cross entropy over them is zero in exact arithmetic (as VTM_OUT_BIAS)
-QAMC_OUT_BIAS = "fc.3.bias"
+def fusion_shape(cfg, kind, b, prefix=0):
+    """(rows, tokens, route) of a fine-tune batch's fusion: route ``lane``
+    where ``lane_sa_attention_fits`` sends BERT to row 5, else ``tiled``."""
+    rows = {"retrieval": b * b, "mc": b * cfg.size_option,
+            "mc_mlm": b * cfg.size_option}.get(kind, b)
+    tokens = cfg.size_frame * cfg.tokens_per_frame + cfg.size_txt + prefix
+    fits = wa.lane_sa_attention_fits(rows, tokens, cfg.hidden_size,
+                                     cfg.fusion.num_attention_heads)
+    return rows, tokens, "lane" if fits else "tiled"
 
 
-def qamc_train_phase(dev, run):
-    """Phase 14: the multiple-choice fine-tune step at full width. Returns
-    its launch counts (held to ``TRAIN_QAMC_LAUNCHES``) and the trained
-    model, which phase 16 evaluates."""
+# the score head's output bias of the multiple-choice (ce over the options)
+# and retrieval (nce, shift-invariant along rows and columns) steps: the
+# same for every option or pair, so its gradient is zero in exact arithmetic
+# (as VTM_OUT_BIAS)
+SCORE_OUT_BIAS = "fc.3.bias"
+# parameters that no step gives a gradient: the frame-order embedding, which
+# no fine-tune forward reads, and the gumbel selection's projections, which
+# reach the loss only through the comparison that makes the kept-token mask
+# (as in JAX)
+NO_GRAD = {"enc_img.emb_odr"}
+GUMBEL_NO_GRAD = {"vid_key.weight", "vid_query.weight"}
+
+
+def finetune_phase(dev, name, config, run, model, loss_kind, kind, want_launches,
+                   zero_ok=()):
+    """Phases 14, 26, 28 and 30: the ``loss_kind`` fine-tune step of
+    ``model`` (bf16, full width) on a ``kind`` batch of the run's
+    ``size_batch``, with the package's ``build_optimizer``. One warm-up
+    step, then ``TRAIN_STEPS`` timed steps: items/s (clips for retrieval,
+    questions for QA; batch / step seconds) median and range, peak device
+    memory, every loss finite, one more step's kernel time under the
+    profiler; the launches of the first timed step held to
+    ``want_launches``; every parameter with a gradient changed (those in
+    ``zero_ok`` may instead end with an all-zero gradient). Returns the
+    launches and the trained model."""
     cfg = run.model
     b = run.train.size_batch
-    model = VioletQAMC(cfg, dtype=torch.bfloat16, device=dev, seed=TRAIN_SEED)
     opt = build_optimizer(model, run.train, TRAIN_MAX_ITER)
     state = create_train_state(model, opt)
-    step = make_supervised_train_step(model, opt, "ce")
-    batch = synthetic_qamc_batch(b, cfg, seed=6, device=dev)
+    step = make_supervised_train_step(model, opt, loss_kind, run.train.temp)
+    batch = synthetic_finetune_batch(kind, b, cfg, seed=6, device=dev)
     before = {n: p.detach().clone() for n, p in state.params.items()}
     t0 = time.perf_counter()
     state, ls = step(state, batch, TRAIN_SEED)             # warm-up: first launches, cuBLAS
@@ -2404,108 +2559,286 @@ def qamc_train_phase(dev, run):
             launches = dict(_build.launch_counts)
         losses.append(ls["total"].item())
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    qps = [b / t for t in secs]
-    print(f"qamc train-step launch counts: {launches}", flush=True)
+    rate = [b / t for t in secs]
+    unit = "clips_per_s" if kind == "retrieval" else "questions_per_s"
+    rows, tokens, route = fusion_shape(cfg, kind, b)
+    print(f"{name} train-step launch counts: {launches}", flush=True)
     print(json.dumps({
-        "slice": "qamc_train_step", "config": QAMC_CONFIG.name, "dtype": "bfloat16",
-        "batch": b, "options": cfg.size_option, "frames": cfg.size_frame,
-        "size_img": cfg.size_img, "size_txt": cfg.size_txt, "fusion_rows": b * cfg.size_option,
-        "fusion_tokens": cfg.size_frame * cfg.tokens_per_frame + cfg.size_txt,
-        "steps": TRAIN_STEPS, "warmup_step_s": warm_s,
-        "questions_per_s": float(np.median(qps)), "questions_per_s_range": [min(qps), max(qps)],
+        "slice": f"{name}_train_step", "config": config.name, "model": type(model).__name__,
+        "loss": loss_kind, "dtype": "bfloat16", "batch": b, "frames": cfg.size_frame,
+        "size_img": cfg.size_img, "size_txt": cfg.size_txt, "fusion_rows": rows,
+        "fusion_tokens": tokens, "fusion_route": route, "steps": TRAIN_STEPS,
+        "warmup_step_s": warm_s, unit: float(np.median(rate)), f"{unit}_range": [min(rate),
+                                                                               max(rate)],
         "step_ms_median": float(np.median(secs)) * 1e3, "step_s_each": secs,
-        "peak_mem_gib": peak, "losses_each_step": losses}), flush=True)
-    require(launches == TRAIN_QAMC_LAUNCHES,
-            f"launches of one qamc train step {launches}, not {TRAIN_QAMC_LAUNCHES}")
+        "peak_mem_gib": peak, "losses_each_step": losses,
+        "kernel_ms_one_step": _kernel_ms(_stepper(step, state, batch))}), flush=True)
+    require(launches == want_launches,
+            f"launches of one {name} train step {launches}, not {want_launches}")
     require(all(np.isfinite(v) for v in losses), f"non-finite loss: {losses}")
     no_grad = {n for n, p in state.params.items() if p.grad is None}
-    require(no_grad == {"enc_img.emb_odr"}, f"parameters without a gradient: {sorted(no_grad)}")
+    want_no_grad = NO_GRAD | (GUMBEL_NO_GRAD if hasattr(model, "vid_key") else set())
+    require(no_grad == want_no_grad, f"parameters without a gradient: {sorted(no_grad)}")
     zero = {n for n, p in state.params.items() if n not in no_grad and not p.grad.any()}
     print(f"parameters whose last gradient is exactly 0: {sorted(zero)}", flush=True)
-    require(zero <= {QAMC_OUT_BIAS}, f"all-zero last gradients: {sorted(zero - {QAMC_OUT_BIAS})}")
+    require(zero <= set(zero_ok), f"all-zero last gradients: {sorted(zero - set(zero_ok))}")
     unchanged = [n for n, p in state.params.items()
                  if n not in no_grad | zero and torch.equal(before[n], p.detach())]
-    require(not unchanged, f"parameters unchanged after {TRAIN_STEPS + 1} steps: {unchanged}")
+    require(not unchanged, f"parameters unchanged after {TRAIN_STEPS + 2} steps: {unchanged}")
     return launches, model
 
 
-def qamc_whole_step_phase(dev, run):
-    """Phase 15: one multiple-choice step of a depth-cut copy (swin depths
-    (2, 2, 2, 2), 2 fusion layers, batch 2, every rate 0) at full widths and
-    L = 350, so the fusion still takes the tiled kernel: card fp32 against
-    CPU fp32."""
+def eval_launches(train_launches):
+    """The forward launches of a step: its kernels without the backwards,
+    the attention without dropout."""
+    return {k.replace("_dropout", ""): v for k, v in train_launches.items()
+            if not k.endswith("_bwd")}
+
+
+def finetune_eval_phase(dev, name, config, model, run, kind, metrics, want_shape,
+                        train_launches, batches=FINETUNE_EVAL_BATCHES):
+    """Phases 16, 26, 28 and 30: ``make_eval_step`` on ``batches`` seeded
+    ``kind`` batches (one warm-up batch first), the logits finite and of
+    ``want_shape``, and ``metrics(logits on the host, batch)`` (name ->
+    value) averaged over them, as the JAX CLIs score a split; each batch
+    launches the forwards of the step (``eval_launches(train_launches)``).
+    Returns one batch's launches."""
     cfg = run.model
-    cut = dataclasses.replace(
+    b = run.train.size_batch
+    eval_step = make_eval_step(model)
+    data = [synthetic_finetune_batch(kind, b, cfg, seed=20 + i, device=dev)
+            for i in range(batches + 1)]
+    eval_step(data[0])
+    torch.cuda.synchronize(dev)
+    _build.launch_counts.clear()
+    each, secs = [], []
+    for batch in data[1:]:
+        t0 = time.perf_counter()
+        logits = eval_step(batch)
+        torch.cuda.synchronize(dev)
+        secs.append(time.perf_counter() - t0)
+        require(tuple(logits.shape) == want_shape and bool(torch.isfinite(logits).all()),
+                f"{name} eval logits {tuple(logits.shape)}, finite: "
+                f"{bool(torch.isfinite(logits).all())}")
+        each.append(metrics(logits.float().cpu().numpy(),
+                            {k: v.cpu().numpy() for k, v in batch.items()}))
+    launches = dict(_build.launch_counts)
+    one = {k: v // batches for k, v in launches.items()}
+    mean = {k: float(np.mean([e[k] for e in each])) for k in each[0]}
+    rate = [b / t for t in secs]
+    print(json.dumps({
+        "slice": f"{name}_eval", "config": config.name, "dtype": "bfloat16", "batch": b,
+        "batches": batches, "metrics": mean, "metrics_each": each,
+        "items_per_s": float(np.median(rate)), "items_per_s_range": [min(rate), max(rate)],
+        "launches": launches}), flush=True)
+    require(launches == {k: v * batches for k, v in one.items()}
+            and one == eval_launches(train_launches),
+            f"launches of {batches} {name} evals {launches}")
+    require(all(0.0 <= v <= 1.0 for v in mean.values()), f"{name} metrics {mean}")
+    return one
+
+
+def cut_finetune_config(cfg):
+    """The whole-step checks' depth cut: swin depths (2, 2, 2, 2), 2 fusion
+    layers, every dropout and drop-path rate 0, full widths."""
+    return dataclasses.replace(
         cfg, swin_custom=dataclasses.replace(cfg.swin, depths=(2, 2, 2, 2), drop_path_rate=0.0),
         fusion=dataclasses.replace(cfg.fusion, num_hidden_layers=2, hidden_dropout_prob=0.0,
                                    attention_probs_dropout_prob=0.0),
         text=dataclasses.replace(cfg.text, hidden_dropout_prob=0.0))
-    b = 2
-    fused = cut.size_frame * cut.tokens_per_frame + cut.size_txt
-    require(not wa.lane_sa_attention_fits(b * cut.size_option, fused, cut.hidden_size,
-                                          cut.fusion.num_attention_heads),
-            f"the cut multiple-choice fusion over {fused} tokens would take the lane kernel")
-    batch = synthetic_qamc_batch(b, cut, seed=7, device="cpu")
-    card = VioletQAMC(cut, dtype=torch.float32, device=dev, seed=1)
-    cpu = VioletQAMC(cut, dtype=torch.float32, device="cpu", seed=1)
+
+
+def finetune_whole_step_phase(dev, name, run, build, loss_kind, kind, b=2, zero=None,
+                              prefix=0, extra=None):
+    """Phases 15, 27, 29 and 31: one ``loss_kind`` step of a depth-cut copy
+    (``cut_finetune_config``) built by ``build(cfg, dtype, device)``, ``b``
+    clips of a ``kind`` batch (plus ``extra``, such as injected gumbel
+    noise), card fp32 (kernels) against CPU fp32 (plain versions), held to
+    ``WHOLE_STEP_TOL``; the fusion (``prefix`` tokens more) takes the same
+    route as at full depth, its backward launched once a layer. ``zero``:
+    parameter -> bound of the gradients that are zero in exact
+    arithmetic."""
+    cut = cut_finetune_config(run.model)
+    rows, tokens, route = fusion_shape(cut, kind, b, prefix)
+    require(route == fusion_shape(run.model, kind, run.train.size_batch, prefix)[2],
+            f"the cut {name} fusion over {tokens} tokens routes to {route}")
+    batch = {**synthetic_finetune_batch(kind, b, cut, seed=7, device="cpu"), **(extra or {})}
+    card, cpu = build(cut, torch.float32, dev), build(cut, torch.float32, "cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
     results, secs = {}, {}
     _build.launch_counts.clear()
-    for name, model, device in (("card", card, dev), ("cpu", cpu, torch.device("cpu"))):
-        model.fc[0].p = 0.0                 # the score head's dropout, fixed at 0.1
+    for side, model, device in (("card", card, dev), ("cpu", cpu, torch.device("cpu"))):
+        if hasattr(model, "fc"):
+            model.fc[0].p = 0.0             # the score head's dropout, fixed at 0.1
         opt = build_optimizer(model, run.train, TRAIN_MAX_ITER)
-        step = make_supervised_train_step(model, opt, "ce")
+        step = make_supervised_train_step(model, opt, loss_kind, run.train.temp)
         t0 = time.perf_counter()
         _, ls = step(create_train_state(model, opt), {k: v.to(device) for k, v in batch.items()},
                      0)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        secs[name] = time.perf_counter() - t0
-        results[name] = _step_results(model, ls)
-    require(_build.launch_counts["packed_self_attention_bwd"] == 2,
-            f"the cut card step's launches: {dict(_build.launch_counts)}")
+        secs[side] = time.perf_counter() - t0
+        results[side] = _step_results(model, ls)
+    bwd = "lane_self_attention_bwd" if route == "lane" else "packed_self_attention_bwd"
+    require(_build.launch_counts[bwd] == cut.fusion.num_hidden_layers,
+            f"the cut {name} card step's launches: {dict(_build.launch_counts)}")
+    zero = zero or {}
     hold_card_against_cpu(results, secs, {
-        "slice": "qamc", "swin_depths": list(cut.swin.depths),
-        "fusion_layers": cut.fusion.num_hidden_layers, "batch": b,
-        "fusion_rows": b * cut.size_option, "fusion_tokens": fused,
-        "zero_in_exact_arithmetic": {QAMC_OUT_BIAS: [results[k][1][QAMC_OUT_BIAS].abs().max()
-                                                     .item() for k in ("card", "cpu")]}},
-        zero=(QAMC_OUT_BIAS,))
+        "slice": name, "model": type(card).__name__, "loss": loss_kind,
+        "swin_depths": list(cut.swin.depths), "fusion_layers": cut.fusion.num_hidden_layers,
+        "batch": b, "fusion_rows": rows, "fusion_tokens": tokens, "fusion_route": route,
+        "prefix_tokens": prefix,
+        "zero_in_exact_arithmetic": {n: [results[k][1][n].abs().max().item()
+                                         for k in ("card", "cpu")] for n in zero}},
+        zero=zero)
 
 
-def qamc_eval_phase(dev, model, run):
-    """Phase 16: ``make_eval_step`` on ``QAMC_EVAL_BATCHES`` seeded batches
-    (one warm-up batch first) and ``qamc_accuracy`` over them, as cli/qa.py
-    scores a split; each batch launches ``EVAL_QAMC_LAUNCHES``."""
-    cfg = run.model
-    b = run.train.size_batch
-    eval_step = make_eval_step(model)
-    batches = [synthetic_qamc_batch(b, cfg, seed=20 + i, device=dev)
-               for i in range(QAMC_EVAL_BATCHES + 1)]
-    eval_step(batches[0])
-    torch.cuda.synchronize(dev)
-    _build.launch_counts.clear()
-    accs, secs = [], []
-    for batch in batches[1:]:
-        t0 = time.perf_counter()
-        logits = eval_step(batch)
-        torch.cuda.synchronize(dev)
-        secs.append(time.perf_counter() - t0)
-        require(logits.shape == (b, cfg.size_option) and torch.isfinite(logits).all(),
-                f"eval logits {tuple(logits.shape)}, finite: {torch.isfinite(logits).all()}")
-        accs.append(qamc_accuracy(logits.float().cpu().numpy(), batch["ans"].cpu().numpy()))
-    launches = dict(_build.launch_counts)
-    want = {k: v * QAMC_EVAL_BATCHES for k, v in EVAL_QAMC_LAUNCHES.items()}
-    accuracy = float(np.mean(accs))
-    qps = [b / t for t in secs]
-    print(json.dumps({
-        "slice": "qamc_eval", "config": QAMC_CONFIG.name, "dtype": "bfloat16", "batch": b,
-        "batches": QAMC_EVAL_BATCHES, "accuracy": accuracy, "accuracy_each": accs,
-        "questions_per_s": float(np.median(qps)), "questions_per_s_range": [min(qps), max(qps)],
-        "launches": launches}), flush=True)
-    require(launches == want, f"launches of {QAMC_EVAL_BATCHES} qamc evals {launches}, not {want}")
-    require(0.0 <= accuracy <= 1.0, f"accuracy {accuracy}")
-    return {k: v // QAMC_EVAL_BATCHES for k, v in launches.items()}
+def mc_phases(dev):
+    """Phases 14-16, the multiple-choice QA fine-tune step at msrvtt-mc,
+    its whole-step check and its eval. Returns the step's and one eval
+    batch's launches."""
+    # 14. the multiple-choice QA fine-tune step at full width (msrvtt-mc):
+    # the fusion over 40 rows of 350 tokens on the tiled self-attention
+    run_qamc = load_run_config(str(QAMC_CONFIG))
+    ft = {}
+    ft["train_step_qamc"], qamc_model = finetune_phase(
+        dev, "qamc", QAMC_CONFIG, run_qamc,
+        VioletQAMC(run_qamc.model, dtype=torch.bfloat16, device=dev, seed=TRAIN_SEED), "ce",
+        "mc", TRAIN_QAMC_LAUNCHES, zero_ok={SCORE_OUT_BIAS})
+    torch.cuda.empty_cache()
+
+    # 15. the whole multiple-choice step, card fp32 against CPU fp32
+    finetune_whole_step_phase(dev, "qamc", run_qamc,
+                              lambda c, dt, d: VioletQAMC(c, dtype=dt, device=d, seed=1), "ce",
+                              "mc", zero={SCORE_OUT_BIAS: ZERO_GRAD_ATOL})
+    torch.cuda.empty_cache()
+
+    # 16. the multiple-choice eval on the trained model
+    ft["eval_qamc"] = finetune_eval_phase(
+        dev, "qamc", QAMC_CONFIG, qamc_model, run_qamc, "mc",
+        lambda lg, bt: {"accuracy": qamc_accuracy(lg, bt["ans"])},
+        (run_qamc.train.size_batch, run_qamc.model.size_option), TRAIN_QAMC_LAUNCHES,
+        batches=QAMC_EVAL_BATCHES)
+    del qamc_model
+    torch.cuda.empty_cache()
+    return ft
+
+
+def downstream_phases(dev):
+    """Phases 26-31: the retrieval (``nce``), open-ended QA (``ce``,
+    ``mlm``) and tgif-action multiple-choice (``mlm``, gumbel ``ce``)
+    fine-tune steps at full width with their evals, and the whole-step
+    checks of the nce, task-token and prompt mlm and gumbel ce steps.
+    Returns each step's and one eval batch's launches."""
+    ft = {}
+    # 26. the retrieval fine-tune step (nce) at full width (msrvtt-retrieval:
+    # 8 clips x 8 captions, 64 fusion rows of 275 on row 5 with dropout and
+    # row 6), then the in-batch accuracy of the eval forward's scores
+    run_ret = load_run_config(str(RET_CONFIG))
+    b_ret = run_ret.train.size_batch
+    ft["train_step_retrieval"], model = finetune_phase(
+        dev, "retrieval", RET_CONFIG, run_ret,
+        VioletRetrieval(run_ret.model, dtype=torch.bfloat16, device=dev, seed=TRAIN_SEED), "nce",
+        "retrieval", TRAIN_RET_LAUNCHES, zero_ok={SCORE_OUT_BIAS})
+    ft["eval_retrieval"] = finetune_eval_phase(
+        dev, "retrieval", RET_CONFIG, model, run_ret, "retrieval",
+        lambda s, bt: {"in_batch_accuracy": in_batch_retrieval_accuracy(s)}, (b_ret, b_ret),
+        TRAIN_RET_LAUNCHES)
+    del model
+    torch.cuda.empty_cache()
+
+    # 27. the whole nce step, card fp32 against CPU fp32
+    finetune_whole_step_phase(dev, "retrieval", run_ret,
+                              lambda c, dt, d: VioletRetrieval(c, dtype=dt, device=d, seed=1),
+                              "nce", "retrieval", zero={SCORE_OUT_BIAS: NCE_ZERO_GRAD_ATOL})
+    torch.cuda.empty_cache()
+
+    # 28. open-ended QA at full width (msrvtt-qa: 10 questions, fusion rows of
+    # 275 on row 5): the 1500-way answer head (ce) and the MLM head (mlm),
+    # each step and its eval
+    run_qaoe = load_run_config(str(QAOE_CONFIG))
+    cfg_qaoe, b_qaoe = run_qaoe.model, run_qaoe.train.size_batch
+    vocab = cfg_qaoe.fusion.vocab_size
+    ft["train_step_qaoe"], model = finetune_phase(
+        dev, "qaoe", QAOE_CONFIG, run_qaoe,
+        VioletQAOE(cfg_qaoe, dtype=torch.bfloat16, device=dev, seed=TRAIN_SEED), "ce", "oe",
+        TRAIN_QAOE_LAUNCHES)
+    ft["eval_qaoe"] = finetune_eval_phase(
+        dev, "qaoe", QAOE_CONFIG, model, run_qaoe, "oe",
+        lambda lg, bt: {"accuracy": masked_accuracy(torch.from_numpy(lg.argmax(-1)),
+                                                    torch.from_numpy(bt["ans"])).item()},
+        (b_qaoe, cfg_qaoe.size_vocab), TRAIN_QAOE_LAUNCHES)
+    del model
+    torch.cuda.empty_cache()
+    ft["train_step_qaoe_mlm"], model = finetune_phase(
+        dev, "qaoe_mlm", QAOE_CONFIG, run_qaoe,
+        VioletQAOEMLMHead(cfg_qaoe, dtype=torch.bfloat16, device=dev, seed=TRAIN_SEED), "mlm",
+        "oe_mlm", TRAIN_QAOE_MLM_LAUNCHES)
+    ft["eval_qaoe_mlm"] = finetune_eval_phase(
+        dev, "qaoe_mlm", QAOE_CONFIG, model, run_qaoe, "oe_mlm",
+        lambda lg, bt: {f"top{k}": float(np.mean(qaoe_mlm_topk(lg, bt["mask_ans"], k)))
+                        for k in (1, 5)},
+        (b_qaoe, cfg_qaoe.size_txt, vocab), TRAIN_QAOE_MLM_LAUNCHES)
+    del model
+    torch.cuda.empty_cache()
+
+    # 29. the whole mlm step of the open-ended MLM head with its task token,
+    # then with a prompt of PROMPT_LEN tokens, card fp32 against CPU fp32
+    run_tt = dataclasses.replace(run_qaoe, model=dataclasses.replace(
+        cfg_qaoe, enable_task_token=True, task_token="oe"))
+    finetune_whole_step_phase(dev, "qaoe_mlm_task_token", run_tt,
+                              lambda c, dt, d: VioletQAOEMLMHead(c, dtype=dt, device=d, seed=1),
+                              "mlm", "oe_mlm", prefix=1)
+    prompt = np.random.RandomState(9).randint(1000, vocab, PROMPT_LEN)
+    prompt[0], prompt[-1] = 101, 102
+    run_pr = dataclasses.replace(run_qaoe, model=dataclasses.replace(cfg_qaoe,
+                                                                     enable_prompt=True))
+    finetune_whole_step_phase(
+        dev, "qaoe_mlm_prompt", run_pr,
+        lambda c, dt, d: VioletQAOEMLMHead(c, dtype=dt, device=d, seed=1,
+                                           prompt_tokens=tuple(int(t) for t in prompt)),
+        "mlm", "oe_mlm", prefix=PROMPT_LEN)
+    torch.cuda.empty_cache()
+
+    # 30. multiple choice at full width (tgif-action): the generative head
+    # (8 rows of 350) and the MLM head (40 rows of 350) on mlm, and the
+    # gumbel video-token selection on ce, each step and its eval
+    run_mc = load_run_config(str(QAMC_GEN_CONFIG))
+    cfg_mc, b_mc = run_mc.model, run_mc.train.size_batch
+    digits = DIGIT_IDS[:cfg_mc.size_option]
+    for name, build, loss, kind, want, metrics, shape in (
+            ("qamc_gen", VioletQAMCGen, "mlm", "gen", TRAIN_QAMC_MLM_LAUNCHES,
+             lambda lg, bt: {"accuracy": float(np.mean(qamc_gen_accuracy(
+                 lg, bt["txt"], MASK_ID, digits, bt["ans"])))},
+             (b_mc, cfg_mc.size_txt, vocab)),
+            ("qamc_mlm", VioletQAMCMLMHead, "mlm", "mc_mlm", TRAIN_QAMC_MLM_LAUNCHES,
+             lambda lg, bt: {"accuracy": float(np.mean(qamc_mlm_head_accuracy(
+                 lg, bt["mask_ans"], TRUE_ID, FALSE_ID)))},
+             (b_mc, cfg_mc.size_option, cfg_mc.size_txt, vocab)),
+            ("qamc_gumbel", functools.partial(VioletQAMC, num_video_tokens=GUMBEL_TOKENS), "ce",
+             "mc", TRAIN_QAMC_GUMBEL_LAUNCHES,
+             lambda lg, bt: {"accuracy": qamc_accuracy(lg, bt["ans"])},
+             (b_mc, cfg_mc.size_option))):
+        ft[f"train_step_{name}"], model = finetune_phase(
+            dev, name, QAMC_GEN_CONFIG, run_mc,
+            build(cfg_mc, dtype=torch.bfloat16, device=dev, seed=TRAIN_SEED), loss, kind, want,
+            zero_ok={SCORE_OUT_BIAS} if loss == "ce" else ())
+        ft[f"eval_{name}"] = finetune_eval_phase(dev, name, QAMC_GEN_CONFIG, model, run_mc,
+                                                 kind, metrics, shape, want)
+        del model
+        torch.cuda.empty_cache()
+
+    # 31. the whole gumbel ce step with the same injected noise on both sides,
+    # card fp32 against CPU fp32
+    noise = draw_gumbel((2, GUMBEL_TOKENS, cfg_mc.size_frame * cfg_mc.tokens_per_frame),
+                        torch.Generator().manual_seed(8))
+    finetune_whole_step_phase(
+        dev, "qamc_gumbel", run_mc,
+        lambda c, dt, d: VioletQAMC(c, dtype=dt, device=d, seed=1,
+                                    num_video_tokens=GUMBEL_TOKENS),
+        "ce", "mc", zero={SCORE_OUT_BIAS: ZERO_GRAD_ATOL}, extra={"gumbel_noise": noise})
+    torch.cuda.empty_cache()
+    return ft
 
 
 def lanebench_phase():
@@ -2745,7 +3078,7 @@ def _step_calls(dev):
     model = VioletQAMC(run.model, dtype=torch.bfloat16, device=dev, seed=TRAIN_SEED)
     opt = build_optimizer(model, run.train, TRAIN_MAX_ITER)
     step = make_supervised_train_step(model, opt, "ce")
-    batch = synthetic_qamc_batch(run.train.size_batch, run.model, seed=6, device=dev)
+    batch = synthetic_finetune_batch("mc", run.train.size_batch, run.model, seed=6, device=dev)
     yield "train step qamc", _stepper(step, create_train_state(model, opt), batch)
 
 
@@ -2944,8 +3277,9 @@ def kernels_line(recs, runs):
     order: the 2d_feature step, the pixel step, the swin2d step, the violet
     step, the multiple-choice step, one eval, one multiple-choice eval, the
     3d_feature, 2d_clip, hog, depth, vq (on the fly, pre-extracted) and
-    optical_flow steps, the lanebench tool's run) that
-    launched the kernel, each run's beside it as ``launches_<name>``."""
+    optical_flow steps, the lanebench tool's run, then the fine-tune steps
+    and evals of phases 26-30) that launched the kernel, each run's beside
+    it as ``launches_<name>``."""
     line = []
     for name, meta in KERNELS.items():
         checked = [r for r in recs if r["kernel"] == name]
@@ -3030,7 +3364,12 @@ def main() -> None:
             + ln_cases(dev, gen, CLIP_LN, "train clip teacher")
             + teacher_lane_case(dev, gen, "depth", 197, 1024, 16)
             + ln_cases(dev, gen, DPT_LN, "train dpt teacher")
-            + lane_attention_cases(dev, gen) + c128_cases(dev, gen))
+            + lane_attention_cases(dev, gen) + c128_cases(dev, gen)
+            + lane_train_cases(dev, gen, *FINETUNE_LANE, path="retrieval ")
+            + direct_cases(dev, gen, QAOE_B, 5, "qaoe")
+            + direct_bwd_cases(dev, gen, "qaoe ", b=QAOE_B, t=5)
+            + ln_cases(dev, gen, FINETUNE_LN, "finetune")
+            + ln_bwd_cases(dev, gen, FINETUNE_LN, "finetune ", planted=False))
     failures = [f for r in recs for f in r.pop("failures")]
     print(json.dumps({"kernel_shapes": recs}), flush=True)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s; "
@@ -3150,20 +3489,9 @@ def main() -> None:
     whole_step_phase(dev, run_violet)
     torch.cuda.empty_cache()
 
-    # 14. the multiple-choice QA fine-tune step at full width (msrvtt-mc):
-    # the fusion over 40 rows of 350 tokens on the tiled self-attention
-    run_qamc = load_run_config(str(QAMC_CONFIG))
-    train_qamc_launches, qamc_model = qamc_train_phase(dev, run_qamc)
-    torch.cuda.empty_cache()
-
-    # 15. the whole multiple-choice step, card fp32 against CPU fp32
-    qamc_whole_step_phase(dev, run_qamc)
-    torch.cuda.empty_cache()
-
-    # 16. the multiple-choice eval on the trained model
-    eval_qamc_launches = qamc_eval_phase(dev, qamc_model, run_qamc)
-    del qamc_model
-    torch.cuda.empty_cache()
+    # 14-16. the multiple-choice QA fine-tune step, its whole-step check and
+    # its eval (msrvtt-mc)
+    ft = mc_phases(dev)
 
     # 17. the lanebench tool: row 12 against transpose + row 9, and the lane
     # window forward + backward (rows 7-8) against the packed one (rows 9-10)
@@ -3203,13 +3531,18 @@ def main() -> None:
     whole_step_phase(dev, with_mvm_target(run_teachers, ("depth", "optical_flow", "vq")), b=2)
     torch.cuda.empty_cache()
 
+    # 26-31. the downstream heads' fine-tune steps, their evals and
+    # whole-step checks
+    ft.update(downstream_phases(dev))
+
     require(not failures, "kernel checks failed:\n" + "\n".join(failures))
 
     line = kernels_line(recs, {
         "train_step_2d_feature": train_2d_launches, "train_step": train_launches,
         "train_step_swin2d": train_swin2d_launches, "train_step_violet": train_violet_launches,
-        "train_step_qamc": train_qamc_launches, "eval": eval_launches,
-        "eval_qamc": eval_qamc_launches, **step_launches, "lanebench": lanebench_launches})
+        "train_step_qamc": ft.pop("train_step_qamc"), "eval": eval_launches,
+        "eval_qamc": ft.pop("eval_qamc"), **step_launches, "lanebench": lanebench_launches,
+        **ft})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

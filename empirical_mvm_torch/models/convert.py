@@ -2,10 +2,9 @@
 
 :func:`state_dict_from_flax` is the exact inverse of the JAX package's
 ``models/torch_import.violet_params_from_torch``: it takes the flax param
-tree of a ``VioletRetrieval``, ``VioletQAMC`` or ``VioletPretrain`` (nested
-dicts of arrays)
-and returns the reference-named torch ``state_dict`` the port's model of the
-same name loads. Dense kernels (in, out) become Linear weights (out, in); the patch
+tree of a ``VioletRetrieval``, a QA model of ``models/tasks.py`` or a
+``VioletPretrain`` (nested dicts of arrays) and returns the reference-named
+torch ``state_dict`` the port's model of the same name loads. Dense kernels (in, out) become Linear weights (out, in); the patch
 kernel (kd, kh, kw, C, E) becomes the Conv3d weight (E, C, kd, kh, kw);
 LayerNorm ``scale`` becomes ``weight``; embeddings' ``embedding`` becomes
 ``weight``. A pretrain tree's frozen ``feature_model`` teacher is carried
@@ -318,11 +317,14 @@ def enc_img_state_dict(img: Tree, prefix: str = "enc_img.") -> dict:
 
 def state_dict_from_flax(params: Tree, cfg: ModelConfig,
                          heads: Mapping[str, str] | None = None) -> dict:
-    """JAX ``VioletBase``/``VioletRetrieval``/``VioletQAMC``/``VioletPretrain``
-    params -> the port's ``state_dict``, with an ``EncVideo`` or an ``EncImgSwin``
+    """JAX ``VioletBase`` params (a retrieval, QA or pretrain model) -> the
+    port's ``state_dict``, with an ``EncVideo`` or an ``EncImgSwin``
     (``vis_backbone="swin2d"``) image encoder. ``heads`` maps head names to kinds as in
-    ``violet_params_from_torch``: ``"score_head"`` (``fc``, ``fc_mvm``),
-    ``"mlm_head"`` or ``"linear"``. A frozen ``feature_model`` teacher in
+    ``violet_params_from_torch``, as the JAX CLIs pass them: ``"score_head"``
+    (``fc``, ``fc_mvm``), ``"mlm_head"`` (``fc_mtm``) or ``"linear"`` (the
+    gumbel selection's bias-free ``vid_key`` and ``vid_query``). The task
+    token's ``emb_task`` is carried as it is (the JAX importer has no such
+    leaf). A frozen ``feature_model`` teacher in
     the tree is carried under ``feature_model.`` (its depths read from the
     tree; a 2D teacher has no final norm, the 3D one has), a ``clip_model``
     under ``clip_model.`` (:func:`clip_state_dict`), and the ``dpt``,
@@ -333,6 +335,8 @@ def state_dict_from_flax(params: Tree, cfg: ModelConfig,
                                          "enc_txt.emb_txt."))
     sd.update(bert_encoder_state_dict(params["trsfr"], cfg.fusion.num_hidden_layers,
                                       "trsfr."))
+    if "emb_task" in params:
+        _put(sd, "emb_task", params["emb_task"])
     if "feature_model" in params:
         teacher = params["feature_model"]
         sd.update(swin3d_state_dict(teacher, swin_depths(teacher), "feature_model."))
@@ -354,7 +358,7 @@ def state_dict_from_flax(params: Tree, cfg: ModelConfig,
             _layernorm(sd, f"{name}.predictions.transform.LayerNorm", tree["LayerNorm"])
             _linear(sd, f"{name}.predictions.decoder", tree["decoder"])
         elif kind == "linear":
-            _linear(sd, name, tree)
+            _linear(sd, name, tree, bias="bias" in tree)
         else:
             raise NotImplementedError(f"head kind {kind!r} is not ported")
     return sd

@@ -5,8 +5,10 @@ Covers what the retrieval eval and the pretrain step run: the ``vidswin``
 backbone (:class:`EncVideo`) and the trained 2D Swin backbone
 (``vis_backbone`` ``"swin"`` / ``"swin2d"``: ``encoders2d.EncImgSwin``, mean
 or concat fusion), the embeddings-only text encoder, and the ``full`` joint
-attention mask. Names are the reference checkpoint's (``enc_img.swin.*``,
-``enc_img.emb_pos``, ``enc_txt.emb_txt.*``, ``trsfr.layer.*``).
+attention mask, and the QA heads' text prefixes (a learned task token or an
+encoded prompt, :meth:`VioletBase.prepend_pretxt`). Names are the reference
+checkpoint's (``enc_img.swin.*``, ``enc_img.emb_pos``, ``enc_txt.emb_txt.*``,
+``trsfr.layer.*``).
 
 ``go_feat``, ``go_cross`` and :class:`ScoreHead` take a ``generator``: with
 one they run the training pass (stochastic depth, dropout, attention
@@ -109,7 +111,11 @@ class ScoreHead(nn.Sequential):
 
 class VioletBase(nn.Module):
     """Shared VIOLET trunk (ref: model.py:117-214). ``dtype`` is the compute
-    dtype; parameters stay fp32."""
+    dtype; parameters stay fp32. With ``enable_task_token`` the trunk holds
+    ``emb_task``, one learned row per task (ref: main_qaoe_lsmdc_fib.py:66-67)."""
+
+    # (ref: main_qaoe_lsmdc_fib.py:65 task_tok2id)
+    TASK_TOK2ID = {"vtm": 0, "mc": 1, "oe": 2, "cap": 3}
 
     def __init__(self, cfg: ModelConfig, dtype=torch.float32):
         super().__init__()
@@ -127,11 +133,38 @@ class VioletBase(nn.Module):
         self.dtype = dtype
         self.enc_txt = EncTxt(cfg, dtype)
         self.trsfr = BertEncoder(cfg.fusion, dtype)
+        if cfg.enable_task_token:
+            self.emb_task = nn.Parameter(torch.zeros(cfg.num_task_tokens, cfg.hidden_size))
 
     def go_feat(self, img, txt, mask, generator=None):
         """(ref: model.py:174-178)"""
         feat_img, mask_img = self.enc_img(img, generator)
         return feat_img, mask_img, self.enc_txt(txt, generator), mask
+
+    def prepend_pretxt(self, mask_txt, feat_txt, prompt=None, generator=None):
+        """Prepend the task token's row (``enable_task_token``) or an encoded
+        text prompt (``enable_prompt`` and a ``prompt`` (tokens, mask), each
+        (P,) or (B, P)) to the text features and their mask (ref:
+        model.py:219-258). Returns (mask_txt, feat_txt, prefix length), so
+        that a caller can slice its logits back to the text positions; with
+        neither, the inputs and 0. (The JAX version also threads a label row
+        through the concatenation, which its one caller discards.)"""
+        cfg = self.config
+        b, d = mask_txt.shape[0], feat_txt.shape[-1]
+        if cfg.enable_task_token:
+            row = self.emb_task[self.TASK_TOK2ID[cfg.task_token]]
+            pre_feat = row.to(feat_txt.dtype).expand(b, 1, d)
+            pre_mask = torch.ones((b, 1), dtype=mask_txt.dtype, device=mask_txt.device)
+        elif cfg.enable_prompt and prompt is not None:
+            p_txt, p_mask = prompt
+            if p_txt.ndim == 1:
+                p_txt, p_mask = p_txt.expand(b, -1), p_mask.expand(b, -1)
+            pre_feat = self.enc_txt(p_txt, generator).to(feat_txt.dtype)
+            pre_mask = p_mask.to(mask_txt.dtype)
+        else:
+            return mask_txt, feat_txt, 0
+        return (torch.cat([pre_mask, mask_txt], dim=1), torch.cat([pre_feat, feat_txt], dim=1),
+                pre_mask.shape[1])
 
     def go_cross(self, feat_img, mask_img, feat_txt, mask_txt, generator=None):
         """(ref: model.py:204-214)"""

@@ -1,6 +1,9 @@
 """Evaluators (counterpart of ``empirical_mvm_tpu/train/evaluators.py``,
-single device): the two-stage retrieval evaluation and the multiple-choice
-accuracy.
+single device): the two-stage retrieval evaluation, the in-batch
+retrieval accuracy of fine-tune validation, and the QA metrics: the
+multiple-choice accuracy, the generative multiple choice's accuracy over
+the digit tokens and the open-ended MLM head's top-k accuracy. The metrics
+are numpy functions over host arrays.
 
 Stage 1 encodes every (caption, video) item; stage 2 cross-scores every
 (caption, video) pair and ranks them into R@1/5/10 and MedR
@@ -34,6 +37,46 @@ def qamc_accuracy(logits: np.ndarray, answers: np.ndarray) -> float:
     """Share of questions whose highest-scored option is the answer
     (ref: main_qamc.py:152-154)."""
     return float((np.argmax(logits, axis=1) == answers).mean())
+
+
+def qamc_gen_accuracy(mlm_logits: np.ndarray, txt: np.ndarray, mask_token_id: int,
+                      ans_tok_ids: Sequence[int], ans_idx: np.ndarray) -> list[float]:
+    """Per question, 1 where the MLM logits at the first [MASK], taken over
+    the digit tokens ``ans_tok_ids``, peak at ``ans_idx``; a row without
+    [MASK] counts 0 (ref: main_qamc_tsv_mlm_gen_ans_idx.py:120-130).
+    mlm_logits (B, X, V), txt (B, X)."""
+    accs = []
+    for b in range(mlm_logits.shape[0]):
+        pos = np.where(txt[b] == mask_token_id)[0]
+        if len(pos) == 0:
+            accs.append(0.0)
+            continue
+        p = mlm_logits[b, pos[0], list(ans_tok_ids)]
+        accs.append(float(int(np.argmax(p)) == int(ans_idx[b])))
+    return accs
+
+
+def qaoe_mlm_topk(mlm_logits: np.ndarray, mask_ans: np.ndarray, k: int = 5) -> list[float]:
+    """Per row, 1 where the answer at the first position with mask_ans !=
+    -1 is among the k largest logits there (``argpartition`` decides them);
+    a row without an answer counts 0 (ref: main_qaoe_lsmdc_fib.py:105-116).
+    mlm_logits (B, X, V), mask_ans (B, X)."""
+    accs = []
+    for i in range(mlm_logits.shape[0]):
+        pos = np.where(mask_ans[i] != -1)[0]
+        if len(pos) == 0:
+            accs.append(0.0)
+            continue
+        topk = np.argpartition(-mlm_logits[i, pos[0]], k)[:k]
+        accs.append(float(int(mask_ans[i, pos[0]]) in topk.tolist()))
+    return accs
+
+
+def in_batch_retrieval_accuracy(scores: np.ndarray) -> float:
+    """Share of the rows of a (B, B) score matrix whose largest score is on
+    the diagonal, the retrieval fine-tune's validation metric
+    (ref: main_retrieval.py:103-106)."""
+    return float((np.argmax(scores, axis=1) == np.arange(len(scores))).mean())
 
 
 def _sync(device: torch.device) -> None:

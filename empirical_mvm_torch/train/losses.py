@@ -1,4 +1,7 @@
-"""Pretrain losses (counterpart of ``empirical_mvm_tpu/train/losses.py:16-47``)."""
+"""Losses (counterpart of ``empirical_mvm_tpu/train/losses.py``): the cross
+entropy of the MTM, MC and QA heads, the bidirectional InfoNCE of retrieval
+fine-tuning, the masked L1 of the MVM targets and the masked accuracy.
+The captioning ``label_smoothed_nll`` is not ported."""
 
 from __future__ import annotations
 
@@ -19,6 +22,16 @@ def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
     return torch.where(valid, ls, 0.0).sum() / valid.sum().clamp(min=1)
 
 
+def norm_softmax_loss(scores: torch.Tensor, temperature: float = 0.05) -> torch.Tensor:
+    """Bidirectional InfoNCE on a (B, B) score matrix whose matched pairs lie
+    on the diagonal (ref: agent.py:34-50): the scores in fp32 divided by the
+    temperature, minus the mean diagonal log-softmax over rows and over
+    columns."""
+    s = scores.float() / temperature
+    return (-torch.log_softmax(s, dim=1).diagonal().mean()
+            - torch.log_softmax(s.T, dim=1).diagonal().mean())
+
+
 def masked_l1(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
               channel_div: float = 1.0) -> torch.Tensor:
     """sum(|pred - target| * mask) / (sum(mask) + 1e-5) / channel_div, with
@@ -27,3 +40,12 @@ def masked_l1(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
     err = (pred.float() - target.float()).abs()
     m = mask.float()
     return (err * m).sum() / (m.sum() + 1e-5) / channel_div
+
+
+def masked_accuracy(pred_ids: torch.Tensor, labels: torch.Tensor,
+                    ignore_index: int = -1) -> torch.Tensor:
+    """Share of the positions whose label != ignore_index that ``pred_ids``
+    gets right, 0 where there is none (ref: main_pretrain.py:577-578)."""
+    valid = labels != ignore_index
+    correct = (pred_ids == labels) & valid
+    return correct.sum() / valid.sum().clamp(min=1)

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from empirical_mvm_torch.train.losses import cross_entropy_ignore
+from empirical_mvm_torch.train.losses import cross_entropy_ignore, norm_softmax_loss
 from empirical_mvm_torch.train.optimizer import AdamW
 
 
@@ -73,24 +73,41 @@ def make_pretrain_train_step(model: nn.Module, optimizer: AdamW) -> Callable:
     return step
 
 
-def make_supervised_train_step(model: nn.Module, optimizer: AdamW,
-                               loss_kind: str = "ce") -> Callable:
+def make_supervised_train_step(model: nn.Module, optimizer: AdamW, loss_kind: str = "ce",
+                               temp: float = 0.05) -> Callable:
     """Build ``step(state, batch, seed) -> (state, {"total": loss})``, the
-    JAX ``make_supervised_agent(loss_kind)`` step: the model's training pass
-    (dropout drawn from the step's generator), the loss, backward and the
-    update. ``"ce"`` (``QAMCAgent``): ``model(img, txt, mask)`` gives logits
-    (B, K) against ``batch["ans"]`` (B,), label -1 ignored. ``batch`` holds
-    img, txt, mask and ans on the model's device."""
-    if loss_kind != "ce":
-        raise NotImplementedError(f"the {loss_kind!r} supervised step is not ported")
+    JAX ``make_supervised_agent(loss_kind)`` step (``train/agent.py:360-416``):
+    the model's training pass ``model(img, txt, mask)`` with dropout drawn
+    from the step's generator, the loss, backward and the update.
+
+    * ``"ce"`` (``QAMCAgent``, ``QAOEAgent``): logits (B, K) against
+      ``batch["ans"]`` (B,), label -1 ignored.
+    * ``"nce"`` (``RetrievalAgent``): the (B, B) scores through
+      ``norm_softmax_loss`` at temperature ``temp`` (the run's
+      ``train.temp``).
+    * ``"mlm"`` (``QAMCGenAgent``, ``QAOEMLMAgent``): MLM logits (..., X, V)
+      against ``batch["mask_ans"]`` (..., X), -1 ignored.
+
+    ``batch`` holds img, txt, mask and the loss's labels on the model's
+    device; an optional ``gumbel_noise`` replaces the gumbel draws of
+    ``VioletQAMC``'s video-token selection (as ``draws`` replaces the
+    pretrain step's masks)."""
+    if loss_kind not in ("ce", "nce", "mlm"):
+        raise ValueError(f"unknown loss_kind {loss_kind!r}")
     device = next(model.parameters()).device
+
+    def loss_fn(out, batch):
+        if loss_kind == "nce":
+            return norm_softmax_loss(out, temp)
+        return cross_entropy_ignore(out, batch["mask_ans" if loss_kind == "mlm" else "ans"])
 
     def step(state: TrainState, batch: dict, seed: int):
         drop_gen, _ = step_generators(seed, state.step, device)
         for p in state.params.values():
             p.grad = None
-        out = model(batch["img"], batch["txt"], batch["mask"], generator=drop_gen)
-        loss = cross_entropy_ignore(out, batch["ans"])
+        extra = {"gumbel_noise": batch["gumbel_noise"]} if "gumbel_noise" in batch else {}
+        loss = loss_fn(model(batch["img"], batch["txt"], batch["mask"], generator=drop_gen,
+                             **extra), batch)
         loss.backward()
         opt_state = optimizer.update(state.params,
                                      {n: p.grad for n, p in state.params.items()},

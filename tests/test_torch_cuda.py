@@ -522,6 +522,51 @@ def test_lane_bwd_tensor_core_at_the_train_shape(cuda, p_drop):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lane_fwd_and_bwd_at_the_retrieval_train_shape(cuda, dtype):
+    """Rows 5 (with dropout) and 6 at the retrieval fine-tune step's fusion,
+    64 rows (8 clips x 8 captions) of L = 275 (no multiple of 16: the
+    tensor-core bodies' tail tiles), 12 heads of 64, p = 0.1, the stride-0
+    view of the padding mask: within chip_smoke's limits (bf16 on row 11's
+    tensor-core bodies, fp32 on the CUDA cores); each output bit-identical
+    over two runs."""
+    rs = np.random.RandomState(15)
+    b, l, c, nh = 64, 275, 768, 12
+    x3, do, mask = _lane_setup(rs, cuda, b, l, c)
+    seed = torch.tensor([2026, 14], dtype=torch.int32, device=cuda)
+    scale = (c // nh) ** -0.5
+
+    def fwd(a):
+        return twa._lane_fwd(a, mask, nh, scale, 0.1, seed)
+
+    def bwd(a):
+        return twa._lane_bwd(a, mask, do.to(a.dtype), nh, scale, 0.1, seed)
+
+    _check(fwd, lambda a: twa.lane_self_attention_plain(a, mask, nh, scale, 0.1, seed), x3,
+           dtype, _lane_fwd_kind(c // nh))
+    _check(bwd, lambda a: twa.lane_self_attention_backward_plain(
+        a, mask, do.to(a.dtype), nh, scale, 0.1, seed), x3, dtype, "attention_bwd")
+    a = x3.to(dtype)
+    assert torch.equal(fwd(a), fwd(a)) and torch.equal(bwd(a), bwd(a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p_drop", [0.0, 0.1])
+def test_tiled_self_attention_at_the_generative_mc_shape(cuda, dtype, p_drop):
+    """Row 11 forward and backward at the generative multiple choice's
+    fusion (tgif-action: 8 rows of 350 tokens, 12 heads of 64), with and
+    without dropout, against the plain versions."""
+    rs = np.random.RandomState(16)
+    qkv, do, mask = _sa_setup(rs, cuda, 8, 12, 350, 64)
+    seed = torch.tensor([4321, 4], dtype=torch.int32, device=cuda) if p_drop else None
+    (forward, forward_plain, _), (backward, backward_plain, _) = _sa_calls(
+        mask, 12, 64 ** -0.5, p_drop, seed, do)
+    _check(forward, forward_plain, qkv, dtype, "sa")
+    _check(backward, backward_plain, qkv, dtype, "sa_bwd")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("p_drop", [0.0, 0.1])
 def test_lane_columns_p_equals_rows_p(cuda, p_drop):
     """Row 6's columns kernel forms each p bit for bit as its rows kernel

@@ -119,8 +119,11 @@ def test_qamc_forward_and_accuracy_match_jax_kernels(slice_, monkeypatch):
         acc = teval.qamc_accuracy(got.numpy(), ans)
         assert acc == jeval.qamc_accuracy(want, ans)
     assert teval.qamc_accuracy(got.numpy(), np.argmax(want, 1)) == 1.0
-    with pytest.raises(NotImplementedError, match="gumbel"):
-        VioletQAMC(_model_cfg(tcfg), device="cpu", num_video_tokens=4)
+    # the gumbel video-token selection adds its two bias-free projections
+    # (held against JAX in tests/test_torch_qa_heads.py)
+    gumbel = VioletQAMC(_model_cfg(tcfg), device="cpu", num_video_tokens=4)
+    assert set(gumbel.state_dict()) - set(slice_["tm"].state_dict()) == {"vid_key.weight",
+                                                                         "vid_query.weight"}
 
 
 def _jax_step(jm, tx, batch):
