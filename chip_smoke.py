@@ -84,8 +84,22 @@ before the final line, if any phase failed:
    the direct kernels forward and backward at the open-ended QA's 10 clips
    of 5 frames, and the LayerNorm forward and backward at every fine-tune
    site (``FINETUNE_LN``: the fusion, EncVideo, the MLM head, the fp32 text
-   embeddings). Prints one ``kernel_shapes`` line with the per-shape
-   numbers and, at the end, one ``kernels`` JSON line.
+   embeddings); and the captioning and smtm shapes (phases 32-35): the
+   direct forward at the caption step's and the decoders' 8 clips of 5
+   frames, the LayerNorm at every captioning site (``CAPTION_LN`` and
+   ``SMTM_LN`` forward and backward, ``DECODE_LN`` forward), rows 5
+   and 6 under the seq2seq joint mask that the port's ``joint_attn_bias``
+   builds, (B, L, L) with rows that differ (``SEQ2SEQ_LANE``: row 5 with
+   dropout and row 6 at the caption step's 8 rows of 275 and the smtm
+   fusion's 20 rows of 232, row 5 at p = 0 at the greedy and beam decoders'
+   8 and 32 rows of 270; the pretrain fusion's 80 rows under the same mask,
+   ``off_path``), the caption shape also under a padding mask (``off_path``)
+   for the per-row mask's cost, and a copy of the lane self-attention's
+   sources with a planted fault (``PLANTED_ROW_STRIDE``: both C entries
+   pass a query-row stride of 0), whose rows 5 and 6 must fail the fp32 and
+   the bf16 limits under the seq2seq mask. Prints one ``kernel_shapes``
+   line with the per-shape numbers and, at the end, one ``kernels`` JSON
+   line.
 4. The retrieval eval at full width: VioletRetrieval at
    configs/msrvtt-retrieval.json (Swin-base, 5 frames of 224^2, 25 text
    tokens, 12-layer BERT-base fusion), seeded random weights, bf16, runs
@@ -225,7 +239,30 @@ before the final line, if any phase failed:
    ``qamc_gen_accuracy``, ``qamc_mlm_head_accuracy``, ``qamc_accuracy``.
 31. Whole gumbel ce step: phase 15 for VioletQAMC(num_video_tokens=12), the
    same Gumbel noise injected on both sides.
-32. The last line is ``{"ok": true, "device": {...}}``.
+32. The caption fine-tune step at full width: VioletCaptioning at
+   configs/caption.json (Swin-base on 8 clips of 5 frames of 224^2,
+   captions of 25 tokens corrupted as the JAX CaptionDataset corrupts them,
+   the fusion over 8 rows of 275 under the seq2seq mask on row 5 with
+   dropout and row 6), the ``caption`` step (``label_smoothed_nll``), as
+   phase 14: captions/s, kernel time under the profiler, the device's idle
+   share, peak memory; launches held to ``CAPTION_LAUNCHES``.
+33. Whole caption step: phase 15 for VioletCaptioning (2 fusion rows of
+   275 under the seq2seq mask).
+34. Generation on the trained model of phase 32, through the capbench
+   tool's ``bench`` (``generation_phase``): at batch 8 and max_len 20, the
+   re-encoding greedy decoder (8 rows of 270 on row 5 a position), the K/V-
+   cached one, beam search with 4 beams (32 rows of 270) and top-k sampling
+   on the re-encoding decoder, each in captions/s, launches held to
+   ``generate_launches``, none waiting on the card
+   (``torch.cuda.set_sync_debug_mode``); in fp32 the two greedy decoders
+   agree (or first differ within ``GREEDY_TIE_MARGIN``;
+   the bf16 share of agreeing tokens is printed); ``caption_scores`` of the
+   greedy captions range-checked.
+35. The smtm pretrain step: phase 6 with the smtm task added (a second
+   fusion of the 20 masked captions under the seq2seq mask, 20 rows of 232
+   on rows 5 and 6; ``TRAIN_SMTM_LAUNCHES``), then its whole step as phase
+   7.
+36. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -239,6 +276,7 @@ import json
 import shutil
 import subprocess
 import time
+import warnings
 from pathlib import Path
 from unittest import mock
 
@@ -249,6 +287,7 @@ import torch.nn.functional as F
 from empirical_mvm_torch.core.config import SwinConfig, load_run_config
 from empirical_mvm_torch.data.masking import draw_masks
 from empirical_mvm_torch.models import pretrain as pretrain_module
+from empirical_mvm_torch.models.captioning import VioletCaptioning
 from empirical_mvm_torch.models.encoders2d import swin2d_config
 from empirical_mvm_torch.models.pretrain import VioletPretrain, draw_negatives
 from empirical_mvm_torch.models.tasks import (VioletQAMC, VioletQAMCGen, VioletQAMCMLMHead,
@@ -256,6 +295,7 @@ from empirical_mvm_torch.models.tasks import (VioletQAMC, VioletQAMCGen, VioletQ
                                               draw_gumbel, qamc_mlm_head_accuracy)
 from empirical_mvm_torch.models.video_swin import (_from_packed, _shift_attn_mask, _to_packed,
                                                   get_window_size)
+from empirical_mvm_torch.models.violet import joint_attn_bias
 from empirical_mvm_torch.ops import _build
 from empirical_mvm_torch.ops import layernorm as ln
 from empirical_mvm_torch.ops import window_attention as wa
@@ -263,7 +303,8 @@ from empirical_mvm_torch.ops.hog import hog_bins, hog_image
 from empirical_mvm_torch.ops.preprocess import maybe_normalize
 from empirical_mvm_torch.teachers.clip import renormalize_imagenet_to_clip
 from empirical_mvm_torch.teachers.dvae import map_pixels, unnormalize_imagenet
-from empirical_mvm_torch.tools import lanebench
+from empirical_mvm_torch.tools import capbench, lanebench
+from empirical_mvm_torch.train.caption_metrics import caption_scores
 from empirical_mvm_torch.train.evaluators import (in_batch_retrieval_accuracy, qamc_accuracy,
                                                   qamc_gen_accuracy, qaoe_mlm_topk,
                                                   retrieval_two_stage_eval)
@@ -447,6 +488,78 @@ FINETUNE_LN = (("retrieval fusion", 64 * 275, 768, 1e-12, torch.bfloat16),
                ("qamc-gen embeddings", 8 * 100, 768, 1e-12, torch.float32),
                ("mc embeddings", 40 * 100, 768, 1e-12, torch.float32))
 QAOE_B = 10
+# Captioning (phases 32-34) at configs/caption.json: 8 clips of 5 frames of
+# 224^2 and captions of 25 tokens, so the caption step's fusion runs 8 rows of
+# L = 250 + 25 = 275 under the seq2seq joint mask: row 5 with dropout and
+# row 6. Its launches are the QA-OE mlm step's (24 fusion LayerNorm sites,
+# EncVideo, the text embeddings and the MLM head's transform). The synthetic
+# captions are corrupted as the JAX CaptionDataset corrupts them: each token
+# between [CLS] and [SEP] becomes [MASK] with probability CAPTION_MASK_PROB
+# (at least one a caption), its id the answer.
+CAPTION_CONFIG = REPO / "configs" / "caption.json"
+CAPTION_B = 8                                   # caption.json's size_batch
+CAPTION_MASK_PROB = 0.15
+CAPTION_LAUNCHES = {"fused_layer_norm": 27, "fused_layer_norm_bwd": 27,
+                    "direct_window_attention": 24, "direct_window_attention_bwd": 24,
+                    "lane_self_attention_dropout": 12, "lane_self_attention_bwd": 12}
+# Generation (phase 34), as the JAX caption CLI runs it (max_len 20): at each
+# of the 19 positions the re-encoding decoder fuses the batch's 8 rows (beam
+# search: 8 x GEN_BEAM) of L = 250 + 20 = 270 under the seq2seq mask (row 5,
+# p = 0; LayerNorm at the text embeddings, 24 fusion sites and the MLM
+# head), after one video encoding (the swin's 24 direct attentions and
+# EncVideo's norm); the K/V-cached decoder runs its fusion as torch ops and
+# launches the MLM head's LayerNorm alone a position. Sampling (top-k
+# GEN_TOP_K) runs the re-encoding decoder, ``generate``.
+GEN_MAX_LEN, GEN_BEAM, GEN_TOP_K, GEN_ITERS = 20, 4, 5, 3
+# phase 3's LayerNorm records at the captioning paths' sites (rows, C, eps,
+# dtype): the caption step's fusion (8 x 275) and MLM head (8 x 25),
+# forward and backward; the smtm step's second fusion (20 x 232), forward
+# and backward (its MLM head and text embeddings are TRAIN_LN's 640 rows);
+# the forward at each decoded position: the re-encoding decoder's fusion (8
+# x 270), MLM head (8 rows) and fp32 text embeddings (8 x 20), and beam
+# search's (GEN_BEAM beams a clip: 32 x 270, 32, 32 x 20); the cached
+# decoder's MLM head is the greedy one's 8 rows. The caption step's text
+# embeddings (8 x 25) and EncVideo (8 clips) are FINETUNE_LN's sites.
+CAPTION_LN = (("caption fusion", CAPTION_B * 275, 768, 1e-12, torch.bfloat16),
+              ("caption mlm_head", CAPTION_B * 25, 768, 1e-12, torch.bfloat16))
+SMTM_LN = (("smtm fusion", 20 * 232, 768, 1e-12, torch.bfloat16),)
+DECODE_LN = tuple(
+    row for label, b in (("greedy", CAPTION_B), ("beam", CAPTION_B * GEN_BEAM)) for row in (
+        (f"{label} fusion", b * (250 + GEN_MAX_LEN), 768, 1e-12, torch.bfloat16),
+        (f"{label} mlm_head", b, 768, 1e-12, torch.bfloat16),
+        (f"{label} embeddings", b * GEN_MAX_LEN, 768, 1e-12, torch.float32)))
+
+
+def generate_launches(cached):
+    steps = GEN_MAX_LEN - 1
+    if cached:
+        return {"direct_window_attention": 24, "fused_layer_norm": 1 + steps}
+    return {"direct_window_attention": 24, "fused_layer_norm": 1 + 26 * steps,
+            "lane_self_attention": 12 * steps}
+
+
+# The greedy tokens of the cached decoder (torch ops) and of the re-encoding
+# one (the kernels), both in fp32 on the card, must be identical, or differ
+# first where the top two logits lie within GREEDY_TIE_MARGIN: fp32 sums in
+# two orders through 12 layers move logits of scale 0.5 (random weights) by
+# about 1e-5 of it; a margin under 1e-4 is a tie that roundoff may break.
+GREEDY_TIE_MARGIN = 1e-4
+# The smtm pretrain step (phase 35): configs/pretrain.json with the smtm task
+# added, a second fusion of the 20 masked captions under the seq2seq mask
+# (20 rows of 232, row 5 with dropout and row 6) and its MLM head: the pixel
+# step's launches, 12 + 12 attention and 24 + 1 LayerNorm launches more.
+TRAIN_SMTM_LAUNCHES = {**TRAIN_LAUNCHES, "fused_layer_norm": 27 + 25,
+                       "fused_layer_norm_bwd": 27 + 25, "lane_self_attention_dropout": 24,
+                       "lane_self_attention_bwd": 24}
+# phase 3's records of rows 5 and 6 under the seq2seq joint mask (label,
+# rows, L, text tokens, p, on a path of this script): the caption step, the
+# greedy and beam decoders, the smtm fusion, and the pretrain fusion's 80
+# rows under the same mask (no path takes it: the smtm fusion is 20 rows)
+SEQ2SEQ_LANE = (("caption", CAPTION_B, 275, 25, P_ATTN, True),
+                ("greedy decode", CAPTION_B, 270, GEN_MAX_LEN, 0.0, True),
+                ("beam decode", CAPTION_B * GEN_BEAM, 270, GEN_MAX_LEN, 0.0, True),
+                ("smtm", TRAIN_B, TRAIN_L, 32, P_ATTN, True),
+                ("80 pretrain rows", 4 * TRAIN_B, TRAIN_L, 32, P_ATTN, False))
 
 # Limits. A tolerance is dict(atol=..., rtol=..., scale=...): an element may
 # differ by atol + rtol * |reference| + scale * max|reference|. Gradients
@@ -1139,53 +1252,17 @@ def lane_train_cases(dev, gen, p=4 * TRAIN_B, l=TRAIN_L, text=32, path=""):
     hd = d // nh
     x3 = torch.randn(p, l, 3 * d, device=dev, generator=gen) * 0.5
     do = _bf16_values(torch.randn(p, l, d, device=dev, generator=gen))
-    keep = torch.ones(p, l, device=dev)
-    lens = torch.randint(6, text + 1, (p,), device=dev, generator=gen)
-    keep[:, l - text:] = (torch.arange(text, device=dev)[None] < lens[:, None]).float()
-    bias = (1.0 - keep) * torch.finfo(torch.float32).min
-    mask = bias[:, None, :].expand(p, l, l)       # the view BertEncoder passes
-    scale = hd ** -0.5
+    mask = _padding_mask(dev, gen, p, l, text, 6)    # the view BertEncoder passes
     seed = torch.tensor([20261016, 7], dtype=torch.int32, device=dev)
     drop_keep = wa.dropout_keep(seed, (p, nh, l, l), P_ATTN)
     frac = drop_keep.float().mean().item()
     sigma = (P_ATTN * (1 - P_ATTN) / drop_keep.numel()) ** 0.5
     del drop_keep
     label = f"{path}x3=({p},{l},{3 * d}) nH={nh} p_drop={P_ATTN}"
-
-    def fwd_kernel(a):
-        return wa._lane_fwd(a, mask, nh, scale, P_ATTN, seed)
-
-    def fwd_plain(a):
-        return wa.lane_self_attention_plain(a, mask, nh, scale, P_ATTN, seed)
-
-    def heads(a):
-        return (u.detach().requires_grad_(True) for u in
-                a.reshape(p, l, 3, nh, hd).permute(2, 0, 3, 1, 4).contiguous().unbind(0))
-
-    def fwd_library(a):
-        q, k, v = heads(a)
-        m = bias[:, None, None, :].to(a.dtype)
-        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m,
-                                                      dropout_p=P_ATTN, scale=scale)
-
-    def bwd_kernel(a):
-        return wa._lane_bwd(a, mask, do.to(a.dtype), nh, scale, P_ATTN, seed)
-
-    def bwd_plain(a):
-        return wa.lane_self_attention_backward_plain(a, mask, do.to(a.dtype), nh, scale,
-                                                     P_ATTN, seed)
-
-    def bwd_library(a):
-        q, k, v = heads(a)
-        m = bias[:, None, None, :].to(a.dtype)
-        out = F.scaled_dot_product_attention(q, k, v, attn_mask=m, dropout_p=P_ATTN,
-                                             scale=scale)
-        dop = do.to(a.dtype).reshape(p, l, nh, hd).transpose(1, 2).contiguous()
-        return _grad_call(out, (q, k, v), dop)
-
+    fwd_calls, bwd_calls = _lane_calls(mask, nh, hd ** -0.5, P_ATTN, seed, do)
     ops = 4 * p * nh * l * l * hd
-    fwd = measure("lane_self_attention_dropout", label, x3, fwd_kernel, fwd_plain,
-                  fwd_library, torch.bfloat16, _lane_fwd_kind(hd), ops, "bf16_tensor",
+    fwd = measure("lane_self_attention_dropout", label, x3, *fwd_calls, torch.bfloat16,
+                  _lane_fwd_kind(hd), ops, "bf16_tensor",
                   x3.numel() * 2 + p * l * d * 2 + p * l * 4)
     fwd.update(keep_fraction=frac, body=_bodies(wa._sa_body, hd))
     if abs(frac - (1 - P_ATTN)) > KEEP_SIGMAS * sigma:
@@ -1193,11 +1270,46 @@ def lane_train_cases(dev, gen, p=4 * TRAIN_B, l=TRAIN_L, text=32, path=""):
                                f"+- {KEEP_SIGMAS} sigma ({sigma:.3g})")
     print(json.dumps({"dropout_keep_fraction": frac, "expected": 1 - P_ATTN,
                       "sigma": sigma}), flush=True)
-    bwd = measure("lane_self_attention_bwd", label, x3, bwd_kernel, bwd_plain,
-                  bwd_library, torch.bfloat16, "attention_bwd", 2.5 * ops, "bf16_tensor",
+    bwd = measure("lane_self_attention_bwd", label, x3, *bwd_calls, torch.bfloat16,
+                  "attention_bwd", 2.5 * ops, "bf16_tensor",
                   (2 * x3.numel() + do.numel()) * 2 + p * l * 4)
     bwd["body"] = _bodies(wa._sa_body, hd)
     return [fwd, bwd]
+
+
+def _lane_calls(mask, nh, scale, p_drop, seed, do):
+    """Row 5 (forward) and row 6 (backward) on x3 (B, L, 3D) under ``mask``
+    (B, L, L), their plain versions, and their SDPA yardsticks (``attn_mask``
+    the same bias in the work dtype, (B, 1, 1, L) for a padding mask's
+    stride-0 view, else (B, 1, L, L); ``dropout_p``; the backward through
+    autograd)."""
+    def heads(a, grad):
+        b, l, c3 = a.shape
+        return tuple(u.detach().requires_grad_(grad) for u in a.reshape(
+            b, l, 3, nh, c3 // 3 // nh).permute(2, 0, 3, 1, 4).contiguous().unbind(0))
+
+    bias = mask[:, None, :1] if mask.stride(1) == 0 else mask[:, None]
+
+    def sdpa(a, q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=bias.to(a.dtype),
+                                              dropout_p=p_drop, scale=scale)
+
+    def fwd_library(a):
+        q, k, v = heads(a, False)
+        return lambda: sdpa(a, q, k, v)
+
+    def bwd_library(a):
+        q, k, v = heads(a, True)
+        dop = do.to(a.dtype).reshape(*a.shape[:2], nh, -1).transpose(1, 2).contiguous()
+        return _grad_call(sdpa(a, q, k, v), (q, k, v), dop)
+
+    return ((lambda a: wa._lane_fwd(a, mask, nh, scale, p_drop, seed),
+             lambda a: wa.lane_self_attention_plain(a, mask, nh, scale, p_drop, seed),
+             fwd_library),
+            (lambda a: wa._lane_bwd(a, mask, do.to(a.dtype), nh, scale, p_drop, seed),
+             lambda a: wa.lane_self_attention_backward_plain(a, mask, do.to(a.dtype), nh, scale,
+                                                             p_drop, seed),
+             bwd_library))
 
 
 def _window_shapes():
@@ -2036,6 +2148,125 @@ def ln_bwd_cases(dev, gen, sites=TRAIN_LN, path="", planted=True):
 
 
 # ---------------------------------------------------------------------------
+# phase 3: rows 5 and 6 under the seq2seq joint mask
+# ---------------------------------------------------------------------------
+
+# The fault a mask whose rows differ guards against, which a padding mask (a
+# stride-0 view: every row alike) cannot show: rows 5 and 6 reading each
+# query row's mask at row 0. Planted in both C entries of
+# csrc/self_attention.cu (so in both bodies, fp32 and bf16), in a copy of the
+# lane self-attention's sources alone (ROW_STRIDE_SOURCES).
+_ROW_STRIDE_ENTRY = ("  auto s = static_cast<cudaStream_t>(stream);\n"
+                     "  if (nh > 0 && dm % nh == 0 && emvm::tensor_core_body(dtype, dm / nh))\n"
+                     "    return emvm::lane_self_attention_{}_mma(")
+PLANTED_ROW_STRIDE = (
+    "self_attention.cu",
+    tuple(_ROW_STRIDE_ENTRY.format(d) for d in ("fwd", "bwd")),
+    tuple(_ROW_STRIDE_ENTRY.format(d).replace("(stream);\n", "(stream);\n  mask_sr = 0;\n", 1)
+          for d in ("fwd", "bwd")))
+ROW_STRIDE_SOURCES = ("common.cuh", "self_attention.cu", "self_attention_tiled.cu",
+                      "self_attention_mma.cuh")
+
+
+def planted_row_stride_library():
+    """Build ``ROW_STRIDE_SOURCES`` with the ``PLANTED_ROW_STRIDE`` fault;
+    returns the loaded library (the lane self-attention's entry points)."""
+    src = _build.BUILD_DIR / "planted_csrc_row_stride"
+    shutil.rmtree(src, ignore_errors=True)
+    src.mkdir(parents=True)
+    for name in ROW_STRIDE_SOURCES:
+        shutil.copy(_build.CSRC / name, src / name)
+    plant(src, *PLANTED_ROW_STRIDE)
+    return _build.load(_build.build(csrc=src), False)
+
+
+def seq2seq_mask(dev, b, l, text):
+    """The (B, L, L) view that BertEncoder passes of the port's seq2seq
+    joint bias over [video ; the last ``text`` tokens], every video token
+    valid: video rows see the video, text rows the video and the text at or
+    before them, so the rows differ (query-row stride L)."""
+    ones = functools.partial(torch.ones, dtype=torch.int32, device=dev)
+    return joint_attn_bias(ones((b, l - text)), ones((b, text)), "seq2seq").reshape(b, l, l)
+
+
+def seq2seq_lane_cases(dev, gen, planted):
+    """Rows 5 and 6 under the seq2seq joint mask, at ``SEQ2SEQ_LANE``'s
+    shapes (BERT-base heads): row 5 with dropout and row 6 at the caption
+    step's and the smtm fusion's, row 5 at p = 0 at the decoders'; the
+    dropout keep fraction. The mask is (B, L, L) fp32 with rows that differ;
+    the bound reads it once (B L^2 4 bytes), though each of the 12 heads
+    reads it again (``mask_bytes_all_heads``, from L2). At the caption
+    step's shape rows 5 and 6 also run under a padding mask of the same
+    shape (the stride-0 view of the earlier paths; ``off_path``), so the
+    per-row mask's cost reads in one run. The fault ``planted`` (a future
+    of :func:`planted_row_stride_library`) must fail the limits."""
+    d, nh = 768, 12
+    hd, scale = d // nh, (d // nh) ** -0.5
+    seed = torch.tensor([20261017, 3], dtype=torch.int32, device=dev)
+    recs = []
+    for label, b, l, text, p_drop, on_path in SEQ2SEQ_LANE:
+        x3 = torch.randn(b, l, 3 * d, device=dev, generator=gen) * 0.5
+        do = _bf16_values(torch.randn(b, l, d, device=dev, generator=gen))
+        masks = {"seq2seq": seq2seq_mask(dev, b, l, text)}
+        if label == "caption":
+            masks["padding"] = _padding_mask(dev, gen, b, l, text, 6)
+        ops = 4 * b * nh * l * l * hd
+        for kind, mask in masks.items():
+            (fwd, *fwd_rest), (bwd, *bwd_rest) = _lane_calls(mask, nh, scale, p_drop,
+                                                             seed if p_drop else None, do)
+            name = f"{label} x3=({b},{l},{3 * d}) nH={nh} p_drop={p_drop} {kind} mask"
+            info = dict(mask=kind, mask_row_stride=mask.stride(1), mask_bytes=_span_bytes(mask),
+                        mask_bytes_all_heads=nh * _span_bytes(mask),
+                        off_path=not on_path or kind == "padding", body=_bodies(wa._sa_body, hd))
+            rec = measure("lane_self_attention_dropout" if p_drop else "lane_self_attention",
+                          name, x3, fwd, *fwd_rest, torch.bfloat16, _lane_fwd_kind(hd), ops,
+                          "bf16_tensor", x3.numel() * 2 + b * l * d * 2 + _span_bytes(mask))
+            recs.append({**rec, **info})
+            if p_drop:
+                keep = wa.dropout_keep(seed, (b, nh, l, l), p_drop)
+                frac = keep.float().mean().item()
+                sigma = (p_drop * (1 - p_drop) / keep.numel()) ** 0.5
+                del keep
+                recs[-1]["keep_fraction"] = frac
+                if abs(frac - (1 - p_drop)) > KEEP_SIGMAS * sigma:
+                    recs[-1]["failures"].append(f"dropout keep fraction {frac} is not "
+                                                f"{1 - p_drop} +- {KEEP_SIGMAS} sigma")
+                rec = measure("lane_self_attention_bwd", name, x3, bwd, *bwd_rest,
+                              torch.bfloat16, "attention_bwd", 2.5 * ops, "bf16_tensor",
+                              (2 * x3.numel() + do.numel()) * 2 + _span_bytes(mask))
+                recs.append({**rec, **info})
+    recs[0]["failures"] += planted_row_stride_check(dev, gen, planted)
+    return recs
+
+
+def planted_row_stride_check(dev, gen, planted):
+    """Hold rows 5 and 6 of the ``PLANTED_ROW_STRIDE`` build (``planted``, a
+    future of the loaded library) under the seq2seq mask at the caption
+    step's shape in small (4 rows of 275, p = 0.1): each must fail the fp32
+    limits and the bf16 ones. Returns the checks the fault passed."""
+    lib = planted.result()
+    b, l, text, nh = 4, 275, 25, 12
+    x3 = torch.randn(b, l, 3 * 768, device=dev, generator=gen) * 0.5
+    do = _bf16_values(torch.randn(b, l, 768, device=dev, generator=gen))
+    seed = torch.tensor([79, 4], dtype=torch.int32, device=dev)
+    (fwd, fwd_plain, _), (bwd, bwd_plain, _) = _lane_calls(seq2seq_mask(dev, b, l, text), nh,
+                                                           0.125, P_ATTN, seed, do)
+    real = _build.library()
+    try:
+        _build._lib = lib
+        caught = {"row 5": full_check(fwd, fwd_plain, x3, _lane_fwd_kind(64)),
+                  "row 6": full_check(bwd, bwd_plain, x3, "attention_bwd")}
+    finally:
+        _build._lib = real
+    print(json.dumps({"planted_row_stride_fault": {
+        where: dict(readings=r, failures=f) for where, (r, f) in caught.items()}}), flush=True)
+    return [f"planted fault (query-row stride 0) passes the {dt} limits [{where}]"
+            for where, (_, f) in caught.items()
+            for dt, tag in (("fp32", " fp32 max err"), ("bf16", " bf16")) if not any(
+                tag in msg for msg in f)]
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the full-width slice
 # ---------------------------------------------------------------------------
 
@@ -2225,7 +2456,8 @@ def train_phase(dev, run, want_launches):
     print(json.dumps({
         "slice": "pretrain_train_step", "config": PRETRAIN_CONFIG.name,
         "vis_backbone": cfg.vis_backbone, "vis_backbone_size": cfg.vis_backbone_size,
-        "mvm_target": list(target), "vq_on_the_fly": cfg.vq_on_the_fly, "dtype": "bfloat16",
+        "mvm_target": list(target), "vq_on_the_fly": cfg.vq_on_the_fly,
+        "pretrain_tasks": list(run.train.pretrain_tasks), "dtype": "bfloat16",
         "batch": b, "frames": cfg.size_frame, "size_img": cfg.size_img,
         "size_txt": cfg.size_txt, "steps": TRAIN_STEPS, "warmup_step_s": warm_s,
         "clips_per_s": float(np.median(clips_s)), "clips_per_s_range": [min(clips_s),
@@ -2473,7 +2705,9 @@ def synthetic_finetune_batch(kind, b, cfg, seed, device):
     ``"gen"`` the token before [SEP] is [MASK], and ``mask_ans`` holds there
     the label the MLM head must give ("true" for the answer's option and
     "false" for the others; a seeded word; the answer's digit), -1
-    elsewhere."""
+    elsewhere. ``"caption"`` corrupts each caption as the JAX
+    ``CaptionDataset`` does (``CAPTION_MASK_PROB``, at least one [MASK] a
+    caption), ``mask_ans`` the original ids there and -1 elsewhere."""
     rs = np.random.RandomState(seed)
     o, x = cfg.size_option, cfg.size_txt
     per_clip = o if kind in ("mc", "mc_mlm") else 1
@@ -2492,6 +2726,13 @@ def synthetic_finetune_batch(kind, b, cfg, seed, device):
                  if kind == "mc_mlm" else np.array(DIGIT_IDS)[ans] if kind == "gen"
                  else rs.randint(1000, cfg.text.vocab_size, b))
         out["mask_ans"] = np.where(np.arange(x)[None] == slot[:, None], label[:, None], -1)
+    if kind == "caption":
+        n = (txt > 0).sum(1)
+        inner = (np.arange(x)[None] >= 1) & (np.arange(x)[None] < n[:, None] - 1)
+        pick = inner & (rs.rand(*txt.shape) < CAPTION_MASK_PROB)
+        pick[np.arange(len(txt)), 1 + rs.randint(0, n - 2)] = True
+        out["mask_ans"] = np.where(pick, txt, -1)
+        txt[pick] = MASK_ID
     shape = (b, o, x) if per_clip > 1 else (b, x)
     out.update(img=img.astype(np.uint8), txt=txt, mask=(txt > 0).astype(np.int32))
     return {k: torch.from_numpy(v.reshape(shape) if k in ("txt", "mask", "mask_ans") else v)
@@ -2524,13 +2765,14 @@ GUMBEL_NO_GRAD = {"vid_key.weight", "vid_query.weight"}
 
 def finetune_phase(dev, name, config, run, model, loss_kind, kind, want_launches,
                    zero_ok=()):
-    """Phases 14, 26, 28 and 30: the ``loss_kind`` fine-tune step of
+    """Phases 14, 26, 28, 30 and 32: the ``loss_kind`` fine-tune step of
     ``model`` (bf16, full width) on a ``kind`` batch of the run's
     ``size_batch``, with the package's ``build_optimizer``. One warm-up
     step, then ``TRAIN_STEPS`` timed steps: items/s (clips for retrieval,
-    questions for QA; batch / step seconds) median and range, peak device
-    memory, every loss finite, one more step's kernel time under the
-    profiler; the launches of the first timed step held to
+    captions for captioning, questions for QA; batch / step seconds) median
+    and range, peak device memory, every loss finite, one more step's kernel
+    time under the profiler and the device's idle share (1 - kernel time /
+    median step time); the launches of the first timed step held to
     ``want_launches``; every parameter with a gradient changed (those in
     ``zero_ok`` may instead end with an all-zero gradient). Returns the
     launches and the trained model."""
@@ -2560,8 +2802,10 @@ def finetune_phase(dev, name, config, run, model, loss_kind, kind, want_launches
         losses.append(ls["total"].item())
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     rate = [b / t for t in secs]
-    unit = "clips_per_s" if kind == "retrieval" else "questions_per_s"
+    unit = {"retrieval": "clips_per_s", "caption": "captions_per_s"}.get(kind,
+                                                                        "questions_per_s")
     rows, tokens, route = fusion_shape(cfg, kind, b)
+    kernel_ms = _kernel_ms(_stepper(step, state, batch))
     print(f"{name} train-step launch counts: {launches}", flush=True)
     print(json.dumps({
         "slice": f"{name}_train_step", "config": config.name, "model": type(model).__name__,
@@ -2571,8 +2815,8 @@ def finetune_phase(dev, name, config, run, model, loss_kind, kind, want_launches
         "warmup_step_s": warm_s, unit: float(np.median(rate)), f"{unit}_range": [min(rate),
                                                                                max(rate)],
         "step_ms_median": float(np.median(secs)) * 1e3, "step_s_each": secs,
-        "peak_mem_gib": peak, "losses_each_step": losses,
-        "kernel_ms_one_step": _kernel_ms(_stepper(step, state, batch))}), flush=True)
+        "peak_mem_gib": peak, "losses_each_step": losses, "kernel_ms_one_step": kernel_ms,
+        "device_idle_share": 1.0 - kernel_ms / (float(np.median(secs)) * 1e3)}), flush=True)
     require(launches == want_launches,
             f"launches of one {name} train step {launches}, not {want_launches}")
     require(all(np.isfinite(v) for v in losses), f"non-finite loss: {losses}")
@@ -2650,7 +2894,7 @@ def cut_finetune_config(cfg):
 
 def finetune_whole_step_phase(dev, name, run, build, loss_kind, kind, b=2, zero=None,
                               prefix=0, extra=None):
-    """Phases 15, 27, 29 and 31: one ``loss_kind`` step of a depth-cut copy
+    """Phases 15, 27, 29, 31 and 33: one ``loss_kind`` step of a depth-cut copy
     (``cut_finetune_config``) built by ``build(cfg, dtype, device)``, ``b``
     clips of a ``kind`` batch (plus ``extra``, such as injected gumbel
     noise), card fp32 (kernels) against CPU fp32 (plain versions), held to
@@ -2839,6 +3083,130 @@ def downstream_phases(dev):
         "ce", "mc", zero={SCORE_OUT_BIAS: ZERO_GRAD_ATOL}, extra={"gumbel_noise": noise})
     torch.cuda.empty_cache()
     return ft
+
+
+def caption_words(row, model):
+    """A caption's tokens after [CLS] up to [SEP] or [PAD], each id written
+    as a word (the port has no tokenizer yet; the JAX CLI detokenizes)."""
+    words = []
+    for t in row[1:].tolist():
+        if t in (model.sep_token_id, model.pad_token_id):
+            break
+        words.append(f"w{t}")
+    return " ".join(words)
+
+
+def host_syncs(fn):
+    """The operations of one call of ``fn`` at which the host waits for the
+    card (``torch.cuda.set_sync_debug_mode("warn")``'s warnings)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [str(w.message) for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def generation_phase(dev, model, run):
+    """Phase 34: the decoders of ``model`` (bf16, the caption step's) on the
+    run's batch of seeded clips at ``GEN_MAX_LEN``, each through the capbench
+    tool's ``bench`` (``GEN_ITERS`` timed calls after a warm-up call):
+    re-encoding greedy, cached greedy, beam search (``GEN_BEAM``) and top-k
+    sampling (re-encoding); captions/s, and the kernel time of one more call
+    under the profiler with the device's idle share; the launches of one
+    call of each held to ``generate_launches``; no call waits on the card
+    (``host_syncs``: no position reads a token back); each caption [CLS]
+    first and [PAD] after [SEP]. The share of greedy tokens the two greedy decoders agree on in bf16 is
+    printed; in fp32 (the same weights) they must agree, or first differ
+    where the top two logits lie within ``GREEDY_TIE_MARGIN``.
+    ``caption_scores`` of the greedy captions against two seeded references
+    a clip must be finite and non-negative. Returns each decoder's
+    launches."""
+    cfg = run.model
+    b = run.train.size_batch
+    rs = np.random.RandomState(12)
+    img = torch.from_numpy(rs.randint(0, 256, (b, cfg.size_frame, cfg.size_img, cfg.size_img,
+                                               3)).astype(np.uint8)).to(dev)
+    recs, tokens, launches = [], {}, {}
+    for name, mode, kw in (("uncached", "full", {}), ("cached", "cached", {}),
+                           ("beam", "full", {"beam_size": GEN_BEAM}),
+                           ("sample", "full", {"decode": "sample", "top_k": GEN_TOP_K})):
+        rec, t = capbench.bench(model, img, mode, GEN_ITERS, max_len=GEN_MAX_LEN, **kw)
+        fn = capbench.decoder(model, mode, max_len=GEN_MAX_LEN, **kw)
+        rec["kernel_ms_one_call"] = _kernel_ms(lambda: (fn(img), torch.cuda.synchronize(dev)))
+        rec["device_idle_share"] = 1.0 - rec["kernel_ms_one_call"] / rec["ms_per_batch"]
+        rec["host_syncs"] = host_syncs(lambda: fn(img))
+        recs.append(rec)
+        require(not rec["host_syncs"],
+                f"the {name} decoder waits on the card: {rec['host_syncs']}")
+        tokens[name], launches[f"generate_{name}"] = t, rec["launches"]
+        want = generate_launches(mode == "cached")
+        require(rec["launches"] == want,
+                f"launches of one {name} decode {rec['launches']}, not {want}")
+        ended = (t == model.sep_token_id).cumsum(1) > 0
+        require(t.shape == (b, GEN_MAX_LEN) and bool((t[:, 0] == model.cls_token_id).all())
+                and bool(((t >= 0) & (t < cfg.fusion.vocab_size)).all())
+                and bool((t[ended & (t != model.sep_token_id)] == model.pad_token_id).all()),
+                f"{name} captions: {t.tolist()}")
+    bf16_same = (tokens["uncached"] == tokens["cached"]).float().mean().item()
+    m32 = VioletCaptioning(cfg, dtype=torch.float32, device=dev)
+    m32.load_state_dict(model.state_dict())
+    t0 = time.perf_counter()
+    full32 = m32.generate(img, GEN_MAX_LEN).cpu()
+    cached32 = m32.generate_cached(img, GEN_MAX_LEN).cpu()
+    diff = capbench.first_difference_margin(m32, img, full32, cached32)
+    fp32_s = time.perf_counter() - t0
+    del m32
+    vocab = cfg.fusion.vocab_size
+    refs = {f"v{i}": [" ".join(f"w{t}" for t in rs.randint(1000, vocab, rs.randint(6, 16)))
+                      for _ in range(2)] for i in range(b)}
+    hyps = {f"v{i}": caption_words(row, model) for i, row in enumerate(tokens["uncached"])}
+    scores = caption_scores(hyps, refs)
+    print(json.dumps({
+        "slice": "caption_generation", "config": CAPTION_CONFIG.name, "dtype": "bfloat16",
+        "batch": b, "max_len": GEN_MAX_LEN, "fusion_tokens": cfg.size_frame
+        * cfg.tokens_per_frame + GEN_MAX_LEN, "records": recs,
+        "bf16_identical_token_share": bf16_same, "fp32_identical": diff is None,
+        "fp32_first_difference": diff, "tie_margin_limit": GREEDY_TIE_MARGIN,
+        "fp32_check_s": fp32_s, "caption_scores": scores, "captions": hyps}), flush=True)
+    require(diff is None or diff["margin"] < GREEDY_TIE_MARGIN,
+            f"fp32 greedy decoders differ beyond a tie: {diff}")
+    require(all(np.isfinite(v) and v >= 0 for v in scores.values()), f"caption scores {scores}")
+    return launches
+
+
+def caption_phases(dev):
+    """Phases 32-34: the caption fine-tune step at configs/caption.json's
+    full width, its whole-step check, and the decoders on the trained
+    model. Returns the step's and each decoder's launches."""
+    run = load_run_config(str(CAPTION_CONFIG))
+    launches = {}
+    # 32. the caption step: 8 rows of 275 under the seq2seq mask on rows 5-6
+    launches["train_step_caption"], model = finetune_phase(
+        dev, "caption", CAPTION_CONFIG, run,
+        VioletCaptioning(run.model, dtype=torch.bfloat16, device=dev, seed=TRAIN_SEED),
+        "caption", "caption", CAPTION_LAUNCHES)
+    torch.cuda.empty_cache()
+
+    # 33. the whole caption step, card fp32 against CPU fp32
+    finetune_whole_step_phase(dev, "caption", run,
+                              lambda c, dt, d: VioletCaptioning(c, dtype=dt, device=d, seed=1),
+                              "caption", "caption")
+    torch.cuda.empty_cache()
+
+    # 34. the decoders: re-encoding and cached greedy, beam search, top-k
+    launches.update(generation_phase(dev, model, run))
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def with_pretrain_tasks(run, tasks):
+    """``run`` with ``train.pretrain_tasks`` replaced."""
+    return dataclasses.replace(run, train=dataclasses.replace(run.train, pretrain_tasks=tasks))
 
 
 def lanebench_phase():
@@ -3277,9 +3645,10 @@ def kernels_line(recs, runs):
     order: the 2d_feature step, the pixel step, the swin2d step, the violet
     step, the multiple-choice step, one eval, one multiple-choice eval, the
     3d_feature, 2d_clip, hog, depth, vq (on the fly, pre-extracted) and
-    optical_flow steps, the lanebench tool's run, then the fine-tune steps
-    and evals of phases 26-30) that launched the kernel, each run's beside
-    it as ``launches_<name>``."""
+    optical_flow steps, the smtm step, the lanebench tool's run, the
+    fine-tune steps and evals of phases 26-30, then the caption step and
+    one call of each decoder, phases 32 and 34) that launched the kernel,
+    each run's beside it as ``launches_<name>``."""
     line = []
     for name, meta in KERNELS.items():
         checked = [r for r in recs if r["kernel"] == name]
@@ -3346,6 +3715,10 @@ def main() -> None:
     # 3. kernels against plain versions, at the main-path shapes; a limit
     # exceeded fails the run after the later phases have printed theirs
     gen = torch.Generator(dev).manual_seed(0)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    # the planted row-stride copy (the seq2seq records' check) builds while
+    # the earlier records run
+    row_stride = pool.submit(planted_row_stride_library)
     recs = (direct_cases(dev, gen, ITEMS * CLIPS, 5, "eval") + lane_case(dev, gen)
             + ln_cases(dev, gen, EVAL_LN, "eval")
             + direct_cases(dev, gen, TRAIN_B, TRAIN_T, "train")
@@ -3369,7 +3742,12 @@ def main() -> None:
             + direct_cases(dev, gen, QAOE_B, 5, "qaoe")
             + direct_bwd_cases(dev, gen, "qaoe ", b=QAOE_B, t=5)
             + ln_cases(dev, gen, FINETUNE_LN, "finetune")
-            + ln_bwd_cases(dev, gen, FINETUNE_LN, "finetune ", planted=False))
+            + ln_bwd_cases(dev, gen, FINETUNE_LN, "finetune ", planted=False)
+            + direct_cases(dev, gen, CAPTION_B, 5, "caption")
+            + ln_cases(dev, gen, CAPTION_LN + SMTM_LN + DECODE_LN, "captioning")
+            + ln_bwd_cases(dev, gen, CAPTION_LN + SMTM_LN, "captioning ", planted=False)
+            + seq2seq_lane_cases(dev, gen, row_stride))
+    pool.shutdown()
     failures = [f for r in recs for f in r.pop("failures")]
     print(json.dumps({"kernel_shapes": recs}), flush=True)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s; "
@@ -3535,6 +3913,17 @@ def main() -> None:
     # whole-step checks
     ft.update(downstream_phases(dev))
 
+    # 32-34. captioning: the caption step, its whole-step check, the decoders
+    caption_launches = caption_phases(dev)
+
+    # 35. the smtm pretrain step at full width (the pixel step's tasks and
+    # smtm), and its whole-step check, card fp32 against CPU fp32
+    run_smtm = with_pretrain_tasks(run, run.train.pretrain_tasks + ("smtm",))
+    step_launches["train_step_smtm"] = train_phase(dev, run_smtm, TRAIN_SMTM_LAUNCHES)
+    torch.cuda.empty_cache()
+    whole_step_phase(dev, run_smtm)
+    torch.cuda.empty_cache()
+
     require(not failures, "kernel checks failed:\n" + "\n".join(failures))
 
     line = kernels_line(recs, {
@@ -3542,7 +3931,7 @@ def main() -> None:
         "train_step_swin2d": train_swin2d_launches, "train_step_violet": train_violet_launches,
         "train_step_qamc": ft.pop("train_step_qamc"), "eval": eval_launches,
         "eval_qamc": ft.pop("eval_qamc"), **step_launches, "lanebench": lanebench_launches,
-        **ft})
+        **ft, **caption_launches})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -26,8 +26,10 @@ and both losses read it), 2d_clip a CLIP ViT-B/32's frame by frame
 
 The video backbone is the Video Swin (``vidswin``) or the trained 2D Swin
 (``swin2d``, concat fusion; mean fusion keeps one averaged frame of video
-tokens and so takes no MVM task). ``smtm``, ``am`` masking and the
-``corrupt`` clip flag are not ported.
+tokens and so takes no MVM task). The ``smtm`` task fuses the masked
+caption once more under the ``seq2seq`` joint mask and scores the MLM head
+there against the MTM answers (ref: main_pretrain.py:253-258). ``am``
+masking and the ``corrupt`` clip flag are not ported.
 """
 
 from __future__ import annotations
@@ -96,9 +98,8 @@ class VioletPretrain(VioletBase):
                                       f"{self.mvm_targets_ported} are ported")
         if "vq" in mvm_target and {"3d_feature", "2d_feature"} & set(mvm_target):
             raise ValueError("the vq and feature targets would both name their head fc_mvm")
-        if not set(pretrain_tasks) <= {"mtm", "vtm", "mvm"}:
-            raise NotImplementedError(f"pretrain_tasks {tuple(pretrain_tasks)}: "
-                                      "smtm is not ported")
+        if not set(pretrain_tasks) <= {"mtm", "vtm", "mvm", "smtm"}:
+            raise ValueError(f"unknown pretrain_tasks {tuple(pretrain_tasks)}")
         if config.temporal_fusion == "mean" and "mvm" in pretrain_tasks:
             raise ValueError("MVM predicts every frame's patches, and mean temporal fusion "
                              "leaves one averaged frame of video tokens: use concat fusion "
@@ -216,7 +217,9 @@ class VioletPretrain(VioletBase):
         """One pretrain forward (ref: main_pretrain.py:226-267) on a masked
         batch. ``neg_idx`` (B, O-1) names each row's negative captions; with
         O = min(B, num_options) > 1 it is required. Returns the MTM logits,
-        the fused video tokens and the VTM logits (positive first)."""
+        the fused video tokens, the VTM logits (positive first) and, with
+        the ``smtm`` task, the MLM logits of a second fusion of the same
+        features under the seq2seq mask (``out_smtm``)."""
         b, t = img.shape[:2]
         h = w = img.shape[2] // self.config.size_patch
         o = min(b, self.num_options)
@@ -238,7 +241,11 @@ class VioletPretrain(VioletBase):
         if p_out is not None:
             neg = self.fc(p_out[:, lv], generator).reshape(b, o - 1)
             out_vtm = torch.cat([out_vtm, neg], dim=1)
-        return {"out_mtm": self.fc_mtm(out_txt), "out_mvm": out_mvm, "out_vtm": out_vtm}
+        res = {"out_mtm": self.fc_mtm(out_txt), "out_mvm": out_mvm, "out_vtm": out_vtm}
+        if "smtm" in self.pretrain_tasks:
+            s_out = self.go_cross(fi, mi, ft, mt, generator, "seq2seq")
+            res["out_smtm"] = self.fc_mtm(s_out[:, lv:])
+        return res
 
     def losses(self, img, txt, mask, *, generator=None, mask_generator=None,
                draws: MaskDraws | None = None, neg_idx=None, hog=None, vq=None) -> dict:
@@ -275,6 +282,8 @@ class VioletPretrain(VioletBase):
               "vtm": cross_entropy_ignore(out["out_vtm"] / self.temp,
                                           torch.zeros(b, dtype=torch.int64,
                                                       device=img.device))}
+        if "out_smtm" in out:
+            ls["smtm"] = cross_entropy_ignore(out["out_smtm"], mb.ans_mtm)
         if "mvm" in self.pretrain_tasks:
             grid = self.patch_tokens(out["out_mvm"], t, h, w)
             cov = mb.cov[..., None]

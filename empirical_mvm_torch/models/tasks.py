@@ -4,7 +4,8 @@ scores for the ``nce`` fine-tune step, and the two-stage eval's pieces), the
 score-head multiple choice (``VioletQAMC``, with the gumbel video-token
 selection), the MLM-head multiple choice (``VioletQAMCGen``,
 ``VioletQAMCMLMHead``, and ``qamc_mlm_head_accuracy``) and open-ended QA
-(``VioletQAOE``, ``VioletQAOEMLMHead``). Captioning is not ported.
+(``VioletQAOE``, ``VioletQAOEMLMHead``). Captioning, a head over the same
+trunk, is ``models/captioning.py``.
 
 Every model is built on ``device`` (the card unless the caller asks for the
 CPU) with parameters drawn from ``seed``; load a converted checkpoint with

@@ -4,9 +4,9 @@ video encoder, text embeddings, cross-modal fusion, and the score head.
 Covers what the retrieval eval and the pretrain step run: the ``vidswin``
 backbone (:class:`EncVideo`) and the trained 2D Swin backbone
 (``vis_backbone`` ``"swin"`` / ``"swin2d"``: ``encoders2d.EncImgSwin``, mean
-or concat fusion), the embeddings-only text encoder, and the ``full`` joint
-attention mask, and the QA heads' text prefixes (a learned task token or an
-encoded prompt, :meth:`VioletBase.prepend_pretxt`). Names are the reference
+or concat fusion), the embeddings-only text encoder, the ``full`` and
+``seq2seq`` joint attention masks, and the QA heads' text prefixes (a
+learned task token or an encoded prompt, :meth:`VioletBase.prepend_pretxt`). Names are the reference
 checkpoint's (``enc_img.swin.*``, ``enc_img.emb_pos``, ``enc_txt.emb_txt.*``,
 ``trsfr.layer.*``).
 
@@ -89,10 +89,29 @@ class EncTxt(nn.Module):
         return self.emb_txt(txt, generator)
 
 
-def joint_attn_bias(mask_img: torch.Tensor, mask_txt: torch.Tensor) -> torch.Tensor:
-    """Fusion attention bias over [video ; text] for the ``full`` mask type:
-    every token attends every valid token (ref: model.py:180-211)."""
-    return extended_attention_mask(torch.cat([mask_img, mask_txt], dim=1))
+ATTN_MASK_TYPES = ("full", "seq2seq")
+
+
+def joint_attn_bias(mask_img: torch.Tensor, mask_txt: torch.Tensor,
+                    attn_mask_type: str = "full") -> torch.Tensor:
+    """Fusion attention bias over [video ; text], additive fp32 (ref:
+    model.py:180-211 get_attn_mask and the HF mask extension).
+
+    ``full``: every token attends every valid token; (B, 1, 1, L).
+    ``seq2seq``: every row attends the valid video tokens, video rows no
+    text, text rows the text at or before them (``tril``); (B, 1, L, L).
+    As in JAX, ``mask_txt`` does not enter the seq2seq mask: a padded text
+    row attends the padding before it, and every row attends at least one
+    video token when any video token is valid."""
+    if attn_mask_type == "full":
+        return extended_attention_mask(torch.cat([mask_img, mask_txt], dim=1))
+    if attn_mask_type != "seq2seq":
+        raise ValueError(f"attn_mask_type {attn_mask_type!r} is not one of {ATTN_MASK_TYPES}")
+    (b, lv), lt = mask_img.shape, mask_txt.shape[1]
+    mask = torch.zeros((b, lv + lt, lv + lt), dtype=torch.int32, device=mask_img.device)
+    mask[:, :, :lv] = mask_img[:, None, :]
+    mask[:, lv:, lv:] = torch.ones((lt, lt), dtype=torch.int32, device=mask_img.device).tril()
+    return extended_attention_mask(mask)
 
 
 class ScoreHead(nn.Sequential):
@@ -166,7 +185,9 @@ class VioletBase(nn.Module):
         return (torch.cat([pre_mask, mask_txt], dim=1), torch.cat([pre_feat, feat_txt], dim=1),
                 pre_mask.shape[1])
 
-    def go_cross(self, feat_img, mask_img, feat_txt, mask_txt, generator=None):
-        """(ref: model.py:204-214)"""
+    def go_cross(self, feat_img, mask_img, feat_txt, mask_txt, generator=None,
+                 attn_mask_type="full"):
+        """(ref: model.py:204-214) The fusion over [video ; text] under the
+        ``attn_mask_type`` joint mask (:func:`joint_attn_bias`)."""
         feat = torch.cat([feat_img.to(self.dtype), feat_txt.to(self.dtype)], dim=1)
-        return self.trsfr(feat, joint_attn_bias(mask_img, mask_txt), generator)
+        return self.trsfr(feat, joint_attn_bias(mask_img, mask_txt, attn_mask_type), generator)

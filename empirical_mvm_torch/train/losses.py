@@ -1,7 +1,7 @@
 """Losses (counterpart of ``empirical_mvm_tpu/train/losses.py``): the cross
 entropy of the MTM, MC and QA heads, the bidirectional InfoNCE of retrieval
-fine-tuning, the masked L1 of the MVM targets and the masked accuracy.
-The captioning ``label_smoothed_nll`` is not ported."""
+fine-tuning, the masked L1 of the MVM targets, the label-smoothed NLL of
+captioning and the masked accuracy."""
 
 from __future__ import annotations
 
@@ -40,6 +40,22 @@ def masked_l1(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
     err = (pred.float() - target.float()).abs()
     m = mask.float()
     return (err * m).sum() / (m.sum() + 1e-5) / channel_div
+
+
+def label_smoothed_nll(logits: torch.Tensor, labels: torch.Tensor, epsilon: float = 0.1,
+                       ignore_index: int = -1) -> torch.Tensor:
+    """Label-smoothed NLL of captioning over the positions whose label !=
+    ignore_index, in fp32: (1 - epsilon) NLL + epsilon times the mean
+    negative log-probability over the vocabulary, summed and divided by the
+    count of such positions (at least 1) (ref: model_for_captioning.py:8-33).
+    logits (..., V), labels (...) int."""
+    v = logits.shape[-1]
+    logp = torch.log_softmax(logits.reshape(-1, v).float(), dim=-1)
+    lab = labels.reshape(-1).long()
+    valid = lab != ignore_index
+    nll = -logp.gather(1, torch.where(valid, lab, 0)[:, None])[:, 0]
+    ls = (1.0 - epsilon) * nll - epsilon * logp.mean(dim=-1)
+    return torch.where(valid, ls, 0.0).sum() / valid.sum().clamp(min=1)
 
 
 def masked_accuracy(pred_ids: torch.Tensor, labels: torch.Tensor,

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from empirical_mvm_torch.train.losses import cross_entropy_ignore, norm_softmax_loss
+from empirical_mvm_torch.train.losses import (cross_entropy_ignore, label_smoothed_nll,
+                                              norm_softmax_loss)
 from empirical_mvm_torch.train.optimizer import AdamW
 
 
@@ -87,18 +88,23 @@ def make_supervised_train_step(model: nn.Module, optimizer: AdamW, loss_kind: st
       ``train.temp``).
     * ``"mlm"`` (``QAMCGenAgent``, ``QAOEMLMAgent``): MLM logits (..., X, V)
       against ``batch["mask_ans"]`` (..., X), -1 ignored.
+    * ``"caption"`` (``CaptionAgent``, JAX ``cli/caption.py:62-91``): the
+      seq2seq MLM logits (B, X, V) against ``batch["mask_ans"]`` through
+      ``label_smoothed_nll``.
 
     ``batch`` holds img, txt, mask and the loss's labels on the model's
     device; an optional ``gumbel_noise`` replaces the gumbel draws of
     ``VioletQAMC``'s video-token selection (as ``draws`` replaces the
     pretrain step's masks)."""
-    if loss_kind not in ("ce", "nce", "mlm"):
+    if loss_kind not in ("ce", "nce", "mlm", "caption"):
         raise ValueError(f"unknown loss_kind {loss_kind!r}")
     device = next(model.parameters()).device
 
     def loss_fn(out, batch):
         if loss_kind == "nce":
             return norm_softmax_loss(out, temp)
+        if loss_kind == "caption":
+            return label_smoothed_nll(out, batch["mask_ans"])
         return cross_entropy_ignore(out, batch["mask_ans" if loss_kind == "mlm" else "ans"])
 
     def step(state: TrainState, batch: dict, seed: int):

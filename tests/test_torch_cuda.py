@@ -19,9 +19,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (FP32_LIMITS, LARGE_MEAN, OUTPUTS, PLANTED_LN, PLANTED_TILED, _excess,
-                        _lane_fwd_kind, _sa_calls, _tuple, _window_bwd_kind, _window_fwd_kind,
-                        bf16_check, full_check, plant)
+from chip_smoke import (FP32_LIMITS, LARGE_MEAN, OUTPUTS, PLANTED_LN, PLANTED_ROW_STRIDE,
+                        PLANTED_TILED, ROW_STRIDE_SOURCES, _excess, _lane_calls, _lane_fwd_kind,
+                        _padding_mask, _sa_calls, _tuple, _window_bwd_kind, _window_fwd_kind,
+                        bf16_check, full_check, plant, seq2seq_mask)
 from empirical_mvm_torch.models.video_swin import _shift_attn_mask
 from empirical_mvm_torch.ops import _build
 from empirical_mvm_torch.ops import layernorm as tln
@@ -1133,3 +1134,67 @@ def test_bf16_check_catches_planted_backward_faults(cuda, tmp_path, monkeypatch,
     for case, (readings, failures) in cases.items():
         print(f"planted {fault} [{case}]: {readings} failures={failures}")
         assert failures, f"planted fault {fault} passes the bf16 backward limits at {case}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,text,p_drop", [
+    (8, 275, 25, 0.1),       # the caption step
+    (8, 270, 20, 0.0),       # greedy decoding at max_len 20 (beam search: 32 rows)
+    (20, 232, 32, 0.1),      # the smtm fusion of the pretrain step
+])
+def test_lane_fwd_and_bwd_under_the_seq2seq_mask(cuda, dtype, b, l, text, p_drop):
+    """Rows 5 and 6 under the seq2seq joint mask (``chip_smoke.seq2seq_mask``:
+    the port's ``joint_attn_bias``, (B, L, L) with rows that differ, a
+    query-row stride of L) at the caption, decode and smtm shapes, against
+    their plain versions: fp32 within FP32_LIMITS, bf16 within chip_smoke's
+    limits; each output bit-identical over two runs. Video rows mask the
+    whole text block and early text rows the later text keys, so whole key
+    tiles are masked for some rows; every row sees the video keys of the
+    first tile, so none is wholly masked."""
+    gen = torch.Generator(cuda).manual_seed(l)
+    mask = seq2seq_mask(cuda, b, l, text)
+    assert mask.stride(1) == l and not torch.equal(mask[:, 0], mask[:, -1])
+    x3 = torch.randn(b, l, 3 * 768, device=cuda, generator=gen) * 0.5
+    do = torch.randn(b, l, 768, device=cuda, generator=gen).to(torch.bfloat16).float()
+    seed = torch.tensor([2026, 17], dtype=torch.int32, device=cuda) if p_drop else None
+    (fwd, fwd_plain, _), (bwd, bwd_plain, _) = _lane_calls(mask, 12, 0.125, p_drop, seed, do)
+    _check(fwd, fwd_plain, x3, dtype, _lane_fwd_kind(64))
+    _check(bwd, bwd_plain, x3, dtype, "attention_bwd")
+    a = x3.to(dtype)
+    assert torch.equal(fwd(a), fwd(a)) and torch.equal(bwd(a), bwd(a))
+
+
+@pytest.mark.cuda
+def test_planted_row_stride_fault_fails_only_under_the_seq2seq_mask(cuda, tmp_path,
+                                                                    monkeypatch):
+    """A copy of the lane self-attention's sources whose C entries pass a
+    query-row stride of 0 (``PLANTED_ROW_STRIDE``): under the seq2seq mask
+    rows 5 and 6 fail the fp32 and the bf16 limits; under a padding mask
+    (a stride-0 view, every row alike), the masks of the earlier paths, the
+    same build passes, which is why those paths could not show the fault.
+    The readings are printed (run with -s)."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for name in ROW_STRIDE_SOURCES:
+        shutil.copy(_build.CSRC / name, src / name)
+    plant(src, *PLANTED_ROW_STRIDE)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_lib", _build.load(_build.build(csrc=src), False))
+    gen = torch.Generator(cuda).manual_seed(5)
+    b, l, text = 4, 275, 25
+    x3 = torch.randn(b, l, 3 * 768, device=cuda, generator=gen) * 0.5
+    do = torch.randn(b, l, 768, device=cuda, generator=gen).to(torch.bfloat16).float()
+    seed = torch.tensor([79, 4], dtype=torch.int32, device=cuda)
+    for kind, mask in (("seq2seq", seq2seq_mask(cuda, b, l, text)),
+                       ("padding", _padding_mask(cuda, gen, b, l, text, 6))):
+        (fwd, fwd_plain, _), (bwd, bwd_plain, _) = _lane_calls(mask, 12, 0.125, 0.1, seed, do)
+        for row, kernel, plain, limits in (("row 5", fwd, fwd_plain, _lane_fwd_kind(64)),
+                                           ("row 6", bwd, bwd_plain, "attention_bwd")):
+            readings, failures = full_check(kernel, plain, x3, limits)
+            print(f"planted row stride 0 [{row}, {kind} mask]: {readings} failures={failures}")
+            if kind == "padding":
+                assert not failures, (row, failures)
+            else:
+                assert any(" fp32 max err" in f for f in failures), row
+                assert any(" bf16" in f for f in failures), row

@@ -67,13 +67,13 @@ def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def carried_slice(model_cfg):
+def carried_slice(model_cfg, pretrain_tasks=("mtm", "vtm", "mvm")):
     """JAX model and params for the tiny ``model_cfg(package)`` (pixel
-    target), the port model carrying them, the batch, and the fixed draws,
-    with the JAX package's draws replaced by them while the generator is
-    suspended (a module fixture yields from it)."""
+    target, ``pretrain_tasks``), the port model carrying them, the batch,
+    and the fixed draws, with the JAX package's draws replaced by them while
+    the generator is suspended (a module fixture yields from it)."""
     batch = _batch()
-    tm = VioletPretrain(model_cfg(tcfg), device="cpu", seed=1)
+    tm = VioletPretrain(model_cfg(tcfg), pretrain_tasks=pretrain_tasks, device="cpu", seed=1)
     gen = torch.Generator().manual_seed(3)
     txt_t = torch.from_numpy(batch["txt"])
     draws = tmask.draw_masks(gen, txt_t, 2, 2, 2, special_token_ids=(101, 102, 0),
@@ -95,6 +95,7 @@ def carried_slice(model_cfg):
                    lambda x, k: (None, jnp.asarray(neg_idx.numpy(), jnp.int32)))
         mp.setattr(jpretrain, "ScoreHead", functools.partial(jviolet.ScoreHead, dropout=0.0))
         jm = jpretrain.VioletPretrain(config=model_cfg(jcfg), mvm_target=("pixel",),
+                                      pretrain_tasks=tuple(pretrain_tasks),
                                       pretrain_masks=("bm", "rm"))
         args = [jnp.asarray(batch[k]) for k in ("img", "txt", "mask")]
         key = jax.random.PRNGKey(0)
@@ -254,5 +255,7 @@ def test_pretrain_config_builds_the_slice():
         _model_cfg(tcfg), size_img=run.model.size_img // 7 * 2))
     m = VioletPretrain.from_run_config(tiny, device="cpu")
     assert (m.temp, m.p_mask, set(m.pretrain_masks)) == (0.05, 0.15, {"rm", "bm"})
-    with pytest.raises(NotImplementedError):
-        VioletPretrain(_model_cfg(tcfg), pretrain_tasks=("mtm", "smtm"), device="cpu")
+    smtm = VioletPretrain(_model_cfg(tcfg), pretrain_tasks=("mtm", "smtm"), device="cpu")
+    assert smtm.pretrain_tasks == ("mtm", "smtm")
+    with pytest.raises(ValueError, match="pretrain_tasks"):
+        VioletPretrain(_model_cfg(tcfg), pretrain_tasks=("mtm", "itm"), device="cpu")

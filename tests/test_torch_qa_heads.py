@@ -466,6 +466,10 @@ def test_emb_task_leaf_is_carried(built):
     (10, 286, True),       # ... with an 11-token prompt
     (8, 350, False),       # generative multiple choice (tgif-action)
     (40, 350, False),      # MLM-head and gumbel multiple choice
+    (8, 275, True),        # the caption step: 8 clips of 5 frames, 25 caption tokens
+    (8, 270, True),        # greedy caption decoding at max_len 20
+    (32, 270, True),       # beam search, 4 beams
+    (20, 232, True),       # the smtm fusion of the pretrain step
 ])
 def test_fusion_route_at_the_heads_lengths_matches_jax(rows, tokens, lane):
     """BERT-base's route at each new step's fusion length, prefixes
@@ -480,8 +484,10 @@ def test_qa_models_default_to_the_card():
     """Every new model is built on the card unless the caller asks for the
     CPU (here there is none, so the default fails where CUDA is missing)."""
     import inspect
+    from empirical_mvm_torch.models.captioning import VioletCaptioning
     for cls in (ttasks.VioletQAOE, ttasks.VioletQAOEMLMHead, ttasks.VioletQAMCGen,
-                ttasks.VioletQAMCMLMHead, ttasks.VioletQAMC, ttasks.VioletRetrieval):
+                ttasks.VioletQAMCMLMHead, ttasks.VioletQAMC, ttasks.VioletRetrieval,
+                VioletCaptioning):
         assert inspect.signature(cls).parameters["device"].default == "cuda", cls
 
 
