@@ -97,7 +97,13 @@ before the final line, if any phase failed:
    for the per-row mask's cost, and a copy of the lane self-attention's
    sources with a planted fault (``PLANTED_ROW_STRIDE``: both C entries
    pass a query-row stride of 0), whose rows 5 and 6 must fail the fp32 and
-   the bf16 limits under the seq2seq mask. Prints one ``kernel_shapes``
+   the bf16 limits under the seq2seq mask; and the loader-fed steps' own
+   shapes (phases 37-38): the direct forward and backward at the cc3m
+   batch's 20 clips of T = 1 (window (1, 7, 7), N = 49), row 5 with
+   dropout and row 6 at its fusion's 80 rows of 82 and at the QA-OE mlm
+   rows' 10 of 280 (``LOADER_LANE``), row 11 at the generative MC's 8 rows
+   of 353, and the LayerNorm forward and backward at each of their sites
+   (``LOADER_LN``). Prints one ``kernel_shapes``
    line with the per-shape numbers and, at the end, one ``kernels`` JSON
    line.
 4. The retrieval eval at full width: VioletRetrieval at
@@ -262,7 +268,29 @@ before the final line, if any phase failed:
    fusion of the 20 masked captions under the seq2seq mask, 20 rows of 232
    on rows 5 and 6; ``TRAIN_SMTM_LAUNCHES``), then its whole step as phase
    7.
-36. The last line is ``{"ok": true, "device": {...}}``.
+36. The data layer's decode (``decode_phase``): nvJPEG (``data/jpeg.py``,
+   built by nvcc into build/ apart from the kernels) on the committed
+   fixture (``tools/jpeg_fixture.py``: 8 frames of 256 x 340) against
+   cv2's decode of it, the largest and the mean absolute difference held to
+   the fixture's limits; its time a frame and a batch; the transform
+   executor on the card against itself on the CPU on the same decoded
+   frames (crops and pads exact, resizes within one uint8 step); a frame
+   whose header parses but whose decode fails marks its item corrupt.
+37. The pixel step at full width fed by the loader (``loader_pretrain_phase``):
+   ``MetaLoader`` over the webvid2.5m shards (4 frames) and cc3m (1 frame,
+   the T = 1 Video Swin), written by ``tools/loaderbench.py`` from the
+   fixture with shards that hold every timed batch within one epoch,
+   through ``DevicePrefetcher``; the loader alone in clips/s, then
+   ``LOADER_STEPS`` steps after warm-up steps that start every loader:
+   wall ms by dataset against phase 6's, kernel time, the device's idle
+   share, launches of a 4-frame step held to ``TRAIN_LAUNCHES``; then a
+   4-frame and a 1-frame batch, each with a corrupt row, card fp32 against
+   CPU fp32 on a depth-cut copy, as phase 7.
+38. The retrieval ``nce``, open-ended QA ``mlm`` and generative
+   multiple-choice ``mlm`` steps fed by their datasets at their real text
+   lengths (25, 30 and 103 tokens), as phase 14, with their fusion routes
+   and launches (``loader_finetune_phases``).
+39. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -273,6 +301,7 @@ import dataclasses
 import functools
 import itertools
 import json
+import random
 import shutil
 import subprocess
 import time
@@ -285,7 +314,14 @@ import torch
 import torch.nn.functional as F
 
 from empirical_mvm_torch.core.config import SwinConfig, load_run_config
+from empirical_mvm_torch.data.jpeg import NvJpegDecoder, jpeg_size, nvjpeg_libraries
+from empirical_mvm_torch.data.jpeg import decode_counts as jpeg_decode_counts
+from empirical_mvm_torch.data.loader import (DevicePrefetcher, MetaLoader, ShardedBatchLoader,
+                                             materialize)
 from empirical_mvm_torch.data.masking import draw_masks
+from empirical_mvm_torch.data.tokenizer import load_tokenizer
+from empirical_mvm_torch.data.transforms import (TRANSFORMS, ClipPlan, FramePlan, plan_clip,
+                                                 run_plans)
 from empirical_mvm_torch.models import pretrain as pretrain_module
 from empirical_mvm_torch.models.captioning import VioletCaptioning
 from empirical_mvm_torch.models.encoders2d import swin2d_config
@@ -304,6 +340,10 @@ from empirical_mvm_torch.ops.preprocess import maybe_normalize
 from empirical_mvm_torch.teachers.clip import renormalize_imagenet_to_clip
 from empirical_mvm_torch.teachers.dvae import map_pixels, unnormalize_imagenet
 from empirical_mvm_torch.tools import capbench, lanebench
+from empirical_mvm_torch.tools.jpeg_fixture import load_fixture
+from empirical_mvm_torch.tools.loaderbench import (build_downstream, build_pretrain,
+                                                   downstream_dataset, loader_clips_per_s,
+                                                   pretrain_meta_loader, shard_rows, with_data)
 from empirical_mvm_torch.train.caption_metrics import caption_scores
 from empirical_mvm_torch.train.evaluators import (in_batch_retrieval_accuracy, qamc_accuracy,
                                                   qamc_gen_accuracy, qaoe_mlm_topk,
@@ -488,6 +528,24 @@ FINETUNE_LN = (("retrieval fusion", 64 * 275, 768, 1e-12, torch.bfloat16),
                ("qamc-gen embeddings", 8 * 100, 768, 1e-12, torch.float32),
                ("mc embeddings", 40 * 100, 768, 1e-12, torch.float32))
 QAOE_B = 10
+# phase 3's records at the loader-fed steps' own shapes (phases 37 and 38;
+# each step's kernel calls, read off a CPU run of the same batches): the
+# pretrain step's cc3m batches run the Video Swin at T = 1 (20 clips, window
+# (1, 7, 7), N = 49) and the fusion on 80 rows of L = 50 + 32 = 82; the
+# QA-OE mlm rows carry "answer: [MASK] [SEP]" (10 rows of 250 + 30 = 280);
+# the generative MC prompt holds the options (8 rows of 250 + 103 = 353,
+# row 11). Rows 5-6 (label, rows, L, text tokens) and the LayerNorm sites,
+# forward and backward: the fusion, EncVideo, the MLM head (bf16) and the
+# text embeddings (fp32).
+LOADER_LANE = (("cc3m ", 4 * TRAIN_B, 82, 32), ("qaoe mlm ", QAOE_B, 280, 30))
+LOADER_LN = (("cc3m fusion", 80 * 82, 768, 1e-12, torch.bfloat16),
+             ("cc3m enc_video", 20 * 50, 768, 1e-5, torch.bfloat16),
+             ("qaoe-mlm fusion", QAOE_B * 280, 768, 1e-12, torch.bfloat16),
+             ("qaoe-mlm mlm_head", QAOE_B * 30, 768, 1e-12, torch.bfloat16),
+             ("qaoe-mlm embeddings", QAOE_B * 30, 768, 1e-12, torch.float32),
+             ("tgif-action fusion", 8 * 353, 768, 1e-12, torch.bfloat16),
+             ("tgif-action mlm_head", 8 * 103, 768, 1e-12, torch.bfloat16),
+             ("tgif-action embeddings", 8 * 103, 768, 1e-12, torch.float32))
 # Captioning (phases 32-34) at configs/caption.json: 8 clips of 5 frames of
 # 224^2 and captions of 25 tokens, so the caption step's fusion runs 8 rows of
 # L = 250 + 25 = 275 under the seq2seq joint mask: row 5 with dropout and
@@ -1857,7 +1915,8 @@ def tiled_sa_cases(dev, gen):
     question and option of 8 to 100 tokens), 12 heads of 64: forward at p = 0
     (the eval) and p = 0.1 (the fine-tune step), backward at p = 0.1, and the
     dropout keep fraction; the same at the generative multiple choice's 8
-    rows of 350 (tgif-action, one row a question); (b) DPT-Large at 384^2,
+    rows of 350 (tgif-action, one row a question), and the loader-fed one's 8
+    rows of 353 (phase 38), backward and forward at p = 0.1; (b) DPT-Large at 384^2,
     8 images of 577 tokens, 16 heads, no mask, forward in fp32 (which row
     5's shared memory cannot hold) and bf16, backward in bf16; (c) the
     split entry at (a)'s shape with dropout; (d) N = 129, one key of the
@@ -1867,6 +1926,7 @@ def tiled_sa_cases(dev, gen):
     recs = []
     shapes = (("mc fusion", QAMC_B * QAMC_O, 12, QAMC_L, 100, (0.0, P_ATTN)),
               ("qamc-gen fusion", QAMC_B, 12, QAMC_L, 100, (0.0, P_ATTN)),
+              ("tgif-action loader fusion", QAMC_B, 12, 353, 103, (P_ATTN,)),
               ("dpt 384", 8, 16, 577, 0, (0.0,)),
               ("ragged", 16, 12, 129, 32, (P_ATTN,)))
     for label, b, nh, n, text, rates in shapes:
@@ -1879,7 +1939,7 @@ def tiled_sa_cases(dev, gen):
         seed = torch.tensor([20261016, 11], dtype=torch.int32, device=dev)
         ops = 4 * b * nh * n * n * hd
         mask_bytes = _span_bytes(mask)
-        on_path = label in ("mc fusion", "qamc-gen fusion")
+        on_path = label not in ("dpt 384", "ragged")
         mine = []
         for p_drop in rates:
             (fwd, *fwd_rest), (bwd, *bwd_rest) = _sa_calls(mask, nh, scale, p_drop,
@@ -2407,7 +2467,7 @@ def target_times(model, img):
 VTM_OUT_BIAS = "fc.3.bias"
 
 
-def train_phase(dev, run, want_launches):
+def train_phase(dev, run, want_launches, record=None):
     """Phases 6, 8, 10, 12, 18-20 and 22-24: the pretrain train step at full
     width for the run's backbone and MVM target (pre-extracted vq: seeded
     tokens in the batch; the dVAE's logits centred on the first clip,
@@ -2415,7 +2475,8 @@ def train_phase(dev, run, want_launches):
     which must equal ``want_launches``. After the timed steps, the device
     time of one more step's kernels under the profiler, and the MVM
     teachers' and HOG's device time of one no-grad call each
-    (``target_times``)."""
+    (``target_times``). ``record``, a dict, receives the median step ms and
+    the kernel ms."""
     cfg = run.model
     b = run.train.size_batch
     model = VioletPretrain.from_run_config(run, dtype=torch.bfloat16, device=dev,
@@ -2450,6 +2511,8 @@ def train_phase(dev, run, want_launches):
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     clips_s = [b / t for t in secs]
     kernel_ms = _kernel_ms(_stepper(step, state, batch))
+    if record is not None:
+        record.update(step_ms_median=float(np.median(secs)) * 1e3, kernel_ms=kernel_ms)
     targets_ms, targets_info = target_times(model, maybe_normalize(batch["img"]))
     backbone = f"{cfg.vis_backbone}-{cfg.vis_backbone_size}"
     print(f"train-step {backbone} {target} launch counts: {launches}", flush=True)
@@ -2499,10 +2562,12 @@ def train_phase(dev, run, want_launches):
     return launches
 
 
-def whole_step_phase(dev, run, b=4):
-    """Phases 7, 9, 11, 13, 21 and 25: one train step of a depth-cut copy
+def whole_step_phase(dev, run, b=4, batch=None, biased=False):
+    """Phases 7, 9, 11, 13, 21, 25 and 37: one train step of a depth-cut copy
     (the student; the teachers keep their full depth but for the DPT, cut to
-    ``DPT_CUT``), ``b`` clips, card fp32 (kernels) against CPU fp32 (plain
+    ``DPT_CUT``), ``b`` clips (or ``batch``, CPU tensors from the loader,
+    its ``corrupt`` flag included; ``biased``: the biases seeded, as
+    ``seeded_biases``), card fp32 (kernels) against CPU fp32 (plain
     versions). With the hog target, both sides are fed the same ``hog``
     target, computed once on the CPU, and ``hog_image`` is held card against
     CPU apart (``hog_check``); with the DPT, RAFT or dVAE teachers, those
@@ -2517,11 +2582,13 @@ def whole_step_phase(dev, run, b=4):
                                    attention_probs_dropout_prob=0.0),
         text=dataclasses.replace(cfg.text, hidden_dropout_prob=0.0))
     run_cut = dataclasses.replace(run, model=cut)
-    batch = synthetic_pretrain_batch(b, cut, seed=4, device="cpu")
+    if batch is None:
+        batch = synthetic_pretrain_batch(b, cut, seed=4, device="cpu")
+    b = batch["img"].shape[0]
     gen = torch.Generator().manual_seed(5)
     ps = cut.size_patch
     hw = cut.size_img // ps
-    draws = draw_masks(gen, batch["txt"], cut.size_frame, hw, hw,
+    draws = draw_masks(gen, batch["txt"], batch["img"].shape[1], hw, hw,
                        special_token_ids=VioletPretrain.special_token_ids,
                        mask_token_id=VioletPretrain.mask_token_id, p_mask=run.train.p_mask,
                        mask_types=run.train.pretrain_masks)
@@ -2535,6 +2602,8 @@ def whole_step_phase(dev, run, b=4):
         card = VioletPretrain.from_run_config(run_cut, dtype=torch.float32, device=dev, seed=1)
         cpu = VioletPretrain.from_run_config(run_cut, dtype=torch.float32, device="cpu",
                                              seed=1)
+    if biased:
+        seeded_biases(card, 1)
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
     if hasattr(cpu, "dvae"):
         center_dvae_logits((card, cpu), maybe_normalize(batch["img"][0]))
@@ -2557,11 +2626,18 @@ def whole_step_phase(dev, run, b=4):
             torch.cuda.synchronize(device)
         secs[name] = time.perf_counter() - t0
         results[name] = _step_results(model, ls)
+    # with seeded biases the VTM scores spread, and the VTM score head's
+    # output bias, whose gradient is zero in exact arithmetic, reads each
+    # side's roundoff of scores divided by temp, as the nce step's does
     hold_card_against_cpu(results, secs, {
         "vis_backbone": cut.vis_backbone, "vis_backbone_size": cut.vis_backbone_size,
         "mvm_target": list(run.train.mvm_target), "swin_depths": list(cut.swin.depths),
         "fusion_layers": cut.fusion.num_hidden_layers, "batch": b,
-        **({"dpt_depth": len(cpu.dpt.pretrained.model.blocks)} if hasattr(cpu, "dpt") else {})})
+        "frames": batch["img"].shape[1],
+        **({"corrupt_rows": batch["corrupt"].nonzero().flatten().tolist()}
+           if "corrupt" in batch else {}),
+        **({"dpt_depth": len(cpu.dpt.pretrained.model.blocks)} if hasattr(cpu, "dpt") else {})},
+        zero={VTM_OUT_BIAS: NCE_ZERO_GRAD_ATOL} if biased else None)
 
 
 def center_dvae_logits(models, frames):
@@ -2764,10 +2840,11 @@ GUMBEL_NO_GRAD = {"vid_key.weight", "vid_query.weight"}
 
 
 def finetune_phase(dev, name, config, run, model, loss_kind, kind, want_launches,
-                   zero_ok=()):
-    """Phases 14, 26, 28, 30 and 32: the ``loss_kind`` fine-tune step of
+                   zero_ok=(), batches=None):
+    """Phases 14, 26, 28, 30, 32 and 38: the ``loss_kind`` fine-tune step of
     ``model`` (bf16, full width) on a ``kind`` batch of the run's
-    ``size_batch``, with the package's ``build_optimizer``. One warm-up
+    ``size_batch`` (or, with ``batches``, on each step's next batch of that
+    iterator, the loader's), with the package's ``build_optimizer``. One warm-up
     step, then ``TRAIN_STEPS`` timed steps: items/s (clips for retrieval,
     captions for captioning, questions for QA; batch / step seconds) median
     and range, peak device memory, every loss finite, one more step's kernel
@@ -2782,6 +2859,8 @@ def finetune_phase(dev, name, config, run, model, loss_kind, kind, want_launches
     state = create_train_state(model, opt)
     step = make_supervised_train_step(model, opt, loss_kind, run.train.temp)
     batch = synthetic_finetune_batch(kind, b, cfg, seed=6, device=dev)
+    if batches is not None:
+        batch = next(batches)
     before = {n: p.detach().clone() for n, p in state.params.items()}
     t0 = time.perf_counter()
     state, ls = step(state, batch, TRAIN_SEED)             # warm-up: first launches, cuBLAS
@@ -2791,9 +2870,11 @@ def finetune_phase(dev, name, config, run, model, loss_kind, kind, want_launches
     torch.cuda.reset_peak_memory_stats(dev)
     secs, launches = [], {}
     for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        if batches is not None:
+            batch = next(batches)
         if i == 0:
             _build.launch_counts.clear()
-        t0 = time.perf_counter()
         state, ls = step(state, batch, TRAIN_SEED)
         torch.cuda.synchronize(dev)
         secs.append(time.perf_counter() - t0)
@@ -2804,13 +2885,15 @@ def finetune_phase(dev, name, config, run, model, loss_kind, kind, want_launches
     rate = [b / t for t in secs]
     unit = {"retrieval": "clips_per_s", "caption": "captions_per_s"}.get(kind,
                                                                         "questions_per_s")
-    rows, tokens, route = fusion_shape(cfg, kind, b)
+    rows, tokens, route = fusion_shape(cfg, kind, b, batch["txt"].shape[-1] - cfg.size_txt)
     kernel_ms = _kernel_ms(_stepper(step, state, batch))
     print(f"{name} train-step launch counts: {launches}", flush=True)
     print(json.dumps({
         "slice": f"{name}_train_step", "config": config.name, "model": type(model).__name__,
         "loss": loss_kind, "dtype": "bfloat16", "batch": b, "frames": cfg.size_frame,
-        "size_img": cfg.size_img, "size_txt": cfg.size_txt, "fusion_rows": rows,
+        "size_img": cfg.size_img, "size_txt": cfg.size_txt,
+        "batches": "loader" if batches is not None else "synthetic",
+        "text_tokens": batch["txt"].shape[-1], "fusion_rows": rows,
         "fusion_tokens": tokens, "fusion_route": route, "steps": TRAIN_STEPS,
         "warmup_step_s": warm_s, unit: float(np.median(rate)), f"{unit}_range": [min(rate),
                                                                                max(rate)],
@@ -3207,6 +3290,261 @@ def caption_phases(dev):
 def with_pretrain_tasks(run, tasks):
     """``run`` with ``train.pretrain_tasks`` replaced."""
     return dataclasses.replace(run, train=dataclasses.replace(run.train, pretrain_tasks=tasks))
+
+
+# ---------------------------------------------------------------------------
+# phases 36-38: the data layer (TSV readers, nvJPEG, the transform plans and
+# their executor, the loaders) feeding the steps
+
+LOADER_STEPS = 12                 # loader-fed pretrain steps timed (phase 37)
+LOADER_ALONE_BATCHES = 20         # batches of the loader alone (phase 37)
+DECODE_REPS = 10                  # timed decode calls (phase 36)
+WHOLE_LOADER_B = 4                # rows of the loader batch held card against CPU
+
+
+def seeded_biases(model, seed, std=0.02):
+    """Add seeded N(0, std) to every bias of ``model``, as a trained model
+    has them. ``init_weights`` zeroes the biases, and with zero biases a
+    corrupt row's zeroed clip stays exactly zero through the whole Video
+    Swin: every LayerNorm there then sees zero variance and scales its
+    backward by 1 / sqrt(eps) (about 316), the true gradient, which
+    overflows fp32 at full depth. The JAX package computes the same
+    gradient at its own init: ``tests/test_torch_loader_step.py``
+    ``test_zero_biases_and_a_corrupt_row_blow_up_both_packages_gradients``
+    reads 5e32 in both at depths (1, 1, 1, 1), against 1e4 without the
+    flag. A fault of the reference that the port keeps (ROADMAP Queue 3)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.add_(torch.randn(p.shape, generator=gen).to(p) * std)
+
+
+def _data_dir(name):
+    """A fresh directory under build/ for the layouts a phase writes."""
+    path = _build.BUILD_DIR / "smoke_data" / name
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return str(path)
+
+
+def decode_phase(dev):
+    """Phase 36: nvJPEG (``data/jpeg.py``) on the committed fixture against
+    cv2's decode of it, within the fixture's limits (``limit_max_abs``,
+    ``limit_mean_abs``: the IDCT's rounding and the 4:2:0 chroma
+    upsampling, measured where the fixture was made); its time a frame and
+    a batch of 80; the transform executor on the card against the same
+    executor on the CPU on the same decoded frames, for every transform at
+    the pretrain size (crops and pads exact, resizes within one uint8
+    step); and a frame that fails to decode marking its item corrupt."""
+    fx = load_fixture()
+    frames, ref = fx["frames"], fx["decode"]
+    sizes = [jpeg_size(f) for f in frames]
+    dec = NvJpegDecoder(dev)
+    out = dec.decode(frames, sizes)
+    torch.cuda.synchronize(dev)
+    diffs = [np.abs(o.cpu().numpy().astype(np.int16) - r) for o, r in zip(out, ref)]
+    max_abs = [int(d.max()) for d in diffs]
+    mean_abs = [float(d.mean()) for d in diffs]
+    times = {}
+    for n in (len(frames), TRAIN_B * TRAIN_T):
+        fr = (frames * (n // len(frames) + 1))[:n]
+        dec.decode(fr, [sizes[0]] * n)
+        torch.cuda.synchronize(dev)
+        ts = []
+        for _ in range(DECODE_REPS):
+            t0 = time.perf_counter()
+            dec.decode(fr, [sizes[0]] * n)
+            torch.cuda.synchronize(dev)
+            ts.append(time.perf_counter() - t0)
+        times[n] = float(np.median(ts)) * 1e3
+    # the executor: card against CPU on the same decoded frames
+    cpu_frames = [torch.from_numpy(r) for r in ref]
+    card_frames = [f.to(dev) for f in cpu_frames]
+    execs = {}
+    rng = random.Random(0)
+    h, w = sizes[0]
+    plans = {t: plan_clip(frames, sizes, 224, "train", t, rng, False) for t in TRANSFORMS}
+    plans["crop only"] = ClipPlan(tuple(frames), (FramePlan((h, w), (0, 0, 0, 0), (h, w),
+                                                            (16, 58, 224, 224)),) * len(frames),
+                                  (len(frames), 224, 224), False)
+    plans["pad only"] = ClipPlan(tuple(frames), (FramePlan((h, w), (42, 42, 0, 0), (w, w),
+                                                           (0, 0, w, w)),) * len(frames),
+                                 (len(frames), w, w), False)
+    for name, plan in plans.items():
+        a = run_plans([plan], [card_frames], dev)[0].cpu()
+        c = run_plans([plan], [cpu_frames], "cpu")[0]
+        d = (a.int() - c.int()).abs()
+        exact = plan.ops[0].size == plan.ops[0].src or name == "pad only"
+        execs[name] = {"max_abs": int(d.max()), "share_differing": float((d > 0).float().mean()),
+                       "resized": not exact}
+        require(d.max() <= (0 if exact else 1),
+                f"transform {name}: card against CPU differs by {int(d.max())}")
+    # a frame whose header parses but whose decode fails
+    sof = frames[0].index(b"\xff\xc0")
+    cut = frames[0][:sof + 2 + int.from_bytes(frames[0][sof + 2:sof + 4], "big")]
+    good = plan_clip(frames[:2], sizes[:2], 224, "train", "img_rand_crop", rng, False)
+    bad = dataclasses.replace(good, frames=(frames[0], cut))
+    mat = materialize({"img": [good, bad]}, dec, dev)
+    corrupt = mat["corrupt"].tolist()
+    require(corrupt == [False, True] and not mat["img"][1].any(),
+            f"a failed decode: corrupt {corrupt}")
+    info = {"phase": "decode", "route": "nvjpeg", "nvjpeg_libraries": nvjpeg_libraries(),
+            "reference": "cv2 decode of the fixture",
+            "frames": len(frames), "frame_hw": list(sizes[0]),
+            "max_abs_each": max_abs, "mean_abs_each": mean_abs,
+            "limit_max_abs": fx["limit_max_abs"], "limit_mean_abs": fx["limit_mean_abs"],
+            "decode_ms_per_call": {str(n): t for n, t in times.items()},
+            "decode_ms_per_frame": times[TRAIN_B * TRAIN_T] / (TRAIN_B * TRAIN_T),
+            "executor_card_vs_cpu": execs, "failed_decode_corrupt": corrupt}
+    print(json.dumps(info), flush=True)
+    require(max(max_abs) <= fx["limit_max_abs"] and max(mean_abs) <= fx["limit_mean_abs"],
+            f"nvJPEG against cv2: max {max(max_abs)}, mean {max(mean_abs):.3f} over the "
+            f"limits {fx['limit_max_abs']}, {fx['limit_mean_abs']:.3f}")
+    dec.close()
+
+
+def loader_pretrain_phase(dev, run, synthetic):
+    """Phase 37: the pixel step at full width fed by ``MetaLoader`` over the
+    webvid2.5m shards and cc3m (``tools/loaderbench.py`` writes them from
+    the fixture; ``pretrain_meta_loader`` wires them as the JAX pretrain
+    CLI does) through ``DevicePrefetcher`` (nvJPEG and the transforms on a
+    side stream). First the loader alone (clips/s); then, on a model whose
+    biases are seeded (``seeded_biases``), warm-up steps and
+    ``LOADER_STEPS`` timed steps, each from fetching its batch to the
+    synchronise after it: wall ms by dataset, against phase 6's
+    ``synthetic`` wall time on its synthetic batch, every loss finite, the
+    first 4-frame step's launches held to ``TRAIN_LAUNCHES``, the kernel
+    time of one 4-frame and one 1-frame step under the profiler and the
+    device's idle share. The shards hold every timed batch within one
+    epoch (``shard_rows``), and warm-up steps run until every loader has
+    delivered, so no producer starts cold inside the timing. Then a webvid
+    (T = 4) and a cc3m (T = 1) batch's first rows, a corrupt one among
+    them, are held card fp32 against CPU fp32 on a depth-cut copy
+    (``whole_step_phase``). Returns the launches of that 4-frame step."""
+    data_dir = _data_dir("pretrain")
+    rows = shard_rows(TRAIN_B, LOADER_ALONE_BATCHES)
+    build_pretrain(data_dir, videos_per_part=rows, images=rows)
+    run_l = with_data(run, data_dir=data_dir)
+    tokzr = load_tokenizer()
+    meta = pretrain_meta_loader(run_l, tokzr)
+    alone = loader_clips_per_s(DevicePrefetcher(meta, dev), LOADER_ALONE_BATCHES)
+    meta.close()
+    require(alone["epoch_restarts"] == 0,
+            f"the loader alone crossed {alone['epoch_restarts']} epochs")
+    model = VioletPretrain.from_run_config(run, dtype=torch.bfloat16, device=dev,
+                                           seed=TRAIN_SEED)
+    seeded_biases(model, TRAIN_SEED)
+    opt = build_optimizer(model, run.train, TRAIN_MAX_ITER)
+    state = create_train_state(model, opt)
+    step = make_pretrain_train_step(model, opt)
+    meta = pretrain_meta_loader(run_l, tokzr)
+    batches = iter(DevicePrefetcher(meta, dev))
+    left = set(meta.loaders)
+    while left:     # warm-up: every loader's producer, both clip lengths' first launches
+        tag, batch = next(batches)
+        state, ls = step(state, batch, TRAIN_SEED)
+        left.discard(tag)
+    torch.cuda.synchronize(dev)
+    secs, tags, losses, corrupt_rows, launches = [], [], [], 0, None
+    kept = {}
+    for _ in range(LOADER_STEPS):
+        t0 = time.perf_counter()
+        tag, batch = next(batches)
+        four = batch["img"].shape[1] == run.model.size_frame
+        if four and launches is None:
+            _build.launch_counts.clear()
+        state, ls = step(state, batch, TRAIN_SEED)
+        torch.cuda.synchronize(dev)
+        secs.append(time.perf_counter() - t0)
+        if four and launches is None:
+            launches = dict(_build.launch_counts)
+        tags.append(tag)
+        losses.append({k: v.item() for k, v in ls.items()})
+        corrupt_rows += int(batch["corrupt"].sum())
+        t = batch["img"].shape[1]
+        if t not in kept or (batch["corrupt"].any() and not kept[t]["corrupt"].any()):
+            kept[t] = batch
+    batches.close()
+    meta.close()
+    restarts = sum(ld.epoch for ld in meta.loaders.values())
+    by = {}
+    for tag, sec in zip(tags, secs):
+        by.setdefault(tag.split("/")[0], []).append(sec * 1e3)
+    kernel_ms = {f"T={t}": _kernel_ms(_stepper(step, state, b)) for t, b in kept.items()}
+    webvid_ms = float(np.median(by.get("webvid2.5m", [float("nan")])))
+    info = {
+        "slice": "loader_pretrain_train_step", "config": PRETRAIN_CONFIG.name,
+        "dtype": "bfloat16", "batch": run.train.size_batch, "steps": LOADER_STEPS,
+        "datasets_each_step": tags, "step_ms_each": [t * 1e3 for t in secs],
+        "step_ms_median_by_dataset": {k: float(np.median(v)) for k, v in by.items()},
+        "synthetic_step_ms_median": synthetic["step_ms_median"],
+        "loader_over_synthetic": webvid_ms / synthetic["step_ms_median"],
+        "synthetic_kernel_ms": synthetic["kernel_ms"], "kernel_ms_one_step": kernel_ms,
+        "device_idle_share_webvid": 1.0 - kernel_ms[f"T={run.model.size_frame}"] / webvid_ms,
+        "loader_alone": alone, "corrupt_rows_seen": corrupt_rows,
+        "shard_rows": rows, "epoch_restarts": restarts,
+        "nvjpeg_frames": jpeg_decode_counts["nvjpeg_frames"], "losses_each_step": losses}
+    print(f"loader-fed train-step launch counts: {launches}", flush=True)
+    print(json.dumps(info), flush=True)
+    require(launches == TRAIN_LAUNCHES,
+            f"launches of one loader-fed 4-frame step {launches}, not {TRAIN_LAUNCHES}")
+    require(set(by) == {"webvid2.5m", "cc3m"}, f"datasets stepped: {sorted(by)}")
+    require(restarts == 0, f"the loader-fed steps crossed {restarts} epochs")
+    for i, step_ls in enumerate(losses):
+        require(all(np.isfinite(v) for v in step_ls.values()),
+                f"non-finite loss at loader-fed step {i}: {step_ls}")
+    del model, opt, state, step
+    torch.cuda.empty_cache()
+    for t, b in sorted(kept.items(), reverse=True):
+        bad = b["corrupt"].nonzero().flatten().tolist()
+        require(bool(bad), f"no {t}-frame loader batch held a corrupt row")
+        pick = [bad[0]] + [i for i in range(len(b["corrupt"])) if i != bad[0]][
+            :WHOLE_LOADER_B - 1]
+        whole_step_phase(dev, run, batch={k: b[k][pick].cpu() for k in (
+            "img", "txt", "mask", "corrupt")}, biased=True)
+        torch.cuda.empty_cache()
+    return launches
+
+
+def loader_finetune_phases(dev):
+    """Phase 38: the retrieval ``nce`` (msrvtt-retrieval), open-ended QA
+    ``mlm`` (msrvtt-qa: rows of size_txt + 5 with "answer: [MASK]") and
+    generative multiple-choice ``mlm`` (tgif-action: the options in the
+    prompt, rows of size_txt + 3) fine-tune steps at full width, as phase
+    14, each fed by its dataset (``tools/loaderbench.py`` layouts) through
+    ``DevicePrefetcher``; each step's fusion route and launches printed.
+    The datasets hold the warm-up and timed batches within one epoch
+    (``shard_rows`` videos), so no producer starts cold inside the timing.
+    Returns each step's launches."""
+    data_dir = _data_dir("downstream")
+    build_downstream(data_dir, videos=shard_rows(QAOE_B, TRAIN_STEPS))
+    tokzr = load_tokenizer()
+    launches = {}
+    for name, config, kind, shape_kind, build, loss, want, zero_ok in (
+            ("retrieval", RET_CONFIG, "retrieval", "retrieval", VioletRetrieval, "nce",
+             TRAIN_RET_LAUNCHES, {SCORE_OUT_BIAS}),
+            ("qaoe_mlm", QAOE_CONFIG, "qaoe-mlm", "oe_mlm", VioletQAOEMLMHead, "mlm",
+             TRAIN_QAOE_MLM_LAUNCHES, ()),
+            ("qamc_gen", QAMC_GEN_CONFIG, "qamc-gen", "gen", VioletQAMCGen, "mlm",
+             TRAIN_QAMC_MLM_LAUNCHES, ())):
+        run = with_data(load_run_config(str(config)), data_dir=data_dir)
+        ds = downstream_dataset(run, kind, tokzr)
+        meta = MetaLoader({name: (ShardedBatchLoader(
+            ds, run.train.size_batch, shuffle=True, seed=run.train.seed,
+            num_threads=run.data.n_workers), 1)}, seed=run.train.seed)
+        batches = (b for _, b in DevicePrefetcher(meta, dev))
+        model = build(run.model, dtype=torch.bfloat16, device=dev, seed=TRAIN_SEED)
+        launches[f"loader_train_step_{name}"], _ = finetune_phase(
+            dev, f"loader_{name}", config, run, model, loss, shape_kind, want,
+            zero_ok=zero_ok, batches=batches)
+        batches.close()
+        meta.close()
+        restarts = sum(ld.epoch for ld in meta.loaders.values())
+        require(restarts == 0, f"the loader-fed {name} steps crossed {restarts} epochs")
+        del model
+        torch.cuda.empty_cache()
+    return launches
 
 
 def lanebench_phase():
@@ -3746,6 +4084,12 @@ def main() -> None:
             + direct_cases(dev, gen, CAPTION_B, 5, "caption")
             + ln_cases(dev, gen, CAPTION_LN + SMTM_LN + DECODE_LN, "captioning")
             + ln_bwd_cases(dev, gen, CAPTION_LN + SMTM_LN, "captioning ", planted=False)
+            + direct_cases(dev, gen, TRAIN_B, 1, "cc3m")
+            + direct_bwd_cases(dev, gen, "cc3m ", t=1)
+            + [r for label, p, l, text in LOADER_LANE
+               for r in lane_train_cases(dev, gen, p, l, text, path=label)]
+            + ln_cases(dev, gen, LOADER_LN, "loader")
+            + ln_bwd_cases(dev, gen, LOADER_LN, "loader ", planted=False)
             + seq2seq_lane_cases(dev, gen, row_stride))
     pool.shutdown()
     failures = [f for r in recs for f in r.pop("failures")]
@@ -3830,7 +4174,8 @@ def main() -> None:
 
     # 6. the pretrain train step at full width, MVM-pixel
     run = load_run_config(str(PRETRAIN_CONFIG))
-    train_launches = train_phase(dev, run, TRAIN_LAUNCHES)
+    synthetic = {}
+    train_launches = train_phase(dev, run, TRAIN_LAUNCHES, record=synthetic)
     torch.cuda.empty_cache()
 
     # 7. the whole pixel train step, card fp32 against CPU fp32
@@ -3924,6 +4269,18 @@ def main() -> None:
     whole_step_phase(dev, run_smtm)
     torch.cuda.empty_cache()
 
+    # 36. nvJPEG against the fixture's cv2 decode, its time, the transform
+    # executor card against CPU, a failed decode marking its item corrupt
+    decode_phase(dev)
+
+    # 37. the pixel step at full width fed by the loader over webvid2.5m and
+    # cc3m, against phase 6; its corrupt row held card against CPU
+    loader_launches = {"loader_train_step": loader_pretrain_phase(dev, run, synthetic)}
+
+    # 38. the retrieval, open-ended QA and generative MC fine-tune steps fed
+    # by their datasets at their real text lengths
+    loader_launches.update(loader_finetune_phases(dev))
+
     require(not failures, "kernel checks failed:\n" + "\n".join(failures))
 
     line = kernels_line(recs, {
@@ -3931,7 +4288,7 @@ def main() -> None:
         "train_step_swin2d": train_swin2d_launches, "train_step_violet": train_violet_launches,
         "train_step_qamc": ft.pop("train_step_qamc"), "eval": eval_launches,
         "eval_qamc": ft.pop("eval_qamc"), **step_launches, "lanebench": lanebench_launches,
-        **ft, **caption_launches})
+        **ft, **caption_launches, **loader_launches})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -28,8 +28,9 @@ The video backbone is the Video Swin (``vidswin``) or the trained 2D Swin
 (``swin2d``, concat fusion; mean fusion keeps one averaged frame of video
 tokens and so takes no MVM task). The ``smtm`` task fuses the masked
 caption once more under the ``seq2seq`` joint mask and scores the MLM head
-there against the MTM answers (ref: main_pretrain.py:253-258). ``am``
-masking and the ``corrupt`` clip flag are not ported.
+there against the MTM answers (ref: main_pretrain.py:253-258). A clip the
+loader marks ``corrupt`` is zeroed after normalization and left out of the
+hog loss. ``am`` masking is not ported.
 """
 
 from __future__ import annotations
@@ -248,7 +249,8 @@ class VioletPretrain(VioletBase):
         return res
 
     def losses(self, img, txt, mask, *, generator=None, mask_generator=None,
-               draws: MaskDraws | None = None, neg_idx=None, hog=None, vq=None) -> dict:
+               draws: MaskDraws | None = None, neg_idx=None, hog=None, vq=None,
+               corrupt=None) -> dict:
         """Masking, forward and every loss of one pretrain step
         (ref: main_pretrain.py:276-372, 374-553, 555-569).
 
@@ -260,10 +262,15 @@ class VioletPretrain(VioletBase):
         (the JAX ``losses(hog=...)``). ``vq`` is the vq target's tokens: the
         pre-extracted (B, T*(1+h*w)) of the JAX ``losses(vq=...)``, or with
         ``vq_on_the_fly`` the dVAE's (B, T, H/8, W/8) in place of the
-        teacher's own, as ``hog`` is. The JAX ``corrupt`` flag, which also
-        drops corrupt clips from the hog loss, is not ported.
+        teacher's own, as ``hog`` is. ``corrupt`` (B,) bool zeroes those
+        clips after normalization (the reference's normalized-space zeros,
+        ref: main_pretrain.py:94-117) and, where the hog target is computed
+        here, leaves them out of the hog loss, as the JAX ``losses`` does.
         """
         img = maybe_normalize(img)
+        if corrupt is not None:
+            img = torch.where(corrupt.bool()[:, None, None, None, None],
+                              torch.zeros((), dtype=img.dtype, device=img.device), img)
         b, t = img.shape[:2]
         ps = self.config.size_patch
         h, w = img.shape[2] // ps, img.shape[3] // ps
@@ -291,10 +298,15 @@ class VioletPretrain(VioletBase):
                 ls["mvm_pixel"] = masked_l1(self.decode_pixel(grid), img, mb.mvm_mask,
                                             channel_div=3.0)
             if "hog" in self.mvm_target:
+                hog_mask = mb.mvm_mask[..., 0]
                 if hog is None:
                     with torch.no_grad():
                         hog = hog_image(img)
-                ls["mvm_hog"] = masked_l1(self.decode_hog(grid), hog, mb.mvm_mask[..., 0])
+                    if corrupt is not None:
+                        hog_mask = torch.where(corrupt.bool()[:, None, None, None],
+                                               torch.zeros((), dtype=hog_mask.dtype,
+                                                           device=hog_mask.device), hog_mask)
+                ls["mvm_hog"] = masked_l1(self.decode_hog(grid), hog, hog_mask)
             if "vq" in self.mvm_target and self.vq_on_the_fly:
                 ls["mvm_vq"] = cross_entropy_ignore(self.decode_vq_logits(grid),
                                                     self.vq_answers(img, mb.mvm_mask, vq))

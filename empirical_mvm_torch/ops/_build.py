@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (Hopper), all
 sources at once in parallel, and linked into one shared library with a
 plain C interface under ``build/`` at the repository root. The library's
 name carries a hash of the sources and flags, so an edited source builds
-anew and an unchanged one is loaded as it is. The build runs at first use,
+anew and an unchanged one is loaded as it is; :func:`compile_once` builds
+the data layer's two native libraries the same way. The build runs at first use,
 never at import. The library is loaded with ``ctypes``: every pointer and
 the stream pass as ``c_void_p``, and every entry point returns
 ``cudaGetLastError()``, which :func:`record_launch` turns into an
@@ -28,6 +29,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Callable, Sequence
 
 import torch
 
@@ -105,12 +107,47 @@ def _sources(csrc: Path | None = None) -> list[Path]:
     return sorted(p for p in (csrc or CSRC).iterdir() if p.suffix in (".cu", ".cuh"))
 
 
-def library_path(csrc: Path | None = None) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in _sources(csrc):
+def library_file(stem: str, command: Sequence[str], sources: Sequence[Path]) -> Path:
+    """``build/lib{stem}_<hash>.so``: the hash covers ``command`` (the
+    compiler, its flags and library dirs, all but the output path) and each
+    source's name and bytes, so a change to any of them builds anew."""
+    h = hashlib.sha256("\0".join(command).encode())
+    for p in sources:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    return BUILD_DIR / f"libemvm_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
+
+
+def compile_once(stem: str, command: Sequence[str], sources: Sequence[Path],
+                 make: Callable[[Path, Path], None] | None = None) -> Path:
+    """Build a shared library into ``build/`` unless the build of this
+    ``command`` and ``sources`` is there (:func:`library_file`); return its
+    path. ``make(out, tmp)`` writes the library to ``out``, with ``tmp`` a
+    private scratch directory; by default it runs ``command -o out`` and
+    raises with the compiler's output if that fails. The library lands by
+    an atomic rename, so a concurrent build sees all of it or none."""
+    so = library_file(stem, command, sources)
+    if so.exists():
+        return so
+    tmp = BUILD_DIR / f"tmp_{so.stem}_{os.getpid()}_{threading.get_ident()}"
+    tmp.mkdir(parents=True, exist_ok=True)
+    try:
+        out = tmp / so.name
+        if make is not None:
+            make(out, tmp)
+        else:
+            res = subprocess.run([*command, "-o", str(out)], capture_output=True, text=True)
+            if res.returncode:
+                raise RuntimeError(f"building {', '.join(p.name for p in sources)} failed:\n"
+                                   f"{res.stdout}{res.stderr}")
+        os.replace(out, so)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return so
+
+
+def library_path(csrc: Path | None = None) -> Path:
+    return library_file("emvm_kernels", NVCC_FLAGS, _sources(csrc))
 
 
 def build(verbose: bool = False, csrc: Path | None = None) -> Path:
@@ -118,17 +155,13 @@ def build(verbose: bool = False, csrc: Path | None = None) -> Path:
     parallel and link them into one .so; return its path. ``verbose`` adds
     ``-Xptxas -v`` and prints what nvcc says (registers, shared memory and
     spills of each kernel)."""
-    csrc = csrc or CSRC
-    so = library_path(csrc)
-    if so.exists():
-        return so
-    nvcc = _nvcc()
-    tmp = BUILD_DIR / f"tmp_{so.stem}_{os.getpid()}"
-    tmp.mkdir(parents=True, exist_ok=True)
+    sources = _sources(csrc)
     flags = list(NVCC_FLAGS) + (["-Xptxas", "-v"] if verbose else [])
-    try:
+
+    def make(out: Path, tmp: Path) -> None:
+        nvcc = _nvcc()
         procs = []
-        for src in _sources(csrc):
+        for src in sources:
             if src.suffix != ".cu":
                 continue
             obj = tmp / (src.stem + ".o")
@@ -136,21 +169,18 @@ def build(verbose: bool = False, csrc: Path | None = None) -> Path:
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         for src, _, proc in procs:
-            out, _ = proc.communicate()
+            log, _ = proc.communicate()
             if proc.returncode:
-                raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
-            if verbose and out:
-                print(out, flush=True)
-        link = tmp / so.name
-        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(link),
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
+            if verbose and log:
+                print(log, flush=True)
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(out),
                               *(str(o) for _, o, _ in procs)],
                              capture_output=True, text=True)
         if res.returncode:
             raise RuntimeError(f"nvcc link failed:\n{res.stdout}{res.stderr}")
-        os.replace(link, so)      # atomic: a concurrent build sees all or none
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    return so
+
+    return compile_once("emvm_kernels", NVCC_FLAGS, sources, make)
 
 
 def load(path: Path, complete: bool = True) -> ctypes.CDLL:

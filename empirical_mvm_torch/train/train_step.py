@@ -51,8 +51,10 @@ def make_pretrain_train_step(model: nn.Module, optimizer: AdamW) -> Callable:
     ``neg_idx`` replace the step's own mask and negative draws, ``hog``
     (B, T, H, W) the hog target the model would compute (as the JAX step
     reads ``batch.get("hog")``), and ``vq`` is the vq target's tokens (the
-    JAX step's ``batch.get("vq")``; see ``VioletPretrain.losses``). The
-    losses are detached device tensors (reading them waits for the step).
+    JAX step's ``batch.get("vq")``; see ``VioletPretrain.losses``), and
+    ``corrupt`` (B,) bool the loader's flag of clips to zero (as the JAX
+    step reads ``batch.get("corrupt")``). The losses are detached device
+    tensors (reading them waits for the step).
     """
     device = next(model.parameters()).device
 
@@ -63,7 +65,7 @@ def make_pretrain_train_step(model: nn.Module, optimizer: AdamW) -> Callable:
         ls = model.losses(batch["img"], batch["txt"], batch["mask"], generator=drop_gen,
                           mask_generator=mask_gen, draws=batch.get("draws"),
                           neg_idx=batch.get("neg_idx"), hog=batch.get("hog"),
-                          vq=batch.get("vq"))
+                          vq=batch.get("vq"), corrupt=batch.get("corrupt"))
         ls["total"].backward()
         opt_state = optimizer.update(state.params,
                                      {n: p.grad for n, p in state.params.items()},

@@ -13,6 +13,7 @@ run holds the kernels to, and the planted-fault tests show what those
 limits catch.
 """
 
+import dataclasses
 import shutil
 
 import numpy as np
@@ -1198,3 +1199,116 @@ def test_planted_row_stride_fault_fails_only_under_the_seq2seq_mask(cuda, tmp_pa
             else:
                 assert any(" fp32 max err" in f for f in failures), row
                 assert any(" bf16" in f for f in failures), row
+
+
+# ---------------------------------------------------------------------------
+# the data layer: nvJPEG, the transform executor, the device stage
+
+
+def _fixture():
+    from empirical_mvm_torch.tools.jpeg_fixture import load_fixture
+    return load_fixture()
+
+
+@pytest.mark.cuda
+def test_nvjpeg_decodes_the_fixture_within_its_limits(cuda):
+    """nvJPEG against the committed cv2 decode: the largest and the mean
+    absolute difference of each frame within the fixture's limits (the
+    IDCT's rounding and the 4:2:0 chroma upsampling)."""
+    from empirical_mvm_torch.data.jpeg import NvJpegDecoder, decode_counts, jpeg_size
+    fx = _fixture()
+    dec = NvJpegDecoder(cuda)
+    before = decode_counts["nvjpeg_frames"]
+    out = dec.decode(fx["frames"], [jpeg_size(f) for f in fx["frames"]])
+    torch.cuda.synchronize()
+    assert decode_counts["nvjpeg_frames"] == before + len(fx["frames"])
+    for o, ref in zip(out, fx["decode"]):
+        assert o.is_cuda and o.dtype == torch.uint8 and o.shape == ref.shape
+        d = np.abs(o.cpu().numpy().astype(np.int16) - ref)
+        assert d.max() <= fx["limit_max_abs"] and d.mean() <= fx["limit_mean_abs"], \
+            (d.max(), d.mean())
+    dec.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transform", ["pad_resize", "img_center_crop", "img_rand_crop",
+                                       "vid_rand_crop"])
+@pytest.mark.parametrize("normalize", [False, True])
+def test_device_executor_matches_the_cpu_executor(cuda, transform, normalize):
+    import random
+    from empirical_mvm_torch.data.transforms import plan_clip, run_plans
+    fx = _fixture()
+    frames = [torch.from_numpy(r) for r in fx["decode"][:4]]
+    plan = plan_clip(fx["frames"][:4], [(256, 340)] * 4, 224, "train", transform,
+                     random.Random(3), normalize)
+    got = run_plans([plan], [[f.to(cuda) for f in frames]], cuda).cpu()
+    want = run_plans([plan], [frames], "cpu")
+    step = 1.0 / 255.0 / 0.224 + 1e-6 if normalize else 1
+    assert got.dtype == want.dtype and got.shape == want.shape == (1, 4, 224, 224, 3)
+    assert (got.double() - want.double()).abs().max() <= step
+
+
+@pytest.mark.cuda
+def test_failed_decode_marks_the_item_corrupt(cuda):
+    """A frame whose header parses but whose stream stops there, and one
+    whose header gives another size than planned: their items come back
+    zeroed and ``corrupt``, the batch's other item decoded."""
+    import random
+    from empirical_mvm_torch.data.jpeg import NvJpegDecoder
+    from empirical_mvm_torch.data.loader import materialize
+    from empirical_mvm_torch.data.transforms import FramePlan, plan_clip
+    fx = _fixture()
+    f = fx["frames"][0]
+    sof = f.index(b"\xff\xc0")
+    cut = f[:sof + 2 + int.from_bytes(f[sof + 2:sof + 4], "big")]
+    good = plan_clip(fx["frames"][:2], [(256, 340)] * 2, 224, "train", "img_rand_crop",
+                     random.Random(0), False)
+    bad = dataclasses.replace(good, frames=(f, cut))
+    wrong = dataclasses.replace(good, ops=(FramePlan((128, 340), (0, 0, 0, 0), (224, 298),
+                                                     (0, 0, 224, 224)),) * 2)
+    dec = NvJpegDecoder(cuda)
+    out = materialize({"img": [good, bad, wrong], "txt": np.ones((3, 4), np.int32),
+                       "corrupt": np.zeros(3, bool),
+                       "on_corrupt": [{"txt": np.zeros(4, np.int32)}] * 3}, dec, cuda)
+    assert out["corrupt"].tolist() == [False, True, True]
+    assert out["img"][0].any() and not out["img"][1:].any()
+    assert out["txt"].tolist() == [[1] * 4, [0] * 4, [0] * 4]
+    dec.close()
+
+
+@pytest.mark.cuda
+def test_prefetcher_batches_equal_the_cpu_batches(cuda, tmp_path):
+    """The pretrain layout through ``DevicePrefetcher`` on the card against
+    the same loader's batches on the CPU, whose decode function is nvJPEG's
+    own decode brought to the host: equal text, vq and flags, clips within
+    one uint8 step (the executors' resizes)."""
+    from empirical_mvm_torch.core.config import load_run_config
+    from empirical_mvm_torch.data.jpeg import NvJpegDecoder
+    from empirical_mvm_torch.data.loader import DevicePrefetcher
+    from empirical_mvm_torch.data.tokenizer import load_tokenizer
+    from empirical_mvm_torch.tools import loaderbench as lb
+    lb.build_pretrain(str(tmp_path), videos_per_part=12, images=12)
+    run = lb.with_data(load_run_config("configs/pretrain.json"), data_dir=str(tmp_path))
+    run = dataclasses.replace(run, train=dataclasses.replace(run.train, size_batch=6))
+    dec = NvJpegDecoder(cuda)
+
+    def host_decode(data):
+        from empirical_mvm_torch.data.jpeg import jpeg_size
+        out = dec.decode([data], [jpeg_size(data)])[0]
+        return None if out is None else out.cpu().numpy()
+
+    runs = []
+    for device, decode in ((cuda, None), ("cpu", host_decode)):
+        meta = lb.pretrain_meta_loader(run, load_tokenizer(), threads=3)
+        it = iter(DevicePrefetcher(meta, device, decode))
+        runs.append([next(it) for _ in range(5)])
+        it.close()
+        meta.close()
+    for (tag_a, a), (tag_b, b) in zip(*runs):
+        assert tag_a == tag_b and a.keys() == b.keys()
+        for k in a:
+            if k == "img":
+                assert a[k].is_cuda and (a[k].cpu().int() - b[k].int()).abs().max() <= 1
+            else:
+                assert torch.equal(a[k].cpu(), b[k]), k
+    assert any(a["corrupt"].any() for _, a in runs[0])

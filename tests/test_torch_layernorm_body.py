@@ -22,8 +22,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CAPTION_LN, CLIP_LN, DECODE_LN, EVAL_LN, FP32_LIMITS, LARGE_MEAN, OUTPUTS,
-                        SMTM_LN, TEACHER3D_LN, TEACHER_LN, TRAIN_LN, _excess, _tuple, bf16_check)
+from chip_smoke import (CAPTION_LN, CLIP_LN, DECODE_LN, EVAL_LN, FP32_LIMITS, LARGE_MEAN, LOADER_LN,
+                        OUTPUTS, SMTM_LN, TEACHER3D_LN, TEACHER_LN, TRAIN_LN, _excess, _tuple,
+                        bf16_check)
 from empirical_mvm_torch.ops import layernorm as tln
 
 H100_SMS = 132
@@ -296,7 +297,8 @@ def test_planted_missing_partial_fails():
 
 
 SITES = [(label, rows, c, dtype) for label, rows, c, _, dtype in
-         EVAL_LN + TRAIN_LN + TEACHER3D_LN + CLIP_LN + CAPTION_LN + SMTM_LN + DECODE_LN]
+         EVAL_LN + TRAIN_LN + TEACHER3D_LN + CLIP_LN + CAPTION_LN + SMTM_LN + DECODE_LN
+         + LOADER_LN]
 
 
 @pytest.mark.parametrize("label,rows,c,dtype", SITES, ids=[f"{s[0]}-{s[2]}" for s in SITES])
@@ -307,7 +309,7 @@ def test_every_path_site_takes_the_vectorized_body(label, rows, c, dtype):
     assert g * v * e == c and g in (16, 32)
 
 
-BWD_SITES = TRAIN_LN + CAPTION_LN + SMTM_LN
+BWD_SITES = TRAIN_LN + CAPTION_LN + SMTM_LN + LOADER_LN
 
 
 @pytest.mark.parametrize("label,rows,c,eps,dtype", BWD_SITES, ids=[s[0] for s in BWD_SITES])
