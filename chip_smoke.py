@@ -290,20 +290,40 @@ before the final line, if any phase failed:
    multiple-choice ``mlm`` steps fed by their datasets at their real text
    lengths (25, 30 and 103 tokens), as phase 14, with their fusion routes
    and launches (``loader_finetune_phases``).
-39. The last line is ``{"ok": true, "device": {...}}``.
+39. Checkpoints at full width (``checkpoint_phase``): the pretrain model
+   through ``save_params`` / ``load_params`` as ``.msgpack`` and ``.npz``,
+   bit-equal on the card; a reference-layout ``.pt`` through
+   ``load_torch_violet_ckpt``; ``save_train_state`` then
+   ``load_train_state``, the resumed step's losses against the
+   uninterrupted one's; each file's size and seconds.
+40. The user flow through each CLI's ``main`` at full width in bf16
+   (``cli_phase``): ``cli.pretrain`` (one epoch from a seeded-bias
+   checkpoint, val losses, ``restore.state``, the final checkpoint) ->
+   ``cli.retrieval``, ``cli.qa`` (``qamc-gen``, ``qaoe-mlm``) and
+   ``cli.caption`` (every trunk leaf loaded) -> ``cli.retrieval_eval`` and
+   ``cli.parity_eval``; ``cli.convert_ckpt`` on phase 39's ``.pt``;
+   ``cli.extract_vq`` read back by ``PretrainTsvDataset``. Each training
+   CLI's steps probed (``StepProbe``): wall median beside the hand-wired
+   loop's, kernel ms and idle share, 0 host waits on a non-logging step,
+   launches held to the hand-wired step's.
+41. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import itertools
 import json
+import os
+import pickle
 import random
 import shutil
 import subprocess
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -313,9 +333,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from empirical_mvm_torch.cli import caption as caption_cli
+from empirical_mvm_torch.cli import convert_ckpt as convert_cli
+from empirical_mvm_torch.cli import extract_vq as extract_vq_cli
+from empirical_mvm_torch.cli import parity_eval as parity_eval_cli
+from empirical_mvm_torch.cli import pretrain as pretrain_cli
+from empirical_mvm_torch.cli import qa as qa_cli
+from empirical_mvm_torch.cli import retrieval as retrieval_cli
+from empirical_mvm_torch.cli import retrieval_eval as retrieval_eval_cli
 from empirical_mvm_torch.core.config import SwinConfig, load_run_config
 from empirical_mvm_torch.data.jpeg import NvJpegDecoder, jpeg_size, nvjpeg_libraries
 from empirical_mvm_torch.data.jpeg import decode_counts as jpeg_decode_counts
+from empirical_mvm_torch.data.datasets import PretrainTsvDataset
 from empirical_mvm_torch.data.loader import (DevicePrefetcher, MetaLoader, ShardedBatchLoader,
                                              materialize)
 from empirical_mvm_torch.data.masking import draw_masks
@@ -338,13 +367,17 @@ from empirical_mvm_torch.ops import window_attention as wa
 from empirical_mvm_torch.ops.hog import hog_bins, hog_image
 from empirical_mvm_torch.ops.preprocess import maybe_normalize
 from empirical_mvm_torch.teachers.clip import renormalize_imagenet_to_clip
-from empirical_mvm_torch.teachers.dvae import map_pixels, unnormalize_imagenet
+from empirical_mvm_torch.teachers.dvae import DvaeEncoder, map_pixels, unnormalize_imagenet
 from empirical_mvm_torch.tools import capbench, lanebench
 from empirical_mvm_torch.tools.jpeg_fixture import load_fixture
 from empirical_mvm_torch.tools.loaderbench import (build_downstream, build_pretrain,
                                                    downstream_dataset, loader_clips_per_s,
                                                    pretrain_meta_loader, shard_rows, with_data)
+from empirical_mvm_torch.train import agent as agent_module
 from empirical_mvm_torch.train.caption_metrics import caption_scores
+from empirical_mvm_torch.train.checkpoint import (load_params, load_torch_violet_ckpt,
+                                                  load_train_state, save_params,
+                                                  save_train_state)
 from empirical_mvm_torch.train.evaluators import (in_batch_retrieval_accuracy, qamc_accuracy,
                                                   qamc_gen_accuracy, qaoe_mlm_topk,
                                                   retrieval_two_stage_eval)
@@ -2887,6 +2920,7 @@ def finetune_phase(dev, name, config, run, model, loss_kind, kind, want_launches
                                                                         "questions_per_s")
     rows, tokens, route = fusion_shape(cfg, kind, b, batch["txt"].shape[-1] - cfg.size_txt)
     kernel_ms = _kernel_ms(_stepper(step, state, batch))
+    STEP_MS[name] = float(np.median(secs)) * 1e3
     print(f"{name} train-step launch counts: {launches}", flush=True)
     print(json.dumps({
         "slice": f"{name}_train_step", "config": config.name, "model": type(model).__name__,
@@ -3180,17 +3214,25 @@ def caption_words(row, model):
 
 
 def host_syncs(fn):
-    """The operations of one call of ``fn`` at which the host waits for the
-    card (``torch.cuda.set_sync_debug_mode("warn")``'s warnings)."""
-    with warnings.catch_warnings(record=True) as caught:
+    """The operations of one call of ``fn`` at which this thread waits for
+    the card (``torch.cuda.set_sync_debug_mode("warn")``'s warnings; those of
+    other threads, such as a loader's producer, are not counted)."""
+    me = threading.get_ident()
+    caught = []
+
+    def show(message, *args, **kwargs):
+        if threading.get_ident() == me:
+            caught.append(str(message))
+
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = show
         torch.cuda.set_sync_debug_mode("warn")
         try:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return [str(w.message) for w in caught
-            if "called a synchronizing CUDA operation" in str(w.message)]
+    return [m for m in caught if "called a synchronizing CUDA operation" in m]
 
 
 def generation_phase(dev, model, run):
@@ -3473,6 +3515,7 @@ def loader_pretrain_phase(dev, run, synthetic):
         by.setdefault(tag.split("/")[0], []).append(sec * 1e3)
     kernel_ms = {f"T={t}": _kernel_ms(_stepper(step, state, b)) for t, b in kept.items()}
     webvid_ms = float(np.median(by.get("webvid2.5m", [float("nan")])))
+    STEP_MS["loader_pretrain_webvid"] = webvid_ms
     info = {
         "slice": "loader_pretrain_train_step", "config": PRETRAIN_CONFIG.name,
         "dtype": "bfloat16", "batch": run.train.size_batch, "steps": LOADER_STEPS,
@@ -3544,6 +3587,368 @@ def loader_finetune_phases(dev):
         require(restarts == 0, f"the loader-fed {name} steps crossed {restarts} epochs")
         del model
         torch.cuda.empty_cache()
+    return launches
+
+
+# phases 39-40: checkpoints, the run loop and the task CLIs
+
+CLI_PRETRAIN_ROWS = 60     # rows a pretrain shard: 3 batches of 20 each, 9 steps an epoch
+CLI_VIDEOS = 80            # downstream videos: 10 retrieval / MC / caption steps, 8 QA-OE
+CLI_TEST = 16              # the test split's items (the two-stage eval's captions)
+CLI_SYNC_STEP = 2          # the step whose host waits are counted (no logging step)
+CLI_PROFILE_STEP = 3       # the step whose kernels are timed under the profiler
+STEP_MS = {}               # the hand-wired loops' median wall ms a step, by phase name
+
+
+def _files_mib(path):
+    return Path(path).stat().st_size / 2 ** 20
+
+
+def _same_state(a, b):
+    """Names of the leaves of two state_dicts that are not bit-equal."""
+    return sorted(k for k in a if k not in b or a[k].dtype != b[k].dtype
+                  or not torch.equal(a[k].to(b[k].device), b[k]))
+
+
+def checkpoint_phase(dev, run):
+    """Phase 39: the pretrain model of ``configs/pretrain.json`` (Swin-base,
+    BERT-base, ``fc``, ``fc_mtm``, ``decoder_pixel``; bf16) through
+    ``save_params`` to ``.msgpack`` and ``.npz`` and back through
+    ``load_params`` into a model built from another seed, leaf for leaf
+    bit-equal on the card; a reference-layout ``.pt`` (``torch.save`` of
+    ``{"model": {"module." + k: v}}`` with an ``emb_len`` two frames longer
+    than ``max_size_frame``) through ``load_torch_violet_ckpt``; and
+    ``save_train_state`` after one step, then a second step, then
+    ``load_train_state`` and the second step again: its losses within
+    ``WHOLE_STEP_TOL`` of the uninterrupted run's. Prints each file's size
+    and its save and load seconds. Returns the ``.pt``'s path (phase 40
+    converts it)."""
+    out = Path(_data_dir("checkpoints"))
+    model = VioletPretrain.from_run_config(run, dtype=torch.bfloat16, device=dev, seed=TRAIN_SEED)
+    seeded_biases(model, TRAIN_SEED)
+    want = model.state_dict()
+    info = {"phase": "checkpoints", "config": PRETRAIN_CONFIG.name,
+            "leaves": len(want), "params": sum(v.numel() for v in want.values())}
+    for suffix in (".msgpack", ".npz"):
+        path = out / f"pretrain{suffix}"
+        t0 = time.perf_counter()
+        save_params(model, str(path), meta={"phase": 39})
+        t1 = time.perf_counter()
+        sd = load_params(str(path))
+        other = VioletPretrain.from_run_config(run, dtype=torch.bfloat16, device=dev, seed=1)
+        other.load_state_dict(sd)
+        torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
+        bad = _same_state(want, other.state_dict())
+        info[suffix[1:]] = {"mib": _files_mib(path), "save_s": t1 - t0, "load_s": t2 - t1,
+                            "leaves_differing": len(bad)}
+        require(not bad, f"{suffix} round trip: {len(bad)} leaves differ, e.g. {bad[:3]}")
+        del other, sd
+    # a reference-layout .pt: trainer-wrapped, DDP prefix, a longer emb_len
+    ref = {k: v.detach().cpu() for k, v in want.items()}
+    d = ref["enc_img.emb_len"].shape[-1]
+    ref["enc_img.emb_len"] = torch.randn(1, run.model.max_size_frame + 2, 1, d,
+                                         generator=torch.Generator().manual_seed(3))
+    pt = out / "ckpt_violet_reference.pt"
+    t0 = time.perf_counter()
+    torch.save({"model": {f"module.{k}": v for k, v in ref.items()}}, pt)
+    t1 = time.perf_counter()
+    sd = load_torch_violet_ckpt(str(pt), run.model, expected=want)
+    t2 = time.perf_counter()
+    ref["enc_img.emb_len"] = ref["enc_img.emb_len"][:, :run.model.max_size_frame]
+    bad = _same_state(ref, sd)
+    info["pt"] = {"mib": _files_mib(pt), "save_s": t1 - t0, "load_s": t2 - t1,
+                  "leaves_differing": len(bad), "leaves": len(sd)}
+    require(not bad and set(sd) == set(want), f".pt load: {len(bad)} leaves differ, {bad[:3]}")
+    # resume: the second step after a restore against the uninterrupted one
+    opt = build_optimizer(model, run.train, TRAIN_MAX_ITER)
+    state = create_train_state(model, opt)
+    step = make_pretrain_train_step(model, opt)
+    batches = [synthetic_pretrain_batch(run.train.size_batch, run.model, seed=s, device=dev)
+               for s in (11, 12)]
+    state, _ = step(state, batches[0], TRAIN_SEED)
+    path = out / "restore.state"
+    t0 = time.perf_counter()
+    save_train_state(state, str(path))
+    t1 = time.perf_counter()
+    state, ls = step(state, batches[1], TRAIN_SEED)
+    through = {k: v.item() for k, v in ls.items()}
+    t2 = time.perf_counter()
+    state = load_train_state(str(path), state)
+    torch.cuda.synchronize(dev)
+    t3 = time.perf_counter()
+    require(state.step == 1, f"restored step {state.step}")
+    state, ls = step(state, batches[1], TRAIN_SEED)
+    resumed = {k: v.item() for k, v in ls.items()}
+    info["train_state"] = {"mib": _files_mib(path), "save_s": t1 - t0, "load_s": t3 - t2,
+                           "losses_uninterrupted": through, "losses_resumed": resumed}
+    print(json.dumps(info), flush=True)
+    for k, v in through.items():
+        require(abs(resumed[k] - v) <= WHOLE_STEP_TOL["loss_rtol"] * max(abs(v), 1e-6),
+                f"resumed step loss {k}: {resumed[k]} against {v}")
+    del model, opt, state, step, want
+    torch.cuda.empty_cache()
+    return str(pt)
+
+
+class StepProbe:
+    """Wraps the step a CLI's agent builds (``train/agent.py`` takes it from
+    ``make_pretrain_train_step`` / ``make_supervised_train_step``, which
+    ``probe_steps`` replaces while the CLI runs): each step's start on the
+    host clock (no synchronise: the loop as it runs), the launches of the
+    first step after the first (with ``frames``, the first of that clip
+    length), the host waits of step ``CLI_SYNC_STEP`` on this thread
+    (``host_syncs``), and step ``CLI_PROFILE_STEP``'s kernel time under the
+    profiler (synchronised, so it and the step after it leave the wall
+    median)."""
+
+    def __init__(self, frames=None):
+        self.frames = frames
+        self.starts, self.launches, self.syncs, self.kernel_ms = [], None, None, None
+
+    def wrap(self, make):
+        def build(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def probed(state, batch, seed):
+                i = len(self.starts)
+                self.starts.append(time.perf_counter())
+                count = self.launches is None and i >= 1 and (
+                    self.frames is None or batch["img"].shape[1] == self.frames)
+                if count:
+                    _build.launch_counts.clear()
+                out = []
+                if i == CLI_SYNC_STEP:
+                    self.syncs = host_syncs(lambda: out.append(step(state, batch, seed)))
+                elif i == CLI_PROFILE_STEP:
+                    self.kernel_ms = _kernel_ms(lambda: (out.append(step(state, batch, seed)),
+                                                         torch.cuda.synchronize()))
+                else:
+                    out.append(step(state, batch, seed))
+                if count:
+                    self.launches = dict(_build.launch_counts)
+                return out[0]
+
+            return probed
+
+        return build
+
+    def wall_ms(self, skip=()):
+        """Median ms between consecutive step starts, leaving out the first
+        step, the profiled one and the one after it, and the steps in
+        ``skip`` (those an eval or a save follows)."""
+        left = {0, CLI_PROFILE_STEP, CLI_PROFILE_STEP + 1, *skip}
+        gaps = [(b - a) * 1e3 for i, (a, b) in enumerate(zip(self.starts, self.starts[1:]))
+                if i not in left]
+        return float(np.median(gaps)) if gaps else float("nan")
+
+
+@contextlib.contextmanager
+def probe_steps(probe):
+    saved = agent_module.make_pretrain_train_step, agent_module.make_supervised_train_step
+    agent_module.make_pretrain_train_step = probe.wrap(saved[0])
+    agent_module.make_supervised_train_step = probe.wrap(saved[1])
+    try:
+        yield probe
+    finally:
+        agent_module.make_pretrain_train_step, agent_module.make_supervised_train_step = saved
+
+
+def _cli_config(src, name, **changes):
+    """A copy of the shipped config ``src`` with ``changes`` (the data
+    directory a user points it at), under ``name``."""
+    raw = json.loads(Path(src).read_text())
+    raw.update(changes)
+    path = Path(_build.BUILD_DIR) / "smoke_data" / f"{name}.json"
+    path.write_text(json.dumps(raw))
+    return str(path)
+
+
+def _cli_step_line(name, res, probe, want, hand_ms, hand_name, skip=()):
+    wall = probe.wall_ms(skip)
+    line = {"cli": name, "steps": len(probe.starts), "step_ms_median": wall,
+            "hand_wired_step_ms": hand_ms, "hand_wired": hand_name,
+            "kernel_ms_one_step": probe.kernel_ms,
+            "device_idle_share": 1.0 - probe.kernel_ms / wall,
+            "host_syncs_non_logging_step": len(probe.syncs), "launches": probe.launches,
+            "run_dir": res["run_dir"]}
+    print(json.dumps(line), flush=True)
+    require(probe.syncs == [], f"{name}: host waits on step {CLI_SYNC_STEP}: {probe.syncs[:3]}")
+    require(probe.launches == want, f"{name}: launches of a step {probe.launches}, not {want}")
+    return probe.launches
+
+
+def _load_complete(name, report):
+    trunk = ("enc_img", "enc_txt", "trsfr")
+    loaded = [p for p in report["loaded"] if p.split(".")[0] in trunk]
+    kept = [p for p in report["kept"] if p.split(".")[0] in trunk]
+    print(json.dumps({"cli": name, "load": {k: len(v) for k, v in report.items()},
+                      "trunk_loaded": len(loaded), "trunk_kept": kept[:5]}), flush=True)
+    require(loaded and not kept, f"{name}: trunk leaves kept at init: {kept[:5]}")
+
+
+def cli_phase(dev, run, reference_pt):
+    """Phase 40: the user flow through each CLI's ``main`` at full width in
+    bf16, on the data of ``tools/loaderbench.py`` (pretrain shards of
+    ``CLI_PRETRAIN_ROWS`` rows with a val shard; ``CLI_VIDEOS`` downstream
+    videos, a test split of ``CLI_TEST``): ``cli.pretrain`` from a
+    checkpoint of the freshly built model with its biases seeded
+    (``seeded_biases``: ROADMAP Queue 3's zero-bias fault, which both
+    packages share, overflows the gradients of a corrupt row at an
+    all-zero-bias init; the corrupt rows stay in the shards), one epoch;
+    ``cli.retrieval`` from its final checkpoint, ``cli.retrieval_eval`` and
+    ``cli.parity_eval`` (``--expected`` the eval's R@1/5/10, ``--tol
+    0.01``) on the epoch checkpoint; ``cli.qa`` in ``qamc-gen`` and
+    ``qaoe-mlm``; ``cli.caption``; ``cli.convert_ckpt`` on phase 39's
+    ``.pt``; ``cli.extract_vq`` over a webvid shard with a seeded dVAE
+    saved as ``.pt``, its pickle read by ``PretrainTsvDataset``. Each
+    training CLI's steps are probed (``StepProbe``): the wall median beside
+    the hand-wired loop's (phases 37, 38, 32), kernel ms a step and the
+    idle share, 0 host waits on a non-logging step, launches held to the
+    hand-wired step's. Returns the launches by CLI."""
+    data_dir = _data_dir("cli")
+    out_dir = str(Path(data_dir) / "runs")
+    build_pretrain(data_dir, videos_per_part=CLI_PRETRAIN_ROWS, images=CLI_PRETRAIN_ROWS)
+    shutil.copy(Path(data_dir) / "webvid2.5m_train_0.tsv", Path(data_dir) / "webvid2.5m_val_0.tsv")
+    txt_path = Path(data_dir) / "txt_webvid2.5m.json"
+    txt = json.loads(txt_path.read_text())
+    txt["val"] = txt["train"]
+    txt_path.write_text(json.dumps(txt))
+    build_downstream(data_dir, videos=CLI_VIDEOS, test=CLI_TEST)
+    launches = {}
+    t_phase = time.perf_counter()
+
+    # pretrain, one epoch, from a checkpoint of the seeded init
+    cfg = _cli_config(PRETRAIN_CONFIG, "pretrain", data_dir=data_dir, path_output=out_dir)
+    run_p = load_run_config(cfg)
+    init = pretrain_cli.build_model(run_p, load_tokenizer(run_p.data.tokenizer), dev)
+    seeded_biases(init, TRAIN_SEED)
+    init_ckpt = str(Path(data_dir) / "init_seeded_biases.msgpack")
+    save_params(init, init_ckpt)
+    del init
+    torch.cuda.empty_cache()
+    probe = StepProbe(frames=run.model.size_frame)
+    t0 = time.perf_counter()
+    with probe_steps(probe):
+        res = pretrain_cli.main(["--config", cfg, "--path_ckpt", init_ckpt, "--size_epoch", "1"],
+                                device=dev)
+    secs = time.perf_counter() - t0
+    per_ep = res["steps_per_epoch"]
+    eval_every = max(per_ep // 2, 1)
+    files = set(os.listdir(res["run_dir"]))
+    final = f"ckpt_violet_pretrain_final_{res['steps']}.msgpack"
+    recs = [json.loads(line) for line in
+            (Path(res["run_dir"]) / "metrics.jsonl").read_text().splitlines()]
+    val_steps = sorted({r["step"] for r in recs if any(k.startswith("val_") for k in r)})
+    print(json.dumps({"cli": "pretrain", "seconds": secs, "steps_per_epoch": per_ep,
+                      "val_steps": val_steps, "files": sorted(files),
+                      "init": "the built model with seeded_biases, saved by save_params: "
+                              "ROADMAP Queue 3's zero-bias fault (a corrupt row at an "
+                              "all-zero-bias init overflows the gradients in both packages)",
+                      "val": [r for r in recs if r["step"] in val_steps[-1:]]}), flush=True)
+    _load_complete("pretrain", res["load"])
+    require(val_steps[:1] == [0] and len(val_steps) >= 2, f"pretrain val steps {val_steps}")
+    require({"restore.state", final} <= files, f"pretrain files {sorted(files)}")
+    launches["cli_pretrain"] = _cli_step_line(
+        "pretrain", res, probe, TRAIN_LAUNCHES, STEP_MS.get("loader_pretrain_webvid"),
+        "phase 37 (webvid, synchronised each step)",
+        skip={i for i in range(len(probe.starts)) if (i + 1) % eval_every == 0})
+    pretrained = str(Path(res["run_dir"]) / final)
+    torch.cuda.empty_cache()
+
+    # the fine-tune CLIs from the pretrain checkpoint
+    ret_cfg = _cli_config(RET_CONFIG, "msrvtt-retrieval", data_dir=data_dir, path_output=out_dir)
+    for name, module, args, config, want, hand in (
+            ("retrieval", retrieval_cli, [], ret_cfg, TRAIN_RET_LAUNCHES, "loader_retrieval"),
+            ("qamc_gen", qa_cli, ["--mode", "qamc-gen"],
+             _cli_config(QAMC_GEN_CONFIG, "tgif-action", data_dir=data_dir, path_output=out_dir),
+             TRAIN_QAMC_MLM_LAUNCHES, "loader_qamc_gen"),
+            ("qaoe_mlm", qa_cli, ["--mode", "qaoe-mlm"],
+             _cli_config(QAOE_CONFIG, "msrvtt-qa", data_dir=data_dir, path_output=out_dir),
+             TRAIN_QAOE_MLM_LAUNCHES, "loader_qaoe_mlm"),
+            ("caption", caption_cli, [], _cli_config(CAPTION_CONFIG, "caption", data_dir=data_dir,
+                                                     path_output=out_dir),
+             CAPTION_LAUNCHES, "caption")):
+        probe = StepProbe()
+        t0 = time.perf_counter()
+        with probe_steps(probe):
+            res = module.main(args + ["--config", config, "--path_ckpt", pretrained,
+                                      "--size_epoch", "1"], device=dev)
+        log = json.loads((Path(res["run_dir"]) / "log.json").read_text())
+        print(json.dumps({"cli": name, "seconds": time.perf_counter() - t0,
+                          "log": log, "files": sorted(os.listdir(res["run_dir"]))}),
+              flush=True)
+        _load_complete(name, res["load"])
+        require(np.isfinite(log["ls_tr"][0]["total"]), f"{name}: train loss {log['ls_tr']}")
+        launches[f"cli_{name}"] = _cli_step_line(
+            name, res, probe, want, STEP_MS.get(hand),
+            "phase 32 (synthetic)" if hand == "caption" else "phase 38 (loader)")
+        if name == "retrieval":
+            retrieved = str(Path(res["run_dir"]) / "ckpt_violet_msrvtt-retrieval_1.msgpack")
+        if name == "caption":
+            for split in ("ac_vl", "ac_ts"):
+                sc = log[split][-1]
+                require(all(0.0 <= sc[k] <= 100.0 for k in ("bleu4", "rouge_l", "meteor"))
+                        and sc["cider"] >= 0.0, f"caption {split} scores {sc}")
+        torch.cuda.empty_cache()
+
+    # the two-stage eval and the parity check on the retrieval checkpoint
+    t0 = time.perf_counter()
+    m = retrieval_eval_cli.main(["--config", ret_cfg, "--path_ckpt", retrieved], device=dev)
+    _load_complete("retrieval_eval", m["load"])
+    want = ",".join(repr(m[k]) for k in ("r1", "r5", "r10"))
+    par = parity_eval_cli.main(["--config", ret_cfg, "--path_ckpt", retrieved,
+                                "--expected", want, "--tol", "0.01"], device=dev)
+    print(json.dumps({"cli": "retrieval_eval + parity_eval", "seconds": time.perf_counter() - t0,
+                      **{k: m[k] for k in ("split", "r1", "r5", "r10", "medr", "_clips",
+                                           "_pairs", "_stage1_s", "_stage2_s")},
+                      "parity_ok": par["parity_ok"]}), flush=True)
+    require(m["split"] == "test" and 1.0 <= m["medr"] and par["parity_ok"],
+            f"retrieval eval {m}, parity {par['verdict']}")
+    torch.cuda.empty_cache()
+
+    # convert_ckpt on phase 39's reference .pt
+    t0 = time.perf_counter()
+    dst = str(Path(data_dir) / "converted.msgpack")
+    convert_cli.main(["--src", reference_pt, "--dst", dst, "--config", str(PRETRAIN_CONFIG),
+                      "--heads", "fc=score_head", "fc_mtm=mlm_head", "decoder_pixel=linear"])
+    sd = load_params(dst)
+    ref = torch.load(reference_pt, map_location="cpu")["model"]
+    bad = [k for k, v in sd.items() if k != "enc_img.emb_len" and not torch.equal(
+        v, ref[f"module.{k}"].float())]
+    print(json.dumps({"cli": "convert_ckpt", "seconds": time.perf_counter() - t0,
+                      "leaves": len(sd), "mib": _files_mib(dst), "differing": bad[:5]}),
+          flush=True)
+    require(not bad and sd["enc_img.emb_len"].shape[1] == run.model.max_size_frame,
+            f"convert_ckpt: {bad[:5]}")
+
+    # extract_vq over a webvid shard with a seeded dVAE, read back by the dataset
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(5)
+    dvae = DvaeEncoder()
+    dvae_pt = str(Path(data_dir) / "dvae_seeded.pt")
+    torch.save({k: torch.randn(v.shape, generator=gen) * 0.05 for k, v in
+                dvae.state_dict().items()}, dvae_pt)
+    shard = str(Path(data_dir) / "webvid2.5m_train_1.tsv")
+    pkl = str(Path(data_dir) / "vq_webvid2.5m.pkl")
+    m_cfg = run_p.model
+    vq_res = extract_vq_cli.main(["--tsv", shard, "--dvae", dvae_pt, "--out", pkl,
+                                  "--size-img", str(m_cfg.size_img), "--size-patch",
+                                  str(m_cfg.size_patch), "--size-frame", str(m_cfg.size_frame)],
+                                 device=dev)
+    with open(pkl, "rb") as f:
+        vq = pickle.load(f)
+    ds = PretrainTsvDataset(run_p, "train", load_tokenizer(run_p.data.tokenizer), shard,
+                            txt["train"], vq=vq)
+    items = [ds[i] for i in range(len(ds))]
+    with_vq = sum(int((it["vq"] >= 0).any()) for it in items)
+    tokens = np.concatenate([np.stack(v).ravel() for v in vq.values()])
+    print(json.dumps({"cli": "extract_vq", "seconds": time.perf_counter() - t0,
+                      "videos": vq_res["videos"], "rows": len(ds), "items_with_vq": with_vq,
+                      "distinct_tokens": int(len(np.unique(tokens)))}), flush=True)
+    require(vq_res["videos"] > 0 and with_vq == sum(1 for it in items if not it["corrupt"])
+            and with_vq > 0, f"extract_vq: {vq_res['videos']} videos, {with_vq} items with vq")
+    print(f"phase 40 done in {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
 
 
@@ -3985,7 +4390,8 @@ def kernels_line(recs, runs):
     3d_feature, 2d_clip, hog, depth, vq (on the fly, pre-extracted) and
     optical_flow steps, the smtm step, the lanebench tool's run, the
     fine-tune steps and evals of phases 26-30, then the caption step and
-    one call of each decoder, phases 32 and 34) that launched the kernel,
+    one call of each decoder, phases 32 and 34, the loader-fed steps of
+    phases 37-38 and the CLIs' steps of phase 40) that launched the kernel,
     each run's beside it as ``launches_<name>``."""
     line = []
     for name, meta in KERNELS.items():
@@ -4281,6 +4687,15 @@ def main() -> None:
     # by their datasets at their real text lengths
     loader_launches.update(loader_finetune_phases(dev))
 
+    # 39. checkpoints at full width: .msgpack, .npz and a reference .pt round
+    # trips, the resumable state
+    reference_pt = checkpoint_phase(dev, run)
+
+    # 40. the user flow through each CLI's main at full width, in bf16:
+    # pretrain -> retrieval, QA, caption -> the two-stage eval and parity_eval,
+    # convert_ckpt, extract_vq
+    cli_launches = cli_phase(dev, run, reference_pt)
+
     require(not failures, "kernel checks failed:\n" + "\n".join(failures))
 
     line = kernels_line(recs, {
@@ -4288,7 +4703,7 @@ def main() -> None:
         "train_step_swin2d": train_swin2d_launches, "train_step_violet": train_violet_launches,
         "train_step_qamc": ft.pop("train_step_qamc"), "eval": eval_launches,
         "eval_qamc": ft.pop("eval_qamc"), **step_launches, "lanebench": lanebench_launches,
-        **ft, **caption_launches, **loader_launches})
+        **ft, **caption_launches, **loader_launches, **cli_launches})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -4,8 +4,8 @@ The port's own copy of ``empirical_mvm_tpu/core/config.py``: the same
 dataclasses, field names and defaults, so the task JSON files in ``configs/``
 load unchanged into either package. Field names mirror the reference's
 ``_args/args_*.json`` keys (ref: utils/args.py:24-231). Knobs that only
-select JAX code paths (remat, scan, the Pallas switches, the profiler and
-FSDP settings) have no field here, and ``load_run_config`` rejects every key
+select JAX code paths (remat, scan, the Pallas switches and the FSDP
+settings) have no field here, and ``load_run_config`` rejects every key
 it does not know, so such a setting fails loudly instead of being dropped.
 """
 
@@ -181,6 +181,7 @@ class TrainConfig:
                                         # heads, mlp); default CLIP ViT-B/32
     logging_steps: int = 20
     grad_accum: int = 1
+    profile_n_steps: int = 0            # >0: a torch.profiler trace of N steps (train/agent.py)
     # param-path prefixes excluded from updates (ref: model.py:163-172
     # freeze_vis_encoder/freeze_bert; args.py:59 --freeze_violet maps to
     # ("enc_img", "enc_txt", "trsfr"))
@@ -255,7 +256,7 @@ _MODEL_KEYS = {"vis_backbone", "vis_backbone_size", "temporal_fusion",
 _TRAIN_KEYS = {"lr", "decay", "max_grad_norm", "size_batch", "size_epoch",
                "seed", "temp", "p_mask", "pretrain_tasks", "pretrain_masks",
                "mvm_target", "clip_arch", "vis_backbone_lr_mul", "lr_mult_head",
-               "logging_steps", "warmup_ratio", "freeze"}
+               "logging_steps", "warmup_ratio", "freeze", "profile_n_steps"}
 _DATA_KEYS = {"data_dir", "dataset", "task", "data_ratio", "n_workers",
               "size_part", "img_transform", "multi_clip_testing", "mask_pos",
               "tokenizer", "prompt", "num_beams", "decode", "vq_path"}

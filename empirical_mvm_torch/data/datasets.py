@@ -480,3 +480,40 @@ class PretrainTsvDataset(DatasetBase):
         on_corrupt = {"txt": blank_txt, "mask": blank_mask, "vq": np.full((lv,), -1, np.int32)}
         return {"img": img, "txt": txt, "mask": mask, "vq": vq_arr,
                 "corrupt": np.bool_(corrupt), "on_corrupt": on_corrupt}
+
+
+class CaptionDataset(DatasetBase):
+    """Caption pairs over the img TSV (JAX ``cli/caption.py:28``; ref:
+    main_caption.py:56-68): the caption's inner tokens each replaced by
+    [MASK] with ``mask_prob`` for the seq2seq MLM step, the replaced ids in
+    ``mask_ans`` (else -1). The corruption and then the clip draw from the
+    item's own rng (the JAX item draws from the dataset's shared ``rng``,
+    whose order depends on the loader's threads)."""
+
+    def __init__(self, cfg, split, tokzr, img_source: TsvImageSource, txt: list[dict],
+                 mask_prob: float = 0.15):
+        super().__init__(cfg, split, tokzr)
+        self.img_source = img_source
+        self.txt = txt
+        self.mask_prob = mask_prob
+
+    def __len__(self):
+        return len(self.txt)
+
+    def __getitem__(self, idx: int):
+        item = self.txt[idx]
+        caption = item["caption"]
+        if isinstance(caption, list):
+            caption = caption[0]
+        txt, mask = self.str2txt(caption)
+        ans = np.full_like(txt, -1)
+        rng = self.item_rng(idx)
+        for i in range(1, int(mask.sum()) - 1):
+            if rng.random() < self.mask_prob:
+                ans[i] = txt[i]
+                txt = txt.copy()
+                txt[i] = self.tokzr.mask_token_id
+        bufs = self.img_source.frames(item["video"])
+        img = self.clip_plan(bufs, rng)[0] if bufs else self.zero_plan()
+        return {"img": img, "txt": txt, "mask": mask, "mask_ans": ans,
+                "vid": item["video"], "raw": caption}

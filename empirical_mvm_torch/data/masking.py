@@ -44,9 +44,10 @@ def _uniform(gen, shape, device):
 
 def _randint(gen, low, high, shape, device):
     """Integers in [low, high) with a per-element ``high`` (an int64 tensor
-    or an int)."""
+    or an int). An int stays a host scalar: a tensor made from it on the
+    card would be a blocking copy, a host wait each draw."""
     u = _uniform(gen, shape, device)
-    return low + (u * (torch.as_tensor(high, device=device) - low)).long()
+    return low + (u * (high - low)).long()
 
 
 def bm_tubes(gen: torch.Generator, b: int, t: int, h: int, w: int, device):

@@ -10,8 +10,8 @@ that a machine without a JPEG encoder can make them:
   ``cc3m_train_0.tsv`` (1-frame rows) and ``txt_{ds}.json``;
 * downstream: ``img_{ds}.tsv`` (rows ``vid \\t {} \\t 5 frames``) with
   ``img_{ds}.id2lineidx.pkl``, and the ``txt_{task}.json`` of
-  msrvtt-retrieval, msrvtt-qa and tgif-action, as ``tests/synth_data.py``
-  lays them out.
+  msrvtt-retrieval, msrvtt-qa, tgif-action and msrvtt-caption, as
+  ``tests/synth_data.py`` lays them out.
 
 In each pretrain TSV, one row in every ``CORRUPT_EVERY`` has no frames and
 the next one's vid is missing from ``txt``; each img TSV has one row with
@@ -87,10 +87,12 @@ def build_pretrain(data_dir: str, *, videos_per_part: int = 48, parts: int = 2,
 
 
 def build_downstream(data_dir: str, *, videos: int = 24, frames_per_video: int = 5,
-                     options: int = 5, seed: int = 0) -> None:
-    """img_msrvtt / img_tgif and the txt of msrvtt-retrieval, msrvtt-qa and
-    tgif-action (tests/synth_data.py's schema: retrieval captions, qaoe
-    answers with answer_text and ans2label, qamc options)."""
+                     options: int = 5, test: int = 0, seed: int = 0) -> None:
+    """img_msrvtt / img_tgif and the txt of msrvtt-retrieval, msrvtt-qa,
+    tgif-action and msrvtt-caption (tests/synth_data.py's schema: retrieval
+    and caption captions, qaoe answers with answer_text and ans2label, qamc
+    options); train and val splits, and a test split of ``test`` items
+    where it is not 0."""
     os.makedirs(data_dir, exist_ok=True)
     frames = load_fixture()["frames"]
     rs = np.random.RandomState(seed)
@@ -105,13 +107,14 @@ def build_downstream(data_dir: str, *, videos: int = 24, frames_per_video: int =
         with open(os.path.join(data_dir, f"img_{ds}.id2lineidx.pkl"), "wb") as f:
             pickle.dump(id2lineidx, f)
     for task, kind in (("msrvtt-retrieval", "retrieval"), ("msrvtt-qa", "qaoe"),
-                       ("tgif-action", "qamc")):
+                       ("tgif-action", "qamc"), ("msrvtt-caption", "caption")):
         txt: dict = {}
-        for split, n in (("train", videos), ("val", videos // 2)):
+        splits = (("train", videos), ("val", videos // 2)) + ((("test", test),) if test else ())
+        for split, n in splits:
             items = []
             for i in range(n + 1):
                 video = f"video{i % videos}" if i < n else "missing_video"
-                if kind == "retrieval":
+                if kind in ("retrieval", "caption"):
                     items.append({"video": video, "caption": _sentence(rs, rs.randint(4, 40))})
                 elif kind == "qaoe":
                     a = int(rs.randint(len(ANSWERS)))

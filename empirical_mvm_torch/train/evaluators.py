@@ -89,8 +89,9 @@ def retrieval_two_stage_eval(model, dataset, *, chunk_size: int = 512,
     """Encode every item, cross-score all (text, video) pairs, rank.
 
     ``model`` is a :class:`VioletRetrieval` on ``device``. ``dataset`` has
-    ``__len__``, ``multi_clip_item(i)`` returning ``{"img": uint8 (Clips, T,
-    H, W, 3), "txt", "mask", "vid", "tid"}``, and ``gt_txt2vid``.
+    ``__len__``, ``multi_clip_item(i)`` returning ``{"img": (Clips, T, H, W,
+    3) uint8 or normalized float, an array or a tensor, "txt", "mask",
+    "vid", "tid"}``, and ``gt_txt2vid``.
 
     Stage 1 batches items of equal clip count, ``encode_batch`` at a time.
     Stage 2 keeps the feature banks on the device and gathers each chunk's
@@ -107,7 +108,7 @@ def retrieval_two_stage_eval(model, dataset, *, chunk_size: int = 512,
         by_clips.setdefault(it["img"].shape[0], []).append(i)
 
     def put(arrays):
-        return torch.from_numpy(np.stack(arrays)).to(device)
+        return torch.stack([torch.as_tensor(a) for a in arrays]).to(device)
 
     with torch.inference_mode():
         _sync(device)

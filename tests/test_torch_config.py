@@ -1,6 +1,7 @@
 """The port's config loader against the JAX package's: every task file in
-``configs/`` gives the same value for every field the port keeps, and a key
-the port does not know (such as a JAX-only switch) raises."""
+``configs/`` gives the same value for every field the port keeps, a key the
+port does not know (such as a JAX-only switch) raises, and
+``profile_n_steps`` loads as in JAX."""
 
 import dataclasses
 import glob
@@ -33,12 +34,19 @@ def test_task_config_loads_as_in_the_jax_package(path):
 
 @pytest.mark.parametrize("raw", [
     {"fsdp": True},
-    {"profile_n_steps": 3},
+    {"fsdp_min_size": 1024},
     {"fusion": {"scan": True}},
     {"text": {"use_pallas_attention": False}},
     {"swin_custom": {"remat": True}},
-], ids=["fsdp", "profile_n_steps", "fusion.scan", "text.use_pallas_attention",
+], ids=["fsdp", "fsdp_min_size", "fusion.scan", "text.use_pallas_attention",
         "swin_custom.remat"])
 def test_unknown_key_raises(raw):
     with pytest.raises(ValueError, match="unknown"):
         tcfg.load_run_config(raw)
+
+
+def test_profile_n_steps_loads_as_in_the_jax_package():
+    """``profile_n_steps`` has a field again: the run loop's profiler window
+    (``train/agent.py``)."""
+    port, ref = (c.load_run_config({"profile_n_steps": 3}) for c in (tcfg, jcfg))
+    assert port.train.profile_n_steps == ref.train.profile_n_steps == 3

@@ -1312,3 +1312,59 @@ def test_prefetcher_batches_equal_the_cpu_batches(cuda, tmp_path):
             else:
                 assert torch.equal(a[k].cpu(), b[k]), k
     assert any(a["corrupt"].any() for _, a in runs[0])
+
+
+# ---------------------------------------------------- checkpoints and the CLIs
+
+TINY_RUN = {"size_img": 64, "size_frame": 2, "size_txt": 12, "size_batch": 4, "n_workers": 2,
+            "swin_custom": {"embed_dim": 32, "depths": [1, 1, 1, 1], "num_heads": [1, 2, 4, 8],
+                            "drop_path_rate": 0.0},
+            "fusion": {"hidden_size": 128, "num_hidden_layers": 2, "num_attention_heads": 2,
+                       "intermediate_size": 256},
+            "text": {"hidden_size": 128, "num_hidden_layers": 2, "num_attention_heads": 2,
+                     "intermediate_size": 256}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path, dtype):
+    """``save_params`` / ``load_params`` of a model on the card, its leaves
+    fp32 or cast to bf16: every leaf back bit-equal, dtype kept (bf16
+    through the codec's int16 view)."""
+    from empirical_mvm_torch.core.config import load_run_config
+    from empirical_mvm_torch.models.tasks import VioletRetrieval
+    from empirical_mvm_torch.train.checkpoint import load_params, save_params
+    run = load_run_config(TINY_RUN)
+    model = VioletRetrieval(run.model, dtype=torch.bfloat16, device=cuda, seed=3)
+    sd = {k: v.to(dtype) for k, v in model.state_dict().items()}
+    path = str(tmp_path / "ckpt.msgpack")
+    save_params(sd, path)
+    back = load_params(path)
+    assert set(back) == set(sd)
+    for k, v in sd.items():
+        assert back[k].dtype == dtype and torch.equal(back[k].to(cuda), v), k
+
+
+@pytest.mark.cuda
+def test_cli_main_runs_on_the_card(cuda, tmp_path):
+    """``cli.retrieval.main`` with ``device="cuda"`` on a tiny config over
+    the loaderbench layout (nvJPEG decodes): one epoch, its checkpoint, and
+    the two-stage eval on it; ``device="cpu"`` without a decode function
+    raises."""
+    import json
+    from empirical_mvm_torch.cli import retrieval, retrieval_eval
+    from empirical_mvm_torch.tools.loaderbench import build_downstream
+    data = tmp_path / "data"
+    build_downstream(str(data), videos=12, test=6)
+    cfg = tmp_path / "tiny-retrieval.json"
+    cfg.write_text(json.dumps({"type": "retrieval", "task": "msrvtt-retrieval",
+                               "dataset": ["msrvtt"], "data_dir": str(data),
+                               "path_output": str(tmp_path / "out"), "size_epoch": 1,
+                               "multi_clip_testing": True, **TINY_RUN}))
+    res = retrieval.main(["--config", str(cfg)], device=cuda)
+    assert res["steps"] == 3 and res["log"]["ls_tr"]
+    ckpt = f"{res['run_dir']}/ckpt_violet_msrvtt-retrieval_1.msgpack"
+    m = retrieval_eval.main(["--config", str(cfg), "--path_ckpt", ckpt], device=cuda)
+    assert m["split"] == "test" and 1.0 <= m["medr"] and not m["load"]["kept"]
+    with pytest.raises(ValueError, match="decode function"):
+        retrieval.main(["--config", str(cfg)], device="cpu")

@@ -1,7 +1,8 @@
 """Every module of the port, and chip_smoke.py, imports with ``jax`` and
 the JAX package blocked, and leaves ``empirical_mvm_tpu`` out of
-``sys.modules``; none imports cv2, PIL, yaml or transformers when it is
-imported (the port depends on none of them)."""
+``sys.modules``; none imports msgpack, cv2, PIL, yaml or transformers when
+it is imported (the port depends on none of them; its checkpoints go
+through its own msgpack codec)."""
 
 import json
 import subprocess
@@ -11,8 +12,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "empirical_mvm_tpu", "cv2", "PIL", "yaml",
-           "transformers")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "empirical_mvm_tpu", "cv2", "PIL",
+           "yaml", "transformers")
 
 SCRIPT = """
 import importlib, importlib.abc, json, pkgutil, sys
