@@ -306,7 +306,29 @@ before the final line, if any phase failed:
    CLI's steps probed (``StepProbe``): wall median beside the hand-wired
    loop's, kernel ms and idle share, 0 host waits on a non-logging step,
    launches held to the hand-wired step's.
-41. The last line is ``{"ok": true, "device": {...}}``.
+41. Data parallelism at W = 1 (``nccl_w1_phase``): the process group that
+    ``torch.distributed.run`` sets up for one process (NCCL, cuda:0); two
+    pixel steps at full width in bf16 through the data-parallel path and
+    through the plain one, losses and every parameter bit-equal, each step's
+    ms beside the other's.
+42. Two ranks on the one card (``gloo_w2_phase``): ``chip_smoke.py
+    --dp-worker`` processes over gloo (NCCL refuses two ranks on one
+    device) against one process, fp32 with TF32 off, dropout off, full
+    width with the Video Swin at depths (2, 2, 2, 2) and a 2-layer fusion:
+    the pixel step (10 rows a rank, the one-process draws) and the
+    retrieval ``nce`` step (4 rows a rank), two steps each, held to
+    ``DP_*``; the two-stage eval's metrics equal on every rank; each rank's
+    ms and peak memory.
+43. Rematerialisation (``remat_phase``): the pixel model's training pass
+    with dropout on, without and with ``remat``, bf16 at full width and
+    fp32 depth-cut: losses, the generator's state and every gradient
+    bit-equal (or within the spread of two passes without remat, said per
+    dtype), peak GiB and ms of each.
+44. The pretrain CLI across ranks (``cli_dp_phase``): ``python -m
+    torch.distributed.run --standalone --nproc_per_node=1`` on phase 40's
+    shards with ``fsdp``, ``remat`` and ``grad_accum`` 2; every block
+    sharded; its final checkpoint loads into the one-process port.
+45. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -322,7 +344,9 @@ import os
 import pickle
 import random
 import shutil
+import socket
 import subprocess
+import sys
 import threading
 import time
 import warnings
@@ -331,7 +355,9 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from empirical_mvm_torch.cli import caption as caption_cli
 from empirical_mvm_torch.cli import convert_ckpt as convert_cli
@@ -352,20 +378,23 @@ from empirical_mvm_torch.data.tokenizer import load_tokenizer
 from empirical_mvm_torch.data.transforms import (TRANSFORMS, ClipPlan, FramePlan, plan_clip,
                                                  run_plans)
 from empirical_mvm_torch.models import pretrain as pretrain_module
+from empirical_mvm_torch.models.bert import BertLayer
 from empirical_mvm_torch.models.captioning import VioletCaptioning
 from empirical_mvm_torch.models.encoders2d import swin2d_config
 from empirical_mvm_torch.models.pretrain import VioletPretrain, draw_negatives
 from empirical_mvm_torch.models.tasks import (VioletQAMC, VioletQAMCGen, VioletQAMCMLMHead,
                                               VioletQAOE, VioletQAOEMLMHead, VioletRetrieval,
                                               draw_gumbel, qamc_mlm_head_accuracy)
-from empirical_mvm_torch.models.video_swin import (_from_packed, _shift_attn_mask, _to_packed,
-                                                  get_window_size)
+from empirical_mvm_torch.models.video_swin import (SwinTransformerBlock3D, _from_packed,
+                                                  _shift_attn_mask, _to_packed, get_window_size)
 from empirical_mvm_torch.models.violet import joint_attn_bias
 from empirical_mvm_torch.ops import _build
 from empirical_mvm_torch.ops import layernorm as ln
 from empirical_mvm_torch.ops import window_attention as wa
 from empirical_mvm_torch.ops.hog import hog_bins, hog_image
 from empirical_mvm_torch.ops.preprocess import maybe_normalize
+from empirical_mvm_torch.parallel import mesh
+from empirical_mvm_torch.parallel.mesh import shard_model
 from empirical_mvm_torch.teachers.clip import renormalize_imagenet_to_clip
 from empirical_mvm_torch.teachers.dvae import DvaeEncoder, map_pixels, unnormalize_imagenet
 from empirical_mvm_torch.tools import capbench, lanebench
@@ -385,7 +414,7 @@ from empirical_mvm_torch.train.losses import masked_accuracy
 from empirical_mvm_torch.train.optimizer import build_optimizer
 from empirical_mvm_torch.train.train_step import (create_train_state, make_eval_step,
                                                   make_pretrain_train_step,
-                                                  make_supervised_train_step)
+                                                  make_supervised_train_step, step_generators)
 
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs" / "msrvtt-retrieval.json"
@@ -651,6 +680,10 @@ SEQ2SEQ_LANE = (("caption", CAPTION_B, 275, 25, P_ATTN, True),
                 ("beam decode", CAPTION_B * GEN_BEAM, 270, GEN_MAX_LEN, 0.0, True),
                 ("smtm", TRAIN_B, TRAIN_L, 32, P_ATTN, True),
                 ("80 pretrain rows", 4 * TRAIN_B, TRAIN_L, 32, P_ATTN, False))
+# row 11 (the tiled self-attention, kTiles layout) under the same mask, at a
+# length that lane_sa_attention_fits refuses, so BERT routes it to row 11
+# (label, rows, L, text tokens, p): no path of this script takes it
+SEQ2SEQ_TILED = (("seq2seq 350 tokens", CAPTION_B, 350, 100, P_ATTN),)
 
 # Limits. A tolerance is dict(atol=..., rtol=..., scale=...): an element may
 # differ by atol + rtol * |reference| + scale * max|reference|. Gradients
@@ -2245,18 +2278,27 @@ def ln_bwd_cases(dev, gen, sites=TRAIN_LN, path="", planted=True):
 # ---------------------------------------------------------------------------
 
 # The fault a mask whose rows differ guards against, which a padding mask (a
-# stride-0 view: every row alike) cannot show: rows 5 and 6 reading each
+# stride-0 view: every row alike) cannot show: rows 5, 6 and 11 reading each
 # query row's mask at row 0. Planted in both C entries of
-# csrc/self_attention.cu (so in both bodies, fp32 and bf16), in a copy of the
-# lane self-attention's sources alone (ROW_STRIDE_SOURCES).
+# csrc/self_attention.cu (rows 5 and 6) and of csrc/self_attention_tiled.cu
+# (row 11), so in every body, fp32 and bf16, in a copy of the self-attention
+# sources alone (ROW_STRIDE_SOURCES); one (file, texts, planted texts) each.
 _ROW_STRIDE_ENTRY = ("  auto s = static_cast<cudaStream_t>(stream);\n"
                      "  if (nh > 0 && dm % nh == 0 && emvm::tensor_core_body(dtype, dm / nh))\n"
                      "    return emvm::lane_self_attention_{}_mma(")
-PLANTED_ROW_STRIDE = (
-    "self_attention.cu",
-    tuple(_ROW_STRIDE_ENTRY.format(d) for d in ("fwd", "bwd")),
-    tuple(_ROW_STRIDE_ENTRY.format(d).replace("(stream);\n", "(stream);\n  mask_sr = 0;\n", 1)
-          for d in ("fwd", "bwd")))
+_TILED_ENTRY = ("  auto s = static_cast<cudaStream_t>(stream);\n"
+                "  if (emvm::tensor_core_body(dtype, hd)) {{\n"
+                "    auto {} = hd == 32")
+
+
+def _stride_zero(entries):
+    return tuple(e.replace("(stream);\n", "(stream);\n  mask_sr = 0;\n", 1) for e in entries)
+
+
+PLANTED_ROW_STRIDE = tuple(
+    (name, entries, _stride_zero(entries)) for name, entries in (
+        ("self_attention.cu", tuple(_ROW_STRIDE_ENTRY.format(d) for d in ("fwd", "bwd"))),
+        ("self_attention_tiled.cu", tuple(_TILED_ENTRY.format(d) for d in ("fwd", "bwd")))))
 ROW_STRIDE_SOURCES = ("common.cuh", "self_attention.cu", "self_attention_tiled.cu",
                       "self_attention_mma.cuh")
 
@@ -2269,7 +2311,8 @@ def planted_row_stride_library():
     src.mkdir(parents=True)
     for name in ROW_STRIDE_SOURCES:
         shutil.copy(_build.CSRC / name, src / name)
-    plant(src, *PLANTED_ROW_STRIDE)
+    for fault in PLANTED_ROW_STRIDE:
+        plant(src, *fault)
     return _build.load(_build.build(csrc=src), False)
 
 
@@ -2328,6 +2371,23 @@ def seq2seq_lane_cases(dev, gen, planted):
                               torch.bfloat16, "attention_bwd", 2.5 * ops, "bf16_tensor",
                               (2 * x3.numel() + do.numel()) * 2 + _span_bytes(mask))
                 recs.append({**rec, **info})
+    for label, b, l, text, p_drop in SEQ2SEQ_TILED:
+        require(not wa.lane_sa_attention_fits(b, l, d, nh), f"{label}: row 5 fits")
+        qkv = torch.randn(b, 3 * nh, l, hd, device=dev, generator=gen) * 0.5
+        do = _bf16_values(torch.randn(b, nh, l, hd, device=dev, generator=gen))
+        mask = seq2seq_mask(dev, b, l, text)
+        (fwd, *fwd_rest), (bwd, *bwd_rest) = _sa_calls(mask, nh, scale, p_drop, seed, do)
+        name = f"{label} qkv=({b},{3 * nh},{l},{hd}) p_drop={p_drop} seq2seq mask"
+        info = dict(mask="seq2seq", mask_row_stride=mask.stride(1),
+                    mask_bytes=_span_bytes(mask), off_path=True, body=_bodies(wa._sa_body, hd))
+        ops = 4 * b * nh * l * l * hd
+        recs.append({**measure("packed_self_attention", name, qkv, fwd, *fwd_rest,
+                               torch.bfloat16, "sa", ops, "bf16_tensor",
+                               (qkv.numel() + do.numel()) * 2 + _span_bytes(mask)), **info})
+        recs.append({**measure("packed_self_attention_bwd", name, qkv, bwd, *bwd_rest,
+                               torch.bfloat16, "sa_bwd", 2.5 * ops, "bf16_tensor",
+                               (2 * qkv.numel() + do.numel()) * 2 + _span_bytes(mask)),
+                     **info})
     recs[0]["failures"] += planted_row_stride_check(dev, gen, planted)
     return recs
 
@@ -2335,8 +2395,10 @@ def seq2seq_lane_cases(dev, gen, planted):
 def planted_row_stride_check(dev, gen, planted):
     """Hold rows 5 and 6 of the ``PLANTED_ROW_STRIDE`` build (``planted``, a
     future of the loaded library) under the seq2seq mask at the caption
-    step's shape in small (4 rows of 275, p = 0.1): each must fail the fp32
-    limits and the bf16 ones. Returns the checks the fault passed."""
+    step's shape in small (4 rows of 275, p = 0.1), and row 11 at
+    ``SEQ2SEQ_TILED``'s length in small (2 rows of 350, p = 0.1): each must
+    fail the fp32 limits and the bf16 ones. Returns the checks the fault
+    passed."""
     lib = planted.result()
     b, l, text, nh = 4, 275, 25, 12
     x3 = torch.randn(b, l, 3 * 768, device=dev, generator=gen) * 0.5
@@ -2344,11 +2406,18 @@ def planted_row_stride_check(dev, gen, planted):
     seed = torch.tensor([79, 4], dtype=torch.int32, device=dev)
     (fwd, fwd_plain, _), (bwd, bwd_plain, _) = _lane_calls(seq2seq_mask(dev, b, l, text), nh,
                                                            0.125, P_ATTN, seed, do)
+    _, _, n, t_text, _ = SEQ2SEQ_TILED[0]
+    qkv = torch.randn(2, 3 * nh, n, 64, device=dev, generator=gen) * 0.5
+    t_do = _bf16_values(torch.randn(2, nh, n, 64, device=dev, generator=gen))
+    (t_fwd, t_fwd_plain, _), (t_bwd, t_bwd_plain, _) = _sa_calls(
+        seq2seq_mask(dev, 2, n, t_text), nh, 0.125, P_ATTN, seed, t_do)
     real = _build.library()
     try:
         _build._lib = lib
         caught = {"row 5": full_check(fwd, fwd_plain, x3, _lane_fwd_kind(64)),
-                  "row 6": full_check(bwd, bwd_plain, x3, "attention_bwd")}
+                  "row 6": full_check(bwd, bwd_plain, x3, "attention_bwd"),
+                  "row 11": full_check(t_fwd, t_fwd_plain, qkv, "sa"),
+                  "row 11 bwd": full_check(t_bwd, t_bwd_plain, qkv, "sa_bwd")}
     finally:
         _build._lib = real
     print(json.dumps({"planted_row_stride_fault": {
@@ -2607,13 +2676,7 @@ def whole_step_phase(dev, run, b=4, batch=None, biased=False):
     are held card against CPU apart (``teachers_card_vs_cpu``; the dVAE's
     logits centred first, ``center_dvae_logits``) and both sides are fed
     the CPU's dVAE tokens."""
-    cfg = run.model
-    cut = dataclasses.replace(
-        cfg, swin_custom=dataclasses.replace(backbone_config(cfg), depths=(2, 2, 2, 2),
-                                             drop_path_rate=0.0),
-        fusion=dataclasses.replace(cfg.fusion, num_hidden_layers=2, hidden_dropout_prob=0.0,
-                                   attention_probs_dropout_prob=0.0),
-        text=dataclasses.replace(cfg.text, hidden_dropout_prob=0.0))
+    cut = depth_cut(run.model)
     run_cut = dataclasses.replace(run, model=cut)
     if batch is None:
         batch = synthetic_pretrain_batch(b, cut, seed=4, device="cpu")
@@ -2646,9 +2709,7 @@ def whole_step_phase(dev, run, b=4, batch=None, biased=False):
             batch["vq"] = tokens
     results, secs = {}, {}
     for name, model, device in (("card", card, dev), ("cpu", cpu, torch.device("cpu"))):
-        for head in ("fc", "fc_mvm", "fc_mvm_clip"):  # the score heads' dropout, 0.1
-            if hasattr(model, head):
-                getattr(model, head)[0].p = 0.0
+        _no_score_dropout(model)
         opt = build_optimizer(model, run.train, TRAIN_MAX_ITER)
         step = make_pretrain_train_step(model, opt)
         on_dev = {k: (type(v)(*(t.to(device) for t in v)) if k == "draws" else v.to(device))
@@ -3952,6 +4013,507 @@ def cli_phase(dev, run, reference_pt):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 41-44: data parallelism, rematerialisation, the CLI across ranks
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 2               # steps of each data-parallel comparison (phase 42)
+NCCL_STEPS = 4             # phase 41's steps; the ms median leaves out the first
+DP_DEVICE = "cuda:0"       # phase 42's ranks, all on the one card
+DP_EVAL = (16, 3, 48)      # phase 42's two-stage eval: items, encode batch, chunk
+# Phase 42's limits, two ranks against one process on the same card in fp32
+# with TF32 off: the ranks run each layer on half the rows, and cuBLAS may
+# split a product of another M another way, so a row's activations differ at
+# fp32 roundoff, which the backward carries into each gradient's sum over
+# the batch; the CPU tests hold the same comparison at 1e-5 (one GEMM order).
+# Losses within DP_LOSS_RTOL; each step's gradients within DP_GRAD_REL of
+# their tensor's largest element plus DP_GRAD_FLOOR (the VTM and nce score
+# heads' output bias, zero in exact arithmetic, holds roundoff of scores /
+# 0.05). Parameters after the two steps: every element within Adam's bound,
+# 2 x the largest lr of the two steps (Adam's update is at most lr an
+# element, whatever the gradient's scale); an element resolved at both steps
+# (its gradient over DP_RESOLVED x the two runs' difference, so the two agree
+# to 1 %) within DP_PARAM_LR x that lr plus DP_PARAM_ULPS roundings of the
+# parameter. Adam's first update is g / |g| and does not move with a 1 %
+# error; the second, m / sqrt(v), moves by at most about 3 % of lr, since m
+# and sqrt(v) each move by at most 1 % of sqrt(v), which the division
+# carries to the update whatever the cancellation in m.
+DP_LOSS_RTOL, DP_GRAD_REL, DP_GRAD_FLOOR = 1e-4, 1e-3, 2e-5
+DP_RESOLVED, DP_PARAM_LR, DP_PARAM_ULPS = 100.0, 0.05, 4
+
+
+def depth_cut(cfg, dropout=False):
+    """``cfg`` at full width with the Video Swin's depths (2, 2, 2, 2) and a
+    2-layer fusion; without ``dropout`` every dropout and drop-path rate 0."""
+    p = None if dropout else 0.0
+    fusion = dataclasses.replace(cfg.fusion, num_hidden_layers=2)
+    if p is not None:
+        fusion = dataclasses.replace(fusion, hidden_dropout_prob=p,
+                                     attention_probs_dropout_prob=p)
+    swin = dataclasses.replace(backbone_config(cfg), depths=(2, 2, 2, 2))
+    return dataclasses.replace(
+        cfg, swin_custom=swin if p is None else dataclasses.replace(swin, drop_path_rate=p),
+        fusion=fusion,
+        text=cfg.text if p is None else dataclasses.replace(cfg.text, hidden_dropout_prob=p))
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _no_score_dropout(model):
+    for head in ("fc", "fc_mvm", "fc_mvm_clip"):   # the score heads' dropout, 0.1
+        if hasattr(model, head):
+            getattr(model, head)[0].p = 0.0
+    return model
+
+
+def _timed_steps(dev, step, state, batch, steps=DP_STEPS, keep_grads=False):
+    """``steps`` steps; the losses, each step's wall ms (synchronised) and,
+    with ``keep_grads``, each step's gradients on the host."""
+    losses, ms, grads = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, ls = step(state, batch, TRAIN_SEED)
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: v.item() for k, v in ls.items()})
+        if keep_grads:
+            grads.append({n: (torch.zeros(p.shape) if p.grad is None else p.grad.float().cpu())
+                          for n, p in state.params.items()})
+    return state, losses, ms, grads
+
+
+def nccl_w1_phase(dev, run):
+    """Phase 41: the process group that ``torch.distributed.run`` sets up for
+    one process (NCCL on cuda:0, W = 1): ``NCCL_STEPS`` pixel steps at full
+    width in bf16 through the data-parallel path (the loss shares'
+    all-reduced denominators, the bucketed gradient all-reduce, the losses'
+    reduce) and through the plain path, from the same seed. Losses and every
+    parameter must be bit-equal; each step's wall ms shows the reduce's
+    cost."""
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()), RANK="0",
+               WORLD_SIZE="1", LOCAL_RANK="0")
+    with mock.patch.dict(os.environ, env):
+        dp = mesh.distributed_init("cuda")
+    try:
+        require(dp == mesh.DataParallel(0, 1) and dist.get_backend() == "nccl",
+                f"NCCL process group: {dp}")
+        batch = synthetic_pretrain_batch(run.train.size_batch, run.model, seed=3, device=dev)
+        out = {}
+        for name, d in (("plain", None), ("data_parallel", dp)):
+            model = VioletPretrain.from_run_config(run, dtype=torch.bfloat16, device=dev,
+                                                   seed=TRAIN_SEED)
+            opt = build_optimizer(model, run.train, TRAIN_MAX_ITER)
+            state, losses, ms, _ = _timed_steps(
+                dev, make_pretrain_train_step(model, opt, d), create_train_state(model, opt),
+                batch, NCCL_STEPS)
+            out[name] = (losses, ms, {n: p.detach().clone() for n, p in state.params.items()})
+            del model, opt, state
+            torch.cuda.empty_cache()
+        differ = _same_state(out["plain"][2], out["data_parallel"][2])
+        same_losses = out["plain"][0] == out["data_parallel"][0]
+        print(json.dumps({
+            "phase": 41, "slice": "data_parallel_nccl_w1", "backend": dist.get_backend(),
+            "world": 1, "config": PRETRAIN_CONFIG.name, "dtype": "bfloat16",
+            "batch": run.train.size_batch, "step_ms": {k: v[1] for k, v in out.items()},
+            "step_ms_median_after_the_first": {k: float(np.median(v[1][1:]))
+                                               for k, v in out.items()},
+            "losses": {k: v[0] for k, v in out.items()},
+            "bit_equal": same_losses and not differ, "params_differing": differ[:5]}),
+            flush=True)
+        require(same_losses and not differ,
+                f"data-parallel W = 1 step differs from the plain step: {differ[:5]}")
+    finally:
+        mesh.destroy()
+
+
+def _dp_jobs(run):
+    """Phase 42's jobs: the depth-cut pixel step (fp32, the one-process
+    step's draws), the depth-cut retrieval ``nce`` step and the two-stage
+    eval, each with its global batch on the host."""
+    cut = depth_cut(run.model)
+    run_cut = dataclasses.replace(run, model=cut)
+    batch = synthetic_pretrain_batch(run.train.size_batch, cut, seed=4, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    hw = cut.size_img // cut.size_patch
+    b = batch["img"].shape[0]
+    batch.update(draws=draw_masks(gen, batch["txt"], cut.size_frame, hw, hw,
+                                  special_token_ids=VioletPretrain.special_token_ids,
+                                  mask_token_id=VioletPretrain.mask_token_id,
+                                  p_mask=run.train.p_mask, mask_types=run.train.pretrain_masks),
+                 neg_idx=draw_negatives(gen, b, min(b, VioletPretrain.num_options) - 1))
+    run_ret = load_run_config(str(CONFIG))
+    run_ret = dataclasses.replace(run_ret, model=depth_cut(run_ret.model))
+    ret_batch = synthetic_finetune_batch("retrieval", run_ret.train.size_batch, run_ret.model,
+                                         seed=6, device="cpu")
+    return [dict(name="pixel", run=run_cut, batch=batch),
+            dict(name="nce", run=run_ret, batch={k: ret_batch[k] for k in ("img", "txt", "mask")}),
+            dict(name="two_stage", run=run_ret)]
+
+
+def _rank_batch(batch, dp, dev):
+    """This rank's rows of a global batch (the draws' rows too), on ``dev``."""
+    draws = batch.get("draws")
+    out = mesh.shard_batch({k: v for k, v in batch.items() if k != "draws"}, dp)
+    if draws is not None:
+        r, w = (0, 1) if dp is None else (dp.rank, dp.world)
+        out["draws"] = type(draws)(draws.choice[r::w], draws.covs[:, r::w], draws.txt_sel[r::w])
+    return {k: (type(v)(*(t.to(dev) for t in v)) if k == "draws" else v.to(dev))
+            for k, v in out.items()}
+
+
+def dp_job(job, dev, dp):
+    """One of phase 42's jobs on this rank (``dp``) or on one process."""
+    run = job["run"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    if job["name"] == "two_stage":
+        items, encode_batch, chunk = DP_EVAL
+        cfg = run.model
+        model = VioletRetrieval(cfg, dtype=torch.float32, device=dev, seed=TRAIN_SEED)
+        ds = SyntheticRetrievalDataset(items, CLIPS, cfg.size_frame, cfg.size_img,
+                                       cfg.size_txt, cfg.text.vocab_size, seed=1)
+        metrics = retrieval_two_stage_eval(model, ds, chunk_size=chunk,
+                                           encode_batch=encode_batch, device=dev, dp=dp)
+        return {"metrics": {k: metrics[k] for k in ("r1", "r5", "r10", "medr", "_pairs")},
+                "ms": [(time.perf_counter() - t0) * 1e3],
+                "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    if job["name"] == "pixel":
+        model = VioletPretrain.from_run_config(run, dtype=torch.float32, device=dev,
+                                               seed=TRAIN_SEED)
+    else:
+        model = VioletRetrieval(run.model, dtype=torch.float32, device=dev, seed=TRAIN_SEED)
+    _no_score_dropout(model)
+    opt = build_optimizer(model, run.train, TRAIN_MAX_ITER)
+    step = (make_pretrain_train_step(model, opt, dp) if job["name"] == "pixel"
+            else make_supervised_train_step(model, opt, "nce", run.train.temp, dp))
+    state, losses, ms, grads = _timed_steps(dev, step, create_train_state(model, opt),
+                                            _rank_batch(job["batch"], dp, dev), keep_grads=True)
+    return {"losses": losses, "ms": ms, "grads": grads,
+            "params": {n: p.detach().cpu() for n, p in state.params.items()},
+            "lr": max(opt.schedules[g](i) for g in opt.schedules for i in range(DP_STEPS)),
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+
+
+def dp_worker(work, rank, world):
+    """A rank of phase 42 (``chip_smoke.py --dp-worker DIR RANK WORLD``):
+    gloo over a file rendezvous, on cuda:0 beside the other ranks; writes
+    its results to DIR/out_RANK.pt (rank 0's tensors, the others' times)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    work = Path(work)
+    dist.init_process_group("gloo", init_method=f"file://{work}/rendezvous", rank=rank,
+                            world_size=world)
+    try:
+        dp, dev = mesh.DataParallel(rank, world), torch.device(DP_DEVICE)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)      # the allocator's stats need the device set up
+            torch.empty(1, device=dev)
+        out = {}
+        for job in torch.load(work / "jobs.pt", weights_only=False):
+            res = dp_job(job, dev, dp)
+            out[job["name"]] = res if rank == 0 else {
+                k: res[k] for k in ("ms", "peak_gib", "losses", "metrics") if k in res}
+        torch.save(out, work / f"out_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _grad_share(got, want):
+    """Each gradient's largest difference over its limit (DP_GRAD_REL of the
+    tensor's largest element plus DP_GRAD_FLOOR), by name."""
+    return {n: (got[n] - g).abs().max().item() / (DP_GRAD_REL * g.abs().max().item()
+                                                  + DP_GRAD_FLOOR)
+            for n, g in want.items()}
+
+
+def _params_apart(got, want):
+    """The parameters after DP_STEPS steps of two ranks (``got``) against one
+    process (``want``): the largest difference of all elements, and of the
+    elements resolved at every step, in units of the resolved bound
+    (DP_PARAM_LR x the largest lr plus DP_PARAM_ULPS roundings of the
+    parameter), with the share of elements resolved."""
+    worst = worst_resolved = 0.0
+    resolved_n = total = 0
+    for n, w in want["params"].items():
+        resolved = torch.ones(w.shape, dtype=torch.bool)
+        for gg, gw in zip(got["grads"], want["grads"]):
+            resolved &= gw[n].abs() > DP_RESOLVED * (gg[n] - gw[n]).abs()
+        d = (got["params"][n] - w).abs()
+        worst = max(worst, d.max().item())
+        bound = DP_PARAM_LR * want["lr"] + DP_PARAM_ULPS * torch.finfo(w.dtype).eps * w.abs()
+        if resolved.any():
+            worst_resolved = max(worst_resolved, (d / bound)[resolved].max().item())
+        resolved_n += int(resolved.sum())
+        total += w.numel()
+    return worst, worst_resolved, resolved_n / total
+
+
+def gloo_w2_phase(dev, run):
+    """Phase 42: two ranks on the one card (NCCL refuses two ranks on one
+    device; gloo carries CUDA tensors through the host), spawned as
+    ``chip_smoke.py --dp-worker`` processes, against one process on the
+    same card, fp32 with TF32 off, dropout and drop path off, at full width
+    with the depth cut of ``depth_cut``: the pixel step (batch 20, 10 rows a
+    rank, the one-process step's draws) and the retrieval ``nce`` step
+    (batch 8) for two steps each, held to ``DP_*``, and the two-stage eval
+    (``DP_EVAL``: batches and chunks that do not divide over two ranks),
+    whose metrics must equal one process's. Prints each rank's ms and peak
+    memory."""
+    work = Path(_data_dir("dp2"))
+    jobs = _dp_jobs(run)
+    torch.save(jobs, work / "jobs.pt")
+    one = {}
+    for job in jobs:
+        one[job["name"]] = dp_job(job, dev, None)
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--dp-worker",
+                               str(work), str(r), "2"], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    spawn_s = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        require(p.returncode == 0, f"phase 42 rank {r} exited with {p.returncode}:\n"
+                                   f"{logs[r][-3000:]}")
+    two = [torch.load(work / f"out_{r}.pt", weights_only=False) for r in range(2)]
+    line = {"phase": 42, "slice": "data_parallel_gloo_w2_one_card", "backend": "gloo",
+            "world": 2, "dtype": "float32", "swin_depths": [2, 2, 2, 2], "fusion_layers": 2,
+            "ranks_seconds": spawn_s, "limits": {"loss_rtol": DP_LOSS_RTOL,
+                                                 "grad_rel": DP_GRAD_REL,
+                                                 "grad_floor": DP_GRAD_FLOOR,
+                                                 "resolved_over": DP_RESOLVED,
+                                                 "resolved_lr_share": DP_PARAM_LR,
+                                                 "resolved_ulps": DP_PARAM_ULPS}}
+    for name in ("pixel", "nce"):
+        got, want = two[0][name], one[name]
+        for lg, lw in zip(got["losses"], want["losses"]):
+            for k in lw:
+                require(abs(lg[k] - lw[k]) <= DP_LOSS_RTOL * abs(lw[k]),
+                        f"phase 42 {name} loss {k}: {lg[k]} against {lw[k]}")
+        shares = [_grad_share(gg, gw) for gg, gw in zip(got["grads"], want["grads"])]
+        for k, share in enumerate(shares):
+            over = [n for n, v in share.items() if v > 1]
+            require(not over, f"phase 42 {name} step {k} gradients beyond the limits: {over[:5]}")
+        bound = 2 * want["lr"] + 1e-7
+        worst, worst_resolved, resolved_share = _params_apart(got, want)
+        require(worst <= bound, f"phase 42 {name} parameters {worst} apart, bound {bound}")
+        require(resolved_share > 0 and worst_resolved <= 1,
+                f"phase 42 {name} resolved parameters at {worst_resolved} of their bound "
+                f"({resolved_share} of the elements resolved)")
+        b = next(j for j in jobs if j["name"] == name)["batch"]["img"].shape[0]
+        line[name] = {
+            "batch": b, "rows_a_rank": b // 2,
+            "losses_two_ranks": got["losses"], "losses_one_process": want["losses"],
+            "grad_share_of_limit_by_step": [max(share.values()) for share in shares],
+            "param_max_abs_diff": worst, "adam_bound": bound,
+            "resolved_share": resolved_share, "resolved_share_of_bound": worst_resolved,
+            "ms_a_step_one_process": want["ms"], "peak_gib_one_process": want["peak_gib"],
+            **{f"ms_a_step_rank{r}": two[r][name]["ms"] for r in range(2)},
+            **{f"peak_gib_rank{r}": two[r][name]["peak_gib"] for r in range(2)}}
+    for r in range(2):
+        require(two[r]["two_stage"]["metrics"] == one["two_stage"]["metrics"],
+                f"phase 42 two-stage eval, rank {r}: {two[r]['two_stage']['metrics']} against "
+                f"{one['two_stage']['metrics']}")
+    line["two_stage"] = {"items": DP_EVAL[0], "encode_batch": DP_EVAL[1],
+                         "chunk_size": DP_EVAL[2], "metrics": one["two_stage"]["metrics"],
+                         "equal_on_every_rank": all(
+                             two[r]["two_stage"]["metrics"] == one["two_stage"]["metrics"]
+                             for r in range(2)),
+                         "ms_one_process": one["two_stage"]["ms"],
+                         **{f"ms_rank{r}": two[r]["two_stage"]["ms"] for r in range(2)},
+                         **{f"peak_gib_rank{r}": two[r]["two_stage"]["peak_gib"]
+                            for r in range(2)}}
+    print(json.dumps(line), flush=True)
+
+
+REMAT_PASSES = 5          # phase 43's timed passes a side (host-bound: one pass varies)
+
+
+def with_remat(run, on=True):
+    """``run`` with ``remat`` set on its swin and its BERT configs."""
+    m = run.model
+    return dataclasses.replace(run, model=dataclasses.replace(
+        m, swin_custom=dataclasses.replace(backbone_config(m), remat=on),
+        fusion=dataclasses.replace(m.fusion, remat=on),
+        text=dataclasses.replace(m.text, remat=on)))
+
+
+def _remat_pass(dev, run, dtype, batch):
+    """Losses and gradients (on the host) of a training pass of the pixel
+    model, with dropout, drop path and the masks drawn from one step's
+    generators, and the dropout generator's state after the backward; the
+    wall ms of each of REMAT_PASSES such passes after a first that grows
+    the allocator's pool, and the peak GiB of the last."""
+    model = VioletPretrain.from_run_config(run, dtype=dtype, device=dev, seed=TRAIN_SEED)
+    ms = []
+    for _ in range(1 + REMAT_PASSES):
+        model.zero_grad(set_to_none=True)
+        drop, masks = step_generators(TRAIN_SEED, 0, dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        ls = model.losses(batch["img"], batch["txt"], batch["mask"], generator=drop,
+                          mask_generator=masks)
+        ls["total"].backward()
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    grads = {n: p.grad.float().cpu() for n, p in model.named_parameters() if p.grad is not None}
+    out = ({k: v.item() for k, v in ls.items()}, grads, drop.get_state(), ms[1:], peak)
+    del model, ls
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_phase(dev, run):
+    """Phase 43: the pixel model's training pass (dropout and drop path at
+    the config's rates, the masks drawn) without and with ``remat`` on every
+    swin block and BERT layer, from the same seed: bf16 at full width
+    (configs/pretrain.json, batch 20) and fp32 at full width with the depth
+    cut of ``depth_cut`` (dropout kept). Losses, the dropout generator's
+    state after the backward and every gradient must be bit-equal; where
+    they are not, a second pass without remat measures the spread of the
+    backward kernels, and remat must fall within it. Prints the peak GiB and
+    the ms of each timed pass, their medians and the medians' ratio."""
+    line = {"phase": 43, "slice": "remat"}
+    # checkpoint's first call sets up its machinery once: pay it outside the
+    # timed passes
+    x = torch.ones(1, device=dev, requires_grad=True)
+    torch.utils.checkpoint.checkpoint(torch.exp, x, use_reentrant=False).backward()
+    for dtype, r in ((torch.bfloat16, run),
+                     (torch.float32, dataclasses.replace(
+                         run, model=depth_cut(run.model, dropout=True)))):
+        batch = synthetic_pretrain_batch(r.train.size_batch, r.model, seed=3, device=dev)
+        off = _remat_pass(dev, with_remat(r, False), dtype, batch)
+        on = _remat_pass(dev, with_remat(r, True), dtype, batch)
+        differ = [n for n, g in off[1].items() if not torch.equal(g, on[1][n])]
+        rec = {"batch": r.train.size_batch, "swin_depths": list(r.model.swin.depths),
+               "fusion_layers": r.model.fusion.num_hidden_layers,
+               "ms": {"off": off[3], "on": on[3]},
+               "ms_median": {"off": float(np.median(off[3])), "on": float(np.median(on[3]))},
+               "ms_ratio_of_medians": float(np.median(on[3]) / np.median(off[3])),
+               "peak_gib": {"off": off[4], "on": on[4]},
+               "losses_equal": off[0] == on[0],
+               "generator_state_equal": torch.equal(off[2], on[2]),
+               "gradients_differing": len(differ), "gradients": len(off[1])}
+        if differ:
+            again = _remat_pass(dev, with_remat(r, False), dtype, batch)
+            spread = {n: (again[1][n] - g).abs().max().item() for n, g in off[1].items()}
+            beyond = [n for n in differ if (on[1][n] - off[1][n]).abs().max().item()
+                      > spread[n]]
+            rec.update(verdict="within the spread of two passes without remat",
+                       no_remat_passes_differ=sum(v > 0 for v in spread.values()),
+                       beyond_spread=beyond[:5])
+            require(not beyond, f"remat {dtype} gradients beyond the no-remat spread: "
+                                f"{beyond[:5]}")
+        else:
+            rec["verdict"] = "bit-equal"
+        line[str(dtype).replace("torch.", "")] = rec
+        require(off[0] == on[0] and torch.equal(off[2], on[2]) and set(off[1]) == set(on[1]),
+                f"remat {dtype}: losses {off[0]} / {on[0]}, generator state equal "
+                f"{torch.equal(off[2], on[2])}")
+    print(json.dumps(line), flush=True)
+
+
+CLI_DP_ACCUM = 2           # phase 44's grad_accum
+CLI_DP_MIN_SIZE = 2 ** 16  # phase 44's fsdp_min_size: Swin-base's smallest block has 2e5
+
+
+def pretrain_cli_worker(config, init_ckpt, result):
+    """Phase 44's process (``chip_smoke.py --pretrain-cli CONFIG CKPT OUT``,
+    started by ``torch.distributed.run``): ``cli.pretrain``'s main for one
+    epoch, ``grad_accum`` set to ``CLI_DP_ACCUM`` (no task file sets it);
+    writes OUT, a JSON of the run and of the blocks FSDP sharded."""
+    sharded = []
+
+    def shard(*args, **kwargs):
+        units = shard_model(*args, **kwargs)
+        sharded.extend(type(u).__name__ for u in units)
+        return units
+
+    parse = pretrain_cli.common.parse_cli
+
+    def parse_accum(*args, **kwargs):
+        cfg = parse(*args, **kwargs)
+        return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                                  grad_accum=CLI_DP_ACCUM))
+
+    t0 = time.perf_counter()
+    with mock.patch.object(agent_module, "shard_model", shard), \
+            mock.patch.object(pretrain_cli.common, "parse_cli", parse_accum):
+        res = pretrain_cli.main(["--config", config, "--path_ckpt", init_ckpt,
+                                 "--size_epoch", "1"])
+    if mesh.is_main_process():
+        Path(result).write_text(json.dumps({
+            "run_dir": res["run_dir"], "steps": res["steps"],
+            "steps_per_epoch": res["steps_per_epoch"], "seconds": time.perf_counter() - t0,
+            "sharded": sharded, "world": mesh.process_count(),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}))
+
+
+def cli_dp_phase(dev, run):
+    """Phase 44: ``python -m torch.distributed.run --standalone
+    --nproc_per_node=1 chip_smoke.py --pretrain-cli ...``, the pretrain CLI
+    as a user launches it across cards, on phase 40's shards from its
+    seeded-bias checkpoint, one epoch, with ``fsdp`` and ``remat`` set in the
+    task file and ``grad_accum`` 2: every swin block and fusion layer
+    sharded, the final checkpoint written, and that checkpoint loaded into
+    the one-process port (every leaf, finite, moved from the start)."""
+    data_dir = _build.BUILD_DIR / "smoke_data" / "cli"
+    init_ckpt = data_dir / "init_seeded_biases.msgpack"
+    cfg = _cli_config(PRETRAIN_CONFIG, "pretrain_dp", data_dir=str(data_dir),
+                      path_output=str(data_dir / "runs_dp"), fsdp=True,
+                      fsdp_min_size=CLI_DP_MIN_SIZE, swin_custom={"remat": True},
+                      fusion={"remat": True})
+    result = data_dir / "pretrain_dp.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node=1", str(REPO / "chip_smoke.py"), "--pretrain-cli",
+                           cfg, str(init_ckpt), str(result)],
+                          capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    require(proc.returncode == 0, f"phase 44 torch.distributed.run exited with "
+                                  f"{proc.returncode}:\n{(proc.stdout + proc.stderr)[-3000:]}")
+    res = json.loads(result.read_text())
+    run_cfg = load_run_config(cfg)
+    final = Path(res["run_dir"]) / f"ckpt_violet_pretrain_final_{res['steps']}.msgpack"
+    sd = load_params(str(final))
+    model = VioletPretrain.from_run_config(run_cfg, dtype=torch.bfloat16, device=dev)
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    start = load_params(str(init_ckpt))
+    moved = sum(not torch.equal(sd[k], start[k]) for k in sd if k in start)
+    finite = all(torch.isfinite(v).all().item() for v in sd.values() if v.is_floating_point())
+    n_blocks = sum(sum(p.numel() for p in m.parameters()) >= run_cfg.train.fsdp_min_size
+                   for m in model.modules() if isinstance(m, (SwinTransformerBlock3D, BertLayer)))
+    print(json.dumps({"phase": 44, "slice": "pretrain_cli_torch_distributed_run",
+                      "nproc_per_node": 1, "fsdp": run_cfg.train.fsdp,
+                      "grad_accum": CLI_DP_ACCUM, "remat": [run_cfg.model.swin.remat,
+                                                            run_cfg.model.fusion.remat],
+                      "launcher_seconds": secs, **res, "sharded": len(res["sharded"]),
+                      "checkpoint": final.name, "leaves": len(sd), "leaves_moved": moved,
+                      "missing": missing[:5], "unexpected": unexpected[:5],
+                      "finite": finite}), flush=True)
+    require(len(res["sharded"]) == n_blocks == sum(run_cfg.model.swin.depths)
+            + run_cfg.model.fusion.num_hidden_layers and res["world"] == 1,
+            f"phase 44 sharded {len(res['sharded'])} blocks, not {n_blocks}")
+    require(not missing and not unexpected and finite and moved > 0,
+            f"phase 44 checkpoint: missing {missing[:5]}, unexpected {unexpected[:5]}, "
+            f"finite {finite}, {moved} leaves moved")
+    del model
+    torch.cuda.empty_cache()
+
+
 def lanebench_phase():
     """Phase 17: the lanebench tool (``empirical_mvm_torch.tools.lanebench``)
     as its command line runs it, ``--stage -1 --grad``, in this process: its
@@ -4432,6 +4994,10 @@ def main() -> None:
     parser.add_argument("--compare-build", type=Path, metavar="CSRC",
                         help="only compare the redesigned kernels (rows 1-12) with a "
                              "build of CSRC")
+    parser.add_argument("--dp-worker", nargs=3, metavar=("DIR", "RANK", "WORLD"),
+                        help=argparse.SUPPRESS)     # a rank of phase 42
+    parser.add_argument("--pretrain-cli", nargs=3, metavar=("CONFIG", "CKPT", "OUT"),
+                        help=argparse.SUPPRESS)     # phase 44's process
     args = parser.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4439,6 +5005,12 @@ def main() -> None:
                          "the port's chip run needs a CUDA card")
     if args.compare_build:
         compare_builds(args.compare_build)
+        return
+    if args.dp_worker:
+        dp_worker(args.dp_worker[0], int(args.dp_worker[1]), int(args.dp_worker[2]))
+        return
+    if args.pretrain_cli:
+        pretrain_cli_worker(*args.pretrain_cli)
         return
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4695,6 +5267,20 @@ def main() -> None:
     # pretrain -> retrieval, QA, caption -> the two-stage eval and parity_eval,
     # convert_ckpt, extract_vq
     cli_launches = cli_phase(dev, run, reference_pt)
+
+    # 41. the data-parallel pixel step at W = 1 over NCCL against the plain step
+    t0 = time.perf_counter()
+    nccl_w1_phase(dev, run)
+    torch.cuda.empty_cache()
+    # 42. two ranks on the one card over gloo against one process: the pixel
+    # and nce steps, the two-stage eval
+    gloo_w2_phase(dev, run)
+    torch.cuda.empty_cache()
+    # 43. remat against no remat, bf16 and fp32, dropout on
+    remat_phase(dev, run)
+    # 44. the pretrain CLI under torch.distributed.run: fsdp, grad_accum, remat
+    cli_dp_phase(dev, run)
+    print(f"phases 41-44 done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     require(not failures, "kernel checks failed:\n" + "\n".join(failures))
 

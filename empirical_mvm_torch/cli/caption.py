@@ -16,6 +16,7 @@ import json
 from empirical_mvm_torch.cli import common
 from empirical_mvm_torch.data.datasets import CaptionDataset
 from empirical_mvm_torch.models.captioning import VioletCaptioning
+from empirical_mvm_torch.parallel.mesh import all_gather_objects
 from empirical_mvm_torch.train.agent import CaptionAgent
 from empirical_mvm_torch.train.caption_metrics import caption_scores
 
@@ -40,9 +41,19 @@ def detokenize(row, tokzr) -> str:
     return " ".join(w.replace("##", "") for w in words)
 
 
+def merge_ranks(hyps: dict, refs: dict) -> tuple[dict, dict]:
+    """Every rank's captions and references, merged (in rank order)."""
+    all_hyps, all_refs = {}, {}
+    for h, r in all_gather_objects((hyps, refs)):
+        all_hyps.update(h)
+        for vid, rows in r.items():
+            all_refs.setdefault(vid, []).extend(rows)
+    return all_hyps, all_refs
+
+
 def main(argv=None, *, device="cuda", decode=None) -> dict:
     device = common.run_device(device, decode)
-    cfg = common.setup_run(common.parse_cli(__doc__, argv))
+    cfg = common.setup_run(common.parse_cli(__doc__, argv), device)
     tokzr = common.get_tokenizer(cfg)
     img_src, txt = common.tsv_sources(cfg)
     datasets = {s: CaptionDataset(cfg, s, tokzr, img_src, txt[s])
@@ -64,6 +75,7 @@ def main(argv=None, *, device="cuda", decode=None) -> dict:
                     vid = batch["vid"][i]
                     hyps[vid] = detokenize(toks[i], tokzr)
                     refs.setdefault(vid, []).append(batch["raw"][i])
+            hyps, refs = merge_ranks(hyps, refs)
             return caption_scores(hyps, refs) if hyps else dict(EMPTY_SCORES)
 
         if cfg.train.size_epoch > 0:

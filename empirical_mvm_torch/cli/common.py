@@ -7,11 +7,18 @@ Every CLI's ``main(argv=None, *, device="cuda", decode=None)`` runs on the
 card; a caller that asks for the CPU passes the frame decode function too
 (:func:`run_device`). The models are built in bf16 (:data:`DTYPE`), as the
 JAX CLIs build theirs.
+
+Across cards, one process a card:
+``python -m torch.distributed.run --nproc_per_node=N -m empirical_mvm_torch.cli.pretrain
+--config configs/pretrain.json``. :func:`setup_run` joins the process group
+(NCCL, ``cuda:LOCAL_RANK``), which is left at exit, and :func:`make_loaders`
+gives each rank its ``size_batch / N`` rows of every global batch.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import json
 import logging
@@ -27,7 +34,9 @@ from empirical_mvm_torch.data.datasets import TsvImageSource, load_txt_json
 from empirical_mvm_torch.data.loader import ShardedBatchLoader
 from empirical_mvm_torch.data.tokenizer import load_tokenizer
 from empirical_mvm_torch.models import convert
-from empirical_mvm_torch.parallel.mesh import is_main_process
+from empirical_mvm_torch.parallel.mesh import (all_gather_objects, destroy, distributed_init,
+                                               is_main_process, per_rank_batch, process_count,
+                                               process_index, rank_device)
 from empirical_mvm_torch.train.checkpoint import (TORCH_SUFFIXES, load_torch_violet_ckpt,
                                                   load_tree)
 
@@ -37,7 +46,8 @@ DTYPE = torch.bfloat16      # the JAX CLIs' dtype=jnp.bfloat16
 
 
 def run_device(device, decode) -> torch.device:
-    """The CLI's device: the card, or the CPU with the caller's decode
+    """The CLI's device: the card (this rank's, ``cuda:LOCAL_RANK``, under
+    ``torch.distributed.run``), or the CPU with the caller's decode
     function. Neither a missing card nor a missing decoder is replaced."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -48,7 +58,7 @@ def run_device(device, decode) -> torch.device:
         raise ValueError("device='cpu' needs a decode function from the caller (bytes -> RGB "
                          "uint8 array, for example over cv2.imdecode); the CLIs pick no CPU "
                          "decoder themselves")
-    return device
+    return rank_device(device)
 
 
 def parse_cli(description: str, argv=None) -> RunConfig:
@@ -94,17 +104,22 @@ def adopt_ckpt_args(cfg: RunConfig) -> RunConfig:
     return cfg
 
 
-def setup_run(cfg: RunConfig) -> RunConfig:
-    """The run dir ``{path_output}/_{task}_{stamp}`` (a second run in the
-    same second gets ``_{n}`` after it), logging to the console and its
-    ``stdout.txt``, and ``args.json`` (ref: main_*.py path_output
-    stamping)."""
+def setup_run(cfg: RunConfig, device="cuda") -> RunConfig:
+    """The process group of ``torch.distributed.run``, if this process was
+    started by it (left at exit; JAX ``distributed_init``), then the run dir
+    ``{path_output}/_{task}_{stamp}`` (a second run in the same second gets
+    ``_{n}`` after it; rank 0's name is every rank's), logging to the
+    console and its ``stdout.txt``, and ``args.json`` (ref: main_*.py
+    path_output stamping)."""
+    if distributed_init(device) is not None:
+        atexit.register(destroy)
     stamp = datetime.now().strftime("%Y%m%d%H%M%S")
     out = os.path.join(cfg.path_output, f"_{cfg.task}_{stamp}")
     n = 1
     while os.path.exists(out):
         n += 1
         out = os.path.join(cfg.path_output, f"_{cfg.task}_{stamp}_{n}")
+    out = all_ranks_take(out)
     cfg = dataclasses.replace(cfg, path_output=out)
     if is_main_process():
         os.makedirs(out, exist_ok=True)
@@ -138,10 +153,23 @@ def splits_of(txt: Mapping) -> list[str]:
     return ["train", "val"] + (["test"] if "test" in txt else [])
 
 
+def all_ranks_take(value):
+    """Rank 0's ``value`` on every rank."""
+    return all_gather_objects(value)[0]
+
+
+def rank_loader(cfg: RunConfig, ds, shuffle: bool, **kw) -> ShardedBatchLoader:
+    """This rank's loader: ``size_batch / W`` rows of each global batch, its
+    rows ``idx[rank::W]`` (JAX ``process_count`` / ``process_index``)."""
+    w = process_count()
+    return ShardedBatchLoader(ds, per_rank_batch(cfg.train.size_batch, w), shuffle=shuffle,
+                              seed=cfg.train.seed, num_hosts=w, host_index=process_index(),
+                              num_threads=cfg.data.n_workers, **kw)
+
+
 def make_loaders(cfg: RunConfig, datasets: dict[str, Any]) -> dict[str, Any]:
-    return {split: None if ds is None else ShardedBatchLoader(
-        ds, cfg.train.size_batch, shuffle=(split == "train"), seed=cfg.train.seed,
-        num_threads=cfg.data.n_workers) for split, ds in datasets.items()}
+    return {split: None if ds is None else rank_loader(cfg, ds, split == "train")
+            for split, ds in datasets.items()}
 
 
 def close_loaders(loaders: Mapping[str, Any]) -> None:

@@ -26,6 +26,7 @@ from empirical_mvm_torch.cli import common
 from empirical_mvm_torch.cli.retrieval import build_model
 from empirical_mvm_torch.cli.retrieval_eval import DecodedClips, eval_split
 from empirical_mvm_torch.core.config import load_run_config
+from empirical_mvm_torch.parallel.mesh import default_data_parallel
 from empirical_mvm_torch.train.evaluators import retrieval_two_stage_eval
 
 # BASELINE.md table 3, "Repo reproduction" column (R@1/R@5/R@10)
@@ -51,11 +52,12 @@ def main(argv=None, *, device="cuda", decode=None) -> dict:
 
     cfg = load_run_config(args.config)
     cfg = common.adopt_ckpt_args(dataclasses.replace(cfg, path_ckpt=args.path_ckpt))
-    cfg = common.setup_run(cfg)
+    cfg = common.setup_run(cfg, device)
     split, ds = eval_split(cfg, common.get_tokenizer(cfg))
     model = build_model(cfg, device)
     common.load_initial_params(cfg, model)
-    metrics = retrieval_two_stage_eval(model, DecodedClips(ds, device, decode), device=device)
+    metrics = retrieval_two_stage_eval(model, DecodedClips(ds, device, decode), device=device,
+                                       dp=default_data_parallel())
 
     if args.expected:
         expected = tuple(float(v) for v in args.expected.split(","))

@@ -5,6 +5,8 @@ at startup and every half epoch, and the final checkpoint.
 
 Usage:
   python -m empirical_mvm_torch.cli.pretrain --config configs/pretrain.json
+  python -m torch.distributed.run --nproc_per_node=N -m empirical_mvm_torch.cli.pretrain \
+      --config configs/pretrain.json       # N cards, size_batch the global batch
 """
 
 from __future__ import annotations
@@ -16,8 +18,9 @@ import pickle
 from empirical_mvm_torch.cli import common
 from empirical_mvm_torch.data.composite import CompositeYamlDataset
 from empirical_mvm_torch.data.datasets import PretrainTsvDataset
-from empirical_mvm_torch.data.loader import MetaLoader, ShardedBatchLoader
+from empirical_mvm_torch.data.loader import MetaLoader
 from empirical_mvm_torch.models.pretrain import VioletPretrain
+from empirical_mvm_torch.parallel.mesh import all_gather_objects
 from empirical_mvm_torch.train.agent import PretrainAgent
 
 
@@ -27,11 +30,6 @@ def build_model(cfg, tokzr, device, dtype=common.DTYPE) -> VioletPretrain:
     model.special_token_ids = (tokzr.cls_token_id, tokzr.sep_token_id, tokzr.pad_token_id)
     model.mask_token_id = tokzr.mask_token_id
     return model
-
-
-def _loader(cfg, ds, shuffle: bool, **kw) -> ShardedBatchLoader:
-    return ShardedBatchLoader(ds, cfg.train.size_batch, shuffle=shuffle, seed=cfg.train.seed,
-                              num_threads=cfg.data.n_workers, **kw)
 
 
 def _vq_table(cfg, ds_name: str):
@@ -62,8 +60,8 @@ def train_loaders(cfg, tokzr) -> dict:
         if ds_name.endswith(".yaml") or os.path.exists(yaml_path):
             ds = CompositeYamlDataset(cfg, ds_name if ds_name.endswith(".yaml") else yaml_path,
                                       split="train", tokzr=tokzr)
-            loaders[ds_name] = (_loader(cfg, ds, True,
-                                        source_idx=ds.get_composite_source_idx()), 1)
+            loaders[ds_name] = (common.rank_loader(cfg, ds, True,
+                                                   source_idx=ds.get_composite_source_idx()), 1)
             continue
         with open(os.path.join(cfg.data.data_dir, f"txt_{ds_name}.json")) as f:
             txt = json.load(f)
@@ -75,7 +73,7 @@ def train_loaders(cfg, tokzr) -> dict:
         for i, p in enumerate(parts):
             ds = PretrainTsvDataset(cfg, "train", tokzr, p, txt.get("train", txt),
                                     dataset_name=ds_name, vq=vq)
-            loaders[f"{ds_name}/{i}"] = (_loader(cfg, ds, True), 1)
+            loaders[f"{ds_name}/{i}"] = (common.rank_loader(cfg, ds, True), 1)
     return loaders
 
 
@@ -90,7 +88,7 @@ def val_loaders(cfg, tokzr) -> dict:
         val_yaml = os.path.join(cfg.data.data_dir, f"{stem}_val.yaml")
         if os.path.exists(val_yaml):
             ds = CompositeYamlDataset(cfg, val_yaml, split="val", tokzr=tokzr)
-            out[f"{stem}_val"] = _loader(cfg, ds, False)
+            out[f"{stem}_val"] = common.rank_loader(cfg, ds, False)
             continue
         txt_path = os.path.join(cfg.data.data_dir, f"txt_{stem}.json")
         if not os.path.exists(txt_path):
@@ -102,13 +100,13 @@ def val_loaders(cfg, tokzr) -> dict:
             if os.path.exists(p):
                 ds = PretrainTsvDataset(cfg, "val", tokzr, p, txt_all.get("val", txt_all),
                                         dataset_name=stem)
-                out[f"{stem}_val/{part}"] = _loader(cfg, ds, False)
+                out[f"{stem}_val/{part}"] = common.rank_loader(cfg, ds, False)
     return out
 
 
 def main(argv=None, *, device="cuda", decode=None) -> dict:
     device = common.run_device(device, decode)
-    cfg = common.setup_run(common.parse_cli(__doc__, argv))
+    cfg = common.setup_run(common.parse_cli(__doc__, argv), device)
     tokzr = common.get_tokenizer(cfg)
     tc = cfg.train
     loaders = train_loaders(cfg, tokzr)
@@ -118,7 +116,9 @@ def main(argv=None, *, device="cuda", decode=None) -> dict:
         model = build_model(cfg, tokzr, device)
         report = common.load_initial_params(cfg, model)
         common.load_teacher_params(cfg, model)
-        steps_per_ep = sum(len(ld) for ld, _ in loaders.values())
+        # shard affinity can give the ranks different row counts: every rank
+        # runs the fewest steps, so that their collectives stay in step
+        steps_per_ep = min(all_gather_objects(sum(len(ld) for ld, _ in loaders.values())))
         num_steps = steps_per_ep * tc.size_epoch
         agent = PretrainAgent(cfg, model, device=device, decode=decode,
                               max_iter=max(num_steps, 1))

@@ -98,7 +98,7 @@ def main(argv=None, *, device="cuda", decode=None) -> dict:
     # the rest (--path_output, --size_epoch) goes to the shared parser
     cfg = common.parse_cli("qa", ["--config", args.config]
                            + (["--path_ckpt", args.path_ckpt] if args.path_ckpt else []) + rest)
-    cfg = common.setup_run(cfg)
+    cfg = common.setup_run(cfg, device)
     tokzr = common.get_tokenizer(cfg)
     img_src, txt = common.tsv_sources(cfg)
     datasets = build_datasets(args.mode, cfg, tokzr, img_src, txt)

@@ -13,7 +13,7 @@ import numpy as np
 from empirical_mvm_torch.cli import common
 from empirical_mvm_torch.data.datasets import RetrievalDataset
 from empirical_mvm_torch.models.tasks import VioletRetrieval
-from empirical_mvm_torch.parallel.mesh import all_gather_metrics
+from empirical_mvm_torch.parallel.mesh import all_gather_metrics, process_count, process_index
 from empirical_mvm_torch.train.agent import RetrievalAgent
 from empirical_mvm_torch.train.evaluators import in_batch_retrieval_accuracy
 
@@ -24,7 +24,7 @@ def build_model(cfg, device, dtype=common.DTYPE) -> VioletRetrieval:
 
 def main(argv=None, *, device="cuda", decode=None) -> dict:
     device = common.run_device(device, decode)
-    cfg = common.setup_run(common.parse_cli(__doc__, argv))
+    cfg = common.setup_run(common.parse_cli(__doc__, argv), device)
     tokzr = common.get_tokenizer(cfg)
     img_src, txt = common.tsv_sources(cfg)
     datasets = {s: RetrievalDataset(cfg, s, tokzr, img_src, txt[s])
@@ -39,9 +39,11 @@ def main(argv=None, *, device="cuda", decode=None) -> dict:
 
         def eval_fn(dl):
             accs = []
+            w = process_count()
             for _, db, n_valid in agent.eval_batches(dl):
                 scores = agent.eval_forward(db).float().cpu().numpy()
-                accs.append(in_batch_retrieval_accuracy(scores[:n_valid, :n_valid]))
+                accs.append(in_batch_retrieval_accuracy(scores[:n_valid, :n_valid * w],
+                                                        process_index(), w))
             accs = all_gather_metrics(accs)
             return float(np.mean(accs)) if accs else 0.0
 

@@ -17,6 +17,7 @@ from empirical_mvm_torch.cli.retrieval import build_model
 from empirical_mvm_torch.data.datasets import RetrievalDataset
 from empirical_mvm_torch.data.jpeg import frame_decoder
 from empirical_mvm_torch.data.loader import materialize
+from empirical_mvm_torch.parallel.mesh import default_data_parallel
 from empirical_mvm_torch.train.evaluators import retrieval_two_stage_eval
 
 
@@ -48,11 +49,12 @@ def eval_split(cfg, tokzr) -> tuple[str, RetrievalDataset]:
 
 def main(argv=None, *, device="cuda", decode=None) -> dict:
     device = common.run_device(device, decode)
-    cfg = common.setup_run(common.parse_cli(__doc__, argv))
+    cfg = common.setup_run(common.parse_cli(__doc__, argv), device)
     split, ds = eval_split(cfg, common.get_tokenizer(cfg))
     model = build_model(cfg, device)
     report = common.load_initial_params(cfg, model)
-    metrics = retrieval_two_stage_eval(model, DecodedClips(ds, device, decode), device=device)
+    metrics = retrieval_two_stage_eval(model, DecodedClips(ds, device, decode), device=device,
+                                       dp=default_data_parallel())
     print(json.dumps({"task": cfg.task, "split": split, **metrics}), flush=True)
     return {"run_dir": cfg.path_output, "load": report, "split": split, **metrics}
 

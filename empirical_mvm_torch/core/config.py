@@ -3,10 +3,21 @@
 The port's own copy of ``empirical_mvm_tpu/core/config.py``: the same
 dataclasses, field names and defaults, so the task JSON files in ``configs/``
 load unchanged into either package. Field names mirror the reference's
-``_args/args_*.json`` keys (ref: utils/args.py:24-231). Knobs that only
-select JAX code paths (remat, scan, the Pallas switches and the FSDP
-settings) have no field here, and ``load_run_config`` rejects every key
-it does not know, so such a setting fails loudly instead of being dropped.
+``_args/args_*.json`` keys (ref: utils/args.py:24-231). ``load_run_config``
+accepts the JSON keys the JAX package accepts, apart from those that only
+select JAX code paths (``scan`` and the Pallas switches), which have no field
+here: it rejects every key it does not know, so such a setting fails loudly
+instead of being dropped.
+
+``remat`` (``SwinConfig``, ``BertConfig``) recomputes each swin block or
+BERT layer in the backward (``torch.utils.checkpoint``), as JAX's
+``nn.remat`` does. ``fsdp`` / ``fsdp_min_size`` (``TrainConfig``) shard the
+parameters and moments over the ranks (``parallel/mesh.py``
+``shard_model``): JAX decides per leaf (a leaf under ``fsdp_min_size``
+elements stays replicated, the others split their largest divisible dim),
+FSDP2 per module, so here a swin block or BERT layer of at least
+``fsdp_min_size`` elements splits each of its parameters on the first dim,
+and everything outside such blocks stays replicated.
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ class SwinConfig:
     drop_path_rate: float = 0.2
     patch_norm: bool = True
     final_norm: bool = True  # HF 2D Swin hidden_states[-1] is pre-norm
+    remat: bool = False      # recompute each block in the backward
 
     @property
     def num_features(self) -> int:
@@ -94,6 +106,7 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     hidden_dropout_prob: float = 0.1
     attention_probs_dropout_prob: float = 0.1
+    remat: bool = False      # recompute each layer in the backward
 
     @classmethod
     def base_uncased(cls) -> "BertConfig":
@@ -182,6 +195,8 @@ class TrainConfig:
     logging_steps: int = 20
     grad_accum: int = 1
     profile_n_steps: int = 0            # >0: a torch.profiler trace of N steps (train/agent.py)
+    fsdp: bool = False                  # shard parameters and moments over the ranks
+    fsdp_min_size: int = 2 ** 18        # blocks smaller than this stay replicated
     # param-path prefixes excluded from updates (ref: model.py:163-172
     # freeze_vis_encoder/freeze_bert; args.py:59 --freeze_violet maps to
     # ("enc_img", "enc_txt", "trsfr"))
@@ -256,7 +271,8 @@ _MODEL_KEYS = {"vis_backbone", "vis_backbone_size", "temporal_fusion",
 _TRAIN_KEYS = {"lr", "decay", "max_grad_norm", "size_batch", "size_epoch",
                "seed", "temp", "p_mask", "pretrain_tasks", "pretrain_masks",
                "mvm_target", "clip_arch", "vis_backbone_lr_mul", "lr_mult_head",
-               "logging_steps", "warmup_ratio", "freeze", "profile_n_steps"}
+               "logging_steps", "warmup_ratio", "freeze", "profile_n_steps",
+               "fsdp", "fsdp_min_size"}
 _DATA_KEYS = {"data_dir", "dataset", "task", "data_ratio", "n_workers",
               "size_part", "img_transform", "multi_clip_testing", "mask_pos",
               "tokenizer", "prompt", "num_beams", "decode", "vq_path"}

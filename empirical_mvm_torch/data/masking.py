@@ -11,6 +11,10 @@ Split in two so that a test can feed the JAX package's draws to the port:
 * :func:`apply_masking` is deterministic given those draws: the MTM answers,
   the ``[MASK]`` substitution, the 32x pixel cover and the masked clip.
 
+Data parallel (``parallel.mesh.data_parallel``), every draw is made at the
+global batch's shape from the generator all ranks share, and each rank keeps
+its rows, so the ranks together draw what one process draws.
+
 ``am`` masking needs per-layer attentions and is not ported.
 """
 
@@ -19,6 +23,8 @@ from __future__ import annotations
 from typing import NamedTuple, Sequence
 
 import torch
+
+from empirical_mvm_torch.parallel.mesh import global_rows, local_rows
 
 MASK_TYPES = ("rm", "bm")
 
@@ -91,7 +97,7 @@ def draw_masks(gen: torch.Generator, txt: torch.Tensor, t: int, h: int, w: int, 
                special_token_ids: Sequence[int], mask_token_id: int,
                p_mask: float = 0.15, mask_types: Sequence[str] = ("bm", "rm")) -> MaskDraws:
     """The random part of the JAX ``apply_masking`` for ``rm`` and ``bm``,
-    on ``gen``'s device."""
+    on ``gen``'s device: drawn for the global batch, this rank's rows kept."""
     for mt in mask_types:
         if mt not in MASK_TYPES:
             raise NotImplementedError(f"mask type {mt!r} is not ported")
@@ -101,15 +107,17 @@ def draw_masks(gen: torch.Generator, txt: torch.Tensor, t: int, h: int, w: int, 
         return MaskDraws(torch.zeros(b, dtype=torch.int64, device=dev),
                          torch.zeros((len(mask_types), b, t, h, w), device=dev),
                          torch.zeros(txt.shape, dtype=torch.bool, device=dev))
-    choice = _randint(gen, 0, len(mask_types), (b,), dev)
-    txt_sel = (_uniform(gen, txt.shape, dev) < p_mask) & ~special_tokens(
+    g = global_rows(b)
+    choice = local_rows(_randint(gen, 0, len(mask_types), (g,), dev))
+    txt_sel = (local_rows(_uniform(gen, (g, *txt.shape[1:]), dev)) < p_mask) & ~special_tokens(
         txt, special_token_ids, mask_token_id)
     covs = []
     for mt in mask_types:
         if mt == "rm":
-            covs.append((_uniform(gen, (b, t, h, w), dev) < p_mask).float())
+            covs.append(local_rows((_uniform(gen, (g, t, h, w), dev) < p_mask).float()))
         else:
-            covs.append(tube_cover(bm_tubes(gen, b, t, h, w, dev), t, h, w))
+            tubes = tuple(local_rows(v) for v in bm_tubes(gen, g, t, h, w, dev))
+            covs.append(tube_cover(tubes, t, h, w))
     return MaskDraws(choice, torch.stack(covs), txt_sel)
 
 

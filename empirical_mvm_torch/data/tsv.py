@@ -22,14 +22,16 @@ logger = logging.getLogger(__name__)
 
 
 def generate_lineidx(tsv_path: str, idx_path: str) -> None:
-    """Build the byte-offset sidecar (ref: utils/tsv_file_ops.py lineidx gen)."""
+    """Build the byte-offset sidecar (ref: utils/tsv_file_ops.py lineidx gen).
+    Each process writes its own temporary file: ranks that open the same
+    TSV at once each rename a whole sidecar into place."""
     offsets = []
     with open(tsv_path, "rb") as f:
         pos = 0
         for line in f:
             offsets.append(pos)
             pos += len(line)
-    tmp = idx_path + ".tmp"
+    tmp = f"{idx_path}.{os.getpid()}.tmp"
     with open(tmp, "w") as f:
         f.write("\n".join(str(o) for o in offsets) + ("\n" if offsets else ""))
     os.replace(tmp, idx_path)

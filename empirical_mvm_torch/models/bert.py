@@ -13,7 +13,8 @@ Training: a generator passed to ``forward`` turns on hidden dropout at the
 JAX package's sites (after the embeddings' LayerNorm, after the attention
 output projection, after the layer's output projection) and the
 attention-probability dropout inside the attention kernel. No generator is
-the deterministic pass.
+the deterministic pass. ``remat`` recomputes each layer in the backward
+(``models/common.remat``).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from empirical_mvm_torch.core.config import BertConfig
-from empirical_mvm_torch.models.common import Linear, dropout
+from empirical_mvm_torch.models.common import Linear, dropout, remat
 from empirical_mvm_torch.ops.layernorm import FusedLayerNorm
 from empirical_mvm_torch.ops.window_attention import (lane_sa_attention_fits,
                                                       lane_self_attention,
@@ -152,6 +153,7 @@ class BertEncoder(nn.Module):
         super().__init__()
         self.layer = nn.ModuleList([BertLayer(cfg, dtype)
                                     for _ in range(cfg.num_hidden_layers)])
+        self.remat = cfg.remat
 
     def forward(self, x, attn_bias=None, generator=None):
         """attn_bias: additive (B, 1, 1 or L, L) fp32 from
@@ -162,7 +164,7 @@ class BertEncoder(nn.Module):
         else:
             mask = attn_bias.float().reshape(b, *attn_bias.shape[2:]).expand(b, l, l)
         for layer in self.layer:
-            x = layer(x, mask, generator)
+            x = remat(layer, generator, x, mask) if self.remat else layer(x, mask, generator)
         return x
 
 

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from empirical_mvm_torch.ops.layernorm import LayerNorm
@@ -70,3 +71,31 @@ def init_weights(module: nn.Module, generator: torch.Generator,
                 p.zero_()
             else:
                 p.normal_(0.0, std, generator=generator)
+
+
+def remat(fn, generator: torch.Generator | None, *args):
+    """``fn(*args, generator)`` with its activations recomputed in the
+    backward (``torch.utils.checkpoint``, non-reentrant; JAX ``nn.remat``).
+
+    Dropout, drop path and the kernels' Philox seeds draw from the explicit
+    ``generator``, which checkpoint's ``preserve_rng_state`` does not cover:
+    the recompute starts it from its state at the block's entry, so it draws
+    the same masks, and puts it back afterwards, so that the generator ends
+    the step where the pass without remat leaves it."""
+    if not torch.is_grad_enabled():
+        return fn(*args, generator)
+    entry = None if generator is None else generator.get_state()
+    first = [True]
+
+    def run(*a):
+        if first[0] or generator is None:   # the forward: draws as without remat
+            first[0] = False
+            return fn(*a, generator)
+        after = generator.get_state()
+        generator.set_state(entry)
+        try:
+            return fn(*a, generator)
+        finally:
+            generator.set_state(after)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)

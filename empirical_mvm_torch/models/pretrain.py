@@ -31,6 +31,11 @@ caption once more under the ``seq2seq`` joint mask and scores the MLM head
 there against the MTM answers (ref: main_pretrain.py:253-258). A clip the
 loader marks ``corrupt`` is zeroed after normalization and left out of the
 hog loss. ``am`` masking is not ported.
+
+Data parallel (``parallel.mesh.data_parallel``), the negatives are drawn for
+the global batch and index the captions of every rank, gathered in global
+order with their gradient, and O = min(global B, num_options), as one
+process over the global batch does.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from empirical_mvm_torch.models.video_swin import SwinTransformer3D
 from empirical_mvm_torch.models.violet import ScoreHead, VioletBase
 from empirical_mvm_torch.ops.hog import hog_image
 from empirical_mvm_torch.ops.preprocess import maybe_normalize
+from empirical_mvm_torch.parallel.mesh import gather_rows, global_rows, local_rows
 from empirical_mvm_torch.teachers.clip import CLIPVisual, renormalize_imagenet_to_clip
 from empirical_mvm_torch.teachers.dpt import DPTDepth
 from empirical_mvm_torch.teachers.dvae import DvaeEncoder
@@ -216,14 +222,15 @@ class VioletPretrain(VioletBase):
 
     def forward(self, img, txt, mask, neg_idx=None, generator=None):
         """One pretrain forward (ref: main_pretrain.py:226-267) on a masked
-        batch. ``neg_idx`` (B, O-1) names each row's negative captions; with
-        O = min(B, num_options) > 1 it is required. Returns the MTM logits,
+        batch. ``neg_idx`` (B, O-1) names each row's negative captions (rows
+        of the global batch); with O = min(global B, num_options) > 1 it is
+        required. Returns the MTM logits,
         the fused video tokens, the VTM logits (positive first) and, with
         the ``smtm`` task, the MLM logits of a second fusion of the same
         features under the seq2seq mask (``out_smtm``)."""
         b, t = img.shape[:2]
         h = w = img.shape[2] // self.config.size_patch
-        o = min(b, self.num_options)
+        o = min(global_rows(b), self.num_options)
         fi, mi, ft, mt = self.go_feat(img, txt, mask, generator)
         if o > 1:
             if neg_idx is None or neg_idx.shape != (b, o - 1):
@@ -232,7 +239,8 @@ class VioletPretrain(VioletBase):
             all_out = self.go_cross(
                 torch.cat([fi, fi.repeat_interleave(o - 1, 0)]),
                 torch.cat([mi, mi.repeat_interleave(o - 1, 0)]),
-                torch.cat([ft, ft[flat]]), torch.cat([mt, mt[flat]]), generator)
+                torch.cat([ft, gather_rows(ft)[flat]]),
+                torch.cat([mt, gather_rows(mt)[flat]]), generator)
             out, p_out = all_out[:b], all_out[b:]
         else:
             out, p_out = self.go_cross(fi, mi, ft, mt, generator), None
@@ -281,9 +289,9 @@ class VioletPretrain(VioletBase):
                                mask_types=self.pretrain_masks)
         mb = apply_masking(draws, img, txt, None if self.vq_on_the_fly else vq,
                            mask_token_id=self.mask_token_id, patch_size=ps)
-        o = min(b, self.num_options)
+        o = min(global_rows(b), self.num_options)
         if neg_idx is None and o > 1:
-            neg_idx = draw_negatives(mask_generator, b, o - 1)
+            neg_idx = local_rows(draw_negatives(mask_generator, global_rows(b), o - 1))
         out = self(mb.img, mb.txt, mask, neg_idx, generator)
         ls = {"mtm": cross_entropy_ignore(out["out_mtm"], mb.ans_mtm),
               "vtm": cross_entropy_ignore(out["out_vtm"] / self.temp,

@@ -11,7 +11,10 @@ Every model is built on ``device`` (the card unless the caller asks for the
 CPU) with parameters drawn from ``seed``; load a converted checkpoint with
 ``load_state_dict`` to replace them. ``forward`` with a ``generator`` runs
 the training pass (dropout, drop path and the gumbel noise drawn from it),
-without one the deterministic pass.
+without one the deterministic pass. Data parallel
+(``parallel.mesh.data_parallel``), retrieval scores this rank's videos
+against every rank's captions, and the gumbel noise is drawn for the global
+batch.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from empirical_mvm_torch.core.config import ModelConfig
 from empirical_mvm_torch.models.bert import BertMLMHead, extended_attention_mask
 from empirical_mvm_torch.models.common import Linear, init_weights
 from empirical_mvm_torch.models.violet import ScoreHead, VioletBase
+from empirical_mvm_torch.parallel.mesh import gather_rows, global_rows, local_rows
 
 
 def _cls_pos(img_shape, size_patch: int) -> int:
@@ -58,13 +62,16 @@ class VioletRetrieval(_Task):
 
     def forward(self, img, txt, mask, generator=None):
         """All-pairs scores (B, B): row i is video i against every caption,
-        the pairs row-major (ref: main_retrieval.py:71-76)."""
+        the pairs row-major (ref: main_retrieval.py:71-76). Data parallel,
+        this rank's videos against the global batch's captions (B / W, B)."""
         b = img.shape[0]
         cls_pos = _cls_pos(img.shape, self.config.size_patch)
         fi, mi, ft, mt = self.go_feat(img, txt, mask, generator)
-        out = self.go_cross(fi.repeat_interleave(b, 0), mi.repeat_interleave(b, 0),
+        ft, mt = gather_rows(ft), gather_rows(mt)
+        n = ft.shape[0]
+        out = self.go_cross(fi.repeat_interleave(n, 0), mi.repeat_interleave(n, 0),
                             torch.cat([ft] * b), torch.cat([mt] * b), generator)
-        return self.fc(out[:, cls_pos], generator).reshape(b, b)
+        return self.fc(out[:, cls_pos], generator).reshape(b, n)
 
     def encode(self, img, txt, mask):
         """Stage-1 features of the two-stage eval. ``img`` is (B, Clips, T, H,
@@ -88,8 +95,11 @@ class VioletRetrieval(_Task):
 
 def draw_gumbel(shape, generator: torch.Generator) -> torch.Tensor:
     """Standard Gumbel draws, -log(-log(u)) of u uniform on [tiny, 1), as
-    ``jax.random.gumbel`` makes them."""
-    u = torch.rand(shape, generator=generator, device=generator.device)
+    ``jax.random.gumbel`` makes them; ``shape[0]`` is this rank's rows of
+    the global batch."""
+    u = torch.rand((global_rows(shape[0]), *shape[1:]), generator=generator,
+                   device=generator.device)
+    u = local_rows(u)
     return -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
 
 

@@ -36,7 +36,8 @@ bias table gets its gradient through autograd of the index gather (the JAX
 package's ``rel_pos_bias`` custom VJP is an XLA op). Dropout inside the
 blocks (``drop_rate``, ``attn_drop_rate``) is not ported: every reference
 config sets both to 0, and the direct attention kernel needs
-``attn_drop_rate == 0``. Scan and remat are not ported.
+``attn_drop_rate == 0``. ``remat`` recomputes each block in the backward
+(``models/common.remat``); scan is not ported.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from empirical_mvm_torch.core.config import SwinConfig
-from empirical_mvm_torch.models.common import Linear
+from empirical_mvm_torch.models.common import Linear, remat
 from empirical_mvm_torch.ops.layernorm import FusedLayerNorm, LayerNorm
 from empirical_mvm_torch.ops.patch_embed import patch_embed_3d
 from empirical_mvm_torch.ops.window_attention import (direct_window_attention,
@@ -278,8 +279,9 @@ class BasicLayer(nn.Module):
     def __init__(self, dim, depth, num_heads, window_size, mlp_ratio=4.0,
                  qkv_bias=True, qk_scale=None, downsample=False,
                  dtype=torch.float32, drop_path_rates: Sequence[float] = (),
-                 norm=LayerNorm):
+                 norm=LayerNorm, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.window_size = tuple(window_size)
         half = tuple(s // 2 for s in self.window_size)
         rates = list(drop_path_rates) or [0.0] * depth
@@ -305,7 +307,7 @@ class BasicLayer(nn.Module):
         dims = tuple(-(-s // ws) * ws for s, ws in zip((d, h, w), window))
         mask = self._shift_mask(dims, window, shift, x.device)
         for blk in self.blocks:
-            x = blk(x, mask, generator)
+            x = remat(blk, generator, x, mask) if self.remat else blk(x, mask, generator)
         if self.downsample is not None:
             x = self.downsample(x)
         return x
@@ -353,7 +355,8 @@ class SwinTransformer3D(nn.Module):
             BasicLayer(cfg.embed_dim * 2 ** i, depth, cfg.num_heads[i],
                        cfg.window_size, cfg.mlp_ratio, cfg.qkv_bias,
                        cfg.qk_scale, downsample=i < n - 1, dtype=dtype,
-                       drop_path_rates=dpr[starts[i]:starts[i] + depth], norm=norm)
+                       drop_path_rates=dpr[starts[i]:starts[i] + depth], norm=norm,
+                       remat=cfg.remat)
             for i, depth in enumerate(cfg.depths)])
         self.norm = norm(cfg.num_features) if cfg.final_norm else None
 

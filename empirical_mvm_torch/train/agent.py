@@ -3,7 +3,8 @@
 main_retrieval.py:87-124, main_qamc.py:105-183, main_pretrain.py:269-619):
 epochs with the zero-shot eval first, the EMA loss meters, the logging
 cadence, checkpoints each epoch by the main process, best-epoch tracking,
-the resumable state and the profiler window, on one card.
+the resumable state and the profiler window, on one card or, in a process
+group that ``torch.distributed.run`` started, on one card a rank.
 
 An agent owns the model (its parameters are the train state's), the
 optimizer of ``train/optimizer.build_optimizer`` and its step
@@ -12,6 +13,14 @@ optimizer of ``train/optimizer.build_optimizer`` and its step
 ``decode``). A step's losses stay device tensors until a logging step
 drains them into the meters, in order, so the loop never waits for the card
 between logging steps.
+
+Across ranks (``parallel/mesh.py``), ``train.size_batch`` is the global
+batch and each rank's loaders give it ``size_batch / W`` rows; the model's
+parameters are replicated or, with ``train.fsdp``, its blocks sharded, before
+the optimizer is built; the steps reduce over the ranks, so the losses every
+rank logs are the global ones and every rank holds the same state. Rank 0
+writes checkpoints, logs and the profile; the others wait at a barrier
+after each write.
 """
 
 from __future__ import annotations
@@ -29,7 +38,9 @@ import torch
 
 from empirical_mvm_torch.core.config import RunConfig
 from empirical_mvm_torch.data.loader import DevicePrefetcher
-from empirical_mvm_torch.parallel.mesh import is_main_process, pad_batch
+from empirical_mvm_torch.parallel.mesh import (barrier, data_parallel, default_data_parallel,
+                                               is_main_process, pad_batch, per_rank_batch,
+                                               reduce_losses, shard_model)
 from empirical_mvm_torch.train.checkpoint import (load_train_state, save_params,
                                                   save_train_state)
 from empirical_mvm_torch.train.metrics import MetricsLogger, profiler, write_trace
@@ -78,6 +89,9 @@ class AgentBase:
         self.device = torch.device(device)
         self.decode = decode
         self.max_iter = max_iter or max(tc.max_iter, 1)
+        self.dp = default_data_parallel()
+        self.local_batch = per_rank_batch(tc.size_batch, 1 if self.dp is None else self.dp.world)
+        self.sharded = shard_model(model, self.dp, tc.fsdp, tc.fsdp_min_size)
         self.opt = build_optimizer(model, tc, self.max_iter)
         self.state = create_train_state(model, self.opt)
         self.seed = tc.seed
@@ -99,7 +113,7 @@ class AgentBase:
     # ---- loops ----
 
     def _maybe_profile_start(self) -> None:
-        if (self.cfg.train.profile_n_steps > 0 and self._profiler is None
+        if (self.cfg.train.profile_n_steps > 0 and self._profiler is None and is_main_process()
                 and self.global_step == self.PROFILE_FROM):
             self._profiler = profiler(self.device)
             self._profiler.start()
@@ -150,33 +164,35 @@ class AgentBase:
 
     def eval_batches(self, loader: Iterable):
         """Yield (batch, device batch, n_valid): each tail batch padded to
-        the training batch size, as the JAX eval's one compiled shape."""
+        the rank's share of the training batch, as the JAX eval's one
+        compiled shape."""
         for _tag, batch in self.batches(loader):
-            db, n_valid = pad_batch(device_batch(batch), self.cfg.train.size_batch)
+            db, n_valid = pad_batch(device_batch(batch), self.local_batch)
             yield batch, db, n_valid
 
     def save(self, epoch: int, tag: str | None = None) -> None:
-        """(ref: agent.py:134-141)"""
-        if not is_main_process():
-            return
+        """(ref: agent.py:134-141) Every rank calls it (a sharded model is
+        gathered); rank 0 writes."""
         tag = tag or self.cfg.task
         path = os.path.join(self.cfg.path_output, f"ckpt_violet_{tag}_{epoch}.msgpack")
         save_params(self.model, path, meta={"epoch": epoch, "step": self.global_step,
                                             "task": self.cfg.task})
-        with open(os.path.join(self.cfg.path_output, "log.json"), "w") as f:
-            json.dump({k: v for k, v in self.log.items()}, f, indent=2, default=float)
-        logger.info("saved %s", path)
+        if is_main_process():
+            with open(os.path.join(self.cfg.path_output, "log.json"), "w") as f:
+                json.dump({k: v for k, v in self.log.items()}, f, indent=2, default=float)
+            logger.info("saved %s", path)
+        barrier()
 
     def save_resumable(self, tag: str = "restore") -> None:
-        """Full-resume checkpoint with the optimizer state (double-buffered)."""
-        if not is_main_process():
-            return
+        """Full-resume checkpoint with the optimizer state (double-buffered);
+        every rank calls it, rank 0 writes."""
         save_train_state(self.state, os.path.join(self.cfg.path_output, f"{tag}.state"),
                          meta={"step": self.global_step, "task": self.cfg.task})
+        barrier()
 
     def resume(self, tag: str = "restore") -> bool:
         """Restore parameters, optimizer and step if a resume checkpoint
-        exists."""
+        exists; every rank reads the same file."""
         path = os.path.join(self.cfg.path_output, f"{tag}.state")
         if not (os.path.exists(path) or os.path.exists(path + ".backup")):
             return False
@@ -215,7 +231,7 @@ class PretrainAgent(AgentBase):
     """(ref: Agent_Pretrain at main_pretrain.py:269-610)"""
 
     def _build_steps(self):
-        self.train_step = make_pretrain_train_step(self.model, self.opt)
+        self.train_step = make_pretrain_train_step(self.model, self.opt, self.dp)
 
     def make_val_fn(self, val_loaders: dict[str, Iterable], max_batches: int = 16) -> Callable:
         """Validation losses over the val loaders (ref:
@@ -224,8 +240,9 @@ class PretrainAgent(AgentBase):
         a generator seeded from ``seed + 1`` (the JAX fixed key), so each
         eval masks the same tokens and patches. Tail batches are padded to
         the train batch size. At most ``max_batches`` a loader; the count
-        is logged beside the means."""
-        model, b, seed = self.model, self.cfg.train.size_batch, self.cfg.train.seed + 1
+        is logged beside the means. Across ranks, the losses of the global
+        batch."""
+        model, b, seed = self.model, self.local_batch, self.cfg.train.seed + 1
 
         @torch.no_grad()
         def eval_fn():
@@ -239,10 +256,12 @@ class PretrainAgent(AgentBase):
                         if cnt == max_batches:
                             break
                         db, _ = pad_batch(device_batch(batch), b)
-                        ls = model.losses(
-                            db["img"], db["txt"], db["mask"],
-                            mask_generator=torch.Generator(self.device).manual_seed(seed),
-                            vq=db.get("vq"), hog=db.get("hog"), corrupt=db.get("corrupt"))
+                        with data_parallel(self.dp):
+                            ls = model.losses(
+                                db["img"], db["txt"], db["mask"],
+                                mask_generator=torch.Generator(self.device).manual_seed(seed),
+                                vq=db.get("vq"), hog=db.get("hog"), corrupt=db.get("corrupt"))
+                        ls = reduce_losses(ls, self.dp)
                         for k, v in ls.items():
                             sums[k] += float(v)
                         cnt += 1
@@ -298,8 +317,8 @@ def make_supervised_agent(loss_kind: str):
     class SupervisedAgent(AgentBase):
         def _build_steps(self):
             self.train_step = make_supervised_train_step(self.model, self.opt, loss_kind,
-                                                         self.cfg.train.temp)
-            self.eval_forward = make_eval_step(self.model)
+                                                         self.cfg.train.temp, self.dp)
+            self.eval_forward = make_eval_step(self.model, self.dp)
 
     SupervisedAgent.__name__ = f"SupervisedAgent_{loss_kind}"
     return SupervisedAgent
@@ -318,7 +337,8 @@ class CaptionAgent(AgentBase):
     (``data.decode``), or ``generate_beam`` when ``data.num_beams > 1``."""
 
     def _build_steps(self):
-        self.train_step = make_supervised_train_step(self.model, self.opt, "caption")
+        self.train_step = make_supervised_train_step(self.model, self.opt, "caption",
+                                                     dp=self.dp)
 
     @torch.no_grad()
     def generate(self, img: torch.Tensor) -> torch.Tensor:

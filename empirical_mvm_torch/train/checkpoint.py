@@ -16,6 +16,11 @@ ref: agent.py:127-141 save_model, model.py:295-353 lenient load).
 resumable state (parameters, AdamW moments, step) in the same codec, with a
 double-buffered write (ref: utils/load_save.py:217-338 TrainingRestorer);
 each package resumes its own runs.
+
+Under FSDP (``parallel/mesh.py`` ``shard_model``) every rank calls the
+writers, which gather the shards whole (a collective) and leave the writing
+to rank 0: the file is the one a replicated run writes. The loaders read the
+whole file on every rank and copy each rank its shard.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ from empirical_mvm_torch.core.retry import retry_io
 from empirical_mvm_torch.models.convert import (flax_from_state_dict, per_layer_layout,
                                                 remap_swinbert_keys, report_key_diff,
                                                 slice_pos_embs, state_dict_from_flax)
+from empirical_mvm_torch.parallel.mesh import (fill_from_full, full_state_dict, full_tensor,
+                                               is_main_process)
 from empirical_mvm_torch.train.train_step import TrainState
 
 logger = logging.getLogger(__name__)
@@ -100,12 +107,15 @@ def save_params(params: nn.Module | Mapping[str, torch.Tensor], path: str,
                 meta: dict | None = None, heads: Mapping[str, str] | None = None) -> None:
     """A model (or its ``state_dict``) to ``path`` as the flax param tree;
     atomic. ``heads`` as ``flax_from_state_dict`` takes it (by default
-    every head, of the kind its structure shows). Main-process gating is
-    the caller's job (ref: agent.py:134-141)."""
+    every head, of the kind its structure shows). A sharded model is
+    gathered whole, so every rank calls this and rank 0 writes (ref:
+    agent.py:134-141)."""
     if not path.endswith((".msgpack", ".npz")):
         raise ValueError(f"unknown checkpoint format: {path}")
+    sd = full_state_dict(params) if isinstance(params, nn.Module) else params
+    if not is_main_process():
+        return
     os.makedirs(op.dirname(op.abspath(path)), exist_ok=True)
-    sd = params.state_dict() if isinstance(params, nn.Module) else params
     tree = flax_from_state_dict(sd, heads=heads)
     if path.endswith(".msgpack"):
         _write_msgpack(tree, path, f"ckpt write {path}")
@@ -134,17 +144,25 @@ def load_params(path: str) -> dict[str, torch.Tensor]:
     return state_dict_from_flax(per_layer_layout(load_tree(path)))
 
 
+def _whole(tree):
+    if isinstance(tree, dict):
+        return {k: _whole(v) for k, v in tree.items()}
+    return full_tensor(tree.detach()) if isinstance(tree, torch.Tensor) else tree
+
+
 def _state_tree(state: TrainState) -> dict:
-    return {"params": {n: p.detach() for n, p in state.params.items()},
-            "opt_state": state.opt_state, "step": int(state.step)}
+    return {"params": state.params, "opt_state": state.opt_state, "step": int(state.step)}
 
 
 def save_train_state(state: TrainState, path: str, meta: dict | None = None) -> None:
     """Full-resume checkpoint: parameters, optimizer state and step. Writes
     ``path`` through a temporary file, then rotates the previous one to
-    ``path.backup``."""
+    ``path.backup``. Every rank calls it; rank 0 writes."""
+    tree = _whole(_state_tree(state))
+    if not is_main_process():
+        return
     os.makedirs(op.dirname(op.abspath(path)), exist_ok=True)
-    _write_msgpack(_state_tree(state), path, f"train-state write {path}", rotate=True)
+    _write_msgpack(tree, path, f"train-state write {path}", rotate=True)
     _write_meta(path, meta)
 
 
@@ -169,8 +187,7 @@ def _copy_into(like: dict, saved: dict) -> dict:
     for k, a in like.items():
         b = saved[k]
         if isinstance(a, torch.Tensor):
-            with torch.no_grad():
-                a.copy_(torch.as_tensor(b).to(a.dtype))
+            fill_from_full(a, b)
             out[k] = a
         elif isinstance(a, dict):
             out[k] = _copy_into(a, b)
@@ -184,7 +201,7 @@ def load_train_state(path: str, like: TrainState) -> TrainState:
     place); falls back to ``path.backup`` where the primary file does not
     restore, and raises ``FileNotFoundError`` where neither does (ref:
     utils/load_save.py restore-with-retry)."""
-    want = _state_tree(like)
+    want = _state_tree(like)       # shapes of a DTensor are the whole tensor's
     for candidate in (path, path + ".backup"):
         try:
             saved = msgpack.unpackb(_read(candidate))
@@ -192,7 +209,7 @@ def load_train_state(path: str, like: TrainState) -> TrainState:
         except Exception as e:  # noqa: BLE001 — a corrupt or missing buffer
             logger.warning("restore from %s failed: %s", candidate, e)
             continue
-        _copy_into(want["params"], saved["params"])      # detached views of the parameters
+        _copy_into(want["params"], saved["params"])
         opt_state = _copy_into(like.opt_state, saved["opt_state"])
         return TrainState(params=like.params, opt_state=opt_state, step=int(saved["step"]))
     raise FileNotFoundError(f"no restorable train state at {path}")

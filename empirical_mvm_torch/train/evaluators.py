@@ -18,6 +18,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from empirical_mvm_torch.parallel.mesh import (DataParallel, all_gather_objects,
+                                               all_reduce_coalesced)
+
 
 def rank_metrics(score_matrix: np.ndarray, gt_idx: Sequence[int]) -> dict:
     """R@1/5/10 + MedR from a (n_text, n_video) score matrix
@@ -72,11 +75,13 @@ def qaoe_mlm_topk(mlm_logits: np.ndarray, mask_ans: np.ndarray, k: int = 5) -> l
     return accs
 
 
-def in_batch_retrieval_accuracy(scores: np.ndarray) -> float:
+def in_batch_retrieval_accuracy(scores: np.ndarray, rank: int = 0, world: int = 1) -> float:
     """Share of the rows of a (B, B) score matrix whose largest score is on
     the diagonal, the retrieval fine-tune's validation metric
-    (ref: main_retrieval.py:103-106)."""
-    return float((np.argmax(scores, axis=1) == np.arange(len(scores))).mean())
+    (ref: main_retrieval.py:103-106). Across ranks, ``scores`` is rank
+    ``rank``'s rows (B / W, B), row i's own caption at column i * W + rank."""
+    own = np.arange(len(scores)) * world + rank
+    return float((np.argmax(scores, axis=1) == own).mean())
 
 
 def _sync(device: torch.device) -> None:
@@ -85,7 +90,8 @@ def _sync(device: torch.device) -> None:
 
 
 def retrieval_two_stage_eval(model, dataset, *, chunk_size: int = 512,
-                             encode_batch: int = 32, device="cuda") -> dict:
+                             encode_batch: int = 32, device="cuda",
+                             dp: DataParallel | None = None) -> dict:
     """Encode every item, cross-score all (text, video) pairs, rank.
 
     ``model`` is a :class:`VioletRetrieval` on ``device``. ``dataset`` has
@@ -99,13 +105,23 @@ def retrieval_two_stage_eval(model, dataset, *, chunk_size: int = 512,
     padded to full size. Besides the metrics, the result holds the seconds of
     each stage (``_stage1_s``, ``_stage2_s``, each ending in a device
     synchronise) and the work done (``_clips``, ``_pairs``).
+
+    With ``dp``, rank r encodes the stage-1 batches and scores the stage-2
+    chunks whose index is r modulo W, each the batch or chunk one process
+    makes; the banks and the score matrix are summed over the ranks from
+    zeros, which assembles them exactly, so every rank ranks the one-process
+    scores (JAX pads the pair list to the mesh instead). Every rank reads
+    every item.
     """
     device = torch.device(device)
+    rank, world = (0, 1) if dp is None else (dp.rank, dp.world)
     n = len(dataset)
     items = [dataset.multi_clip_item(i) for i in range(n)]
     by_clips: dict[int, list[int]] = {}
     for i, it in enumerate(items):
         by_clips.setdefault(it["img"].shape[0], []).append(i)
+    batches = [idxs[c0:c0 + encode_batch] for idxs in by_clips.values()
+               for c0 in range(0, len(idxs), encode_batch)]
 
     def put(arrays):
         return torch.stack([torch.as_tensor(a) for a in arrays]).to(device)
@@ -113,35 +129,40 @@ def retrieval_two_stage_eval(model, dataset, *, chunk_size: int = 512,
     with torch.inference_mode():
         _sync(device)
         t0 = time.perf_counter()
-        rows: dict[int, tuple[int, int]] = {}        # item -> (batch, row)
-        outs: list[tuple[torch.Tensor, ...]] = []
-        for idxs in by_clips.values():
-            for c0 in range(0, len(idxs), encode_batch):
-                sel = idxs[c0:c0 + encode_batch]
-                outs.append(model.encode(put([items[i]["img"] for i in sel]),
-                                         put([items[i]["txt"] for i in sel]),
-                                         put([items[i]["mask"] for i in sel])))
-                rows.update({i: (len(outs) - 1, j) for j, i in enumerate(sel)})
+        banks: list[torch.Tensor] | None = None          # per output, (n, ...)
+        for j, sel in enumerate(batches):
+            if j % world != rank:
+                continue
+            outs = model.encode(put([items[i]["img"] for i in sel]),
+                                put([items[i]["txt"] for i in sel]),
+                                put([items[i]["mask"] for i in sel]))
+            if banks is None:
+                banks = [torch.zeros((n, *o.shape[1:]), dtype=o.dtype, device=device)
+                         for o in outs]
+            rows = torch.as_tensor(sel, device=device)
+            for bank, o in zip(banks, outs):
+                bank[rows] = o
+        if dp is not None:
+            banks = _assemble(banks, device)
         _sync(device)
         t1 = time.perf_counter()
-
-        def bank(k: int, order: Sequence[int]) -> torch.Tensor:
-            return torch.stack([outs[rows[i][0]][k][rows[i][1]] for i in order])
 
         vids = sorted({it["vid"] for it in items})
         first = {}                                   # first item of each video
         for i, it in enumerate(items):
             first.setdefault(it["vid"], i)
-        vrows = [first[v] for v in vids]
-        fi, mi = bank(0, vrows), bank(1, vrows)
-        ft, mt = bank(2, range(n)), bank(3, range(n))
+        vrows = torch.as_tensor([first[v] for v in vids], device=device)
+        fi, mi = banks[0][vrows], banks[1][vrows]
+        ft, mt = banks[2], banks[3]
 
         n_txt, n_vid = n, len(vids)
         ti_all, vj_all = np.meshgrid(np.arange(n_txt), np.arange(n_vid), indexing="ij")
         ti_all, vj_all = ti_all.ravel(), vj_all.ravel()
         n_pairs = n_txt * n_vid
         scores = torch.zeros((n_txt, n_vid), dtype=torch.float32, device=device)
-        for c0 in range(0, n_pairs, chunk_size):
+        for j, c0 in enumerate(range(0, n_pairs, chunk_size)):
+            if j % world != rank:
+                continue
             ti = ti_all[c0:c0 + chunk_size]
             vj = vj_all[c0:c0 + chunk_size]
             k = len(ti)
@@ -152,6 +173,8 @@ def retrieval_two_stage_eval(model, dataset, *, chunk_size: int = 512,
             vj_d = torch.from_numpy(vj).to(device)
             out = model.score_pairs(fi[vj_d], mi[vj_d], ft[ti_d], mt[ti_d])
             scores[ti_d[:k], vj_d[:k]] = out[:k].float()
+        if dp is not None:
+            scores = _assemble([scores], device)[0]
         scores = scores.cpu().numpy()
         t2 = time.perf_counter()
 
@@ -162,3 +185,16 @@ def retrieval_two_stage_eval(model, dataset, *, chunk_size: int = 512,
                _clips=float(sum(it["img"].shape[0] for it in items)),
                _pairs=float(n_pairs))
     return out
+
+
+def _assemble(parts: list[torch.Tensor] | None, device) -> list[torch.Tensor]:
+    """Tensors each rank filled in its own rows of zeros, summed over the
+    ranks (exact: every element is one rank's value plus zeros). A rank that
+    encoded no batch takes the shapes from rank 0."""
+    spec = all_gather_objects(None if parts is None else
+                              [(tuple(p.shape), p.dtype) for p in parts])
+    spec = next(s for s in spec if s is not None)
+    if parts is None:
+        parts = [torch.zeros(shape, dtype=dt, device=device) for shape, dt in spec]
+    all_reduce_coalesced(parts)
+    return parts

@@ -28,9 +28,21 @@ schedule and global-norm clipping: the update of the JAX package's
   it counts them too (the PyTorch reference computes none; a teacher's
   gradient, run under no_grad, is zero on both sides).
 
+* Accumulation (``grad_accum`` k > 1): ``optax.MultiSteps(every_k_schedule=k)``
+  around all of the above. Each micro-step folds its gradient into a running
+  mean, ``acc + (g - acc) / (n + 1)`` (optax's Welford update); the k-th
+  runs the clip and AdamW on the mean and resets it. The parameters do not
+  move in between, and the inner ``count`` (the schedule's step and the bias
+  corrections) advances once every k micro-steps, while ``max_iter`` stays
+  the run's count of micro-steps, as the JAX agent passes it: the schedule
+  then reaches only 1/k of its length, as in the JAX package.
+
 Parameters and moments are updated in place (``torch._foreach_*`` over each
 group), which saves a copy of both; a trained parameter that received no
-gradient is updated as with a zero gradient, as under ``jax.grad``.
+gradient is updated as with a zero gradient, as under ``jax.grad``. Under
+FSDP (``parallel.mesh.shard_model``) parameters, gradients and moments are
+DTensor shards: the update runs on each rank's local shards, and the clip's
+norm sums the shards' squares over the ranks.
 """
 
 from __future__ import annotations
@@ -39,10 +51,12 @@ import re
 from typing import Callable, Iterable
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from empirical_mvm_torch.core.config import TrainConfig
 from empirical_mvm_torch.ops.layernorm import LayerNorm
+from empirical_mvm_torch.parallel.mesh import local_tensor
 
 GROUPS = ("swin_decay", "swin_nodecay", "other_decay", "other_nodecay")
 FROZEN = "frozen"
@@ -107,20 +121,38 @@ def _is_frozen(name: str, freeze_prefixes: tuple[str, ...]) -> bool:
                for mod in TEACHER_PREFIXES)
 
 
+def _global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """The l2 norm of every element of ``tensors``: the norm of the norms,
+    or with sharded tensors the square root of the squares summed over the
+    ranks' shards plus those of the replicated ones."""
+    sharded = [t for t in tensors if local_tensor(t) is not t]
+    if not sharded:
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+    plain = [t for t in tensors if local_tensor(t) is t]
+    sq = torch.stack(torch._foreach_norm([local_tensor(t) for t in sharded])).square().sum()
+    dist.all_reduce(sq, group=sharded[0].device_mesh.get_group())
+    if plain:
+        sq = sq + torch.stack(torch._foreach_norm(plain)).square().sum()
+    return sq.sqrt()
+
+
 class AdamW:
     """The optimizer of ``build_optimizer`` over a model's parameters.
 
     ``init(params)`` returns the state (step count and both moments of
-    every parameter that is not frozen); ``update(params, grads, state)``
-    clips, updates moments and parameters in place and returns the state.
+    every parameter that is not frozen; with ``grad_accum`` > 1 also the
+    micro-step and the running mean of every parameter's gradient);
+    ``update(params, grads, state)`` clips, updates moments and parameters
+    in place and returns the state.
     """
 
     def __init__(self, model: nn.Module, lr: float, max_iter: int,
                  weight_decay: float = 1e-3, betas: tuple[float, float] = (0.9, 0.98),
                  warmup_ratio: float = 0.1, min_lr: float = 1e-8,
                  max_grad_norm: float = 1.0, backbone_lr_mul: float = 1.0,
-                 frozen: Iterable[str] = ()):
+                 frozen: Iterable[str] = (), grad_accum: int = 1):
         self.labels = group_labels(model, frozen)
+        self.grad_accum = grad_accum
         self.betas, self.max_grad_norm = betas, max_grad_norm
         mul = {"swin": backbone_lr_mul, "other": 1.0}
         self.schedules = {g: warmup_linear_schedule(lr * mul[g.split("_")[0]], max_iter,
@@ -130,23 +162,46 @@ class AdamW:
 
     def init(self, params: dict[str, torch.Tensor]) -> dict:
         trained = {n: p for n, p in params.items() if self.labels[n] != FROZEN}
-        return {"count": 0,
-                "mu": {n: torch.zeros_like(p) for n, p in trained.items()},
-                "nu": {n: torch.zeros_like(p) for n, p in trained.items()}}
+        state = {"count": 0,
+                 "mu": {n: torch.zeros_like(p) for n, p in trained.items()},
+                 "nu": {n: torch.zeros_like(p) for n, p in trained.items()}}
+        if self.grad_accum > 1:
+            state["mini_step"] = 0
+            state["acc"] = {n: torch.zeros_like(p) for n, p in params.items()
+                            if p.requires_grad}
+        return state
 
     @torch.no_grad()
     def update(self, params: dict[str, torch.Tensor],
                grads: dict[str, torch.Tensor | None], state: dict) -> dict:
+        if self.grad_accum == 1:
+            return self._apply(params, grads, state)
+        n = state["mini_step"]
+        acc = state["acc"]
+        for name, a in acc.items():         # optax MultiSteps' running mean
+            a = local_tensor(a)
+            g = torch.zeros_like(a) if grads[name] is None else local_tensor(grads[name])
+            a.add_(torch.sub(g, a).div_(n + 1))
+        if n == self.grad_accum - 1:
+            self._apply(params, {k: acc.get(k) for k in params}, state)
+            torch._foreach_zero_([local_tensor(a) for a in acc.values()])
+        state["mini_step"] = (n + 1) % self.grad_accum
+        return state
+
+    def _apply(self, params, grads, state: dict) -> dict:
+        """One clip + AdamW update (the inner transformation)."""
         names = [n for n in params if self.labels[n] != FROZEN]
         g = [grads[n] if grads[n] is not None else torch.zeros_like(params[n])
              for n in names]
         if self.max_grad_norm > 0:
             counted = g + [grads[n] for n in params
                            if self.labels[n] == FROZEN and grads[n] is not None]
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(counted)))
+            norm = _global_norm(counted)
             factor = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
                                  self.max_grad_norm / norm)
-            g = torch._foreach_mul(g, factor)
+            g = torch._foreach_mul([local_tensor(x) for x in g], factor)
+        else:
+            g = [local_tensor(x) for x in g]
         count = state["count"] + 1
         b1, b2 = self.betas
         bc1, bc2 = 1.0 - b1 ** count, 1.0 - b2 ** count
@@ -154,10 +209,10 @@ class AdamW:
             idx = [i for i, n in enumerate(names) if self.labels[n] == group]
             if not idx:
                 continue
-            p = [params[names[i]] for i in idx]
+            p = [local_tensor(params[names[i]]) for i in idx]
             gg = [g[i] for i in idx]
-            mu = [state["mu"][names[i]] for i in idx]
-            nu = [state["nu"][names[i]] for i in idx]
+            mu = [local_tensor(state["mu"][names[i]]) for i in idx]
+            nu = [local_tensor(state["nu"][names[i]]) for i in idx]
             torch._foreach_mul_(mu, b1)
             torch._foreach_add_(mu, gg, alpha=1.0 - b1)
             torch._foreach_mul_(nu, b2)
@@ -180,10 +235,9 @@ def build_optimizer(model: nn.Module, train_cfg: TrainConfig, max_iter: int) -> 
     parameters that ``_is_frozen`` names: the teachers with
     ``requires_grad_(False)`` on ``model`` itself, the run's ``freeze``
     prefixes (given as JAX tree paths) by name, their gradients still
-    counted by the clip."""
+    counted by the clip; with ``grad_accum`` > 1 wrapped as
+    ``optax.MultiSteps``."""
     t = train_cfg
-    if t.grad_accum > 1:
-        raise NotImplementedError("grad_accum > 1 (the JAX optax.MultiSteps) is not ported")
     prefixes = tuple(port_path(p) for p in t.freeze)
     frozen = []
     for name, p in model.named_parameters():
@@ -193,4 +247,5 @@ def build_optimizer(model: nn.Module, train_cfg: TrainConfig, max_iter: int) -> 
             frozen.append(name)
     return AdamW(model, t.lr, max_iter, weight_decay=t.decay, betas=t.betas,
                  warmup_ratio=t.warmup_ratio, min_lr=t.min_lr, max_grad_norm=t.max_grad_norm,
-                 backbone_lr_mul=t.vis_backbone_lr_mul, frozen=frozen)
+                 backbone_lr_mul=t.vis_backbone_lr_mul, frozen=frozen,
+                 grad_accum=t.grad_accum)

@@ -1,12 +1,20 @@
 """The train steps (counterpart of ``empirical_mvm_tpu/train/train_step.py``
-and of the supervised agents' step in ``train/agent.py``, single device):
-the pretrain step (masking, forward, every loss, backward and the AdamW
-update), the supervised fine-tune step of the downstream heads, and the
-deterministic eval forward.
+and of the supervised agents' step in ``train/agent.py``): the pretrain step
+(masking, forward, every loss, backward and the AdamW update), the
+supervised fine-tune step of the downstream heads, and the deterministic
+eval forward.
 
 PyTorch runs eagerly, so the step is a plain function over a
 :class:`TrainState`. Its parameters are the model's own and are updated in
 place, as are the optimizer's moments.
+
+Given a ``dp`` (``parallel.mesh.DataParallel``), a step runs on this rank's
+rows of the global batch under ``data_parallel(dp)``: each rank's losses
+are its shares of the global batch's, the replicated gradients are summed
+over the ranks after backward (the sharded ones by their reduce-scatter),
+every rank applies the same update, and the returned losses are the global
+ones. ``state.step`` counts micro-steps (the generators' fold-in), and the
+optimizer accumulates ``grad_accum`` of them into one update.
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from empirical_mvm_torch.parallel.mesh import (DataParallel, data_parallel, reduce_gradients,
+                                               reduce_losses)
 from empirical_mvm_torch.train.losses import (cross_entropy_ignore, label_smoothed_nll,
                                               norm_softmax_loss)
 from empirical_mvm_torch.train.optimizer import AdamW
@@ -43,7 +53,14 @@ def step_generators(seed: int, step: int, device) -> tuple[torch.Generator, torc
                  for i in range(2))
 
 
-def make_pretrain_train_step(model: nn.Module, optimizer: AdamW) -> Callable:
+def _update(optimizer: AdamW, state: TrainState, dp: DataParallel | None) -> dict:
+    reduce_gradients(state.params.values(), dp)
+    return optimizer.update(state.params, {n: p.grad for n, p in state.params.items()},
+                            state.opt_state)
+
+
+def make_pretrain_train_step(model: nn.Module, optimizer: AdamW,
+                             dp: DataParallel | None = None) -> Callable:
     """Build ``step(state, batch, seed) -> (state, losses)``.
 
     ``batch``: img (B, T, H, W, 3) uint8 or normalized float, unmasked; txt
@@ -62,22 +79,20 @@ def make_pretrain_train_step(model: nn.Module, optimizer: AdamW) -> Callable:
         drop_gen, mask_gen = step_generators(seed, state.step, device)
         for p in state.params.values():
             p.grad = None
-        ls = model.losses(batch["img"], batch["txt"], batch["mask"], generator=drop_gen,
-                          mask_generator=mask_gen, draws=batch.get("draws"),
-                          neg_idx=batch.get("neg_idx"), hog=batch.get("hog"),
-                          vq=batch.get("vq"), corrupt=batch.get("corrupt"))
+        with data_parallel(dp):
+            ls = model.losses(batch["img"], batch["txt"], batch["mask"], generator=drop_gen,
+                              mask_generator=mask_gen, draws=batch.get("draws"),
+                              neg_idx=batch.get("neg_idx"), hog=batch.get("hog"),
+                              vq=batch.get("vq"), corrupt=batch.get("corrupt"))
         ls["total"].backward()
-        opt_state = optimizer.update(state.params,
-                                     {n: p.grad for n, p in state.params.items()},
-                                     state.opt_state)
-        return (TrainState(state.params, opt_state, state.step + 1),
-                {k: v.detach() for k, v in ls.items()})
+        opt_state = _update(optimizer, state, dp)
+        return TrainState(state.params, opt_state, state.step + 1), reduce_losses(ls, dp)
 
     return step
 
 
 def make_supervised_train_step(model: nn.Module, optimizer: AdamW, loss_kind: str = "ce",
-                               temp: float = 0.05) -> Callable:
+                               temp: float = 0.05, dp: DataParallel | None = None) -> Callable:
     """Build ``step(state, batch, seed) -> (state, {"total": loss})``, the
     JAX ``make_supervised_agent(loss_kind)`` step (``train/agent.py:360-416``):
     the model's training pass ``model(img, txt, mask)`` with dropout drawn
@@ -114,23 +129,25 @@ def make_supervised_train_step(model: nn.Module, optimizer: AdamW, loss_kind: st
         for p in state.params.values():
             p.grad = None
         extra = {"gumbel_noise": batch["gumbel_noise"]} if "gumbel_noise" in batch else {}
-        loss = loss_fn(model(batch["img"], batch["txt"], batch["mask"], generator=drop_gen,
-                             **extra), batch)
+        with data_parallel(dp):
+            loss = loss_fn(model(batch["img"], batch["txt"], batch["mask"],
+                                 generator=drop_gen, **extra), batch)
         loss.backward()
-        opt_state = optimizer.update(state.params,
-                                     {n: p.grad for n, p in state.params.items()},
-                                     state.opt_state)
-        return TrainState(state.params, opt_state, state.step + 1), {"total": loss.detach()}
+        opt_state = _update(optimizer, state, dp)
+        return (TrainState(state.params, opt_state, state.step + 1),
+                reduce_losses({"total": loss}, dp))
 
     return step
 
 
-def make_eval_step(model: nn.Module) -> Callable:
+def make_eval_step(model: nn.Module, dp: DataParallel | None = None) -> Callable:
     """Build ``eval_step(batch)``: the deterministic forward of
-    ``model(img, txt, mask)`` without autograd (JAX ``make_eval_step``)."""
+    ``model(img, txt, mask)`` without autograd (JAX ``make_eval_step``),
+    on this rank's rows of the global batch under ``data_parallel(dp)``."""
 
     @torch.no_grad()
     def eval_step(batch: dict):
-        return model(batch["img"], batch["txt"], batch["mask"])
+        with data_parallel(dp):
+            return model(batch["img"], batch["txt"], batch["mask"])
 
     return eval_step

@@ -33,16 +33,31 @@ def test_task_config_loads_as_in_the_jax_package(path):
 
 
 @pytest.mark.parametrize("raw", [
-    {"fsdp": True},
-    {"fsdp_min_size": 1024},
     {"fusion": {"scan": True}},
     {"text": {"use_pallas_attention": False}},
-    {"swin_custom": {"remat": True}},
-], ids=["fsdp", "fsdp_min_size", "fusion.scan", "text.use_pallas_attention",
-        "swin_custom.remat"])
+    {"swin_custom": {"scan": True}},
+    {"remat": True},
+    {"grad_accum": 2},
+], ids=["fusion.scan", "text.use_pallas_attention", "swin_custom.scan", "remat",
+        "grad_accum"])
 def test_unknown_key_raises(raw):
     with pytest.raises(ValueError, match="unknown"):
         tcfg.load_run_config(raw)
+
+
+@pytest.mark.parametrize("raw", [
+    {"fsdp": True},
+    {"fsdp_min_size": 1024},
+    {"swin_custom": {"remat": True}},
+    {"fusion": {"remat": True}, "text": {"remat": True}},
+], ids=["fsdp", "fsdp_min_size", "swin_custom.remat", "bert.remat"])
+def test_parallel_keys_load_as_in_the_jax_package(raw):
+    """The data-parallel and remat keys the JAX package accepts load into
+    the same fields (``grad_accum`` is a key of neither package)."""
+    port, ref = tcfg.load_run_config(raw), jcfg.load_run_config(raw)
+    _assert_same(port.train, ref.train, "run.train")
+    for name in ("fusion", "text", "swin"):
+        assert getattr(port.model, name).remat == getattr(ref.model, name).remat, name
 
 
 def test_profile_n_steps_loads_as_in_the_jax_package():

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from chip_smoke import (FP32_LIMITS, LARGE_MEAN, OUTPUTS, PLANTED_LN, PLANTED_ROW_STRIDE,
-                        PLANTED_TILED, ROW_STRIDE_SOURCES, _excess, _lane_calls, _lane_fwd_kind,
+                        PLANTED_TILED, ROW_STRIDE_SOURCES, SEQ2SEQ_TILED, _excess, _lane_calls, _lane_fwd_kind,
                         _padding_mask, _sa_calls, _tuple, _window_bwd_kind, _window_fwd_kind,
                         bf16_check, full_check, plant, seq2seq_mask)
 from empirical_mvm_torch.models.video_swin import _shift_attn_mask
@@ -1167,19 +1167,44 @@ def test_lane_fwd_and_bwd_under_the_seq2seq_mask(cuda, dtype, b, l, text, p_drop
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_fwd_and_bwd_under_the_seq2seq_mask(cuda, dtype):
+    """Row 11 (the tiled self-attention, kTiles layout) under the seq2seq
+    joint mask at ``SEQ2SEQ_TILED``'s length, which
+    ``lane_sa_attention_fits`` refuses: forward and backward with dropout
+    against their plain versions, fp32 within TOL / FP32_LIMITS, bf16
+    within chip_smoke's limits; each output bit-identical over two runs."""
+    _, b, l, text, p_drop = SEQ2SEQ_TILED[0]
+    assert not twa.lane_sa_attention_fits(b, l, 768, 12)
+    gen = torch.Generator(cuda).manual_seed(l)
+    mask = seq2seq_mask(cuda, b, l, text)
+    assert mask.stride(1) == l and not torch.equal(mask[:, 0], mask[:, -1])
+    qkv = torch.randn(b, 36, l, 64, device=cuda, generator=gen) * 0.5
+    do = torch.randn(b, 12, l, 64, device=cuda, generator=gen).to(torch.bfloat16).float()
+    seed = torch.tensor([2026, 18], dtype=torch.int32, device=cuda)
+    (fwd, fwd_plain, _), (bwd, bwd_plain, _) = _sa_calls(mask, 12, 0.125, p_drop, seed, do)
+    _check(fwd, fwd_plain, qkv, dtype, "sa")
+    _check(bwd, bwd_plain, qkv, dtype, "sa_bwd")
+    a = qkv.to(dtype)
+    assert torch.equal(fwd(a), fwd(a))
+    assert all(torch.equal(x, y) for x, y in zip(_tuple(bwd(a)), _tuple(bwd(a))))
+
+
+@pytest.mark.cuda
 def test_planted_row_stride_fault_fails_only_under_the_seq2seq_mask(cuda, tmp_path,
                                                                     monkeypatch):
-    """A copy of the lane self-attention's sources whose C entries pass a
-    query-row stride of 0 (``PLANTED_ROW_STRIDE``): under the seq2seq mask
-    rows 5 and 6 fail the fp32 and the bf16 limits; under a padding mask
-    (a stride-0 view, every row alike), the masks of the earlier paths, the
+    """A copy of the self-attention sources whose C entries pass a query-row
+    stride of 0 (``PLANTED_ROW_STRIDE``): under the seq2seq mask rows 5, 6
+    and 11 fail the fp32 and the bf16 limits; under a padding mask (a
+    stride-0 view, every row alike), the masks of the earlier paths, the
     same build passes, which is why those paths could not show the fault.
     The readings are printed (run with -s)."""
     src = tmp_path / "csrc"
     src.mkdir()
     for name in ROW_STRIDE_SOURCES:
         shutil.copy(_build.CSRC / name, src / name)
-    plant(src, *PLANTED_ROW_STRIDE)
+    for fault in PLANTED_ROW_STRIDE:
+        plant(src, *fault)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_lib", _build.load(_build.build(csrc=src), False))
     gen = torch.Generator(cuda).manual_seed(5)
@@ -1187,12 +1212,22 @@ def test_planted_row_stride_fault_fails_only_under_the_seq2seq_mask(cuda, tmp_pa
     x3 = torch.randn(b, l, 3 * 768, device=cuda, generator=gen) * 0.5
     do = torch.randn(b, l, 768, device=cuda, generator=gen).to(torch.bfloat16).float()
     seed = torch.tensor([79, 4], dtype=torch.int32, device=cuda)
-    for kind, mask in (("seq2seq", seq2seq_mask(cuda, b, l, text)),
-                       ("padding", _padding_mask(cuda, gen, b, l, text, 6))):
+    _, _, n, t_text, _ = SEQ2SEQ_TILED[0]
+    qkv = torch.randn(2, 36, n, 64, device=cuda, generator=gen) * 0.5
+    t_do = torch.randn(2, 12, n, 64, device=cuda, generator=gen).to(torch.bfloat16).float()
+    for kind, mask, t_mask in (
+            ("seq2seq", seq2seq_mask(cuda, b, l, text), seq2seq_mask(cuda, 2, n, t_text)),
+            ("padding", _padding_mask(cuda, gen, b, l, text, 6),
+             _padding_mask(cuda, gen, 2, n, t_text, 6))):
         (fwd, fwd_plain, _), (bwd, bwd_plain, _) = _lane_calls(mask, 12, 0.125, 0.1, seed, do)
-        for row, kernel, plain, limits in (("row 5", fwd, fwd_plain, _lane_fwd_kind(64)),
-                                           ("row 6", bwd, bwd_plain, "attention_bwd")):
-            readings, failures = full_check(kernel, plain, x3, limits)
+        (t_fwd, t_fwd_plain, _), (t_bwd, t_bwd_plain, _) = _sa_calls(t_mask, 12, 0.125, 0.1,
+                                                                     seed, t_do)
+        for row, kernel, plain, act, limits in (
+                ("row 5", fwd, fwd_plain, x3, _lane_fwd_kind(64)),
+                ("row 6", bwd, bwd_plain, x3, "attention_bwd"),
+                ("row 11", t_fwd, t_fwd_plain, qkv, "sa"),
+                ("row 11 bwd", t_bwd, t_bwd_plain, qkv, "sa_bwd")):
+            readings, failures = full_check(kernel, plain, act, limits)
             print(f"planted row stride 0 [{row}, {kind} mask]: {readings} failures={failures}")
             if kind == "padding":
                 assert not failures, (row, failures)
@@ -1368,3 +1403,77 @@ def test_cli_main_runs_on_the_card(cuda, tmp_path):
     assert m["split"] == "test" and 1.0 <= m["medr"] and not m["load"]["kept"]
     with pytest.raises(ValueError, match="decode function"):
         retrieval.main(["--config", str(cfg)], device="cpu")
+
+
+# ---------------------------------------------- data parallelism and remat
+
+
+@pytest.mark.cuda
+def test_nccl_process_group_of_one_rank(cuda, tmp_path, monkeypatch):
+    """``distributed_init`` in the environment ``torch.distributed.run``
+    sets for one process: NCCL on cuda:0; the gather in global order and the
+    loss denominators are the identity at W = 1, the gradient reduce leaves
+    the gradients as they are."""
+    import socket
+    import torch.distributed as dist
+    from empirical_mvm_torch.parallel import mesh
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
+                     WORLD_SIZE="1", LOCAL_RANK="0").items():
+        monkeypatch.setenv(k, v)
+    dp = mesh.distributed_init("cuda")
+    try:
+        assert dp == mesh.DataParallel(0, 1) and dist.get_backend() == "nccl"
+        assert mesh.rank_device("cuda") == torch.device("cuda", 0)
+        x = torch.randn(4, 3, device=cuda, requires_grad=True)
+        with mesh.data_parallel(dp):
+            g = mesh.gather_rows(x)
+            n = mesh.global_sum(torch.tensor(5, device=cuda))
+        assert torch.equal(g, x) and n.item() == 5
+        g.sum().backward()
+        p = torch.nn.Parameter(torch.ones(3, device=cuda))
+        p.grad = torch.full((3,), 2.0, device=cuda)
+        mesh.reduce_gradients([p], dp)
+        assert torch.equal(x.grad, torch.ones_like(x)) and torch.equal(p.grad, 2 * torch.ones(3,
+                                                                                  device=cuda))
+        assert mesh.all_gather_metrics([1.0, 2.0]) == [1.0, 2.0]
+    finally:
+        mesh.destroy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_remat_is_bit_equal_on_the_card(cuda, dtype):
+    """A tiny pixel model (Video Swin at embed 32 on the kernels, BERT
+    hidden 64) with dropout and drop path at 0.1, without and with remat:
+    losses, every gradient and the dropout generator's state after the
+    backward bit-equal."""
+    from empirical_mvm_torch.core import config as tcfg
+    from empirical_mvm_torch.models.pretrain import VioletPretrain
+    from empirical_mvm_torch.train.train_step import step_generators
+    rs = np.random.RandomState(0)
+    img = torch.from_numpy(rs.randint(0, 256, (4, 2, 64, 64, 3)).astype(np.uint8)).to(cuda)
+    txt = torch.from_numpy(rs.randint(1000, 2000, (4, 8))).to(cuda)
+    txt[:, 0] = 101
+    mask = torch.ones(4, 8, dtype=torch.int32, device=cuda)
+    out = []
+    for remat in (False, True):
+        bert = tcfg.BertConfig(vocab_size=2000, hidden_size=64, num_hidden_layers=2,
+                               num_attention_heads=2, intermediate_size=128, remat=remat)
+        cfg = tcfg.ModelConfig(size_img=64, size_frame=2, size_txt=8, fusion=bert, text=bert,
+                               swin_custom=tcfg.SwinConfig(embed_dim=32, depths=(1, 1, 1, 1),
+                                                           num_heads=(1, 2, 4, 8),
+                                                           drop_path_rate=0.1, remat=remat))
+        model = VioletPretrain(cfg, dtype=dtype, device=cuda, seed=1)
+        drop, masks = step_generators(3, 0, cuda)
+        ls = model.losses(img, txt, mask, generator=drop, mask_generator=masks)
+        ls["total"].backward()
+        out.append(({k: v.item() for k, v in ls.items()},
+                    {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None},
+                    drop.get_state()))
+    (l0, g0, s0), (l1, g1, s1) = out
+    assert l0 == l1 and torch.equal(s0, s1) and set(g0) == set(g1)
+    for name, g in g0.items():
+        assert torch.equal(g, g1[name]), name

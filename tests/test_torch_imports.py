@@ -1,4 +1,5 @@
-"""Every module of the port, and chip_smoke.py, imports with ``jax`` and
+"""Every module of the port, chip_smoke.py and the data-parallel tests'
+rank worker (``tests/dp_worker.py``) import with ``jax`` and
 the JAX package blocked, and leaves ``empirical_mvm_tpu`` out of
 ``sys.modules``; none imports msgpack, cv2, PIL, yaml or transformers when
 it is imported (the port depends on none of them; its checkpoints go
@@ -30,7 +31,7 @@ import empirical_mvm_torch
 names = ["empirical_mvm_torch"] + [m.name for m in pkgutil.walk_packages(
     empirical_mvm_torch.__path__, "empirical_mvm_torch.")]
 failed = {}
-for name in names + ["chip_smoke"]:
+for name in names + ["chip_smoke", "tests.dp_worker"]:
     try:
         importlib.import_module(name)
     except Exception as e:
@@ -57,3 +58,11 @@ def test_every_port_module_imports_without_jax(imported):
 
 def test_no_blocked_package_enters_sys_modules(imported):
     assert imported["loaded"] == []
+
+
+def test_the_parallel_layer_and_the_rank_worker_import_without_jax(imported):
+    """The data-parallel layer and the worker the gloo tests spawn (which
+    runs without the test suite's conftest) load with JAX blocked."""
+    assert "empirical_mvm_torch.parallel.mesh" in imported["modules"]
+    assert "tests.dp_worker" not in imported["failed"]
+    assert not any(m.startswith("empirical_mvm_tpu") for m in imported["loaded"])

@@ -281,8 +281,8 @@ def test_freeze_violet_labels_and_frozen_parameters_match_jax(slice_):
             assert torch.equal(jafter[name], jbefore[name]), name
             assert p.grad is not None or name == "enc_img.emb_odr", name
     assert max((refp[n].detach() - jafter[n]).abs().max().item() for n in head) > 1e-4
-    with pytest.raises(NotImplementedError, match="grad_accum"):
-        topt.build_optimizer(tm, dataclasses.replace(trun.train, grad_accum=2), MAX_ITER)
+    accum = topt.build_optimizer(tm, dataclasses.replace(trun.train, grad_accum=2), MAX_ITER)
+    assert accum.grad_accum == 2 and accum.labels == opt.labels
 
 
 def test_freeze_prefixes_name_jax_paths_and_teachers():
