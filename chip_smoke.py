@@ -52,7 +52,9 @@ before the final line, if any phase failed:
    swin2d step (the same seven (window, head) shapes);
    ``packed_window_attention`` and its backward at the C = 96 Video Swin's
    stages 0 and 1 of the violet step (N = 196), unshifted and shifted, and
-   at stage 0 of the 2D Swin-tiny (N = 49, not on a path of this script);
+   at stages 0 and 1 of the 2D Swin-tiny (C = 96, 192, N = 49: the
+   swin2d-tiny step of phase 45), and the lane window kernels forward and
+   backward at its stages 2 and 3 (C = 384, 768);
    ``fused_window_attention`` (q, k, v as three arrays, the same kernel)
    and its backward at the violet stage-0 shifted shape; the direct kernels
    forward and backward at the violet step's stages 2 and 3 (C = 384, 768);
@@ -103,7 +105,10 @@ before the final line, if any phase failed:
    dropout and row 6 at its fusion's 80 rows of 82 and at the QA-OE mlm
    rows' 10 of 280 (``LOADER_LANE``), row 11 at the generative MC's 8 rows
    of 353, and the LayerNorm forward and backward at each of their sites
-   (``LOADER_LN``). Prints one ``kernel_shapes``
+   (``LOADER_LN``); and the MERLOT encoder's trained ViT (phase 47): rows 5
+   and 6 at its 80 frames of 50 tokens (12 heads of 64, p = 0, the zero
+   mask) and the LayerNorm forward and backward at its sites
+   (``MERLOT_LN``). Prints one ``kernel_shapes``
    line with the per-shape numbers and, at the end, one ``kernels`` JSON
    line.
 4. The retrieval eval at full width: VioletRetrieval at
@@ -328,7 +333,28 @@ before the final line, if any phase failed:
     torch.distributed.run --standalone --nproc_per_node=1`` on phase 40's
     shards with ``fsdp``, ``remat`` and ``grad_accum`` 2; every block
     sharded; its final checkpoint loads into the one-process port.
-45. The last line is ``{"ok": true, "device": {...}}``.
+45. The swin2d-tiny pixel step at full width (``vis_backbone`` "swin2d",
+    ``vis_backbone_size`` "tiny", concat; ``backbone_phases``): its stages
+    0-1 run row 9 at N = 49, forward and backward, stages 2-3 rows 7-8;
+    launches held to ``TRAIN_SWIN2D_TINY_LAUNCHES``, clips/s, kernel ms and
+    the device's idle share; then its whole step as phase 7.
+46. The r50 pixel step (concat, ``r50_train_bn``: batch statistics in its
+    53 BatchNorms; ``TRAIN_R50_LAUNCHES``); its running statistics after two
+    steps against the torch rule recomputed on the host, and the stem's
+    batch statistics against its input (``bn_fold_check``); its whole step
+    at ``R50_WHOLE_B`` clips (BatchNorm biases shifted by
+    ``R50_BN_SHIFT``); the r50 ``nce`` retrieval step with mean fusion
+    (``TRAIN_RET_R50_LAUNCHES``).
+47. The merlot pixel step (the R50 and a trained ViT-base on each frame's
+    50 tokens: rows 5-6 and the LayerNorm kernels; ``TRAIN_MERLOT_LAUNCHES``)
+    and its whole step with the ViT cut to ``MERLOT_CUT``.
+48. The pixel step with ``pretrain_masks`` ``AM_MASKS`` (the rollout, a
+    no-grad pass over the unmasked batch; ``TRAIN_AM_LAUNCHES``), its wall
+    and kernels beside phase 6's, the rollout's ms, and its draw
+    (``am_draw_phase``): every am row masks exactly k slots, none special,
+    and over ``AM_DRAWS`` seeded draws the slots' selection frequency ranks
+    as their scores (Spearman, ``AM_SPEARMAN``).
+49. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -373,14 +399,16 @@ from empirical_mvm_torch.data.jpeg import decode_counts as jpeg_decode_counts
 from empirical_mvm_torch.data.datasets import PretrainTsvDataset
 from empirical_mvm_torch.data.loader import (DevicePrefetcher, MetaLoader, ShardedBatchLoader,
                                              materialize)
-from empirical_mvm_torch.data.masking import draw_masks
+from empirical_mvm_torch.data.masking import am_special, draw_masks, special_tokens
 from empirical_mvm_torch.data.tokenizer import load_tokenizer
 from empirical_mvm_torch.data.transforms import (TRANSFORMS, ClipPlan, FramePlan, plan_clip,
                                                  run_plans)
 from empirical_mvm_torch.models import pretrain as pretrain_module
 from empirical_mvm_torch.models.bert import BertLayer
 from empirical_mvm_torch.models.captioning import VioletCaptioning
-from empirical_mvm_torch.models.encoders2d import swin2d_config
+from empirical_mvm_torch.models import violet as violet_module
+from empirical_mvm_torch.models.common import BatchNorm2d
+from empirical_mvm_torch.models.encoders2d import EncImgMerlot, swin2d_config
 from empirical_mvm_torch.models.pretrain import VioletPretrain, draw_negatives
 from empirical_mvm_torch.models.tasks import (VioletQAMC, VioletQAMCGen, VioletQAMCMLMHead,
                                               VioletQAOE, VioletQAOEMLMHead, VioletRetrieval,
@@ -462,6 +490,11 @@ CLIP_LN = (("clip pre_ln/ln1/ln2", 80 * 50, 768, 1e-5, torch.bfloat16),)
 # and norm2 of its 24 blocks; its fp32 run (phase 25) at the same shape
 DPT_LN = (("dpt norm1/norm2", 80 * 197, 1024, 1e-6, torch.bfloat16),
           ("dpt norm1/norm2 fp32", 80 * 197, 1024, 1e-6, torch.float32))
+# the MERLOT encoder's trained ViT-base (phase 47): 80 frames of 50 tokens
+# (the CLS and 7 x 7 R50 features) through norm1 / norm2 (eps 1e-6) of each
+# block and the embeddings' norm (eps 1e-5), forward and backward
+MERLOT_LN = (("merlot vit norm1/norm2", 80 * 50, 768, 1e-6, torch.bfloat16),
+             ("merlot embeds norm", 80 * 50, 768, 1e-5, torch.bfloat16))
 # Each LayerNorm site is also held, in bf16, at rows of mean 50 and std 1
 # (LARGE_MEAN), where a one-pass variance, E[x^2] - mean^2, cancels about
 # 11 bits and fails the bf16 limits (tests/test_torch_layernorm_body.py). In
@@ -518,6 +551,34 @@ TRAIN_DEPTH_LAUNCHES = {**TRAIN_LAUNCHES, "fused_layer_norm": 27 + 2 * 24,
 # pixel step's
 TRAIN_VQ_LAUNCHES = dict(TRAIN_LAUNCHES)
 TRAIN_FLOW_LAUNCHES = dict(TRAIN_LAUNCHES)
+# the swin2d-tiny step (phase 45): the 2D Swin-tiny's 4 blocks of stages 0-1
+# (C = 96, 192) run the packed kernel forward and backward (row 9 at N =
+# 49), its 8 blocks of stages 2-3 (C = 384, 768) the lane window kernels;
+# the LayerNorm kernel keeps the swin2d step's 27 sites
+TRAIN_SWIN2D_TINY_LAUNCHES = {"fused_layer_norm": 27, "fused_layer_norm_bwd": 27,
+                              "packed_window_attention": 4, "packed_window_attention_bwd": 4,
+                              "lane_window_attention": 8, "lane_window_attention_bwd": 8,
+                              "lane_self_attention_dropout": 12, "lane_self_attention_bwd": 12}
+# the r50 step (phase 46): the ResNet-50's convolutions are cuDNN's and its
+# BatchNorms torch ops; the kernels are the fusion's and the LayerNorm's at
+# its 27 sites (EncImgR50's embeddings norm in place of EncVideo's)
+TRAIN_R50_LAUNCHES = {"fused_layer_norm": 27, "fused_layer_norm_bwd": 27,
+                      "lane_self_attention_dropout": 12, "lane_self_attention_bwd": 12}
+# the r50 nce step (phase 46): mean fusion, so 64 rows of 50 + 25 tokens
+TRAIN_RET_R50_LAUNCHES = {"fused_layer_norm": 26, "fused_layer_norm_bwd": 26,
+                          "lane_self_attention_dropout": 12, "lane_self_attention_bwd": 12}
+# the merlot step (phase 47) adds the trained ViT-base on 80 frames of 50
+# tokens: row 5 (p = 0) and row 6 in each of its 12 blocks, the LayerNorm
+# kernel at norm1 and norm2 of each, forward and backward
+TRAIN_MERLOT_LAUNCHES = {"fused_layer_norm": 27 + 2 * 12, "fused_layer_norm_bwd": 27 + 2 * 12,
+                         "lane_self_attention": 12, "lane_self_attention_dropout": 12,
+                         "lane_self_attention_bwd": 12 + 12}
+# the am step (phase 48) adds the rollout, a no-grad pass over the unmasked
+# batch: the Video Swin's 24 blocks on the direct kernel, the LayerNorm at
+# EncVideo's, the text embeddings' and the 24 fusion sites; its fusion
+# attention is plain (the probabilities leave it, as JAX's XLA branch)
+TRAIN_AM_LAUNCHES = {**TRAIN_LAUNCHES, "fused_layer_norm": 27 + 26,
+                     "direct_window_attention": 24 + 24}
 # MVM targets whose model holds a frozen teacher (vq only on the fly)
 TEACHER_TARGETS = {"2d_feature", "3d_feature", "2d_clip", "depth", "optical_flow"}
 TEACHERS = ("feature_model.", "clip_model.", "dpt.", "raft.", "dvae.")
@@ -1436,14 +1497,16 @@ def _lane_calls(mask, nh, scale, p_drop, seed, do):
              bwd_library))
 
 
-def _window_shapes():
+def _window_shapes(size="base", stages=range(4)):
     """(stage, windows of one clip, C, nH, mask or None, blocks of the shape)
-    of a 2D Swin-base on TRAIN_T frames of 224^2: window (1, 7, 7), n = 49,
-    hd = 32; blocks alternate unshifted and shifted, and stage 3 clamps to
-    one unshifted 7 x 7 window. The mask is the per-frame shift mask over
-    all TRAIN_T frames' windows, as BasicLayer builds it."""
-    for stage, depth in enumerate(swin2d_config("base").depths):
-        hw, c, nh = 56 >> stage, 128 << stage, 4 << stage
+    of a 2D Swin of ``size`` on TRAIN_T frames of 224^2: window (1, 7, 7), n
+    = 49, hd = 32; blocks alternate unshifted and shifted, and stage 3
+    clamps to one unshifted 7 x 7 window. The mask is the per-frame shift
+    mask over all TRAIN_T frames' windows, as BasicLayer builds it."""
+    swin = swin2d_config(size)
+    for stage in stages:
+        depth = swin.depths[stage]
+        hw, c, nh = 56 >> stage, swin.embed_dim << stage, swin.num_heads[stage]
         win, shift = get_window_size((TRAIN_T, hw, hw), (1, 7, 7), (0, 3, 3))
         nw = TRAIN_T * (hw // 7) ** 2
         if any(shift):
@@ -1461,19 +1524,20 @@ def _window_sdpa_mask(bias, mk, nw, dtype):
     return m.expand(nw, nh, n, n).reshape(1, nw * nh, n, n).to(dtype)
 
 
-def lane_window_cases(dev, gen):
+def lane_window_cases(dev, gen, size="base", stages=range(4), path="2d swin"):
     """The 2D swin's window attention (the frozen teacher of the 2d_feature
-    step; the student of the swin2d step): 20 clips of 4 frames at 224^2,
-    window (1, 7, 7) (n = 49, hd = 32: each frame's windows on their own),
-    at every Swin-base stage, unshifted and shifted with the 4-frame mask
-    (``_window_shapes``). SDPA, the yardstick, runs on (clips, nW * nH, 49,
+    step; the student of the swin2d step; with ``size`` "tiny", stages 2-3
+    of the swin2d-tiny step, whose stages 0-1 take row 9): 20 clips of 4
+    frames at 224^2, window (1, 7, 7) (n = 49, hd = 32: each frame's windows
+    on their own), at each stage, unshifted and shifted with the 4-frame
+    mask (``_window_shapes``). SDPA, the yardstick, runs on (clips, nW * nH, 49,
     32), a clip's windows and heads on one axis, with the broadcast
     ``_window_sdpa_mask``. Each record carries its shape's launches in one
     step's 24 blocks (``launches_per_step``) and the body each dtype ran; its
     bf16 is held to the limits of that body (``_window_fwd_kind``)."""
     b, n, hd = TRAIN_B, 49, 32
     recs = []
-    for stage, nw, c, nh, mk, blocks in _window_shapes():
+    for stage, nw, c, nh, mk, blocks in _window_shapes(size, stages):
         x3 = torch.randn(b * nw, n, 3 * c, device=dev, generator=gen) * 0.5
         bias = torch.randn(nh, n, n, device=dev, generator=gen) * 0.02
         mk = None if mk is None else torch.from_numpy(mk).to(dev)
@@ -1492,7 +1556,7 @@ def lane_window_cases(dev, gen):
             m = _window_sdpa_mask(bias, mk, nw, a.dtype)
             return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m, scale=scale)
 
-        label = f"2d swin stage{stage} x3=({b * nw},{n},{3 * c}) nH={nh} " + (
+        label = f"{path} stage{stage} x3=({b * nw},{n},{3 * c}) nH={nh} " + (
             "unshifted" if mk is None else f"shifted nW={n_w}")
         ops = 4 * b * nw * nh * n * n * hd
         nbytes = x3.numel() * 2 + b * nw * n * c * 2 + bias.numel() * 4 + (
@@ -1504,12 +1568,12 @@ def lane_window_cases(dev, gen):
     return recs
 
 
-def _window_bwd_inputs(dev, gen):
+def _window_bwd_inputs(dev, gen, size="base", stages=range(4)):
     """The lane window backward's inputs at ``_window_shapes``: x3, do and
     bias drawn once a shape. Yields (stage, nW of one clip, nH, x3, do,
     bias, mask or None, blocks of the shape)."""
     b, n = TRAIN_B, 49
-    for stage, nw, c, nh, mk, blocks in _window_shapes():
+    for stage, nw, c, nh, mk, blocks in _window_shapes(size, stages):
         x3 = torch.randn(b * nw, n, 3 * c, device=dev, generator=gen) * 0.5
         do = _bf16_values(torch.randn(b * nw, n, c, device=dev, generator=gen))
         bias = torch.randn(nh, n, n, device=dev, generator=gen) * 0.02
@@ -1517,13 +1581,14 @@ def _window_bwd_inputs(dev, gen):
             blocks
 
 
-def lane_window_bwd_cases(dev, gen):
-    """The trained 2D swin's window attention backward in the swin2d step:
-    the shapes of ``lane_window_cases`` (``_window_bwd_inputs``). SDPA's
-    backward, the yardstick, runs on the layout and broadcast mask of the
-    forward's yardstick."""
+def lane_window_bwd_cases(dev, gen, size="base", stages=range(4), path="2d swin"):
+    """The trained 2D swin's window attention backward in the swin2d step
+    (and the swin2d-tiny step's stages 2-3): the shapes of
+    ``lane_window_cases`` (``_window_bwd_inputs``). SDPA's backward, the
+    yardstick, runs on the layout and broadcast mask of the forward's
+    yardstick."""
     recs = []
-    for stage, nw, nh, x3, do, bias, mk, blocks in _window_bwd_inputs(dev, gen):
+    for stage, nw, nh, x3, do, bias, mk, blocks in _window_bwd_inputs(dev, gen, size, stages):
         b, n, hd = TRAIN_B, 49, 32
         c = x3.shape[-1] // 3
         n_w = nw if mk is not None else 1
@@ -1545,7 +1610,7 @@ def lane_window_bwd_cases(dev, gen):
             dop = do.to(a.dtype).reshape(b, nw, n, nh, hd).permute(0, 1, 3, 2, 4)
             return _grad_call(out, (q, k, v), dop.reshape(b, nw * nh, n, hd).contiguous())
 
-        label = f"2d swin stage{stage} x3=({b * nw},{n},{3 * c}) nH={nh} " + (
+        label = f"{path} stage{stage} x3=({b * nw},{n},{3 * c}) nH={nh} " + (
             "unshifted" if mk is None else f"shifted nW={n_w}")
         ops = 2.5 * 4 * b * nw * nh * n * n * hd
         nbytes = (2 * x3.numel() + do.numel()) * 2 + 2 * bias.numel() * 4 + (
@@ -1561,9 +1626,10 @@ def _packed_shapes():
     violet step) of ``packed_window_attention``: stages 0 and 1 of the C =
     96 Video Swin (``swin_violet.py``) on TRAIN_T frames of 224^2, window
     clamped to (4, 7, 7) (N = 196, hd = 32), each stage one unshifted and one
-    shifted block; and stage 0 of the 2D Swin-tiny on the same clips, window
-    (1, 7, 7) (N = 49) with the 4-frame mask, on no path of this script (0
-    launches)."""
+    shifted block; and stages 0 and 1 of the 2D Swin-tiny (C = 96, 192) on
+    the same clips, window (1, 7, 7) (N = 49) with the 4-frame mask, one
+    unshifted and one shifted block each in the swin2d-tiny step (phase
+    45)."""
     violet = SwinConfig.violet()
     for stage in (0, 1):
         hw, c, nh = 56 >> stage, violet.embed_dim << stage, violet.num_heads[stage]
@@ -1573,10 +1639,11 @@ def _packed_shapes():
         yield f"violet stage{stage}", nw, c, nh, n, _shift_attn_mask((TRAIN_T, hw, hw), win,
                                                                      shift), 1
     tiny = swin2d_config("tiny")
-    c, nh = tiny.embed_dim, tiny.num_heads[0]
-    win, shift = get_window_size((TRAIN_T, 56, 56), (1, 7, 7), (0, 3, 3))
-    for mk in (None, _shift_attn_mask((TRAIN_T, 56, 56), win, shift)):
-        yield "2d swin-tiny stage0", TRAIN_T * 64, c, nh, 49, mk, 0
+    for stage in (0, 1):
+        hw, c, nh = 56 >> stage, tiny.embed_dim << stage, tiny.num_heads[stage]
+        win, shift = get_window_size((TRAIN_T, hw, hw), (1, 7, 7), (0, 3, 3))
+        for mk in (None, _shift_attn_mask((TRAIN_T, hw, hw), win, shift)):
+            yield f"2d swin-tiny stage{stage}", TRAIN_T * (hw // 7) ** 2, c, nh, 49, mk, 1
 
 
 def _packed_sdpa(a, b, nw, nh, n, hd):
@@ -1591,9 +1658,8 @@ def packed_cases(dev, gen):
     on three base pointers) forward and backward at the violet stage-0
     shifted shape. SDPA, the yardstick, runs on (clips, nW * nH, N, hd) with
     the broadcast ``_window_sdpa_mask``, its backward through autograd. Each
-    record carries its shape's launches in one violet step
-    (``launches_per_step``); the 2D Swin-tiny records are marked
-    ``off_path``."""
+    record carries its shape's launches in one violet or swin2d-tiny step
+    (``launches_per_step``)."""
     b, hd = TRAIN_B, 32
     recs = []
     for label, nw, c, nh, n, mk, blocks in _packed_shapes():
@@ -1644,10 +1710,7 @@ def packed_cases(dev, gen):
                       "bf16_tensor", (2 * qkv.numel() + do.numel()) * 2 + extra
                       + bias.numel() * 4)
         bwd["body"] = _bodies(wa._window_bwd_body, hd)
-        for rec in (fwd, bwd):
-            rec["launches_per_step"] = blocks
-            if not blocks:
-                rec["off_path"] = True
+        fwd["launches_per_step"] = bwd["launches_per_step"] = blocks
         recs += [fwd, bwd]
         if label.startswith("violet stage0") and mk is not None:
             recs += fused_cases(qkv, do, bias, mk, nw, nh, label)
@@ -1731,6 +1794,31 @@ def teacher_lane_case(dev, gen, teacher, l, d, nh):
                   "bf16_tensor", nbytes)
     rec["body"] = _bodies(wa._sa_body, d // nh)
     return [rec]
+
+
+def merlot_lane_cases(dev, gen):
+    """Rows 5 and 6 at the MERLOT encoder's trained ViT (phase 47): 80 frames
+    of 50 tokens, ViT-base's 12 heads of 64, p = 0, the zero mask that
+    ``vit_self_attention`` passes (a (1, 1, L) row expanded); SDPA with
+    that mask, forward and backward, the yardstick."""
+    p, l, d, nh = TRAIN_B * TRAIN_T, 50, 768, 12
+    hd = d // nh
+    x3 = torch.randn(p, l, 3 * d, device=dev, generator=gen) * 0.5
+    do = _bf16_values(torch.randn(p, l, d, device=dev, generator=gen))
+    mask = torch.zeros(1, 1, l, device=dev).expand(p, l, l)
+    seed = torch.zeros(2, dtype=torch.int32, device=dev)
+    fwd_calls, bwd_calls = _lane_calls(mask, nh, hd ** -0.5, 0.0, seed, do)
+    label = f"merlot vit x3=({p},{l},{3 * d}) nH={nh}"
+    ops = 4 * p * nh * l * l * hd
+    fwd = measure("lane_self_attention", label, x3, *fwd_calls, torch.bfloat16,
+                  _lane_fwd_kind(hd), ops, "bf16_tensor",
+                  x3.numel() * 2 + p * l * d * 2 + _span_bytes(mask))
+    bwd = measure("lane_self_attention_bwd", label, x3, *bwd_calls, torch.bfloat16,
+                  "attention_bwd", 2.5 * ops, "bf16_tensor",
+                  (2 * x3.numel() + do.numel()) * 2 + _span_bytes(mask))
+    for rec in (fwd, bwd):
+        rec["body"] = _bodies(wa._sa_body, hd)
+    return [fwd, bwd]
 
 
 def _shift_like_mask(dev, gen, nw, n):
@@ -2490,8 +2578,7 @@ def with_mvm_target(run, target):
 def with_swin2d_backbone(run):
     """``run`` with the trained 2D Swin backbone (``vis_backbone`` "swin2d",
     concat fusion) in place of the Video Swin."""
-    return dataclasses.replace(run, model=dataclasses.replace(
-        run.model, vis_backbone="swin2d", temporal_fusion="concat"))
+    return with_2d_backbone(run, "swin2d")
 
 
 def with_violet_backbone(run):
@@ -2622,15 +2709,18 @@ def train_phase(dev, run, want_launches, record=None):
         "slice": "pretrain_train_step", "config": PRETRAIN_CONFIG.name,
         "vis_backbone": cfg.vis_backbone, "vis_backbone_size": cfg.vis_backbone_size,
         "mvm_target": list(target), "vq_on_the_fly": cfg.vq_on_the_fly,
-        "pretrain_tasks": list(run.train.pretrain_tasks), "dtype": "bfloat16",
+        "pretrain_tasks": list(run.train.pretrain_tasks),
+        "pretrain_masks": list(run.train.pretrain_masks), "r50_train_bn": cfg.r50_train_bn,
+        "dtype": "bfloat16",
         "batch": b, "frames": cfg.size_frame, "size_img": cfg.size_img,
         "size_txt": cfg.size_txt, "steps": TRAIN_STEPS, "warmup_step_s": warm_s,
         "clips_per_s": float(np.median(clips_s)), "clips_per_s_range": [min(clips_s),
                                                                           max(clips_s)],
         "step_ms_median": float(np.median(secs)) * 1e3, "step_s_each": secs,
         "peak_mem_gib": peak, "losses_each_step": losses,
-        "kernel_ms_one_step": kernel_ms, "target_ms_one_call": targets_ms,
-        **targets_info}), flush=True)
+        "kernel_ms_one_step": kernel_ms,
+        "device_idle_share": 1.0 - kernel_ms / (float(np.median(secs)) * 1e3),
+        "target_ms_one_call": targets_ms, **targets_info}), flush=True)
     require(launches == want_launches,
             f"launches of one {backbone} {target} train step {launches}, "
             f"not {want_launches}")
@@ -2665,9 +2755,10 @@ def train_phase(dev, run, want_launches, record=None):
 
 
 def whole_step_phase(dev, run, b=4, batch=None, biased=False):
-    """Phases 7, 9, 11, 13, 21, 25 and 37: one train step of a depth-cut copy
-    (the student; the teachers keep their full depth but for the DPT, cut to
-    ``DPT_CUT``), ``b`` clips (or ``batch``, CPU tensors from the loader,
+    """Phases 7, 9, 11, 13, 21, 25, 37 and 45-47: one train step of a
+    depth-cut copy (the student, the MERLOT encoder's ViT cut to
+    ``MERLOT_CUT``, BatchNorm biases shifted by ``R50_BN_SHIFT``; the
+    teachers keep their full depth but for the DPT, cut to ``DPT_CUT``), ``b`` clips (or ``batch``, CPU tensors from the loader,
     its ``corrupt`` flag included; ``biased``: the biases seeded, as
     ``seeded_biases``), card fp32 (kernels) against CPU fp32 (plain
     versions). With the hog target, both sides are fed the same ``hog``
@@ -2694,12 +2785,15 @@ def whole_step_phase(dev, run, b=4, batch=None, biased=False):
         hog_check(dev, maybe_normalize(batch["img"]))
         batch["hog"] = hog_image(maybe_normalize(batch["img"]))
     with mock.patch.object(pretrain_module, "DPTDepth",
-                           functools.partial(pretrain_module.DPTDepth, **DPT_CUT)):
+                           functools.partial(pretrain_module.DPTDepth, **DPT_CUT)), \
+            mock.patch.object(violet_module, "EncImgMerlot",
+                              functools.partial(EncImgMerlot, **MERLOT_CUT)):
         card = VioletPretrain.from_run_config(run_cut, dtype=torch.float32, device=dev, seed=1)
         cpu = VioletPretrain.from_run_config(run_cut, dtype=torch.float32, device="cpu",
                                              seed=1)
     if biased:
         seeded_biases(card, 1)
+    shift_bn_biases(card)
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
     if hasattr(cpu, "dvae"):
         center_dvae_logits((card, cpu), maybe_normalize(batch["img"][0]))
@@ -2720,9 +2814,10 @@ def whole_step_phase(dev, run, b=4, batch=None, biased=False):
             torch.cuda.synchronize(device)
         secs[name] = time.perf_counter() - t0
         results[name] = _step_results(model, ls)
-    # with seeded biases the VTM scores spread, and the VTM score head's
-    # output bias, whose gradient is zero in exact arithmetic, reads each
-    # side's roundoff of scores divided by temp, as the nce step's does
+    # with seeded biases (or an R50's BatchNorm biases shifted) the VTM
+    # scores spread, and the VTM score head's output bias, whose gradient is
+    # zero in exact arithmetic, reads each side's roundoff of scores divided
+    # by temp, as the nce step's does
     hold_card_against_cpu(results, secs, {
         "vis_backbone": cut.vis_backbone, "vis_backbone_size": cut.vis_backbone_size,
         "mvm_target": list(run.train.mvm_target), "swin_depths": list(cut.swin.depths),
@@ -2730,8 +2825,11 @@ def whole_step_phase(dev, run, b=4, batch=None, biased=False):
         "frames": batch["img"].shape[1],
         **({"corrupt_rows": batch["corrupt"].nonzero().flatten().tolist()}
            if "corrupt" in batch else {}),
-        **({"dpt_depth": len(cpu.dpt.pretrained.model.blocks)} if hasattr(cpu, "dpt") else {})},
-        zero={VTM_OUT_BIAS: NCE_ZERO_GRAD_ATOL} if biased else None)
+        **({"dpt_depth": len(cpu.dpt.pretrained.model.blocks)} if hasattr(cpu, "dpt") else {}),
+        **({"vit_depth": len(cpu.enc_img.vit)} if hasattr(cpu.enc_img, "vit") else {}),
+        **({"bn_bias_shift": R50_BN_SHIFT} if hasattr(cpu.enc_img, "res") else {})},
+        zero={VTM_OUT_BIAS: NCE_ZERO_GRAD_ATOL} if biased or hasattr(cpu.enc_img, "res")
+        else None)
 
 
 def center_dvae_logits(models, frames):
@@ -2914,7 +3012,8 @@ def fusion_shape(cfg, kind, b, prefix=0):
     where ``lane_sa_attention_fits`` sends BERT to row 5, else ``tiled``."""
     rows = {"retrieval": b * b, "mc": b * cfg.size_option,
             "mc_mlm": b * cfg.size_option}.get(kind, b)
-    tokens = cfg.size_frame * cfg.tokens_per_frame + cfg.size_txt + prefix
+    frames = 1 if cfg.temporal_fusion == "mean" else cfg.size_frame
+    tokens = frames * cfg.tokens_per_frame + cfg.size_txt + prefix
     fits = wa.lane_sa_attention_fits(rows, tokens, cfg.hidden_size,
                                      cfg.fusion.num_attention_heads)
     return rows, tokens, "lane" if fits else "tiled"
@@ -2929,7 +3028,7 @@ SCORE_OUT_BIAS = "fc.3.bias"
 # no fine-tune forward reads, and the gumbel selection's projections, which
 # reach the loss only through the comparison that makes the kept-token mask
 # (as in JAX)
-NO_GRAD = {"enc_img.emb_odr"}
+NO_GRAD = "emb_odr"            # EncVideo's enc_img.emb_odr, EncImgR50's enc_img.embeds.emb_odr
 GUMBEL_NO_GRAD = {"vid_key.weight", "vid_query.weight"}
 
 
@@ -2999,7 +3098,8 @@ def finetune_phase(dev, name, config, run, model, loss_kind, kind, want_launches
             f"launches of one {name} train step {launches}, not {want_launches}")
     require(all(np.isfinite(v) for v in losses), f"non-finite loss: {losses}")
     no_grad = {n for n, p in state.params.items() if p.grad is None}
-    want_no_grad = NO_GRAD | (GUMBEL_NO_GRAD if hasattr(model, "vid_key") else set())
+    want_no_grad = {n for n in state.params if n.endswith(NO_GRAD)} | (
+        GUMBEL_NO_GRAD if hasattr(model, "vid_key") else set())
     require(no_grad == want_no_grad, f"parameters without a gradient: {sorted(no_grad)}")
     zero = {n for n, p in state.params.items() if n not in no_grad and not p.grad.any()}
     print(f"parameters whose last gradient is exactly 0: {sorted(zero)}", flush=True)
@@ -4161,7 +4261,8 @@ def _rank_batch(batch, dp, dev):
     out = mesh.shard_batch({k: v for k, v in batch.items() if k != "draws"}, dp)
     if draws is not None:
         r, w = (0, 1) if dp is None else (dp.rank, dp.world)
-        out["draws"] = type(draws)(draws.choice[r::w], draws.covs[:, r::w], draws.txt_sel[r::w])
+        out["draws"] = type(draws)(draws.choice[r::w], draws.covs[:, r::w],
+                                   draws.txt_sel[:, r::w])
     return {k: (type(v)(*(t.to(dev) for t in v)) if k == "draws" else v.to(dev))
             for k, v in out.items()}
 
@@ -4982,6 +5083,240 @@ def kernels_line(recs, runs):
     return line
 
 
+# ---------------------------------------------------------------------------
+# phases 45-48: the swin2d-tiny, ResNet-50 and MERLOT backbones, am masking
+# ---------------------------------------------------------------------------
+
+# The whole steps on the R50 and MERLOT backbones shift every BatchNorm bias
+# by R50_BN_SHIFT before card and CPU take the same weights. At init (biases
+# 0) many ReLU inputs lie within fp32 roundoff of 0; one that flips on one
+# side only moves the gradient of the channel it feeds by a term of its sum,
+# 2-30 % of a tensor's largest element, as much between the port in fp32
+# and in fp64 on the CPU as between the port and JAX
+# (tests/test_torch_encoders2d.py).
+R50_BN_SHIFT = 3.0
+MERLOT_CUT = dict(vit_depth=2)  # the merlot whole step's ViT blocks (phase 47)
+R50_WHOLE_B = 2                 # clips of the r50 and merlot whole steps
+# the running statistics after a step against the torch rule recomputed on
+# the host from the card's batch statistics: the card's fp32 fold rounds
+# twice (rtol); the stem BatchNorm's statistics recomputed on the host in
+# fp64 from its input, 1e6 values a channel summed in fp32 on the card
+BN_FOLD_RTOL, BN_STAT_RTOL = 1e-6, 1e-4
+AM_MASKS = ("am", "rm")         # phase 48's pretrain_masks
+AM_DRAWS = 512                  # draws of one row for the selection frequencies
+# Spearman's rho between the slots' selection frequency over AM_DRAWS draws
+# and their scores, on scores spread as exp(U(-3, 3)): Gumbel top-k includes
+# a slot more often the higher its score, and the CPU rehearsal reads 0.99
+AM_SPEARMAN = 0.9
+
+
+def with_2d_backbone(run, vis_backbone, **changes):
+    """``run`` with a 2D backbone (``swin2d``, ``r50``, ``merlot``), concat
+    fusion unless ``changes`` say otherwise."""
+    return dataclasses.replace(run, model=dataclasses.replace(
+        run.model, vis_backbone=vis_backbone, **{"temporal_fusion": "concat", **changes}))
+
+
+def with_pretrain_masks(run, masks):
+    """``run`` with ``train.pretrain_masks`` replaced."""
+    return dataclasses.replace(run, train=dataclasses.replace(run.train, pretrain_masks=masks))
+
+
+def shift_bn_biases(model):
+    """Add ``R50_BN_SHIFT`` to every BatchNorm bias of ``model`` (none
+    without an R50)."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm2d):
+                m.bias.add_(R50_BN_SHIFT)
+
+
+def _ranks(x):
+    """Ranks from 0, ties averaged."""
+    order = np.argsort(x, kind="stable")
+    ranks = np.empty(len(x))
+    ranks[order] = np.arange(len(x))
+    _, inverse, counts = np.unique(x, return_inverse=True, return_counts=True)
+    sums = np.bincount(inverse, weights=ranks)
+    return sums[inverse] / counts[inverse]
+
+
+def spearman(a, b):
+    """Spearman's rank correlation of two 1-D arrays."""
+    return float(np.corrcoef(_ranks(np.asarray(a)), _ranks(np.asarray(b)))[0, 1])
+
+
+def bn_fold_check(dev, run):
+    """Phase 46: the r50 step's running statistics (``r50_train_bn``) after
+    each of two steps, against the torch rule (0.9 running + 0.1 batch)
+    recomputed on the host in fp64 from the batch statistics each BatchNorm
+    computed on the card (forward hooks), within ``BN_FOLD_RTOL`` of each
+    tensor's largest value; the stem
+    BatchNorm's batch statistics recomputed on the host from its input,
+    within ``BN_STAT_RTOL``. No running statistic is a parameter, so none is
+    in an optimizer group, and weight decay cannot reach it; the JAX
+    package's decay, which would, is printed at each step's lr."""
+    model = VioletPretrain.from_run_config(run, dtype=torch.bfloat16, device=dev,
+                                           seed=TRAIN_SEED)
+    opt = build_optimizer(model, run.train, TRAIN_MAX_ITER)
+    state = create_train_state(model, opt)
+    step = make_pretrain_train_step(model, opt)
+    batch = synthetic_pretrain_batch(run.train.size_batch, run.model, seed=3, device=dev)
+    require(not set(state.buffers) & set(opt.labels) and len(state.buffers) == 2 * 53,
+            f"running statistics: {len(state.buffers)}, in the optimizer: "
+            f"{sorted(set(state.buffers) & set(opt.labels))[:4]}")
+    captured, stem_in = {}, []
+    handles = [m.register_forward_hook(
+        lambda m, args, out, n=n: captured.__setitem__(n, tuple(t.double().cpu()
+                                                               for t in m.batch_stats)))
+        for n, m in model.named_modules() if isinstance(m, BatchNorm2d)]
+    handles.append(model.enc_img.res.bn1.register_forward_hook(
+        lambda m, args, out: stem_in.append(args[0].detach().double().cpu())))
+    fold, stats, decay = [], [], []
+    for i in range(2):
+        before = {k: v.double().cpu() for k, v in state.buffers.items()}
+        captured.clear()
+        stem_in.clear()
+        state, _ = step(state, batch, TRAIN_SEED)
+        torch.cuda.synchronize(dev)
+        worst = 0.0
+        for name, pair in captured.items():
+            for leaf, stat in zip(("running_mean", "running_var"), pair):
+                k = f"{name}.{leaf}"
+                want = 0.9 * before[k] + 0.1 * stat
+                d = (state.buffers[k].double().cpu() - want).abs().max()
+                worst = max(worst, d.item() / want.abs().max().item())
+        fold.append(worst)
+        x = stem_in[0].reshape(-1, stem_in[0].shape[-1])
+        mean, var = captured["enc_img.res.bn1"]
+        stats.append(max(((mean - x.mean(0)).abs() / x.std(0)).max().item(),
+                         ((var - x.var(0)).abs() / x.var(0)).max().item()))
+        lr = opt.schedules["other_decay"](i)
+        decay.append(0.9 * lr * run.train.decay * max(v.abs().max().item()
+                                                       for v in before.values()))
+    for h in handles:
+        h.remove()
+    print(json.dumps({"r50_running_statistics": {
+        "batch_norms": len(captured), "steps": 2, "fold_max_rel_diff_each_step": fold,
+        "fold_rtol": BN_FOLD_RTOL, "stem_stats_vs_host_fp64_each_step": stats,
+        "stem_stats_rtol": BN_STAT_RTOL, "in_optimizer_groups": 0,
+        "jax_weight_decay_would_move_by_each_step": decay}}), flush=True)
+    require(len(captured) == 53 and max(fold) <= BN_FOLD_RTOL,
+            f"running statistics against the torch rule: {fold}")
+    require(max(stats) <= BN_STAT_RTOL, f"stem batch statistics against the host: {stats}")
+
+
+def am_draw_phase(dev, run):
+    """Phase 48's draw: the rollout (``get_att``) of the full-width model on
+    the pixel step's batch, its device ms (CUDA events, median of 5), one
+    ``am`` draw from it in which every row masks exactly k = max(floor(L p),
+    1) slots and none special; then ``AM_DRAWS`` draws of one row on scores
+    spread as exp(U(-3, 3)) over its slots: Spearman's rho between each
+    non-special slot's selection frequency and its score at least
+    ``AM_SPEARMAN`` (printed also on the rollout's own scores, which a
+    random-weight fusion spreads little, without a limit)."""
+    cfg, b = run.model, run.train.size_batch
+    model = VioletPretrain.from_run_config(run, dtype=torch.bfloat16, device=dev,
+                                           seed=TRAIN_SEED)
+    batch = synthetic_pretrain_batch(b, cfg, seed=3, device=dev)
+    img = maybe_normalize(batch["img"])
+    scores = model.get_att(img, batch["txt"], batch["mask"])
+    rollout_ms = float(np.median([_event_ms(lambda: model.get_att(img, batch["txt"],
+                                                                  batch["mask"]))
+                                  for _ in range(5)]))
+    t, hw = cfg.size_frame, cfg.size_img // cfg.size_patch
+    kw = dict(special_token_ids=VioletPretrain.special_token_ids,
+              mask_token_id=VioletPretrain.mask_token_id, p_mask=run.train.p_mask,
+              mask_types=("am",))
+    gen = torch.Generator(dev).manual_seed(9)
+    spc = special_tokens(batch["txt"], kw["special_token_ids"], kw["mask_token_id"])
+    d = draw_masks(gen, batch["txt"], t, hw, hw, att_scores=scores, **kw)
+    lv, l = t * (1 + hw * hw), scores.shape[1]
+    k = max(int(l * run.train.p_mask), 1)
+    counts = (d.covs[0].sum((1, 2, 3)) + d.txt_sel[0].sum(1)).long().tolist()
+    on_special = int((d.txt_sel[0] & spc).sum())
+
+    def frequencies(row_scores):
+        rows = row_scores.expand(AM_DRAWS, l)
+        dr = draw_masks(gen, batch["txt"][:1].expand(AM_DRAWS, -1), t, hw, hw,
+                        att_scores=rows, **kw)
+        video = torch.cat([torch.zeros(AM_DRAWS, t, 1, device=dev),
+                           dr.covs[0].reshape(AM_DRAWS, t, -1)], dim=2).reshape(AM_DRAWS, lv)
+        sel = torch.cat([video, dr.txt_sel[0].float()], dim=1)
+        return sel.mean(0).cpu().numpy(), int(sel.sum(1).min()), int(sel.sum(1).max())
+
+    keep = ~am_special(spc[:1], t, hw, hw)[0].cpu().numpy()
+    spread = torch.exp(torch.empty(l, device=dev).uniform_(-3.0, 3.0, generator=gen))
+    freq, lo, hi = frequencies(spread)
+    rho = spearman(freq[keep], spread.cpu().numpy()[keep])
+    freq_model, _, _ = frequencies(scores[0])
+    rho_model = spearman(freq_model[keep], scores[0].float().cpu().numpy()[keep])
+    s0 = scores[0].float().cpu().numpy()[keep]
+    print(json.dumps({"am_draw": {
+        "rollout_ms": rollout_ms, "rollout_shape": list(scores.shape), "k": k,
+        "masked_slots_each_row": counts, "masked_special_slots": on_special,
+        "draws": AM_DRAWS, "spearman_spread_scores": rho, "spearman_limit": AM_SPEARMAN,
+        "masked_slots_range_spread_scores": [lo, hi],
+        "spearman_rollout_scores": rho_model,
+        "rollout_score_range": [float(s0.min()), float(s0.max())]}}), flush=True)
+    require(all(c == k for c in counts) and on_special == 0 and lo == hi == k,
+            f"am rows mask {counts} slots (k = {k}), {on_special} special")
+    require(rho >= AM_SPEARMAN, f"am selection frequency against the scores: rho {rho}")
+    return rollout_ms
+
+
+def backbone_phases(dev, run, pixel):
+    """Phases 45-48 at full width in bf16 on configs/pretrain.json's shapes:
+    the swin2d-tiny pixel step and its whole step (row 9 at N = 49 in stages
+    0-1); the r50 pixel step (concat, ``r50_train_bn``), its running
+    statistics (``bn_fold_check``) and whole step, and the r50 ``nce``
+    retrieval step (mean fusion); the merlot pixel step and its whole step
+    (the ViT cut to ``MERLOT_CUT``); the pixel step with ``AM_MASKS`` and
+    its draw (``am_draw_phase``), its wall beside phase 6's (``pixel``, the
+    record of ``train_phase``). Returns each step's launches."""
+    out, rec = {}, {}
+    # 45. the 2D Swin-tiny backbone
+    run_tiny = with_2d_backbone(run, "swin2d", vis_backbone_size="tiny")
+    out["train_step_swin2d_tiny"] = train_phase(dev, run_tiny, TRAIN_SWIN2D_TINY_LAUNCHES)
+    torch.cuda.empty_cache()
+    whole_step_phase(dev, run_tiny)
+    torch.cuda.empty_cache()
+    # 46. the ResNet-50 backbone with train-mode BatchNorm, and its nce step
+    run_r50 = with_2d_backbone(run, "r50", r50_train_bn=True)
+    out["train_step_r50"] = train_phase(dev, run_r50, TRAIN_R50_LAUNCHES)
+    torch.cuda.empty_cache()
+    bn_fold_check(dev, run_r50)
+    torch.cuda.empty_cache()
+    whole_step_phase(dev, run_r50, b=R50_WHOLE_B)
+    torch.cuda.empty_cache()
+    run_ret = load_run_config(str(RET_CONFIG))
+    run_ret = with_2d_backbone(run_ret, "r50", temporal_fusion="mean", r50_train_bn=True)
+    out["train_step_retrieval_r50"], model = finetune_phase(
+        dev, "retrieval_r50", RET_CONFIG, run_ret,
+        VioletRetrieval(run_ret.model, dtype=torch.bfloat16, device=dev, seed=TRAIN_SEED), "nce",
+        "retrieval", TRAIN_RET_R50_LAUNCHES, zero_ok={SCORE_OUT_BIAS})
+    del model
+    torch.cuda.empty_cache()
+    # 47. the MERLOT backbone (R50 + a trained ViT-base per frame)
+    run_merlot = with_2d_backbone(run, "merlot", r50_train_bn=True)
+    out["train_step_merlot"] = train_phase(dev, run_merlot, TRAIN_MERLOT_LAUNCHES)
+    torch.cuda.empty_cache()
+    whole_step_phase(dev, run_merlot, b=R50_WHOLE_B)
+    torch.cuda.empty_cache()
+    # 48. am masking on the pixel step: the rollout, the draw, the step
+    run_am = with_pretrain_masks(run, AM_MASKS)
+    out["train_step_am"] = train_phase(dev, run_am, TRAIN_AM_LAUNCHES, record=rec)
+    torch.cuda.empty_cache()
+    rollout_ms = am_draw_phase(dev, run_am)
+    print(json.dumps({"am_step_against_pixel_step": {
+        "am_step_ms": rec["step_ms_median"], "pixel_step_ms": pixel["step_ms_median"],
+        "ratio": rec["step_ms_median"] / pixel["step_ms_median"],
+        "am_kernel_ms": rec["kernel_ms"], "pixel_kernel_ms": pixel["kernel_ms"],
+        "rollout_ms": rollout_ms}}), flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def _nvidia_smi() -> str:
     """The card's name and power limit as nvidia-smi gives them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5068,7 +5403,11 @@ def main() -> None:
                for r in lane_train_cases(dev, gen, p, l, text, path=label)]
             + ln_cases(dev, gen, LOADER_LN, "loader")
             + ln_bwd_cases(dev, gen, LOADER_LN, "loader ", planted=False)
-            + seq2seq_lane_cases(dev, gen, row_stride))
+            + seq2seq_lane_cases(dev, gen, row_stride)
+            + lane_window_cases(dev, gen, "tiny", (2, 3), "2d swin-tiny")
+            + lane_window_bwd_cases(dev, gen, "tiny", (2, 3), "2d swin-tiny")
+            + merlot_lane_cases(dev, gen) + ln_cases(dev, gen, MERLOT_LN, "merlot")
+            + ln_bwd_cases(dev, gen, MERLOT_LN, "merlot ", planted=False))
     pool.shutdown()
     failures = [f for r in recs for f in r.pop("failures")]
     print(json.dumps({"kernel_shapes": recs}), flush=True)
@@ -5282,6 +5621,12 @@ def main() -> None:
     cli_dp_phase(dev, run)
     print(f"phases 41-44 done in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 45-48. the swin2d-tiny, r50 and merlot pixel steps with their whole
+    # steps, the r50 nce step, and the pixel step with am masking
+    t0 = time.perf_counter()
+    backbone_launches = backbone_phases(dev, run, synthetic)
+    print(f"phases 45-48 done in {time.perf_counter() - t0:.1f} s", flush=True)
+
     require(not failures, "kernel checks failed:\n" + "\n".join(failures))
 
     line = kernels_line(recs, {
@@ -5289,7 +5634,7 @@ def main() -> None:
         "train_step_swin2d": train_swin2d_launches, "train_step_violet": train_violet_launches,
         "train_step_qamc": ft.pop("train_step_qamc"), "eval": eval_launches,
         "eval_qamc": ft.pop("eval_qamc"), **step_launches, "lanebench": lanebench_launches,
-        **ft, **caption_launches, **loader_launches, **cli_launches})
+        **ft, **caption_launches, **loader_launches, **cli_launches, **backbone_launches})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -1,4 +1,4 @@
-"""Pretrain masking, ``rm`` and ``bm`` (counterpart of
+"""Pretrain masking, ``rm``, ``bm`` and ``am`` (counterpart of
 ``empirical_mvm_tpu/data/masking.py``; ref: main_pretrain.py:276-372).
 
 Split in two so that a test can feed the JAX package's draws to the port:
@@ -6,16 +6,18 @@ Split in two so that a test can feed the JAX package's draws to the port:
 * :func:`draw_masks` draws on an explicit generator on the device: the
   per-sample choice of mask type, the ``rm`` patch cover (Bernoulli(p) over
   the (T, h, w) grid), the ``bm`` cover (a union of T random 3D tubes per
-  sample), and the text selection (Bernoulli(p) over non-special tokens),
-  which both mask types share as the JAX package's do;
+  sample), the text selection (Bernoulli(p) over non-special tokens), which
+  ``rm`` and ``bm`` share as the JAX package's do, and for ``am`` the Gumbel
+  noise of its draw (:func:`am_cov_and_text`: k = max(floor(L p), 1) slots
+  of the fused sequence without replacement, in proportion to the
+  attention rollout's scores, none special), which gives ``am`` its own
+  cover and text selection;
 * :func:`apply_masking` is deterministic given those draws: the MTM answers,
   the ``[MASK]`` substitution, the 32x pixel cover and the masked clip.
 
 Data parallel (``parallel.mesh.data_parallel``), every draw is made at the
 global batch's shape from the generator all ranks share, and each rank keeps
 its rows, so the ranks together draw what one process draws.
-
-``am`` masking needs per-layer attentions and is not ported.
 """
 
 from __future__ import annotations
@@ -26,13 +28,15 @@ import torch
 
 from empirical_mvm_torch.parallel.mesh import global_rows, local_rows
 
-MASK_TYPES = ("rm", "bm")
+MASK_TYPES = ("rm", "bm", "am")
 
 
 class MaskDraws(NamedTuple):
     choice: torch.Tensor    # (B,) int64 index into mask_types
     covs: torch.Tensor      # (len(mask_types), B, T, h, w) fp32 patch covers
-    txt_sel: torch.Tensor   # (B, X) bool: text positions to mask
+    # (len(mask_types), B, X) bool: each type's text positions to mask (rm
+    # and bm share one selection, am draws its own)
+    txt_sel: torch.Tensor
 
 
 class MaskedBatch(NamedTuple):
@@ -93,32 +97,91 @@ def special_tokens(txt: torch.Tensor, special_token_ids: Sequence[int],
     return spc
 
 
+def am_special(txt_special: torch.Tensor, t: int, h: int, w: int,
+               vq: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, T*(1+h*w) + X) bool: the fused slots ``am`` never masks: each
+    frame's CLS slot, or with pre-extracted ``vq`` the slots whose token is
+    -1, then the special text tokens."""
+    b, l = txt_special.shape[0], t * (1 + h * w)
+    if vq is not None:
+        video = vq == -1
+    else:
+        slot = torch.arange(l, device=txt_special.device) % (1 + h * w)
+        video = (slot == 0).expand(b, l)
+    return torch.cat([video, txt_special], dim=1)
+
+
+def am_cov_and_text(scores: torch.Tensor, special: torch.Tensor, gumbel: torch.Tensor,
+                    t: int, h: int, w: int, x_len: int, p: float):
+    """The ``am`` draw (JAX ``_am_cov_and_text``; ref: main_pretrain.py:320-343)
+    given its Gumbel noise: k = max(floor(L p), 1) of the L fused slots by
+    Gumbel top-k on log(max(score, 1e-20)) (sampling without replacement in
+    proportion to the rollout's ``scores`` (B, L), the special slots' scores
+    taken as 0), the special slots dropped again. Returns the patch cover
+    (B, T, h, w) fp32 (each frame's CLS slot left out) and the text
+    selection (B, x_len) bool."""
+    b, l = scores.shape
+    lv = t * (1 + h * w)
+    k = max(int(l * p), 1)
+    s = torch.where(special, 0.0, scores.float())
+    idx = (torch.log(s.clamp(min=1e-20)) + gumbel).topk(k, dim=1).indices
+    sel = torch.zeros((b, l), dtype=torch.bool, device=scores.device)
+    sel = sel.scatter(1, idx, True) & ~special
+    cov = sel[:, :lv].reshape(b, t, 1 + h * w)[:, :, 1:].reshape(b, t, h, w).float()
+    return cov, sel[:, lv:lv + x_len]
+
+
+def gumbel_noise(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """Standard Gumbel noise, -log(-log(u)) with u uniform in [tiny, 1), as
+    ``jax.random.gumbel`` draws it."""
+    u = _uniform(gen, shape, device).clamp(min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
 def draw_masks(gen: torch.Generator, txt: torch.Tensor, t: int, h: int, w: int, *,
                special_token_ids: Sequence[int], mask_token_id: int,
-               p_mask: float = 0.15, mask_types: Sequence[str] = ("bm", "rm")) -> MaskDraws:
-    """The random part of the JAX ``apply_masking`` for ``rm`` and ``bm``,
-    on ``gen``'s device: drawn for the global batch, this rank's rows kept."""
+               p_mask: float = 0.15, mask_types: Sequence[str] = ("bm", "rm"),
+               att_scores: torch.Tensor | None = None,
+               vq: torch.Tensor | None = None) -> MaskDraws:
+    """The random part of the JAX ``apply_masking``, on ``gen``'s device:
+    drawn for the global batch, this rank's rows kept. ``am`` needs
+    ``att_scores`` (B, T*(1+h*w) + X), the rollout of this rank's rows
+    (``VioletPretrain.get_att``), and takes ``vq``, the pre-extracted tokens
+    :func:`apply_masking` gets, for its special slots."""
     for mt in mask_types:
         if mt not in MASK_TYPES:
-            raise NotImplementedError(f"mask type {mt!r} is not ported")
+            raise ValueError(f"unknown mask type {mt!r}")
     b = txt.shape[0]
     dev = txt.device
     if p_mask <= 0:
         return MaskDraws(torch.zeros(b, dtype=torch.int64, device=dev),
                          torch.zeros((len(mask_types), b, t, h, w), device=dev),
-                         torch.zeros(txt.shape, dtype=torch.bool, device=dev))
+                         torch.zeros((len(mask_types), *txt.shape), dtype=torch.bool,
+                                     device=dev))
     g = global_rows(b)
+    spc = special_tokens(txt, special_token_ids, mask_token_id)
     choice = local_rows(_randint(gen, 0, len(mask_types), (g,), dev))
-    txt_sel = (local_rows(_uniform(gen, (g, *txt.shape[1:]), dev)) < p_mask) & ~special_tokens(
-        txt, special_token_ids, mask_token_id)
-    covs = []
+    shared = None
+    if {"rm", "bm"} & set(mask_types):
+        shared = (local_rows(_uniform(gen, (g, *txt.shape[1:]), dev)) < p_mask) & ~spc
+    covs, sels = [], []
     for mt in mask_types:
         if mt == "rm":
             covs.append(local_rows((_uniform(gen, (g, t, h, w), dev) < p_mask).float()))
-        else:
+        elif mt == "bm":
             tubes = tuple(local_rows(v) for v in bm_tubes(gen, g, t, h, w, dev))
             covs.append(tube_cover(tubes, t, h, w))
-    return MaskDraws(choice, torch.stack(covs), txt_sel)
+        else:
+            if att_scores is None:
+                raise ValueError("'am' masking requires att_scores")
+            noise = local_rows(gumbel_noise(gen, (g, att_scores.shape[1]), dev))
+            cov, sel = am_cov_and_text(att_scores, am_special(spc, t, h, w, vq), noise,
+                                       t, h, w, txt.shape[1], p_mask)
+            covs.append(cov)
+            sels.append(sel)
+            continue
+        sels.append(shared)
+    return MaskDraws(choice, torch.stack(covs), torch.stack(sels))
 
 
 def apply_masking(draws: MaskDraws, img: torch.Tensor, txt: torch.Tensor,
@@ -130,12 +193,13 @@ def apply_masking(draws: MaskDraws, img: torch.Tensor, txt: torch.Tensor,
     MVM-vq answers: the token where the patch is covered, -1 elsewhere and at
     every CLS slot (ref: main_pretrain.py:357-361)."""
     b = txt.shape[0]
-    cov = draws.covs[draws.choice, torch.arange(b, device=txt.device)]   # (B, T, h, w)
+    rows = torch.arange(b, device=txt.device)
+    cov = draws.covs[draws.choice, rows]                                # (B, T, h, w)
     t = cov.shape[1]
     cov_full = torch.cat([cov.new_zeros(b, t, 1), cov.reshape(b, t, -1)], dim=2).reshape(b, -1)
     ans_mvm = (torch.full(cov_full.shape, -1, dtype=torch.int32, device=cov.device)
                if vq is None else torch.where(cov_full > 0, vq, -1).to(torch.int32))
-    sel = draws.txt_sel
+    sel = draws.txt_sel[draws.choice, rows]                             # (B, X)
     ans_mtm = torch.where(sel, txt, -1).to(torch.int32)
     new_txt = torch.where(sel, mask_token_id, txt).to(txt.dtype)
     pix = cov.repeat_interleave(patch_size, 2).repeat_interleave(patch_size, 3)

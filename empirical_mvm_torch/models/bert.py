@@ -14,7 +14,9 @@ JAX package's sites (after the embeddings' LayerNorm, after the attention
 output projection, after the layer's output projection) and the
 attention-probability dropout inside the attention kernel. No generator is
 the deterministic pass. ``remat`` recomputes each layer in the backward
-(``models/common.remat``).
+(``models/common.remat``). ``output_attentions`` (the ``am`` masking's
+rollout) takes the JAX package's XLA branch: a plain attention whose
+probabilities are returned.
 """
 
 from __future__ import annotations
@@ -110,8 +112,10 @@ class BertSelfAttention(nn.Module):
         self.self = _QKV(d, dtype)
         self.output = _Output(d, d, cfg.layer_norm_eps, dtype, cfg.hidden_dropout_prob)
 
-    def forward(self, x, mask, generator=None):
-        """x (B, L, D); mask (B, L, L) fp32 additive (may be a broadcast view)."""
+    def forward(self, x, mask, generator=None, output_attentions=False):
+        """x (B, L, D); mask (B, L, L) fp32 additive (may be a broadcast view).
+        With ``output_attentions``, returns (out, probabilities (B, nH, L, L)
+        fp32) from :meth:`plain_attention`."""
         s, dt = self.self, self.dtype
         w3 = torch.cat([s.query.weight, s.key.weight, s.value.weight]).to(dt)
         b3 = torch.cat([s.query.bias, s.key.bias, s.value.bias]).to(dt)
@@ -120,6 +124,9 @@ class BertSelfAttention(nn.Module):
         nh = self.num_heads
         hd = d // nh
         p = self.p_attn if generator is not None else 0.0
+        if output_attentions:
+            ctx, probs = self.plain_attention(qkv, mask, p, generator)
+            return self.output(ctx, x, generator), probs
         if lane_sa_attention_fits(b, l, d, nh):
             ctx = lane_self_attention(qkv, mask, nh, hd ** -0.5, p, generator)
         else:
@@ -127,6 +134,21 @@ class BertSelfAttention(nn.Module):
             ctx = packed_self_attention(qkv, mask, nh, hd ** -0.5, p, generator)
             ctx = ctx.transpose(1, 2).reshape(b, l, d)
         return self.output(ctx, x, generator)
+
+    def plain_attention(self, qkv, mask, p=0.0, generator=None):
+        """The attention whose probabilities leave it (the JAX package's XLA
+        branch, which ``output_attentions`` takes: bert.py:111): fp32 scores
+        of the products, the mask added, an fp32 softmax; the probabilities
+        cast to the compute dtype (with dropout) weight v. No kernel writes
+        the probabilities out. Returns ctx (B, L, D) and the probabilities
+        (B, nH, L, L) fp32."""
+        b, l, c3 = qkv.shape
+        nh, d = self.num_heads, c3 // 3
+        q, k, v = qkv.reshape(b, l, 3, nh, d // nh).permute(2, 0, 3, 1, 4).float()
+        scores = torch.matmul(q, k.transpose(-1, -2)) / (d // nh) ** 0.5 + mask[:, None]
+        probs = torch.softmax(scores, dim=-1)
+        ctx = torch.matmul(dropout(probs.to(qkv.dtype), p, generator).float(), v)
+        return ctx.to(qkv.dtype).transpose(1, 2).reshape(b, l, d), probs
 
 
 class BertLayer(nn.Module):
@@ -141,9 +163,13 @@ class BertLayer(nn.Module):
         self.output = _Output(cfg.intermediate_size, cfg.hidden_size,
                               cfg.layer_norm_eps, dtype, cfg.hidden_dropout_prob)
 
-    def forward(self, x, mask, generator=None):
-        x = self.attention(x, mask, generator)
-        return self.output(F.gelu(self.intermediate.dense(x)), x, generator)
+    def forward(self, x, mask, generator=None, output_attentions=False):
+        """With ``output_attentions``, returns (x, the attention's
+        probabilities)."""
+        x = self.attention(x, mask, generator, output_attentions)
+        x, probs = x if output_attentions else (x, None)
+        x = self.output(F.gelu(self.intermediate.dense(x)), x, generator)
+        return (x, probs) if output_attentions else x
 
 
 class BertEncoder(nn.Module):
@@ -155,14 +181,23 @@ class BertEncoder(nn.Module):
                                     for _ in range(cfg.num_hidden_layers)])
         self.remat = cfg.remat
 
-    def forward(self, x, attn_bias=None, generator=None):
+    def forward(self, x, attn_bias=None, generator=None, output_attentions=False):
         """attn_bias: additive (B, 1, 1 or L, L) fp32 from
-        :func:`extended_attention_mask`, or None."""
+        :func:`extended_attention_mask`, or None. With ``output_attentions``
+        (the rollout of ``am`` masking), every layer's attention runs
+        :meth:`BertSelfAttention.plain_attention` and the call returns (x,
+        [each layer's probabilities (B, nH, L, L) fp32])."""
         b, l = x.shape[:2]
         if attn_bias is None:
             mask = torch.zeros((b, l, l), dtype=torch.float32, device=x.device)
         else:
             mask = attn_bias.float().reshape(b, *attn_bias.shape[2:]).expand(b, l, l)
+        if output_attentions:
+            probs = []
+            for layer in self.layer:
+                x, p = layer(x, mask, generator, output_attentions=True)
+                probs.append(p)
+            return x, probs
         for layer in self.layer:
             x = remat(layer, generator, x, mask) if self.remat else layer(x, mask, generator)
         return x

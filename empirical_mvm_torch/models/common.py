@@ -8,6 +8,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from empirical_mvm_torch.ops.layernorm import LayerNorm
+from empirical_mvm_torch.parallel.mesh import all_reduce_sum, global_rows
 
 
 class Linear(nn.Linear):
@@ -46,6 +47,66 @@ class Conv2d(nn.Conv2d):
         return y.permute(0, 2, 3, 1)
 
 
+class BatchNorm2d(nn.Module):
+    """torch ``BatchNorm2d`` on channel-last maps (JAX ``BatchNorm2d``),
+    fp32 arithmetic, output fp32 as JAX's ``xf`` gives.
+
+    Eval mode: ``(x - running_mean) * rsqrt(running_var + eps) * weight +
+    bias``. Train mode (``use_batch_stats``): the batch mean and biased
+    variance per channel over (N, H, W), two passes as ``jnp.var``. Under
+    ``data_parallel`` the sums are over every rank's rows (a
+    differentiable all-reduce of the sum, then of the centred squares; the
+    count is this rank's times the ranks', the port's batches being even),
+    so every rank normalizes by the global batch's statistics, as the JAX
+    mesh does. The detached mean and unbiased variance wait in
+    ``batch_stats`` for :func:`fold_bn_stats`."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+        self.batch_stats: tuple[torch.Tensor, torch.Tensor] | None = None
+
+    def forward(self, x: torch.Tensor, use_batch_stats: bool = False) -> torch.Tensor:
+        xf = x.float()
+        if use_batch_stats:
+            flat = xf.reshape(-1, xf.shape[-1])
+            n = global_rows(flat.shape[0])
+            mean = all_reduce_sum(flat.sum(0)) / n
+            var = all_reduce_sum((flat - mean).square().sum(0)) / n
+            self.batch_stats = (mean.detach(), var.detach() * (n / max(n - 1, 1)))
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+BN_MOMENTUM = 0.1   # torch nn.BatchNorm2d's default, torchvision's R50's
+
+
+@torch.no_grad()
+def fold_bn_stats(model: nn.Module, momentum: float = BN_MOMENTUM) -> None:
+    """Fold each train-mode :class:`BatchNorm2d`'s pending batch statistics
+    into its running ones, ``running = (1 - m) * running + m * batch`` (torch
+    semantics; JAX ``fold_bn_stats``), and clear them; the train steps call
+    it after the update. No-op where no BN ran in train mode."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d) and m.batch_stats is not None:
+            for run, new in zip((m.running_mean, m.running_var), m.batch_stats):
+                run.copy_((1.0 - momentum) * run + momentum * new)
+            m.batch_stats = None
+
+
+def bn_buffers(model: nn.Module) -> dict[str, torch.Tensor]:
+    """The running statistics of ``model``'s :class:`BatchNorm2d` modules by
+    ``state_dict`` name: the state a train step changes besides the
+    parameters and the optimizer's."""
+    return {f"{name}.{leaf}": getattr(m, leaf) for name, m in model.named_modules()
+            if isinstance(m, BatchNorm2d) for leaf in ("running_mean", "running_var")}
+
+
 def dropout(x: torch.Tensor, p: float,
             generator: torch.Generator | None) -> torch.Tensor:
     """Inverted dropout drawn from ``generator`` (flax ``nn.Dropout``: keep
@@ -59,10 +120,11 @@ def dropout(x: torch.Tensor, p: float,
 
 def init_weights(module: nn.Module, generator: torch.Generator,
                  std: float = 0.02) -> None:
-    """Seeded random init of every parameter: LayerNorm weights 1, biases 0,
-    everything else N(0, std). The port's models are built for tests and
-    chip runs from random weights, or load converted checkpoints."""
-    norms = {id(m.weight) for m in module.modules() if isinstance(m, LayerNorm)}
+    """Seeded random init of every parameter: LayerNorm and BatchNorm
+    weights 1, biases 0, everything else N(0, std). The port's models are
+    built for tests and chip runs from random weights, or load converted
+    checkpoints."""
+    norms = {id(m.weight) for m in module.modules() if isinstance(m, (LayerNorm, BatchNorm2d))}
     with torch.no_grad():
         for name, p in module.named_parameters():
             if id(p) in norms:

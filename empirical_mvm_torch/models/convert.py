@@ -31,6 +31,10 @@ array (a ``torch.bfloat16`` tensor where it is bf16, as
 :func:`swin2d_state_dict_from_hf` loads a HF ``SwinModel`` checkpoint
 into the same names: the 2D teacher's real weights (``prefix=
 "feature_model."``) or the trained 2D backbone's (``prefix="enc_img.swin."``).
+:func:`resnet50_state_dict_from_torchvision` and :func:`vit_state_dict_from_hf`
+load a torchvision ResNet-50 and a HF ``ViTModel.encoder`` into the R50 and
+MERLOT encoders' names (the JAX ``resnet50_params_from_torch`` and
+``vit_encoder_params_from_hf``).
 
 The rest is the lenient half of the JAX ``models/torch_import.py`` and the
 scan layouts of its models: :func:`slice_pos_embs`,
@@ -51,6 +55,7 @@ import numpy as np
 import torch
 
 from empirical_mvm_torch.core.config import ModelConfig
+from empirical_mvm_torch.models.encoders2d import ResNet50
 
 logger = logging.getLogger(__name__)
 
@@ -370,14 +375,64 @@ def _bert_encoder(m: _Map, fp: str, tp: str, num_layers: int | None = None) -> N
         _layernorm(m, f"{fl}.LayerNorm", f"{tl}.output.LayerNorm")
 
 
+def _batch_norm(m: _Map, fp: str, tp: str) -> None:
+    """BatchNorm: flax ``scale``, ``bias``, ``mean``, ``var`` (the JAX
+    package keeps the running statistics among its parameters) as torch's
+    ``weight``, ``bias`` and the ``running_mean``, ``running_var`` buffers."""
+    for leaf, key in (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+                      ("running_var", "var")):
+        m.leaf(f"{tp}.{leaf}", f"{fp}.{key}")
+
+
+def _resnet50(m: _Map, fp: str, tp: str) -> None:
+    """``resnet50_params_from_torch``'s tree (``conv1``, ``bn1``,
+    ``layer{l}_{i}.{conv,bn}{1-3}``, ``down_conv``, ``down_bn``) in
+    torchvision's names (``layer{l}.{i}``, ``downsample.0`` / ``.1``); conv
+    kernels (kh, kw, in, out) as (out, in, kh, kw) weights."""
+    _conv(m, f"{fp}conv1", f"{tp}conv1")
+    _batch_norm(m, f"{fp}bn1", f"{tp}bn1")
+    for li, (_, n, _) in enumerate(ResNet50.STAGES, start=1):
+        for bi in range(n):
+            fb, tb = f"{fp}layer{li}_{bi}", f"{tp}layer{li}.{bi}"
+            for ci in (1, 2, 3):
+                _conv(m, f"{fb}.conv{ci}", f"{tb}.conv{ci}")
+                _batch_norm(m, f"{fb}.bn{ci}", f"{tb}.bn{ci}")
+            if m.has(f"{fb}.down_conv", f"{tb}.downsample"):
+                _conv(m, f"{fb}.down_conv", f"{tb}.downsample.0")
+                _batch_norm(m, f"{fb}.down_bn", f"{tb}.downsample.1")
+
+
+def _vit_blocks(m: _Map, fp: str, tp: str) -> None:
+    """The MERLOT encoder's ViT blocks, flax ``vit_{i}.{norm1, qkv, proj,
+    norm2, fc1, fc2}`` as the timm names of ``teachers/dpt.ViTBlock``
+    (``vit.{i}.attn.qkv``, ``mlp.fc1``, ...)."""
+    for i in range(m.count(lambda i: f"{fp}vit_{i}", lambda i: f"{tp}vit.{i}")):
+        fb, tb = f"{fp}vit_{i}", f"{tp}vit.{i}"
+        _layernorm(m, f"{fb}.norm1", f"{tb}.norm1")
+        _layernorm(m, f"{fb}.norm2", f"{tb}.norm2")
+        for flax_name, torch_name in (("qkv", "attn.qkv"), ("proj", "attn.proj"),
+                                      ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            _linear(m, f"{fb}.{flax_name}", f"{tb}.{torch_name}")
+
+
 def _enc_img(m: _Map, fp: str, tp: str) -> None:
-    """``EncVideo`` (swin, optional ``fc``, the embeddings and ``norm``) or
+    """``EncVideo`` (swin, optional ``fc``, the embeddings and ``norm``),
     ``EncImgSwin`` (swin, ``swin2bert`` and the ``embeds`` block, whose
-    ``emb_odr`` exists for concat fusion only)."""
-    _swin3d(m, f"{fp}swin.", f"{tp}swin.")
+    ``emb_odr`` exists for concat fusion only), ``EncImgR50`` (``res``,
+    ``proj``, ``embeds``) or ``EncImgMerlot`` (those, the ViT blocks and
+    ``out_norm``)."""
     embs = ("emb_cls", "emb_pos", "emb_len", "emb_odr")
+    if m.has(f"{fp}res", f"{tp}res"):
+        _resnet50(m, f"{fp}res.", f"{tp}res.")
+        _linear(m, f"{fp}proj", f"{tp}proj")
+        _vit_blocks(m, fp, tp)
+        if m.has(f"{fp}out_norm", f"{tp}out_norm"):
+            _layernorm(m, f"{fp}out_norm", f"{tp}out_norm")
+    else:
+        _swin3d(m, f"{fp}swin.", f"{tp}swin.")
     if m.has(f"{fp}embeds", f"{tp}embeds"):
-        _linear(m, f"{fp}swin2bert", f"{tp}swin2bert")
+        if m.has(f"{fp}swin2bert", f"{tp}swin2bert"):
+            _linear(m, f"{fp}swin2bert", f"{tp}swin2bert")
         for k in embs:
             if m.has(f"{fp}embeds.{k}", f"{tp}embeds.{k}"):
                 m.leaf(f"{tp}embeds.{k}", f"{fp}embeds.{k}")
@@ -505,6 +560,39 @@ def swin2d_state_dict_from_hf(hf: Mapping[str, Any], depths, prefix: str = "") -
     return sd
 
 
+def resnet50_state_dict_from_torchvision(tv: Mapping[str, Any],
+                                         prefix: str = "enc_img.res.") -> dict:
+    """A torchvision ``resnet50`` state_dict -> the port's ``ResNet50``
+    trunk under ``prefix``: the counterpart of the JAX
+    ``resnet50_params_from_torch``. The names are torchvision's already;
+    ``fc`` (the trunk drops it) and ``num_batches_tracked`` (torch's
+    counter, which the momentum rule does not read) are left out."""
+    return {f"{prefix}{k}": _tensor(v) for k, v in tv.items()
+            if not k.startswith("fc.") and not k.endswith("num_batches_tracked")}
+
+
+def vit_state_dict_from_hf(hf: Mapping[str, Any], num_layers: int,
+                           prefix: str = "enc_img.vit.") -> dict:
+    """HF ``ViTModel.encoder`` state_dict (``layer.{i}.attention.attention.
+    {query,key,value}``, ``layernorm_before``, ...) -> the MERLOT encoder's
+    timm-named blocks under ``prefix``, query, key and value concatenated
+    into ``attn.qkv``: the counterpart of the JAX
+    ``vit_encoder_params_from_hf`` (ref: visbackbone/merlot.py:41-49)."""
+    sd: dict = {}
+    for i in range(num_layers):
+        hl, tb = f"layer.{i}", f"{prefix}{i}"
+        for hn, tn in (("layernorm_before", "norm1"), ("layernorm_after", "norm2"),
+                       ("attention.output.dense", "attn.proj"),
+                       ("intermediate.dense", "mlp.fc1"), ("output.dense", "mlp.fc2")):
+            for leaf in ("weight", "bias"):
+                _put(sd, f"{tb}.{tn}.{leaf}", hf[f"{hl}.{hn}.{leaf}"])
+        for leaf in ("weight", "bias"):
+            _put(sd, f"{tb}.attn.qkv.{leaf}", np.concatenate(
+                [np.asarray(hf[f"{hl}.attention.attention.{qkv}.{leaf}"])
+                 for qkv in ("query", "key", "value")], 0))
+    return sd
+
+
 def clip_state_dict(tree: Tree, prefix: str = "") -> dict:
     """Inverse of ``clip_params_from_torch``: a ``CLIPVisual`` tree to HF
     ``CLIPVisionModel`` names without the ``vision_model.`` prefix."""
@@ -540,15 +628,18 @@ def bert_encoder_state_dict(tree: Tree, num_layers: int, prefix: str = "") -> di
 
 
 def enc_img_state_dict(img: Tree, prefix: str = "enc_img.") -> dict:
-    """The image encoder's tree: ``EncVideo`` or ``EncImgSwin``."""
+    """The image encoder's tree: ``EncVideo``, ``EncImgSwin``, ``EncImgR50``
+    or ``EncImgMerlot``."""
     return _forward(img, _enc_img, "", prefix)
 
 
 def state_dict_from_flax(params: Tree, cfg: ModelConfig | None = None,
                          heads: Mapping[str, str] | None = None) -> dict:
     """JAX ``VioletBase`` params (a retrieval, QA, captioning or pretrain
-    model) -> the port's ``state_dict``, with an ``EncVideo`` or an
-    ``EncImgSwin`` (``vis_backbone="swin2d"``) image encoder. ``heads`` maps
+    model) -> the port's ``state_dict``, with an ``EncVideo``, an
+    ``EncImgSwin`` (``vis_backbone="swin2d"``), an ``EncImgR50`` or an
+    ``EncImgMerlot`` image encoder (BatchNorm ``mean`` / ``var`` as the
+    ``running_*`` buffers). ``heads`` maps
     head names to kinds as in ``violet_params_from_torch``, as the JAX CLIs
     pass them: ``"score_head"`` (``fc``, ``fc_mvm``), ``"mlm_head"``
     (``fc_mtm``) or ``"linear"`` (the decoders, the gumbel selection's

@@ -24,13 +24,16 @@ in the JAX package's ``if 3d ... elif 2d``, the one teacher is the 3D one
 and both losses read it), 2d_clip a CLIP ViT-B/32's frame by frame
 (``fc_mvm_clip``, ``clip_model``; ref: main_pretrain.py:153-174, 508-545).
 
-The video backbone is the Video Swin (``vidswin``) or the trained 2D Swin
-(``swin2d``, concat fusion; mean fusion keeps one averaged frame of video
-tokens and so takes no MVM task). The ``smtm`` task fuses the masked
+The video backbone is the Video Swin (``vidswin``), the trained 2D Swin
+(``swin2d``), the ResNet-50 (``r50``) or the MERLOT encoder (``merlot``);
+the 2D ones with concat fusion (mean fusion keeps one averaged frame of
+video tokens and so takes no MVM task). The ``smtm`` task fuses the masked
 caption once more under the ``seq2seq`` joint mask and scores the MLM head
 there against the MTM answers (ref: main_pretrain.py:253-258). A clip the
 loader marks ``corrupt`` is zeroed after normalization and left out of the
-hog loss. ``am`` masking is not ported.
+hog loss. ``am`` masking draws its slots from the attention rollout of one
+more deterministic pass over the unmasked batch, under no_grad
+(:meth:`VioletPretrain.get_att`; ref: main_pretrain.py:211-215, 320-343).
 
 Data parallel (``parallel.mesh.data_parallel``), the negatives are drawn for
 the global batch and index the captions of every rank, gathered in global
@@ -48,7 +51,7 @@ from empirical_mvm_torch.models.bert import BertMLMHead
 from empirical_mvm_torch.models.common import Linear, init_weights
 from empirical_mvm_torch.models.encoders2d import swin2d_config
 from empirical_mvm_torch.models.video_swin import SwinTransformer3D
-from empirical_mvm_torch.models.violet import ScoreHead, VioletBase
+from empirical_mvm_torch.models.violet import ScoreHead, VioletBase, joint_attn_bias
 from empirical_mvm_torch.ops.hog import hog_image
 from empirical_mvm_torch.ops.preprocess import maybe_normalize
 from empirical_mvm_torch.parallel.mesh import gather_rows, global_rows, local_rows
@@ -220,6 +223,19 @@ class VioletPretrain(VioletBase):
         return masked_l1(self.decode_flow(grid), target,
                          (cover > 0) & keep[:, :, None, None, None], channel_div=2.0)
 
+    @torch.no_grad()
+    def get_att(self, img, txt, mask) -> torch.Tensor:
+        """The attention rollout of ``am`` masking (JAX ``get_att``; ref:
+        main_pretrain.py:211-215): the deterministic pass over ``img`` (no
+        dropout, drop path or batch statistics), the fusion under the full
+        joint mask with every layer's probabilities out
+        (``BertEncoder(output_attentions=True)``), each layer's mean over
+        heads summed over layers and queries: (B, Lv + X) fp32."""
+        fi, mi, ft, mt = self.go_feat(img, txt, mask)
+        feat = torch.cat([fi.to(self.dtype), ft.to(self.dtype)], dim=1)
+        _, probs = self.trsfr(feat, joint_attn_bias(mi, mt), output_attentions=True)
+        return sum(p.mean(dim=1).sum(dim=1) for p in probs)
+
     def forward(self, img, txt, mask, neg_idx=None, generator=None):
         """One pretrain forward (ref: main_pretrain.py:226-267) on a masked
         batch. ``neg_idx`` (B, O-1) names each row's negative captions (rows
@@ -282,13 +298,16 @@ class VioletPretrain(VioletBase):
         b, t = img.shape[:2]
         ps = self.config.size_patch
         h, w = img.shape[2] // ps, img.shape[3] // ps
+        vq_tokens = None if self.vq_on_the_fly else vq
         if draws is None:
+            # am: one more no-grad pass over the unmasked batch (ref: :321-323)
+            scores = self.get_att(img, txt, mask) if "am" in self.pretrain_masks else None
             draws = draw_masks(mask_generator, txt, t, h, w,
                                special_token_ids=self.special_token_ids,
                                mask_token_id=self.mask_token_id, p_mask=self.p_mask,
-                               mask_types=self.pretrain_masks)
-        mb = apply_masking(draws, img, txt, None if self.vq_on_the_fly else vq,
-                           mask_token_id=self.mask_token_id, patch_size=ps)
+                               mask_types=self.pretrain_masks, att_scores=scores, vq=vq_tokens)
+        mb = apply_masking(draws, img, txt, vq_tokens, mask_token_id=self.mask_token_id,
+                           patch_size=ps)
         o = min(global_rows(b), self.num_options)
         if neg_idx is None and o > 1:
             neg_idx = local_rows(draw_negatives(mask_generator, global_rows(b), o - 1))

@@ -31,11 +31,15 @@ from empirical_mvm_torch.models.violet import ScoreHead, VioletBase
 from empirical_mvm_torch.parallel.mesh import gather_rows, global_rows, local_rows
 
 
-def _cls_pos(img_shape, size_patch: int) -> int:
-    """Index of the first text token in the fused sequence
-    (ref: main_retrieval.py:81)."""
-    t, hh = img_shape[1], img_shape[2]
-    return t * (1 + (hh // size_patch) ** 2)
+def first_text(feat_img: torch.Tensor) -> int:
+    """Index of the first text token in the fused sequence, where the heads
+    read (ref: main_retrieval.py:81): the video tokens' count, t * (1 + h *
+    w), with t = 1 under mean temporal fusion. The JAX package's
+    ``_cls_pos`` counts the clip's frames T there, so under mean fusion it
+    reads a text token past the first, or past the sequence's end, which
+    JAX clamps to its last token (ROADMAP Queue 3); the port does not copy
+    that."""
+    return feat_img.shape[1]
 
 
 class _Task(VioletBase):
@@ -65,13 +69,12 @@ class VioletRetrieval(_Task):
         the pairs row-major (ref: main_retrieval.py:71-76). Data parallel,
         this rank's videos against the global batch's captions (B / W, B)."""
         b = img.shape[0]
-        cls_pos = _cls_pos(img.shape, self.config.size_patch)
         fi, mi, ft, mt = self.go_feat(img, txt, mask, generator)
         ft, mt = gather_rows(ft), gather_rows(mt)
         n = ft.shape[0]
         out = self.go_cross(fi.repeat_interleave(n, 0), mi.repeat_interleave(n, 0),
                             torch.cat([ft] * b), torch.cat([mt] * b), generator)
-        return self.fc(out[:, cls_pos], generator).reshape(b, n)
+        return self.fc(out[:, first_text(fi)], generator).reshape(b, n)
 
     def encode(self, img, txt, mask):
         """Stage-1 features of the two-stage eval. ``img`` is (B, Clips, T, H,
@@ -156,14 +159,13 @@ class VioletQAMC(_Task):
         """img (B, T, H, W, 3); txt, mask (B, O, X). ``gumbel_noise`` is the
         selection's ``noise``."""
         b, o, x = txt.shape
-        cls_pos = _cls_pos(img.shape, self.config.size_patch)
         fi, mi, ft, mt = self.go_feat(img, txt.reshape(b * o, x), mask.reshape(b * o, x),
                                       generator)
         if self.num_video_tokens > 0:
             mi = self.select_vid_token(fi, mi, generator, gumbel_noise)
         out = self.go_cross(fi.repeat_interleave(o, 0), mi.repeat_interleave(o, 0), ft, mt,
                             generator)
-        return self.fc(out[:, cls_pos], generator).reshape(b, o)
+        return self.fc(out[:, first_text(fi)], generator).reshape(b, o)
 
 
 class VioletQAMCGen(_Task):
@@ -180,9 +182,9 @@ class VioletQAMCGen(_Task):
         super().__init__(config, dtype, device, seed, heads)
 
     def forward(self, img, txt, mask, generator=None):
-        cls_pos = _cls_pos(img.shape, self.config.size_patch)
-        out = self.go_cross(*self.go_feat(img, txt, mask, generator), generator)
-        return self.fc_mtm(out[:, cls_pos:])
+        fi, mi, ft, mt = self.go_feat(img, txt, mask, generator)
+        out = self.go_cross(fi, mi, ft, mt, generator)
+        return self.fc_mtm(out[:, first_text(fi):])
 
 
 class VioletQAMCMLMHead(_Task):
@@ -198,12 +200,11 @@ class VioletQAMCMLMHead(_Task):
 
     def forward(self, img, txt, mask, generator=None):
         b, o, x = txt.shape
-        cls_pos = _cls_pos(img.shape, self.config.size_patch)
         fi, mi, ft, mt = self.go_feat(img, txt.reshape(b * o, x), mask.reshape(b * o, x),
                                       generator)
         out = self.go_cross(fi.repeat_interleave(o, 0), mi.repeat_interleave(o, 0), ft, mt,
                             generator)
-        return self.fc_mtm(out[:, cls_pos:]).reshape(b, o, x, -1)
+        return self.fc_mtm(out[:, first_text(fi):]).reshape(b, o, x, -1)
 
 
 def qamc_mlm_head_accuracy(logits, mask_ans, true_token_id: int,
@@ -246,9 +247,9 @@ class VioletQAOE(_Task):
         super().__init__(config, dtype, device, seed, heads)
 
     def forward(self, img, txt, mask, generator=None):
-        cls_pos = _cls_pos(img.shape, self.config.size_patch)
-        out = self.go_cross(*self.go_feat(img, txt, mask, generator), generator)
-        return self.fc(out[:, cls_pos], generator)
+        fi, mi, ft, mt = self.go_feat(img, txt, mask, generator)
+        out = self.go_cross(fi, mi, ft, mt, generator)
+        return self.fc(out[:, first_text(fi)], generator)
 
 
 class VioletQAOEMLMHead(_Task):
@@ -275,8 +276,7 @@ class VioletQAOEMLMHead(_Task):
     def forward(self, img, txt, mask, prompt=None, generator=None):
         if prompt is None and self.config.enable_prompt:
             prompt = self.prompt_static
-        cls_pos = _cls_pos(img.shape, self.config.size_patch)
         fi, mi, ft, mt = self.go_feat(img, txt, mask, generator)
         mt, ft, pre = self.prepend_pretxt(mt, ft, prompt, generator)
         out = self.go_cross(fi, mi, ft, mt, generator)
-        return self.fc_mtm(out[:, cls_pos + pre:])
+        return self.fc_mtm(out[:, first_text(fi) + pre:])

@@ -2,9 +2,11 @@
 video encoder, text embeddings, cross-modal fusion, and the score head.
 
 Covers what the retrieval eval and the pretrain step run: the ``vidswin``
-backbone (:class:`EncVideo`) and the trained 2D Swin backbone
+backbone (:class:`EncVideo`), the trained 2D Swin backbone
 (``vis_backbone`` ``"swin"`` / ``"swin2d"``: ``encoders2d.EncImgSwin``, mean
-or concat fusion), the embeddings-only text encoder, the ``full`` and
+or concat fusion), the ResNet-50 (``"r50"``, mean or concat:
+``encoders2d.EncImgR50``) and the MERLOT encoder (``"merlot"``, concat:
+``encoders2d.EncImgMerlot``), the embeddings-only text encoder, the ``full`` and
 ``seq2seq`` joint attention masks, and the QA heads' text prefixes (a
 learned task token or an encoded prompt, :meth:`VioletBase.prepend_pretxt`). Names are the reference
 checkpoint's (``enc_img.swin.*``, ``enc_img.emb_pos``, ``enc_txt.emb_txt.*``,
@@ -25,7 +27,7 @@ from empirical_mvm_torch.core.config import ModelConfig
 from empirical_mvm_torch.models.bert import (BertEmbeddings, BertEncoder,
                                              extended_attention_mask)
 from empirical_mvm_torch.models.common import Linear, dropout
-from empirical_mvm_torch.models.encoders2d import EncImgSwin
+from empirical_mvm_torch.models.encoders2d import EncImgMerlot, EncImgR50, EncImgSwin
 from empirical_mvm_torch.models.video_swin import SwinTransformer3D
 from empirical_mvm_torch.ops.layernorm import FusedLayerNorm
 from empirical_mvm_torch.ops.preprocess import maybe_normalize
@@ -143,9 +145,12 @@ class VioletBase(nn.Module):
             self.enc_img = EncVideo(cfg, dtype)
         elif vb in ("swin", "swin2d"):
             self.enc_img = EncImgSwin(cfg, cfg.temporal_fusion, dtype)
-        elif vb in ("r50", "merlot"):
-            raise NotImplementedError(f"vis_backbone {vb!r} (ResNet-50 / MERLOT encoder) "
-                                      "is not ported")
+        elif vb == "r50":
+            self.enc_img = EncImgR50(cfg, cfg.temporal_fusion, cfg.r50_train_bn, dtype)
+        elif vb == "merlot":
+            if cfg.temporal_fusion != "concat":
+                raise ValueError("merlot requires temporal_fusion=concat (ref args.py:174)")
+            self.enc_img = EncImgMerlot(cfg, cfg.r50_train_bn, dtype=dtype)
         else:
             raise ValueError(f"unknown vis_backbone {vb!r}")
         self.config = cfg

@@ -200,6 +200,31 @@ def global_sum(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over ranks. Each rank's loss is its share, so the gradient of
+    a rank's addend is the sum over ranks of the gradients of the sum."""
+
+    @staticmethod
+    def forward(ctx, x):
+        x = x.clone()
+        dist.all_reduce(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g)
+        return g
+
+
+def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over ranks (x itself outside :func:`data_parallel`),
+    differentiable: train-mode BatchNorm's statistics of the global batch."""
+    if active() is None:
+        return x
+    return _AllReduceSum.apply(x)
+
+
 def _gather(x: torch.Tensor, world: int) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(world)]
     dist.all_gather(parts, x.contiguous())

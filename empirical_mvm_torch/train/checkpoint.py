@@ -13,7 +13,8 @@ ref: agent.py:127-141 save_model, model.py:295-353 lenient load).
   :func:`load_torch_violet_ckpt` only.
 
 :func:`save_train_state` / :func:`load_train_state` keep the port's own
-resumable state (parameters, AdamW moments, step) in the same codec, with a
+resumable state (parameters, AdamW moments, step, and the running
+statistics of train-mode BatchNorms) in the same codec, with a
 double-buffered write (ref: utils/load_save.py:217-338 TrainingRestorer);
 each package resumes its own runs.
 
@@ -151,7 +152,12 @@ def _whole(tree):
 
 
 def _state_tree(state: TrainState) -> dict:
-    return {"params": state.params, "opt_state": state.opt_state, "step": int(state.step)}
+    """The saved tree; a model with train-mode BatchNorms adds their running
+    statistics (``buffers``), which its steps change too."""
+    tree = {"params": state.params, "opt_state": state.opt_state, "step": int(state.step)}
+    if state.buffers:
+        tree["buffers"] = state.buffers
+    return tree
 
 
 def save_train_state(state: TrainState, path: str, meta: dict | None = None) -> None:
@@ -210,8 +216,10 @@ def load_train_state(path: str, like: TrainState) -> TrainState:
             logger.warning("restore from %s failed: %s", candidate, e)
             continue
         _copy_into(want["params"], saved["params"])
+        _copy_into(like.buffers, saved.get("buffers", {}))
         opt_state = _copy_into(like.opt_state, saved["opt_state"])
-        return TrainState(params=like.params, opt_state=opt_state, step=int(saved["step"]))
+        return TrainState(params=like.params, opt_state=opt_state, step=int(saved["step"]),
+                          buffers=like.buffers)
     raise FileNotFoundError(f"no restorable train state at {path}")
 
 

@@ -6,8 +6,11 @@ schedule and global-norm clipping: the update of the JAX package's
 * Groups (ref: agent.py:86-95): {swin, other} by whether "swin" is in the
   parameter's name, x {decay, nodecay}, no decay where the leaf name holds
   "bias" (a substring rule, so ``relative_position_bias_table`` too) or the
-  parameter is a LayerNorm weight (flax calls it ``scale``; here it is found
-  by module type). The swin groups take ``backbone_lr_mul``.
+  parameter is a LayerNorm or BatchNorm weight (flax calls both ``scale``;
+  here they are found by module type). The BatchNorm running statistics are
+  buffers, outside every group: the JAX package labels them ``other_decay``
+  (its ``mean`` and ``var`` parameters), so its weight decay shrinks them
+  (ROADMAP Queue 3), which the port does not copy. The swin groups take ``backbone_lr_mul``.
 * Schedule (ref: agent.py:13-32): linear warmup over ``warmup_ratio`` of
   ``max_iter``, then linear decay, floored at ``min_lr``, evaluated at the
   update count before it increments (the first update uses lr(0)).
@@ -55,6 +58,7 @@ import torch.distributed as dist
 from torch import nn
 
 from empirical_mvm_torch.core.config import TrainConfig
+from empirical_mvm_torch.models.common import BatchNorm2d
 from empirical_mvm_torch.ops.layernorm import LayerNorm
 from empirical_mvm_torch.parallel.mesh import local_tensor
 
@@ -92,7 +96,8 @@ def group_labels(model: nn.Module, frozen: Iterable[str] = ()) -> dict[str, str]
     """Parameter name -> group, by the rule of ``default_group_fn``, or
     ``frozen`` where ``requires_grad`` is off or the name is in ``frozen``."""
     frozen = set(frozen)
-    norm_weights = {id(m.weight) for m in model.modules() if isinstance(m, LayerNorm)}
+    norm_weights = {id(m.weight) for m in model.modules()
+                    if isinstance(m, (LayerNorm, BatchNorm2d))}
     labels = {}
     for name, p in model.named_parameters():
         if not p.requires_grad or name in frozen:

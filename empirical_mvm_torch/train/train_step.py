@@ -19,13 +19,14 @@ optimizer accumulates ``grad_accum`` of them into one update.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
 import torch
 from torch import nn
 
+from empirical_mvm_torch.models.common import bn_buffers, fold_bn_stats
 from empirical_mvm_torch.parallel.mesh import (DataParallel, data_parallel, reduce_gradients,
                                                reduce_losses)
 from empirical_mvm_torch.train.losses import (cross_entropy_ignore, label_smoothed_nll,
@@ -38,11 +39,15 @@ class TrainState:
     params: dict[str, nn.Parameter]
     opt_state: dict
     step: int
+    # the running statistics of train-mode BatchNorms (by state_dict name):
+    # the steps fold into them in place, a resumable checkpoint keeps them
+    buffers: dict[str, torch.Tensor] = field(default_factory=dict)
 
 
 def create_train_state(model: nn.Module, optimizer: AdamW) -> TrainState:
     params = dict(model.named_parameters())
-    return TrainState(params=params, opt_state=optimizer.init(params), step=0)
+    return TrainState(params=params, opt_state=optimizer.init(params), step=0,
+                      buffers=bn_buffers(model))
 
 
 def step_generators(seed: int, step: int, device) -> tuple[torch.Generator, torch.Generator]:
@@ -53,10 +58,17 @@ def step_generators(seed: int, step: int, device) -> tuple[torch.Generator, torc
                  for i in range(2))
 
 
-def _update(optimizer: AdamW, state: TrainState, dp: DataParallel | None) -> dict:
+def _update(model: nn.Module, optimizer: AdamW, state: TrainState,
+            dp: DataParallel | None) -> TrainState:
+    """The update after backward, then the train-mode BatchNorms' batch
+    statistics folded into their running ones (JAX: ``fold_bn_stats`` after
+    ``apply_updates``, every micro-step)."""
     reduce_gradients(state.params.values(), dp)
-    return optimizer.update(state.params, {n: p.grad for n, p in state.params.items()},
-                            state.opt_state)
+    opt_state = optimizer.update(state.params, {n: p.grad for n, p in state.params.items()},
+                                 state.opt_state)
+    if state.buffers:
+        fold_bn_stats(model)
+    return TrainState(state.params, opt_state, state.step + 1, state.buffers)
 
 
 def make_pretrain_train_step(model: nn.Module, optimizer: AdamW,
@@ -85,8 +97,7 @@ def make_pretrain_train_step(model: nn.Module, optimizer: AdamW,
                               neg_idx=batch.get("neg_idx"), hog=batch.get("hog"),
                               vq=batch.get("vq"), corrupt=batch.get("corrupt"))
         ls["total"].backward()
-        opt_state = _update(optimizer, state, dp)
-        return TrainState(state.params, opt_state, state.step + 1), reduce_losses(ls, dp)
+        return _update(model, optimizer, state, dp), reduce_losses(ls, dp)
 
     return step
 
@@ -133,9 +144,7 @@ def make_supervised_train_step(model: nn.Module, optimizer: AdamW, loss_kind: st
             loss = loss_fn(model(batch["img"], batch["txt"], batch["mask"],
                                  generator=drop_gen, **extra), batch)
         loss.backward()
-        opt_state = _update(optimizer, state, dp)
-        return (TrainState(state.params, opt_state, state.step + 1),
-                reduce_losses({"total": loss}, dp))
+        return _update(model, optimizer, state, dp), reduce_losses({"total": loss}, dp)
 
     return step
 

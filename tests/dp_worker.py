@@ -41,8 +41,8 @@ def local_batch(batch: dict, dp) -> dict:
     out = mesh.shard_batch({k: v for k, v in batch.items() if k != "draws"}, dp)
     if batch.get("draws") is not None:
         d = batch["draws"]
-        out["draws"] = MaskDraws(d.choice[dp.rank::dp.world], d.covs[:, dp.rank::dp.world],
-                                 d.txt_sel[dp.rank::dp.world])
+        r, w = dp.rank, dp.world
+        out["draws"] = MaskDraws(d.choice[r::w], d.covs[:, r::w], d.txt_sel[:, r::w])
     return out
 
 
@@ -56,8 +56,9 @@ def build(job: dict):
 def train(job: dict, dp) -> dict:
     """``job["steps"]`` steps of the pretrain (``loss_kind`` None) or the
     supervised step, replicated or FSDP; the global losses, the whole
-    parameters after the steps, the local shards' element count and, given
-    ``ckpt``, the checkpoint and train state written there."""
+    parameters and the BatchNorms' running statistics after the steps, the
+    local shards' element count and, given ``ckpt``, the checkpoint and
+    train state written there."""
     model = build(job)
     sharded = mesh.shard_model(model, dp, job.get("fsdp", False), job.get("fsdp_min_size", 0))
     opt = topt.AdamW(model, job.get("lr", 1e-3), 10, grad_accum=job.get("grad_accum", 1))
@@ -78,6 +79,7 @@ def train(job: dict, dp) -> dict:
     out = {"losses": losses, "grads0": grads0,
            "params": {n: mesh.full_tensor(p.detach()).clone()
                       for n, p in model.named_parameters()},
+           "buffers": {n: b.clone() for n, b in state.buffers.items()},
            "local_numel": sum(mesh.local_tensor(p).numel() for p in model.parameters()),
            "sharded_params": sum(mesh.local_tensor(p) is not p for p in model.parameters()),
            "sharded_moments": sum(mesh.local_tensor(m) is not m
@@ -177,7 +179,35 @@ def cli(job, dp) -> dict:
     return {"run_dir": res["run_dir"], "steps": res["steps"], "sharded": len(sharded)}
 
 
-JOBS = {"train": train, "two_stage": two_stage, "helpers": helpers, "cli": cli}
+def batch_norm(job: dict, dp) -> dict:
+    """A ``BottleneckBlock`` (4 train-mode BatchNorms, one on the projected
+    shortcut) on this rank's rows of ``job["x"]``: the output rows, the
+    weighted sum's gradients (the parameters' summed over the ranks, as the
+    train steps reduce them; the input's), and each BatchNorm's batch
+    statistics, which every rank computes over the global batch."""
+    from empirical_mvm_torch.models.common import BatchNorm2d
+    from empirical_mvm_torch.models.encoders2d import BottleneckBlock
+    torch.manual_seed(0)
+    block = BottleneckBlock(job["x"].shape[-1], 8, stride=2, project=True)
+    with torch.no_grad():
+        for m in block.modules():
+            if isinstance(m, BatchNorm2d):
+                m.bias.add_(3.0)
+    x = job["x"] if dp is None else job["x"][dp.rank::dp.world]
+    x = x.clone().requires_grad_(True)
+    with mesh.data_parallel(dp):
+        out = block(x, use_batch_stats=True)
+    w = job["w"] if dp is None else job["w"][dp.rank::dp.world]
+    (out * w).sum().backward()
+    mesh.reduce_gradients(list(block.parameters()), dp)
+    return {"out": out.detach(), "x_grad": x.grad,
+            "grads": {n: p.grad for n, p in block.named_parameters()},
+            "stats": {n: m.batch_stats for n, m in block.named_modules()
+                      if isinstance(m, BatchNorm2d)}}
+
+
+JOBS = {"train": train, "two_stage": two_stage, "helpers": helpers, "cli": cli,
+        "batch_norm": batch_norm}
 
 
 def main(workdir: str, rank: int, world: int) -> None:

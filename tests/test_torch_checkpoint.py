@@ -25,6 +25,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 import tests.conftest  # noqa: F401  (pins JAX to the CPU)
+from tests.torch_threads import torch_threads  # noqa: F401  (the cores' share under xdist)
 
 import jax
 import jax.numpy as jnp

@@ -116,7 +116,8 @@ def _ln_inputs(rs, rows, c, cuda, mean=0.0, std=2.0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,c,eps", LN_SHAPES + [(80 * 197, 1024, 1e-6)])
+@pytest.mark.parametrize("rows,c,eps",
+                         LN_SHAPES + [(80 * 197, 1024, 1e-6), (80 * 50, 768, 1e-6)])
 def test_fused_layer_norm_kernel(cuda, dtype, rows, c, eps):
     """Each body against the plain version, at the shapes above and at the
     depth teacher's sites (the DPT-Large's 80 frames of 197 tokens of width
@@ -267,6 +268,9 @@ def test_lane_window_attention_bwd_kernel(cuda, dtype, b_, nh, c, nw):
     # 7 x 7, the 4-frame mask)
     (8, 3, 196, 4),
     (32, 3, 49, 16),
+    # the 2D Swin-tiny's stage 1 (C = 192: 6 heads), 2 clips of 4 frames x 4
+    # windows
+    (32, 6, 49, 16),
 ])
 def test_packed_window_attention_kernels(cuda, dtype, b_, nh, n, nw):
     """Forward and backward against their plain versions, shifted and
@@ -1477,3 +1481,80 @@ def test_remat_is_bit_equal_on_the_card(cuda, dtype):
     assert l0 == l1 and torch.equal(s0, s1) and set(g0) == set(g1)
     for name, g in g0.items():
         assert torch.equal(g, g1[name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lane_kernels_at_the_merlot_vit_shape(cuda, dtype):
+    """Rows 5 and 6 at the MERLOT encoder's trained ViT: 80 frames of 50
+    tokens, 12 heads of 64, p = 0, the zero mask ``vit_self_attention``
+    passes; against their plain versions."""
+    rs = np.random.RandomState(21)
+    p, l, d, nh = 80, 50, 768, 12
+    x3 = _randn(rs, p, l, 3 * d, scale=0.5).to(cuda)
+    do = _randn(rs, p, l, d).to(cuda).to(torch.bfloat16).float()
+    mask = torch.zeros(1, 1, l, device=cuda).expand(p, l, l)
+    seed = torch.zeros(2, dtype=torch.int32, device=cuda)
+    (fk, fp, _), (bk, bp, _) = _lane_calls(mask, nh, (d // nh) ** -0.5, 0.0, seed, do)
+    _check(fk, fp, x3, dtype, "attention" if dtype == torch.float32 else _lane_fwd_kind(64))
+    _check(bk, bp, x3, dtype, "attention_bwd")
+
+
+@pytest.mark.cuda
+def test_r50_encoder_and_its_batch_norm_card_against_cpu(cuda):
+    """``EncImgR50`` (concat, train-mode BatchNorm, biases at 3 as in
+    chip_smoke's whole steps) in fp32 with TF32 off: the output within 1e-4
+    of the CPU's, every gradient within 1e-3 of its tensor's largest value
+    plus 1e-5 of the largest anywhere, the folded running statistics within
+    2e-5 of their tensor's largest value."""
+    from empirical_mvm_torch.core import config as tcfg
+    from empirical_mvm_torch.models import common, encoders2d as tenc
+    bert = tcfg.BertConfig(vocab_size=200, hidden_size=64, num_hidden_layers=1,
+                           num_attention_heads=2, intermediate_size=128)
+    cfg = tcfg.ModelConfig(size_img=64, size_frame=2, fusion=bert, text=bert)
+    torch.manual_seed(0)
+    cpu = tenc.EncImgR50(cfg, "concat", train_bn=True)
+    with torch.no_grad():
+        for m in cpu.modules():
+            if isinstance(m, common.BatchNorm2d):
+                m.bias.add_(3.0)
+    card = tenc.EncImgR50(cfg, "concat", train_bn=True).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    img = torch.randn(2, 2, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    outs = []
+    for model, dev in ((card, cuda), (cpu, torch.device("cpu"))):
+        out, _ = model(img.to(dev), torch.Generator(dev).manual_seed(0))
+        (out * torch.linspace(-1, 1, out.numel(), device=dev).reshape(out.shape)).sum().backward()
+        common.fold_bn_stats(model)
+        outs.append((out.detach().cpu(), {n: p.grad.cpu() for n, p in model.named_parameters()
+                                          if p.grad is not None},
+                     {k: v.cpu() for k, v in common.bn_buffers(model).items()}))
+    (o_c, g_c, b_c), (o_r, g_r, b_r) = outs
+    torch.testing.assert_close(o_c, o_r, atol=1e-4, rtol=1e-4)
+    top = max(g.abs().max().item() for g in g_r.values())
+    for n, g in g_r.items():
+        assert (g_c[n] - g).abs().max().item() <= 1e-3 * g.abs().max().item() + 1e-5 * top, n
+    for k, v in b_r.items():
+        assert (b_c[k] - v).abs().max().item() <= 2e-5 * v.abs().max().item(), k
+
+
+@pytest.mark.cuda
+def test_am_draw_on_the_card(cuda):
+    """``draw_masks`` with ("am", "rm") on the card's generator: each am row
+    masks exactly k slots, none special, and the draw repeats with the
+    seed."""
+    from empirical_mvm_torch.data import masking as tmask
+    gen = torch.Generator(cuda).manual_seed(0)
+    b, t, h, w, p = 16, 4, 7, 7, 0.15
+    txt = torch.randint(104, 500, (b, 32), device=cuda, generator=gen)
+    txt[:, 0], txt[:, 20], txt[:, 21:] = 101, 102, 0
+    l = t * (1 + h * w) + 32
+    scores = torch.rand(b, l, device=cuda, generator=gen) + 0.5
+    kw = dict(special_token_ids=(101, 102, 0), mask_token_id=103, p_mask=p,
+              mask_types=("am", "rm"), att_scores=scores)
+    d = tmask.draw_masks(torch.Generator(cuda).manual_seed(3), txt, t, h, w, **kw)
+    again = tmask.draw_masks(torch.Generator(cuda).manual_seed(3), txt, t, h, w, **kw)
+    assert torch.equal(d.covs, again.covs) and torch.equal(d.txt_sel, again.txt_sel)
+    k = max(int(l * p), 1)
+    assert (d.covs[0].sum((1, 2, 3)) + d.txt_sel[0].sum(1) == k).all()
+    assert not (d.txt_sel[0] & tmask.special_tokens(txt, (101, 102, 0), 103)).any()

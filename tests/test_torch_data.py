@@ -29,6 +29,7 @@ import torch
 import yaml
 
 import tests.conftest  # noqa: F401  (pins JAX to the CPU)
+from tests.torch_threads import torch_threads  # noqa: F401  (the cores' share under xdist)
 
 from empirical_mvm_tpu.core import config as jcfg
 from empirical_mvm_tpu.data import composite as jcomp

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 import tests.conftest  # noqa: F401  (pins JAX to the CPU)
+from tests.torch_threads import torch_threads  # noqa: F401  (the cores' share under xdist)
 
 import jax
 import jax.numpy as jnp
@@ -43,7 +44,7 @@ from empirical_mvm_torch.train.checkpoint import load_params, load_train_state
 from empirical_mvm_torch.train.optimizer import build_optimizer
 from empirical_mvm_torch.train.train_step import create_train_state
 from tests import synth_data
-from tests.dp_worker import run_ranks, train, two_stage
+from tests.dp_worker import batch_norm, run_ranks, train, two_stage
 from tests.test_torch_pretrain import HEADS, LOSS_TOL, _model_cfg, _t, carried_slice
 from tests.test_torch_qa_heads import _text, clips, model_cfg
 
@@ -51,6 +52,10 @@ from empirical_mvm_torch.core import config as tcfg
 
 LR = 1e-3
 RANK_LOSS = dict(atol=1e-6, rtol=1e-6)
+# the am run below: VTM divides its logits by temp 0.05, so the fusion's
+# roundoff in another summation order reaches the loss 20-fold (read 1.5e-6
+# relative)
+RANK_LOSS_TEMP = dict(atol=1e-5, rtol=1e-5)
 
 
 def assert_grads_close(got, want, what, rel=1e-5, floor=1e-6):
@@ -131,6 +136,12 @@ def runs(slice_, tmp_path_factory):
         "fsdp_init": dict(base, batches=[batch], steps=0, fsdp=True, ckpt=str(tmp / "fsdp0")),
         "replicated_init": dict(base, batches=[batch], steps=0, ckpt=str(tmp / "rep0")),
     }
+    jobs["drawn_am"] = dict(base, batches=[batch], seed=11,
+                            kwargs={"pretrain_masks": ("am", "rm")})
+    rs = np.random.RandomState(7)
+    jobs["batch_norm"] = {"kind": "batch_norm",
+                          "x": torch.from_numpy(rs.randn(4, 8, 8, 16).astype(np.float32)),
+                          "w": torch.from_numpy(rs.randn(4, 4, 4, 32).astype(np.float32))}
     jobs["cli"] = {"kind": "cli", "config": _pretrain_config(tmp), "grad_accum": 2}
     rm = VioletRetrieval(model_cfg(tcfg), device="cpu", seed=2)
     items, gt = _eval_items()
@@ -139,7 +150,8 @@ def runs(slice_, tmp_path_factory):
                              encode_batch=2)
     outs = run_ranks(list(jobs.values()), tmp)
     two = [dict(zip(jobs, out)) for out in outs]
-    one = {name: train(jobs[name], None) for name in ("injected", "drawn")}
+    one = {name: train(jobs[name], None) for name in ("injected", "drawn", "drawn_am")}
+    one["batch_norm"] = batch_norm(jobs["batch_norm"], None)
     one["two_stage"] = two_stage(jobs["two_stage"], None)
     return two, one
 
@@ -195,6 +207,51 @@ def test_pretrain_step_at_two_ranks_matches_one_process(runs):
         assert_steps_close(got["params"], want["params"], want["grads0"], got["grads0"], name)
         for n, p in got["params"].items():
             assert torch.equal(p, two[1][name]["params"][n]), (name, n)
+
+
+def test_am_draws_at_two_ranks_match_one_process(runs):
+    """The pixel step with ("am", "rm") masking and its own draws: each
+    rank runs the rollout of its rows and keeps its rows of the Gumbel
+    noise drawn at the global shape, so two ranks draw what one process
+    draws; losses within ``RANK_LOSS_TEMP``, step-0 gradients and
+    parameters as above."""
+    two, one = runs
+    got, want = two[0]["drawn_am"], one["drawn_am"]
+    for lg, lw in zip(got["losses"], want["losses"]):
+        for k in lw:
+            np.testing.assert_allclose(lg[k], lw[k], err_msg=k, **RANK_LOSS_TEMP)
+    assert_grads_close(got["grads0"], want["grads0"], "drawn_am")
+    assert_steps_close(got["params"], want["params"], want["grads0"], got["grads0"], "drawn_am")
+    assert got["losses"] != two[0]["drawn"]["losses"]
+
+
+def test_synced_batch_norm_at_two_ranks_matches_one_process(runs):
+    """A bottleneck block with train-mode BatchNorm (``r50_train_bn``) on 2
+    rows a rank: each rank normalizes by the global batch's statistics (the
+    all-reduced sum, then the all-reduced centred squares, differentiable),
+    so the two ranks give one process's 4-row block: each rank's output
+    rows, the input's gradient rows and the parameters' summed gradients
+    within 1e-5 of their tensor's largest value (sums in another order;
+    plus 1e-6 of the largest gradient anywhere for the biases before a
+    train-mode BatchNorm, whose gradient is zero in exact arithmetic), and
+    each BatchNorm's batch mean and unbiased variance, the same bits on
+    both ranks."""
+    two, one = runs
+    want = one["batch_norm"]
+    assert len(want["stats"]) == 4
+    for r in range(2):
+        got = two[r]["batch_norm"]
+        for name in ("out", "x_grad"):
+            torch.testing.assert_close(got[name], want[name][r::2], rtol=0,
+                                       atol=1e-5 * want[name].abs().max().item())
+        top = max(g.abs().max().item() for g in want["grads"].values())
+        for n, g in want["grads"].items():
+            torch.testing.assert_close(got["grads"][n], g, rtol=0,
+                                       atol=1e-5 * g.abs().max().item() + 1e-6 * top)
+        for n, pair in want["stats"].items():
+            for a, b, c in zip(got["stats"][n], pair, two[0]["batch_norm"]["stats"][n]):
+                torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * b.abs().max().item())
+                assert torch.equal(a, c), n
 
 
 def test_pretrain_step_at_two_ranks_matches_jax_on_a_two_device_mesh(slice_, runs):

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import tests.conftest  # noqa: F401  (pins JAX to the CPU)
+from tests.torch_threads import torch_threads  # noqa: F401  (the cores' share under xdist)
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +38,7 @@ from empirical_mvm_torch.models.video_swin import (SwinTransformer3D, WindowAtte
 from empirical_mvm_torch.ops import _build
 from empirical_mvm_torch.ops import window_attention as twa
 from empirical_mvm_torch.ops.layernorm import FusedLayerNorm, LayerNorm
+from tests.test_torch_pretrain import drawn_params
 
 T = torch.from_numpy
 N, C, NH = 49, 128, 4                    # one 7 x 7 slice, hd = 32
@@ -270,9 +272,8 @@ def test_teacher_swin_matches_jax(monkeypatch, frames):
                                       **TEACHER))
     rs = np.random.RandomState(frames)
     x = rs.randn(1, frames, 56, 56, 3).astype(np.float32)
-    params = jax.jit(lambda: jm.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"])()
-    params = jax.tree.map(lambda p: np.asarray(p) + 0.05 * rs.randn(*np.shape(p))
-                          .astype(np.float32), params)
+    params = drawn_params(jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0),
+                                                         jnp.asarray(x)))["params"], rs)
     ref = jax.jit(lambda p, a: jm.apply({"params": p}, a))(params, jnp.asarray(x))
     tm = SwinTransformer3D(tcfg.SwinConfig(**TEACHER), fused_norms=True)
     assert all(type(m) is FusedLayerNorm for m in tm.modules() if isinstance(m, LayerNorm))

@@ -31,6 +31,7 @@ import pytest
 import torch
 
 import tests.conftest  # noqa: F401  (pins JAX to the CPU)
+from tests.torch_threads import torch_threads  # noqa: F401  (the cores' share under xdist)
 
 import jax
 import jax.numpy as jnp
@@ -49,7 +50,8 @@ from empirical_mvm_torch.models.video_swin import SwinTransformer3D
 from empirical_mvm_torch.ops import _build
 from empirical_mvm_torch.ops import window_attention as twa
 from tests.test_torch_pretrain import (BERT, GRAD_TOL, HEADS, LOSS_TOL, _np_tree,
-                                       assert_two_steps_match, carried_slice, losses_and_grads)
+                                       assert_two_steps_match, carried_slice, drawn_params,
+                                       losses_and_grads)
 
 T = torch.from_numpy
 B_, NH, N, HD = 8, 2, 49, 32
@@ -220,10 +222,10 @@ class _Routes:
 
 
 def _perturbed_init(jm, x, seed):
-    params = jax.jit(lambda: jm.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"])()
-    rs = np.random.RandomState(seed)
-    return jax.tree.map(lambda p: np.asarray(p) + 0.05 * rs.randn(*np.shape(p))
-                        .astype(np.float32), params)
+    """Parameters of ``jm``'s tree drawn on the host (``drawn_params``): the
+    ``init`` is traced for its shapes, not compiled."""
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jnp.asarray(x)))["params"]
+    return drawn_params(shapes, np.random.RandomState(seed))
 
 
 def _jax_value_and_grads(jm, params, x, w):

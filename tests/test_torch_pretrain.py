@@ -67,17 +67,39 @@ def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def carried_slice(model_cfg, pretrain_tasks=("mtm", "vtm", "mvm")):
+def drawn_params(shapes, rs):
+    """A flax parameter tree of ``shapes`` (``jax.eval_shape`` of an
+    ``init``) drawn on the host, in place of compiling the ``init``: the
+    port's ``init_weights`` (LayerNorm ``scale`` 1, biases 0, the rest
+    N(0, 0.02)) moved by N(0, 0.05), as the carried slices move theirs."""
+    def draw(path, s):
+        leaf = path[-1].key
+        base = (np.ones(s.shape) if leaf == "scale" else np.zeros(s.shape) if leaf == "bias"
+                else 0.02 * rs.randn(*s.shape))
+        return (base + 0.05 * rs.randn(*s.shape)).astype(np.float32)
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def carried_slice(model_cfg, pretrain_tasks=("mtm", "vtm", "mvm"),
+                  pretrain_masks=("bm", "rm"), drawn=None):
     """JAX model and params for the tiny ``model_cfg(package)`` (pixel
-    target, ``pretrain_tasks``), the port model carrying them, the batch,
-    and the fixed draws, with the JAX package's draws replaced by them while
-    the generator is suspended (a module fixture yields from it)."""
+    target, ``pretrain_tasks``, ``pretrain_masks``), the port model carrying
+    them, the batch, and the fixed draws, with the JAX package's draws
+    replaced by them while the generator is suspended (a module fixture
+    yields from it). An ``am`` draw reads seeded scores in place of a
+    rollout (``tests/test_torch_am_masking.py`` holds the rollout). The
+    params are the JAX ``init``'s moved by N(0, 0.05), or with ``drawn``,
+    ``drawn(shapes)`` of the ``init``'s ``jax.eval_shape``, so that no
+    ``init`` compiles."""
     batch = _batch()
-    tm = VioletPretrain(model_cfg(tcfg), pretrain_tasks=pretrain_tasks, device="cpu", seed=1)
+    tm = VioletPretrain(model_cfg(tcfg), pretrain_tasks=pretrain_tasks,
+                        pretrain_masks=pretrain_masks, device="cpu", seed=1)
     gen = torch.Generator().manual_seed(3)
     txt_t = torch.from_numpy(batch["txt"])
+    scores = torch.rand((B, 2 * 5 + 8), generator=gen) if "am" in pretrain_masks else None
     draws = tmask.draw_masks(gen, txt_t, 2, 2, 2, special_token_ids=(101, 102, 0),
-                             mask_token_id=103, p_mask=0.3, mask_types=("bm", "rm"))
+                             mask_token_id=103, p_mask=0.3, mask_types=pretrain_masks,
+                             att_scores=scores)
     neg_idx = draw_negatives(gen, B, 3)
     mb = tmask.apply_masking(draws, torch.zeros(B, 2, 64, 64, 3), txt_t, mask_token_id=103)
     pix, cov = mb.mvm_mask.numpy(), mb.cov.numpy()
@@ -96,14 +118,20 @@ def carried_slice(model_cfg, pretrain_tasks=("mtm", "vtm", "mvm")):
         mp.setattr(jpretrain, "ScoreHead", functools.partial(jviolet.ScoreHead, dropout=0.0))
         jm = jpretrain.VioletPretrain(config=model_cfg(jcfg), mvm_target=("pixel",),
                                       pretrain_tasks=tuple(pretrain_tasks),
-                                      pretrain_masks=("bm", "rm"))
+                                      pretrain_masks=tuple(pretrain_masks))
         args = [jnp.asarray(batch[k]) for k in ("img", "txt", "mask")]
         key = jax.random.PRNGKey(0)
-        params = jax.jit(lambda: jm.init({"params": key, "dropout": key, "mask": key},
-                                         *args, method=jm.losses)["params"])()
-        rs = np.random.RandomState(2)
-        params = jax.tree.map(lambda p: np.asarray(p) + 0.05 * rs.randn(*np.shape(p))
-                              .astype(np.float32), params)
+
+        def init():
+            return jm.init({"params": key, "dropout": key, "mask": key}, *args,
+                           method=jm.losses)["params"]
+
+        if drawn is not None:
+            params = drawn(jax.eval_shape(init))
+        else:
+            rs = np.random.RandomState(2)
+            params = jax.tree.map(lambda p: np.asarray(p) + 0.05 * rs.randn(*np.shape(p))
+                                  .astype(np.float32), jax.jit(init)())
         tm.load_state_dict(convert.state_dict_from_flax(params, tm.config, HEADS))
         tm.fc[0].p = 0.0
         yield dict(jm=jm, params=params, tm=tm, batch=batch, draws=draws,
@@ -139,22 +167,29 @@ def test_weight_carry_round_trip_of_the_pretrain_tree(slice_):
                                       err_msg=jax.tree_util.keystr(path))
 
 
-def losses_and_grads(slice_, heads=HEADS):
+def losses_and_grads(slice_, heads=HEADS, train=False):
     """Losses and parameter gradients of both sides at the carried params
     (dropout off): JAX's as port-named tensors, the port's None as zeros;
-    and the names of the port's parameters without a gradient."""
+    and the names of the port's parameters without a gradient. ``train``:
+    the training pass (JAX ``deterministic=False``, a generator on the
+    port's side: train-mode BatchNorm where the model has it), JAX's
+    ``bn_stats`` then kept in ``slice_["jax_bn_stats"]``."""
     jm, params, tm = slice_["jm"], slice_["params"], slice_["tm"]
 
     def jloss(p):
-        ls = jm.apply({"params": p}, *slice_["args"], method=jm.losses, deterministic=True,
-                      rngs={"mask": jax.random.PRNGKey(1)})
-        return ls["total"], ls
+        ls = jm.apply({"params": p}, *slice_["args"], method=jm.losses,
+                      deterministic=not train, mutable=["bn_stats"] if train else False,
+                      rngs={"mask": jax.random.PRNGKey(1), "dropout": jax.random.PRNGKey(2)})
+        ls, stats = ls if train else (ls, {})
+        return ls["total"], (ls, stats)
 
-    jgrads, jls = jax.jit(jax.grad(jloss, has_aux=True))(params)
+    jgrads, (jls, stats) = jax.jit(jax.grad(jloss, has_aux=True))(params)
+    slice_["jax_bn_stats"] = stats.get("bn_stats", {})
     b = _t(slice_["batch"])
     tm.zero_grad(set_to_none=True)
     ls = tm.losses(b["img"], b["txt"], b["mask"], draws=slice_["draws"],
-                   neg_idx=slice_["neg_idx"])
+                   neg_idx=slice_["neg_idx"],
+                   generator=torch.Generator().manual_seed(0) if train else None)
     ls["total"].backward()
     no_grad = {n for n, p in tm.named_parameters() if p.grad is None}
     got = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).clone()
@@ -210,19 +245,20 @@ def test_two_train_steps_match_make_pretrain_train_step(slice_, grads):
     assert_two_steps_match(slice_, grads, HEADS)
 
 
-def assert_two_steps_match(slice_, grads, heads, outliers=0.0):
+def assert_two_steps_match(slice_, grads, heads, outliers=0.0, weight_decay=1e-3):
     """Two steps of the JAX ``make_pretrain_train_step`` and of the port's
     from the same carried params, held as the test above says; at most
     ``outliers`` of the resolved elements may exceed 2e-6 (within Adam's
-    bound all the same)."""
+    bound all the same). Returns both sides' state_dicts after the steps
+    (JAX's in port names)."""
     jm, params = slice_["jm"], slice_["params"]
     tm = copy.deepcopy(slice_["tm"])
     _, _, got_g, want_g = grads[:4]
-    tx = jopt.build_optimizer(params, lr=1e-3, max_iter=10)
+    tx = jopt.build_optimizer(params, lr=1e-3, max_iter=10, weight_decay=weight_decay)
     jstep = jts.make_pretrain_train_step(jm, tx, mesh=None, donate=False)
     jstate = jts.create_train_state(params, tx)
     jbatch = {k: jnp.asarray(v) for k, v in slice_["batch"].items()}
-    opt = topt.AdamW(tm, 1e-3, 10)
+    opt = topt.AdamW(tm, 1e-3, 10, weight_decay=weight_decay)
     state = create_train_state(tm, opt)
     step = make_pretrain_train_step(tm, opt)
     batch = dict(_t(slice_["batch"]), draws=slice_["draws"], neg_idx=slice_["neg_idx"])
@@ -243,7 +279,9 @@ def assert_two_steps_match(slice_, grads, heads, outliers=0.0):
         assert _max(d) <= 2e-3 + 2e-6, (name, _max(d))
     assert sum(n for _, n, _ in over) <= outliers * resolved_n, over
     assert resolved_n > 0.99 * sum(p.numel() for p in tm.parameters() if p.requires_grad
-                                   ) - sum(int((want_g[n] == 0).sum()) for n in want_g)
+                                   ) - sum(int((want_g[n] == 0).sum()) for n in want_g
+                                           if n in got_g)
+    return tm.state_dict(), want
 
 
 def test_pretrain_config_builds_the_slice():

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import tests.conftest  # noqa: F401  (pins JAX to the CPU)
+from tests.torch_threads import torch_threads  # noqa: F401  (the cores' share under xdist)
 
 import jax
 import jax.numpy as jnp

@@ -24,11 +24,13 @@ import pytest
 import torch
 
 import tests.conftest  # noqa: F401  (pins JAX to the CPU)
+from tests.torch_threads import torch_threads  # noqa: F401  (the cores' share under xdist)
 
 import jax
 import jax.numpy as jnp
 
 from empirical_mvm_tpu.core import config as jcfg
+from empirical_mvm_tpu.models import encoders2d as jenc
 from empirical_mvm_tpu.models import tasks as jtasks
 from empirical_mvm_tpu.models import violet as jviolet
 from empirical_mvm_tpu.models.torch_import import violet_params_from_torch
@@ -332,33 +334,41 @@ def jax_agent_step(jm, tx, batch, loss_fn, rngs=None):
     """One step of the JAX ``make_supervised_agent`` from its pieces:
     ``value_and_grad`` of ``loss_fn(out, batch)`` over the training pass
     (the agent's ``dropout`` key, and ``rngs`` besides), then the optax
-    update. Returns (params, opt_state, loss, grads)."""
+    update, then train-mode BatchNorm statistics folded in
+    (``fold_bn_stats``, where the model sows any). Returns (params,
+    opt_state, loss, grads)."""
     img, txt, mask = (jnp.asarray(batch[k]) for k in ("img", "txt", "mask"))
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
 
     def step(params, opt_state):
         def loss(p):
-            out = jm.apply({"params": p}, img, txt, mask, deterministic=False,
-                           rngs={"dropout": jax.random.PRNGKey(7), **(rngs or {})})
-            return loss_fn(out, jbatch)
+            out, mut = jm.apply({"params": p}, img, txt, mask, deterministic=False,
+                                rngs={"dropout": jax.random.PRNGKey(7), **(rngs or {})},
+                                mutable=["bn_stats"])
+            return loss_fn(out, jbatch), mut.get("bn_stats", {})
 
-        value, grads = jax.value_and_grad(loss)(params)
+        (value, bn_stats), grads = jax.value_and_grad(loss, has_aux=True)(params)
         updates, opt_state = tx.update(grads, opt_state, params)
-        return optax.apply_updates(params, updates), opt_state, value, grads
+        params = jenc.fold_bn_stats(optax.apply_updates(params, updates), bn_stats)
+        return params, opt_state, value, grads
 
     return jax.jit(step)
 
 
 def two_steps_match_jax(jm, params, tm, batch, loss_kind, loss_fn, heads, temp=0.05,
-                        rngs=None):
+                        rngs=None, decay=None, out=None, grads_match=None, outliers=1e-4):
     """Two ``make_supervised_train_step(loss_kind)`` steps of ``tm`` against
     the JAX agent's step at rates 0, as ``test_two_ce_steps_match_the_jax_qamc_step``
     holds them: step 0 at lr(0) = min_lr, step 1 at lr = 1e-3; each loss at
     rtol 1e-4, step 0's gradients at atol 2e-4 / rtol 1e-3; the parameters
     after each step: elements whose gradient is resolved within 2e-6 (at
     most 1e-4 of them beyond), the rest within Adam's bound of 2 lr + 2e-6.
+    ``decay`` replaces the run's weight decay on both sides; ``out``, a
+    dict, receives the JAX parameters after the steps (``jax_params``);
+    ``grads_match(got, want)`` replaces the step-0 gradients' check, and
+    ``outliers`` the share of resolved elements allowed beyond 2e-6.
     Returns the port's parameters without a gradient."""
-    raw = {"lr": LR, "temp": temp}
+    raw = {"lr": LR, "temp": temp, **({} if decay is None else {"decay": decay})}
     jrun, trun = jcfg.load_run_config(raw), tcfg.load_run_config(raw)
     tx = jax_tx(params, jrun.train)
     jstep = jax_agent_step(jm, tx, {k: v for k, v in batch.items() if k != "gumbel_noise"},
@@ -377,9 +387,12 @@ def two_steps_match_jax(jm, params, tm, batch, loss_kind, loss_fn, heads, temp=0
                  for n, p in tm.named_parameters()}
         if i == 0:
             grads0 = (got_g, want_g)
+            if grads_match is not None:
+                grads_match(got_g, want_g)
             for name, g in got_g.items():
-                np.testing.assert_allclose(g.numpy(), want_g[name].numpy(), err_msg=name,
-                                           **GRAD_TOL)
+                if grads_match is None:
+                    np.testing.assert_allclose(g.numpy(), want_g[name].numpy(), err_msg=name,
+                                               **GRAD_TOL)
         want = convert.state_dict_from_flax(jax.tree.map(np.asarray, jparams), tm.config, heads)
         resolved_n, over = 0, []
         for name, p in tm.named_parameters():
@@ -390,8 +403,10 @@ def two_steps_match_jax(jm, params, tm, batch, loss_kind, loss_fn, heads, temp=0
             assert d.max().item() <= 2 * LR + 2e-6, (i, name)
             if resolved.any() and d[resolved].max().item() > 2e-6:
                 over.append((name, int((d[resolved] > 2e-6).sum()), d[resolved].max().item()))
-        assert sum(n for _, n, _ in over) <= 1e-4 * resolved_n, (i, over)
+        assert sum(n for _, n, _ in over) <= outliers * resolved_n, (i, over)
     assert state.step == 2
+    if out is not None:
+        out["jax_params"] = jparams
     return {n for n, p in tm.named_parameters() if p.grad is None}
 
 

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import tests.conftest  # noqa: F401  (pins JAX to the CPU)
+from tests.torch_threads import torch_threads  # noqa: F401  (the cores' share under xdist)
 
 from empirical_mvm_torch.core import config as tcfg
 from empirical_mvm_torch.models.pretrain import VioletPretrain

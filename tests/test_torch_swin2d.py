@@ -12,8 +12,9 @@ the JAX package on the CPU; inputs from numpy with a seed, fp32.
   the weight carry of its tree, the losses, every gradient, two steps of
   ``make_pretrain_train_step``, and the optimizer labels, with the masks and
   negatives injected and every dropout and drop-path rate at 0 as in
-  ``test_torch_pretrain.py``. JAX runs its XLA attention here (no
-  interpret flag).
+  ``test_torch_pretrain.py``; and the same step at the 2D Swin-tiny's
+  widths (C = 96 in stage 0, the packed route's plain version in stages
+  0-1). JAX runs its XLA attention here (no interpret flag).
 """
 
 import dataclasses
@@ -23,6 +24,7 @@ import pytest
 import torch
 
 import tests.conftest  # noqa: F401  (pins JAX to the CPU)
+from tests.torch_threads import torch_threads  # noqa: F401  (the cores' share under xdist)
 
 import jax
 import jax.numpy as jnp
@@ -33,13 +35,15 @@ from empirical_mvm_tpu.train import optimizer as jopt
 from empirical_mvm_torch.core import config as tcfg
 from empirical_mvm_torch.models import convert
 from empirical_mvm_torch.models import encoders2d as tenc
+from empirical_mvm_torch.models import video_swin
 from empirical_mvm_torch.models.encoders2d import EncImgSwin, swin2d_config
 from empirical_mvm_torch.models.pretrain import VioletPretrain
 from empirical_mvm_torch.models.violet import VioletBase
 from empirical_mvm_torch.ops.layernorm import FusedLayerNorm, LayerNorm
 from empirical_mvm_torch.train import optimizer as topt
 from tests.test_torch_pretrain import (BERT, GRAD_TOL, LOSS_TOL, _np_tree,
-                                       assert_two_steps_match, carried_slice, losses_and_grads)
+                                       assert_two_steps_match, carried_slice, drawn_params,
+                                       losses_and_grads)
 from tests.test_torch_pretrain_2d import synthetic_hf_swin
 
 T = torch.from_numpy
@@ -69,9 +73,8 @@ def test_enc_img_swin_matches_jax(monkeypatch, fusion, frames):
     jm = jenc.EncImgSwin(config=_enc_cfg(jcfg, fusion), fusion=fusion)
     rs = np.random.RandomState(frames)
     x = rs.randn(2, frames, 64, 64, 3).astype(np.float32)
-    params = jax.jit(lambda: jm.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"])()
-    params = jax.tree.map(lambda p: np.asarray(p) + 0.05 * rs.randn(*np.shape(p))
-                          .astype(np.float32), params)
+    params = drawn_params(jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0),
+                                                         jnp.asarray(x)))["params"], rs)
     t = frames if fusion == "concat" else 1
     w = rs.randn(2, t * 5, 128).astype(np.float32)
 
@@ -176,6 +179,49 @@ def test_swin2d_two_train_steps_match_make_pretrain_train_step(slice_, grads):
     assert_two_steps_match(slice_, grads, HEADS, outliers=1e-4)
 
 
+# the 2D Swin-tiny at its real widths (C = 96, 192, 384, 768; heads 3, 6,
+# 12, 24), cut to depths (2, 2, 1, 1): shifted blocks in stages 0 and 1,
+# which the C % 128 rule sends to the packed route, stages 2 and 3 on the
+# lane window route
+TINY2D = dict(SWIN2D, embed_dim=96, num_heads=(3, 6, 12, 24))
+
+
+def _tiny2d_cfg(c):
+    return dataclasses.replace(_model_cfg(c), swin_custom=c.SwinConfig(**TINY2D))
+
+
+@pytest.fixture(scope="module")
+def tiny2d_slice():
+    yield from carried_slice(_tiny2d_cfg,
+                             drawn=lambda shapes: drawn_params(shapes, np.random.RandomState(2)))
+
+
+def test_swin2d_tiny_widths_step_matches_jax_on_the_packed_route(tiny2d_slice, monkeypatch):
+    """The pretrain step's losses and every gradient on the swin2d backbone
+    at Swin-tiny widths (the configuration of ``chip_smoke.py`` phase 45,
+    depth-cut): stages 0-1 call ``packed_window_attention`` (its plain
+    version here), stages 2-3 ``lane_window_attention``; against JAX (XLA
+    attention), held as the swin2d slice above. The update after them is
+    the swin2d slice's (``test_swin2d_two_train_steps_match_...``)."""
+    calls = {"packed_window_attention": 0, "lane_window_attention": 0}
+    for name in calls:
+        fn = getattr(video_swin, name)
+
+        def counted(*a, fn=fn, name=name, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+
+        monkeypatch.setattr(video_swin, name, counted)
+    grads = losses_and_grads(tiny2d_slice)
+    assert calls == {"packed_window_attention": 4, "lane_window_attention": 2}
+    ls, jls, got, want, no_grad = grads
+    for k in ls:
+        np.testing.assert_allclose(ls[k].item(), float(jls[k]), err_msg=k, **LOSS_TOL)
+    assert no_grad == {"enc_img.embeds.emb_odr"} and set(got) == set(want)
+    for name, g in got.items():
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(), err_msg=name, **GRAD_TOL)
+
+
 def test_swin2d_optimizer_labels_match_jax(slice_):
     """The port's group of every parameter is the JAX ``default_group_fn``
     label of the leaf mapped onto it: ``swin2bert`` lands in the swin group
@@ -201,7 +247,8 @@ def test_swin2d_config_builds_the_slice():
     Swin (concat fusion): its VioletBase holds an EncImgSwin on
     ``swin2d_config("base")`` geometry (checked at tiny widths), plain swin
     LayerNorms and stochastic depth 0.2; mean fusion builds without MVM and
-    refuses it; ResNet-50 and MERLOT still raise."""
+    refuses it; ResNet-50 and MERLOT build their encoders (MERLOT with
+    concat fusion only)."""
     run = tcfg.load_run_config("configs/pretrain.json")
     model = dataclasses.replace(run.model, vis_backbone="swin2d", temporal_fusion="concat")
     base = swin2d_config(model.vis_backbone_size)
@@ -222,6 +269,9 @@ def test_swin2d_config_builds_the_slice():
         with pytest.raises(ValueError, match="mean temporal fusion"):
             VioletPretrain(mean, device="cpu")
         VioletPretrain(mean, pretrain_tasks=("mtm", "vtm"), device="cpu")
-    for vb in ("r50", "merlot"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            VioletBase(dataclasses.replace(tiny, vis_backbone=vb))
+    r50 = VioletBase(dataclasses.replace(tiny, vis_backbone="r50"))
+    assert isinstance(r50.enc_img, tenc.EncImgR50) and r50.enc_img.fusion == "concat"
+    merlot = VioletBase(dataclasses.replace(tiny, vis_backbone="merlot"))
+    assert isinstance(merlot.enc_img, tenc.EncImgMerlot) and len(merlot.enc_img.vit) == 12
+    with pytest.raises(ValueError, match="concat"):
+        VioletBase(dataclasses.replace(tiny, vis_backbone="merlot", temporal_fusion="mean"))

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import tests.conftest  # noqa: F401  (pins JAX to the CPU)
+from tests.torch_threads import torch_threads  # noqa: F401  (the cores' share under xdist)
 
 import jax
 import jax.numpy as jnp
@@ -252,7 +253,8 @@ def _jax_draws(key, b, t, h, w, txt, p, mask_types):
     covs = [jmask._rm_video_cov(k_rm, b, t, h, w, p) if mt == "rm"
             else jmask._bm_video_cov(k_bm, b, t, h, w) for mt in mask_types]
     return tmask.MaskDraws(T(np.asarray(choice).astype(np.int64)),
-                           T(np.stack([np.asarray(c) for c in covs])), T(np.array(sel)))
+                           T(np.stack([np.asarray(c) for c in covs])),
+                           T(np.stack([np.array(sel)] * len(mask_types))))
 
 
 def test_masking_apply_matches_jax_given_its_draws():
@@ -281,7 +283,8 @@ def test_masking_draws_have_the_reference_statistics():
     rm = d.covs[0]
     sigma = (p * (1 - p) / rm.numel()) ** 0.5
     assert abs(rm.mean().item() - p) < 5 * sigma
-    sel = d.txt_sel
+    assert torch.equal(d.txt_sel[0], d.txt_sel[1])         # rm and bm share k_txt's
+    sel = d.txt_sel[0]
     assert not sel[:, 0].any() and not sel[:, 20:].any()
     free = sel[:, 1:20]
     assert abs(free.float().mean().item() - p) < 5 * (p * (1 - p) / free.numel()) ** 0.5
