@@ -108,7 +108,17 @@ before the final line, if any phase failed:
    (``LOADER_LN``); and the MERLOT encoder's trained ViT (phase 47): rows 5
    and 6 at its 80 frames of 50 tokens (12 heads of 64, p = 0, the zero
    mask) and the LayerNorm forward and backward at its sites
-   (``MERLOT_LN``). Prints one ``kernel_shapes``
+   (``MERLOT_LN``); and the shapes and masks of phases 49-50: row 5 with
+   dropout and row 6 at the text stack's 20 captions of 32 tokens
+   (``TEXT_STACK_LANE``), the LayerNorm forward and backward at its 640
+   rows (``TEXT_STACK_LN``), rows 5 and 6 under the SwinBERT masks, a hole
+   at each frame's first video key (``SWINBERT_LANE``: the caption step's 8
+   rows of 275 under the seq2seq mask and, ``off_path``, the full one, the
+   greedy decoder's 8 rows of 270), and a copy of the lane self-attention's
+   sources whose tensor-core body reads each row's mask as suffix padding
+   (``PLANTED_SUFFIX_MASK``), whose rows 5 and 6 must pass the bf16 limits
+   under a padding and the seq2seq mask and fail them under both SwinBERT
+   masks. Prints one ``kernel_shapes``
    line with the per-shape numbers and, at the end, one ``kernels`` JSON
    line.
 4. The retrieval eval at full width: VioletRetrieval at
@@ -137,8 +147,10 @@ before the final line, if any phase failed:
 7. Whole train step: one step of a depth-cut copy (swin depths (2,2,2,2),
    2 fusion layers, full widths) on the card in fp32 against the same step
    on the CPU in fp32 (plain versions), with the same injected masks and
-   negatives and every dropout and drop-path rate at 0; losses and every
-   parameter's gradient held to ``WHOLE_STEP_TOL``, the differences printed.
+   negatives and every dropout and drop-path rate at 0, the CPU's L1 losses
+   taking the card's sign where an error lies within roundoff of 0
+   (``L1_FLIP_SHARE``); losses and every parameter's gradient held to
+   ``WHOLE_STEP_TOL``, the differences printed.
 8. The pretrain train step for the 2d_feature MVM target, as phase 6 with
    ``train.mvm_target`` replaced by ("2d_feature",) (as bench.py builds
    it): the frozen 2D Swin-base teacher runs forward on the unmasked clip
@@ -354,12 +366,35 @@ before the final line, if any phase failed:
     (``am_draw_phase``): every am row masks exactly k slots, none special,
     and over ``AM_DRAWS`` seeded draws the slots' selection frequency ranks
     as their scores (Spearman, ``AM_SPEARMAN``).
-49. The last line is ``{"ok": true, "device": {...}}``.
+49. The text encoder stack (``text_stack_phase``): the pixel step with
+    ``txt_backbone_embed_only`` false (BERT-base over the 20 captions of 32
+    tokens before the fusion: rows 5-6 and the LayerNorm kernels in its 12
+    layers; ``TRAIN_STACK_LAUNCHES``) beside phase 6's, its whole step as
+    phase 7 (the stack cut to 2 layers); ``cli.pretrain`` with the stack on
+    phase 40's shards, then ``cli.retrieval_eval`` on its final checkpoint,
+    adopting ``txt_backbone_embed_only`` from ``args.json`` and loading
+    every leaf of the stack.
+50. SwinBERT's layout (``swinbert_phase``): the caption step at
+    configs/caption.json with ``swinbert`` (each frame's first video token a
+    zero fake CLS with mask 0: rows 5-6 under a seq2seq mask with a hole in
+    each frame's first key; ``CAPTION_SWINBERT_LAUNCHES``), its greedy
+    re-encoding decoder at max_len 20 (fp32 tokens against the cached
+    decoder's), ``cli.caption`` from a ``*SwinBERT*.pt`` written in
+    SwinBERT's key names (every leaf loaded, ``img_embedding`` among them),
+    and its whole step as phase 33.
+51. The Video Swin's in-block dropouts (``swin_dropout_phase``): the pixel
+    step with ``drop_rate`` ``SWIN_DROP`` (the direct kernels stay on), then
+    with ``attn_drop_rate`` too (every window attention on
+    ``window_attention_xla``, rows 3-4 not launched), each beside phase 6's
+    with the route each block took, the sites' keep fraction, and each
+    whole step with the same dropout masks on card and CPU.
+52. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -413,8 +448,10 @@ from empirical_mvm_torch.models.pretrain import VioletPretrain, draw_negatives
 from empirical_mvm_torch.models.tasks import (VioletQAMC, VioletQAMCGen, VioletQAMCMLMHead,
                                               VioletQAOE, VioletQAOEMLMHead, VioletRetrieval,
                                               draw_gumbel, qamc_mlm_head_accuracy)
-from empirical_mvm_torch.models.video_swin import (SwinTransformerBlock3D, _from_packed,
-                                                  _shift_attn_mask, _to_packed, get_window_size)
+from empirical_mvm_torch.models import video_swin as video_swin_module
+from empirical_mvm_torch.models.video_swin import (SwinTransformer3D, SwinTransformerBlock3D,
+                                                  _from_packed, _shift_attn_mask, _to_packed,
+                                                  get_window_size)
 from empirical_mvm_torch.models.violet import joint_attn_bias
 from empirical_mvm_torch.ops import _build
 from empirical_mvm_torch.ops import layernorm as ln
@@ -941,6 +978,19 @@ HOG_CELL_SCALE = 1e-5
 # step is fed the CPU's tokens on both sides, as the hog step its target.
 TEACHER_FP32_SCALE = 1e-4
 VQ_FLIP_SHARE = 1e-3
+# The L1 losses (``masked_l1``: the pixel, hog, depth, flow and feature
+# targets) take each masked element's sign of pred - target. Where that
+# difference lies within the two sides' roundoff of 0, the card and the CPU
+# take opposite signs, and one such element moves its decoder's bias
+# gradient by 2 / (sum(mask) channel_div): 8.8e-6 at a 4-clip step's cover
+# of 75776 pixels, 2.3 times WHOLE_STEP_TOL's bound on the pixel decoder's
+# bias there. So the CPU's step takes the card's sign where the two differ
+# (``SameL1Signs``; its loss value unchanged), as the vq step takes one
+# side's tokens: at most L1_FLIP_SHARE of the masked elements may differ,
+# each where the two sides' errors lie within L1_FLIP_SCALE of the largest
+# masked error (the teachers' fp32 limit, TEACHER_FP32_SCALE).
+L1_FLIP_SHARE = 1e-4
+L1_FLIP_SCALE = TEACHER_FP32_SCALE
 # the depth step's whole-step check (phase 25) runs the DPT cut to 4 blocks,
 # each captured, so that the CPU side stays short
 DPT_CUT = dict(vit_depth=4, hooks=(0, 1, 2, 3))
@@ -2434,31 +2484,9 @@ def seq2seq_lane_cases(dev, gen, planted):
         masks = {"seq2seq": seq2seq_mask(dev, b, l, text)}
         if label == "caption":
             masks["padding"] = _padding_mask(dev, gen, b, l, text, 6)
-        ops = 4 * b * nh * l * l * hd
         for kind, mask in masks.items():
-            (fwd, *fwd_rest), (bwd, *bwd_rest) = _lane_calls(mask, nh, scale, p_drop,
-                                                             seed if p_drop else None, do)
-            name = f"{label} x3=({b},{l},{3 * d}) nH={nh} p_drop={p_drop} {kind} mask"
-            info = dict(mask=kind, mask_row_stride=mask.stride(1), mask_bytes=_span_bytes(mask),
-                        mask_bytes_all_heads=nh * _span_bytes(mask),
-                        off_path=not on_path or kind == "padding", body=_bodies(wa._sa_body, hd))
-            rec = measure("lane_self_attention_dropout" if p_drop else "lane_self_attention",
-                          name, x3, fwd, *fwd_rest, torch.bfloat16, _lane_fwd_kind(hd), ops,
-                          "bf16_tensor", x3.numel() * 2 + b * l * d * 2 + _span_bytes(mask))
-            recs.append({**rec, **info})
-            if p_drop:
-                keep = wa.dropout_keep(seed, (b, nh, l, l), p_drop)
-                frac = keep.float().mean().item()
-                sigma = (p_drop * (1 - p_drop) / keep.numel()) ** 0.5
-                del keep
-                recs[-1]["keep_fraction"] = frac
-                if abs(frac - (1 - p_drop)) > KEEP_SIGMAS * sigma:
-                    recs[-1]["failures"].append(f"dropout keep fraction {frac} is not "
-                                                f"{1 - p_drop} +- {KEEP_SIGMAS} sigma")
-                rec = measure("lane_self_attention_bwd", name, x3, bwd, *bwd_rest,
-                              torch.bfloat16, "attention_bwd", 2.5 * ops, "bf16_tensor",
-                              (2 * x3.numel() + do.numel()) * 2 + _span_bytes(mask))
-                recs.append({**rec, **info})
+            recs += masked_lane_records(label, x3, do, mask, kind, p_drop, seed,
+                                        not on_path or kind == "padding")
     for label, b, l, text, p_drop in SEQ2SEQ_TILED:
         require(not wa.lane_sa_attention_fits(b, l, d, nh), f"{label}: row 5 fits")
         qkv = torch.randn(b, 3 * nh, l, hd, device=dev, generator=gen) * 0.5
@@ -2477,6 +2505,42 @@ def seq2seq_lane_cases(dev, gen, planted):
                                (2 * qkv.numel() + do.numel()) * 2 + _span_bytes(mask)),
                      **info})
     recs[0]["failures"] += planted_row_stride_check(dev, gen, planted)
+    return recs
+
+
+def masked_lane_records(label, x3, do, mask, kind, p_drop, seed, off_path):
+    """Row 5 (with dropout where ``p_drop``) on x3 (B, L, 3D) under ``mask``
+    (B, L, L) and, where ``p_drop``, row 6 and the dropout keep fraction:
+    BERT-base heads. The bound reads the mask once (the bytes its view
+    spans), though each of the 12 heads reads it again
+    (``mask_bytes_all_heads``, from L2)."""
+    (b, l, d3), nh = x3.shape, 12
+    d = d3 // 3
+    hd = d // nh
+    (fwd, *fwd_rest), (bwd, *bwd_rest) = _lane_calls(mask, nh, hd ** -0.5, p_drop,
+                                                     seed if p_drop else None, do)
+    name = f"{label} x3=({b},{l},{d3}) nH={nh} p_drop={p_drop} {kind} mask"
+    info = dict(mask=kind, mask_row_stride=mask.stride(1), mask_bytes=_span_bytes(mask),
+                mask_bytes_all_heads=nh * _span_bytes(mask), off_path=off_path,
+                body=_bodies(wa._sa_body, hd))
+    ops = 4 * b * nh * l * l * hd
+    rec = measure("lane_self_attention_dropout" if p_drop else "lane_self_attention", name, x3,
+                  fwd, *fwd_rest, torch.bfloat16, _lane_fwd_kind(hd), ops, "bf16_tensor",
+                  x3.numel() * 2 + b * l * d * 2 + _span_bytes(mask))
+    recs = [{**rec, **info}]
+    if p_drop:
+        keep = wa.dropout_keep(seed, (b, nh, l, l), p_drop)
+        frac = keep.float().mean().item()
+        sigma = (p_drop * (1 - p_drop) / keep.numel()) ** 0.5
+        del keep
+        recs[-1]["keep_fraction"] = frac
+        if abs(frac - (1 - p_drop)) > KEEP_SIGMAS * sigma:
+            recs[-1]["failures"].append(f"dropout keep fraction {frac} is not "
+                                        f"{1 - p_drop} +- {KEEP_SIGMAS} sigma")
+        rec = measure("lane_self_attention_bwd", name, x3, bwd, *bwd_rest, torch.bfloat16,
+                      "attention_bwd", 2.5 * ops, "bf16_tensor",
+                      (2 * x3.numel() + do.numel()) * 2 + _span_bytes(mask))
+        recs.append({**rec, **info})
     return recs
 
 
@@ -2514,6 +2578,125 @@ def planted_row_stride_check(dev, gen, planted):
             for where, (_, f) in caught.items()
             for dt, tag in (("fp32", " fp32 max err"), ("bf16", " bf16")) if not any(
                 tag in msg for msg in f)]
+
+
+# phase 3's records at the shapes and masks that phases 49-50 bring to rows 1,
+# 2, 5 and 6: the text stack's 20 captions of 32 tokens (rows 5-6 with
+# dropout under their padding mask, below one 64-key tile) and its 640 rows
+# of 768 (rows 1-2, bf16, eps 1e-12); the SwinBERT layout's fusion, whose
+# video keys have a hole at each frame's first token (the fake CLS, mask 0):
+# the caption step's 8 rows of 5 x 50 + 25 under the seq2seq mask (the path)
+# and under the full one (a padding mask with holes, off the path), and the
+# greedy decoder's 8 rows of 5 x 50 + 20 (p = 0)
+TEXT_STACK_LANE = (TRAIN_B, 32, 32)
+TEXT_STACK_LN = (("text stack", TRAIN_B * 32, 768, 1e-12, torch.bfloat16),)
+SWINBERT_LANE = (("swinbert caption", CAPTION_B, 275, 25, P_ATTN, ("seq2seq", "full")),
+                 ("swinbert greedy decode", CAPTION_B, 270, GEN_MAX_LEN, 0.0, ("seq2seq",)))
+# A fault that only a mask with holes shows: the tensor-core body (the bf16
+# path) reading each row's mask as suffix padding, its allowed keys counted
+# and the first that many attended. Padding and seq2seq rows allow a prefix
+# of the keys, so the planted build equals the real one under them.
+_SUFFIX_HELPER = (
+    "// planted: each row's mask read as suffix padding\n"
+    "static __device__ __forceinline__ float suffix_mask(const float* row, int j, int n) {\n"
+    "  int len = 0;\n"
+    "  for (int u = 0; u < n; ++u) len += __ldg(row + u) == 0.f;\n"
+    "  return j < len ? 0.f : -CUDART_INF_F;\n"
+    "}\n\n")
+_SUFFIX_ANCHOR = "// kStatsOnly: pass 1 alone, writing the rows' max and sum and no output"
+PLANTED_SUFFIX_MASK = ("self_attention_mma.cuh", (
+    _SUFFIX_ANCHOR,
+    "rows[r] < n ? __ldg(mrow[r] + j) : 0.f;",
+    "valid ? prob(sc[nt][e], __ldg(mrow[r] + j),",
+    "p = prob(sc[nt][e], __ldg(mask_b + i * mask_sr + j),"), (
+    _SUFFIX_HELPER + _SUFFIX_ANCHOR,
+    "rows[r] < n ? suffix_mask(mrow[r], j, n) : 0.f;",
+    "valid ? prob(sc[nt][e], suffix_mask(mrow[r], j, n),",
+    "p = prob(sc[nt][e], suffix_mask(mask_b + i * mask_sr, j, n),"))
+
+
+def planted_suffix_library():
+    """Build ``ROW_STRIDE_SOURCES`` with the ``PLANTED_SUFFIX_MASK`` fault;
+    returns the loaded library."""
+    src = _build.BUILD_DIR / "planted_csrc_suffix_mask"
+    shutil.rmtree(src, ignore_errors=True)
+    src.mkdir(parents=True)
+    for name in ROW_STRIDE_SOURCES:
+        shutil.copy(_build.CSRC / name, src / name)
+    plant(src, *PLANTED_SUFFIX_MASK)
+    return _build.load(_build.build(csrc=src), False)
+
+
+def swinbert_mask(dev, gen, b, l, text, kind):
+    """The (B, L, L) view that BertEncoder passes of the joint bias over
+    [video ; the last ``text`` tokens] in SwinBERT's layout: frames of 50
+    video tokens whose first (the fake CLS) has mask 0. ``seq2seq``: video
+    rows see the valid video, text rows it and the text at or before them;
+    ``full``: every row the valid video and its caption of 6 to ``text``
+    tokens (a stride-0 view)."""
+    frames = (l - text) // 50
+    img = torch.ones((b, frames, 50), dtype=torch.int32, device=dev)
+    img[:, :, 0] = 0
+    img = img.reshape(b, frames * 50)
+    if kind == "seq2seq":
+        txt = torch.ones((b, text), dtype=torch.int32, device=dev)
+        return joint_attn_bias(img, txt, "seq2seq").reshape(b, l, l)
+    lens = torch.randint(6, text + 1, (b,), device=dev, generator=gen)
+    txt = (torch.arange(text, device=dev)[None] < lens[:, None]).to(torch.int32)
+    return joint_attn_bias(img, txt, "full").reshape(b, 1, l).expand(b, l, l)
+
+
+def swinbert_lane_cases(dev, gen, planted):
+    """Rows 5 and 6 under the SwinBERT masks at ``SWINBERT_LANE``'s shapes
+    (``masked_lane_records``), and the ``PLANTED_SUFFIX_MASK`` build
+    (``planted``, a future of the loaded library), which must fail there."""
+    d = 768
+    seed = torch.tensor([20261018, 5], dtype=torch.int32, device=dev)
+    recs = []
+    for label, b, l, text, p_drop, kinds in SWINBERT_LANE:
+        x3 = torch.randn(b, l, 3 * d, device=dev, generator=gen) * 0.5
+        do = _bf16_values(torch.randn(b, l, d, device=dev, generator=gen))
+        for kind in kinds:
+            recs += masked_lane_records(label, x3, do, swinbert_mask(dev, gen, b, l, text, kind),
+                                        f"swinbert {kind}", p_drop, seed, kind == "full")
+    recs[0]["failures"] += planted_suffix_check(dev, gen, planted)
+    return recs
+
+
+def planted_suffix_check(dev, gen, planted):
+    """Rows 5 and 6 (p = 0.1) of the ``PLANTED_SUFFIX_MASK`` build at 4 rows
+    of 5 x 50 + 25 against their plain versions in bf16 (the body it
+    plants): within the limits under a padding mask and the seq2seq one
+    (the earlier paths' masks, every row a prefix of allowed keys), beyond
+    them under both SwinBERT masks. Returns the checks it passed wrongly."""
+    lib = planted.result()
+    b, l, text, nh = 4, 275, 25, 12
+    x3 = torch.randn(b, l, 3 * 768, device=dev, generator=gen) * 0.5
+    do = _bf16_values(torch.randn(b, l, 768, device=dev, generator=gen))
+    seed = torch.tensor([81, 6], dtype=torch.int32, device=dev)
+    masks = {"padding": _padding_mask(dev, gen, b, l, text, 6),
+             "seq2seq": seq2seq_mask(dev, b, l, text),
+             "swinbert full": swinbert_mask(dev, gen, b, l, text, "full"),
+             "swinbert seq2seq": swinbert_mask(dev, gen, b, l, text, "seq2seq")}
+    real = _build.library()
+    caught, wrong = {}, []
+    try:
+        _build._lib = lib
+        for kind, mask in masks.items():
+            (fwd, fwd_plain, _), (bwd, bwd_plain, _) = _lane_calls(mask, nh, 0.125, P_ATTN,
+                                                                   seed, do)
+            for row, kernel, plain, limits in (("row 5", fwd, fwd_plain, _lane_fwd_kind(64)),
+                                               ("row 6", bwd, bwd_plain, "attention_bwd")):
+                readings, failures = bf16_check(kernel, plain, x3, limits)
+                caught[f"{row}, {kind} mask"] = dict(readings=readings, failures=failures)
+                if bool(failures) != kind.startswith("swinbert"):
+                    wrong.append(f"planted fault (mask read as suffix padding) "
+                                 f"{'passes' if not failures else 'fails'} the bf16 limits "
+                                 f"[{row}, {kind} mask]")
+    finally:
+        _build._lib = real
+    print(json.dumps({"planted_suffix_mask_fault": caught}), flush=True)
+    return wrong
 
 
 # ---------------------------------------------------------------------------
@@ -2754,6 +2937,38 @@ def train_phase(dev, run, want_launches, record=None):
     return launches
 
 
+class SameL1Signs:
+    """``models/pretrain.masked_l1`` with the card's signs on both sides
+    (``L1_FLIP_SHARE``): the card's step records each call's error
+    pred - target; the CPU's step after it adds, in the same call, a term of
+    value 0 whose gradient turns each masked element's sign into the card's
+    where the two differ. ``flips`` holds each CPU call's reading."""
+
+    def __init__(self):
+        self.card, self.flips = [], []
+
+    def side(self, name):
+        real = pretrain_module.masked_l1
+
+        def l1(pred, target, mask, channel_div=1.0):
+            loss = real(pred, target, mask, channel_div)
+            err = (pred.float() - target.float()).detach()
+            if name == "card":
+                self.card.append(err.cpu())
+                return loss
+            e_c, m = self.card[len(self.flips)], mask.float()
+            masked = torch.broadcast_to(m > 0, err.shape)
+            flip = masked & (e_c.sign() != err.sign())
+            self.flips.append(dict(
+                flips=int(flip.sum()), masked=int(masked.sum()),
+                apart_max=float((e_c - err).abs()[flip].max()) if flip.any() else 0.0,
+                err_max=float(err.abs()[masked].max()) if masked.any() else 0.0))
+            same = ((e_c.sign() - err.sign()) * (pred.float() - pred.float().detach()) * m).sum()
+            return loss + same / (mesh.global_sum(m.sum()) + 1e-5) / channel_div
+
+        return mock.patch.object(pretrain_module, "masked_l1", l1)
+
+
 def whole_step_phase(dev, run, b=4, batch=None, biased=False):
     """Phases 7, 9, 11, 13, 21, 25, 37 and 45-47: one train step of a
     depth-cut copy (the student, the MERLOT encoder's ViT cut to
@@ -2766,7 +2981,8 @@ def whole_step_phase(dev, run, b=4, batch=None, biased=False):
     CPU apart (``hog_check``); with the DPT, RAFT or dVAE teachers, those
     are held card against CPU apart (``teachers_card_vs_cpu``; the dVAE's
     logits centred first, ``center_dvae_logits``) and both sides are fed
-    the CPU's dVAE tokens."""
+    the CPU's dVAE tokens. The CPU's L1 losses take the card's sign of each
+    masked error (``SameL1Signs``)."""
     cut = depth_cut(run.model)
     run_cut = dataclasses.replace(run, model=cut)
     if batch is None:
@@ -2801,7 +3017,7 @@ def whole_step_phase(dev, run, b=4, batch=None, biased=False):
         tokens = teachers_card_vs_cpu(dev, card, cpu, maybe_normalize(batch["img"]))
         if tokens is not None:
             batch["vq"] = tokens
-    results, secs = {}, {}
+    results, secs, signs = {}, {}, SameL1Signs()
     for name, model, device in (("card", card, dev), ("cpu", cpu, torch.device("cpu"))):
         _no_score_dropout(model)
         opt = build_optimizer(model, run.train, TRAIN_MAX_ITER)
@@ -2809,11 +3025,16 @@ def whole_step_phase(dev, run, b=4, batch=None, biased=False):
         on_dev = {k: (type(v)(*(t.to(device) for t in v)) if k == "draws" else v.to(device))
                   for k, v in batch.items()}
         t0 = time.perf_counter()
-        _, ls = step(create_train_state(model, opt), on_dev, 0)
+        with signs.side(name):
+            _, ls = step(create_train_state(model, opt), on_dev, 0)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         secs[name] = time.perf_counter() - t0
         results[name] = _step_results(model, ls)
+    for call in signs.flips:
+        require(call["flips"] <= L1_FLIP_SHARE * call["masked"]
+                and call["apart_max"] <= L1_FLIP_SCALE * call["err_max"],
+                f"L1 error signs, card against CPU: {call}")
     # with seeded biases (or an R50's BatchNorm biases shifted) the VTM
     # scores spread, and the VTM score head's output bias, whose gradient is
     # zero in exact arithmetic, reads each side's roundoff of scores divided
@@ -2827,7 +3048,8 @@ def whole_step_phase(dev, run, b=4, batch=None, biased=False):
            if "corrupt" in batch else {}),
         **({"dpt_depth": len(cpu.dpt.pretrained.model.blocks)} if hasattr(cpu, "dpt") else {}),
         **({"vit_depth": len(cpu.enc_img.vit)} if hasattr(cpu.enc_img, "vit") else {}),
-        **({"bn_bias_shift": R50_BN_SHIFT} if hasattr(cpu.enc_img, "res") else {})},
+        **({"bn_bias_shift": R50_BN_SHIFT} if hasattr(cpu.enc_img, "res") else {}),
+        "l1_sign_flips": signs.flips},
         zero={VTM_OUT_BIAS: NCE_ZERO_GRAD_ATOL} if biased or hasattr(cpu.enc_img, "res")
         else None)
 
@@ -4143,18 +4365,21 @@ DP_RESOLVED, DP_PARAM_LR, DP_PARAM_ULPS = 100.0, 0.05, 4
 
 
 def depth_cut(cfg, dropout=False):
-    """``cfg`` at full width with the Video Swin's depths (2, 2, 2, 2) and a
-    2-layer fusion; without ``dropout`` every dropout and drop-path rate 0."""
+    """``cfg`` at full width with the Video Swin's depths (2, 2, 2, 2), a
+    2-layer fusion and a 2-layer text stack (where the model has one);
+    without ``dropout`` the BERT dropouts and the drop-path rate 0 (the
+    Swin's in-block dropouts stay as configured)."""
     p = None if dropout else 0.0
     fusion = dataclasses.replace(cfg.fusion, num_hidden_layers=2)
+    text = dataclasses.replace(cfg.text, num_hidden_layers=2)
     if p is not None:
-        fusion = dataclasses.replace(fusion, hidden_dropout_prob=p,
-                                     attention_probs_dropout_prob=p)
+        fusion, text = (dataclasses.replace(c, hidden_dropout_prob=p,
+                                            attention_probs_dropout_prob=p)
+                        for c in (fusion, text))
     swin = dataclasses.replace(backbone_config(cfg), depths=(2, 2, 2, 2))
     return dataclasses.replace(
         cfg, swin_custom=swin if p is None else dataclasses.replace(swin, drop_path_rate=p),
-        fusion=fusion,
-        text=cfg.text if p is None else dataclasses.replace(cfg.text, hidden_dropout_prob=p))
+        fusion=fusion, text=text)
 
 
 def _free_port() -> int:
@@ -5054,8 +5279,9 @@ def kernels_line(recs, runs):
     optical_flow steps, the smtm step, the lanebench tool's run, the
     fine-tune steps and evals of phases 26-30, then the caption step and
     one call of each decoder, phases 32 and 34, the loader-fed steps of
-    phases 37-38 and the CLIs' steps of phase 40) that launched the kernel,
-    each run's beside it as ``launches_<name>``."""
+    phases 37-38, the CLIs' steps of phase 40, and the steps, decoder and
+    CLIs of phases 45-51) that launched the kernel, each run's beside it as
+    ``launches_<name>``."""
     line = []
     for name, meta in KERNELS.items():
         checked = [r for r in recs if r["kernel"] == name]
@@ -5307,13 +5533,322 @@ def backbone_phases(dev, run, pixel):
     run_am = with_pretrain_masks(run, AM_MASKS)
     out["train_step_am"] = train_phase(dev, run_am, TRAIN_AM_LAUNCHES, record=rec)
     torch.cuda.empty_cache()
-    rollout_ms = am_draw_phase(dev, run_am)
-    print(json.dumps({"am_step_against_pixel_step": {
-        "am_step_ms": rec["step_ms_median"], "pixel_step_ms": pixel["step_ms_median"],
-        "ratio": rec["step_ms_median"] / pixel["step_ms_median"],
-        "am_kernel_ms": rec["kernel_ms"], "pixel_kernel_ms": pixel["kernel_ms"],
-        "rollout_ms": rollout_ms}}), flush=True)
+    _beside_pixel("am", rec, pixel, rollout_ms=am_draw_phase(dev, run_am))
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 49-51: the text encoder stack, the SwinBERT layout, the Video Swin's
+# in-block dropouts
+# ---------------------------------------------------------------------------
+
+# the text stack's pretrain step (phase 49) adds BERT-base over the 20
+# captions of 32 tokens before the fusion, in training: row 5 with dropout
+# and row 6 in each of its 12 layers, the LayerNorm kernel at its 24 sites,
+# forward and backward
+TRAIN_STACK_LAUNCHES = {**TRAIN_LAUNCHES, "fused_layer_norm": 27 + 24,
+                        "fused_layer_norm_bwd": 27 + 24, "lane_self_attention_dropout": 12 + 12,
+                        "lane_self_attention_bwd": 12 + 12}
+# the SwinBERT caption step (phase 50): EncVideo has no norm in SwinBERT's
+# layout, so the LayerNorm kernel runs at 26 sites; the rest is the caption
+# step's. Its greedy re-encoding decoder: generate_launches without that norm
+CAPTION_SWINBERT_LAUNCHES = {**CAPTION_LAUNCHES, "fused_layer_norm": 26,
+                             "fused_layer_norm_bwd": 26}
+# the pixel step with the Swin's in-block dropouts (phase 51) at a probe rate
+# (no shipped config sets them): drop_rate alone keeps the direct kernels
+# (TRAIN_LAUNCHES); attn_drop_rate sends every window attention to
+# window_attention_xla, as JAX sends it to its XLA branch, and rows 3-4
+# launch no time
+SWIN_DROP = 0.1
+TRAIN_SWIN_ATTN_DROP_LAUNCHES = {k: v for k, v in TRAIN_LAUNCHES.items()
+                                 if not k.startswith("direct_window_attention")}
+SWIN_KEEP_B = 4                 # clips of phase 51's keep-fraction pass
+
+
+def with_model(run, **changes):
+    """``run`` with ``changes`` to its model config."""
+    return dataclasses.replace(run, model=dataclasses.replace(run.model, **changes))
+
+
+def with_swin_rates(run, drop, attn_drop):
+    """``run`` with the Video Swin's ``drop_rate`` and ``attn_drop_rate`` set
+    (``swin_custom``, as a user sets them)."""
+    return with_model(run, swin_custom=dataclasses.replace(
+        backbone_config(run.model), drop_rate=drop, attn_drop_rate=attn_drop))
+
+
+def swinbert_names(sd):
+    """A caption model's ``state_dict`` under SwinBERT's key names: the
+    inverse of ``remap_swinbert_keys``, the MLM decoder's bias as HF's tied
+    ``cls.predictions.bias``."""
+    renames = (("enc_img.swin.", "swin.backbone."), ("enc_img.fc.", "fc."),
+               ("enc_img.img_embedding.", "trans_encoder.bert.img_embedding."),
+               ("enc_txt.emb_txt.", "trans_encoder.bert.embeddings."),
+               ("trsfr.", "trans_encoder.bert.encoder."),
+               ("fc_mtm.predictions.decoder.bias", "trans_encoder.cls.predictions.bias"),
+               ("fc_mtm.", "trans_encoder.cls."))
+    out = {}
+    for k, v in sd.items():
+        port, theirs = next(r for r in renames if k.startswith(r[0]))
+        out[theirs + k[len(port):]] = v
+    return out
+
+
+def swin_routes(swin, frames, size_img):
+    """The route of each block's window attention (``WindowAttention3D.route``)
+    for clips of ``frames`` frames of ``size_img``^2, counted by route."""
+    with torch.device("meta"):
+        model = SwinTransformer3D(swin)
+    routes, hw = collections.Counter(), size_img // swin.patch_size[1]
+    for i, layer in enumerate(model.layers):
+        side = -(-hw // 2 ** i)
+        window, _ = get_window_size((frames, side, side), layer.window_size, layer.window_size)
+        dp = -(-frames // window[0]) * window[0]
+        routes.update(blk.attn.route(dp, window[0]) for blk in layer.blocks)
+    return dict(routes)
+
+
+class SameDraws:
+    """The Video Swin's dropout (``models/video_swin.dropout``) with its keep
+    masks drawn from a seeded CPU generator: the card's step draws and keeps
+    them, the CPU's step after it takes the same masks in the same order."""
+
+    def __init__(self, seed):
+        self.gen = torch.Generator().manual_seed(seed)
+        self.masks, self.taken = [], 0
+
+    def __call__(self, x, p, generator):
+        if generator is None or p == 0.0:
+            return x
+        if x.device.type == "cuda":
+            self.masks.append(torch.rand(x.shape, generator=self.gen) >= p)
+            keep = self.masks[-1].to(x.device)
+        else:
+            keep, self.taken = self.masks[self.taken], self.taken + 1
+        return torch.where(keep, x / (1.0 - p), x.new_zeros(()))
+
+
+def swin_keep_fraction(dev, swin, frames, size_img):
+    """The Swin's dropout sites in one no-grad training pass of the backbone
+    (bf16, ``SWIN_KEEP_B`` seeded clips): each site's rate, their count, and
+    the kept share of the elements whose input is not 0, which must lie
+    within ``KEEP_SIGMAS`` sigma of 1 - rate."""
+    counts = []
+    real = video_swin_module.dropout
+
+    def spy(x, p, generator):
+        out = real(x, p, generator)
+        if generator is not None and p > 0.0:
+            seen = x != 0
+            counts.append((p, int((out != 0)[seen].sum()), int(seen.sum())))
+        return out
+
+    model = SwinTransformer3D(swin, torch.bfloat16).to(dev)
+    img = torch.randn(SWIN_KEEP_B, frames, size_img, size_img, 3, device=dev,
+                      generator=torch.Generator(dev).manual_seed(13))
+    with mock.patch.object(video_swin_module, "dropout", spy), torch.no_grad():
+        model(img, torch.Generator(dev).manual_seed(14))
+    del model
+    kept, total = sum(c[1] for c in counts), sum(c[2] for c in counts)
+    rate = counts[0][0]
+    sigma = (rate * (1 - rate) / total) ** 0.5
+    rec = {"sites": len(counts), "rates": sorted({c[0] for c in counts}),
+           "keep_fraction": kept / total, "expected": 1 - rate, "sigma": sigma,
+           "elements": total}
+    print(json.dumps({"swin_dropout_keep_fraction": rec}), flush=True)
+    blocks = sum(swin.depths)
+    sites = 1 + (4 if swin.attn_drop_rate else 3) * blocks
+    require(len(counts) == sites and rec["rates"] == [rate]
+            and abs(kept / total - (1 - rate)) <= KEEP_SIGMAS * sigma,
+            f"the Swin's dropout sites: {rec}, {sites} sites expected")
+
+
+def phase40_data() -> Path:
+    """The directory of phase 40's pretrain shards and downstream videos."""
+    data_dir = _build.BUILD_DIR / "smoke_data" / "cli"
+    require((data_dir / "webvid2.5m_val_0.tsv").exists(), f"no phase 40 data in {data_dir}")
+    return data_dir
+
+
+def _beside_pixel(name, rec, pixel, **extra):
+    """Print a step's record (``train_phase``'s ``record``) beside phase 6's."""
+    print(json.dumps({f"{name}_step_against_pixel_step": {
+        f"{name}_step_ms": rec["step_ms_median"], "pixel_step_ms": pixel["step_ms_median"],
+        "ratio": rec["step_ms_median"] / pixel["step_ms_median"],
+        f"{name}_kernel_ms": rec["kernel_ms"], "pixel_kernel_ms": pixel["kernel_ms"],
+        **extra}}), flush=True)
+
+
+def text_stack_phase(dev, run, pixel):
+    """Phase 49: the pixel step at configs/pretrain.json with the text stack
+    (``txt_backbone_embed_only`` false: BERT-base over the captions before
+    the fusion; ``TRAIN_STACK_LAUNCHES``) beside phase 6's (``pixel``), its
+    whole step as phase 7 (the stack cut to 2 layers); then the user flow:
+    ``cli.pretrain`` with the stack on phase 40's shards for one epoch from
+    a seeded-bias checkpoint, and ``cli.retrieval_eval`` on its final
+    checkpoint with msrvtt-retrieval's config, which has no such key: the
+    eval adopts ``txt_backbone_embed_only`` from the run's ``args.json`` and
+    loads every leaf of the stack. Returns the launches by run."""
+    out, rec = {}, {}
+    run_stack = with_model(run, txt_backbone_embed_only=False)
+    out["train_step_text_stack"] = train_phase(dev, run_stack, TRAIN_STACK_LAUNCHES, record=rec)
+    _beside_pixel("text_stack", rec, pixel)
+    torch.cuda.empty_cache()
+    whole_step_phase(dev, run_stack)
+    torch.cuda.empty_cache()
+
+    data_dir = phase40_data()
+    out_dir = str(data_dir / "runs_text_stack")
+    cfg = _cli_config(PRETRAIN_CONFIG, "pretrain_text_stack", data_dir=str(data_dir),
+                      path_output=out_dir, txt_backbone_embed_only=False)
+    run_p = load_run_config(cfg)
+    init = pretrain_cli.build_model(run_p, load_tokenizer(run_p.data.tokenizer), dev)
+    seeded_biases(init, TRAIN_SEED)
+    init_ckpt = str(data_dir / "init_text_stack.msgpack")
+    save_params(init, init_ckpt)
+    del init
+    torch.cuda.empty_cache()
+    probe = StepProbe(frames=run.model.size_frame)
+    t0 = time.perf_counter()
+    with probe_steps(probe):
+        res = pretrain_cli.main(["--config", cfg, "--path_ckpt", init_ckpt, "--size_epoch", "1"],
+                                device=dev)
+    print(json.dumps({"cli": "pretrain_text_stack", "seconds": time.perf_counter() - t0,
+                      "steps": res["steps"]}), flush=True)
+    _load_complete("pretrain_text_stack", res["load"])
+    eval_every = max(res["steps_per_epoch"] // 2, 1)
+    out["cli_pretrain_text_stack"] = _cli_step_line(
+        "pretrain_text_stack", res, probe, TRAIN_STACK_LAUNCHES, rec["step_ms_median"],
+        "phase 49 (synthetic)",
+        skip={i for i in range(len(probe.starts)) if (i + 1) % eval_every == 0})
+    final = Path(res["run_dir"]) / f"ckpt_violet_pretrain_final_{res['steps']}.msgpack"
+    torch.cuda.empty_cache()
+    ret_cfg = _cli_config(RET_CONFIG, "msrvtt-retrieval_text_stack", data_dir=str(data_dir),
+                          path_output=out_dir)
+    require("txt_backbone_embed_only" not in json.loads(Path(ret_cfg).read_text()),
+            "the eval's config names the text stack itself")
+    t0 = time.perf_counter()
+    m = retrieval_eval_cli.main(["--config", ret_cfg, "--path_ckpt", str(final)], device=dev)
+    adopted = json.loads((Path(m["run_dir"]) / "args.json").read_text())["model"]
+    stack = [k for k in m["load"]["loaded"] if k.startswith("enc_txt.txt_trsfr.")]
+    print(json.dumps({"cli": "retrieval_eval_text_stack", "seconds": time.perf_counter() - t0,
+                      "adopted_txt_backbone_embed_only": adopted["txt_backbone_embed_only"],
+                      "text_stack_leaves_loaded": len(stack),
+                      **{k: m[k] for k in ("split", "r1", "r5", "r10", "medr")}}), flush=True)
+    _load_complete("retrieval_eval_text_stack", m["load"])
+    layers = run.model.text.num_hidden_layers
+    require(adopted["txt_backbone_embed_only"] is False and len(stack) == 16 * layers
+            and 1.0 <= m["medr"], f"retrieval_eval on the text-stack checkpoint: {m}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def swinbert_phase(dev):
+    """Phase 50: the caption step at configs/caption.json in SwinBERT's
+    layout (``swinbert``: each frame's first video token a zero fake CLS
+    with mask 0, so the fusion's 8 rows of 5 x 50 + 25 run rows 5-6 under a
+    seq2seq mask with a hole in each frame's first key;
+    ``CAPTION_SWINBERT_LAUNCHES``), its greedy re-encoding decoder at
+    ``GEN_MAX_LEN`` (bf16 captions/s and launches; in fp32 its tokens
+    against the K/V-cached decoder's, as phase 34), then ``cli.caption``
+    for one epoch on phase 40's data from a ``*SwinBERT*.pt`` written from a
+    seeded model under SwinBERT's names (every leaf loaded, ``img_embedding``
+    among them), and the whole step as phase 33. Returns the launches."""
+    run = with_model(load_run_config(str(CAPTION_CONFIG)), swinbert=True)
+    cfg = run.model
+    out = {}
+    out["train_step_caption_swinbert"], model = finetune_phase(
+        dev, "caption_swinbert", CAPTION_CONFIG, run,
+        VioletCaptioning(cfg, dtype=torch.bfloat16, device=dev, seed=TRAIN_SEED), "caption",
+        "caption", CAPTION_SWINBERT_LAUNCHES)
+    torch.cuda.empty_cache()
+    b = run.train.size_batch
+    rs = np.random.RandomState(15)
+    img = torch.from_numpy(rs.randint(0, 256, (b, cfg.size_frame, cfg.size_img, cfg.size_img,
+                                               3)).astype(np.uint8)).to(dev)
+    rec, tokens = capbench.bench(model, img, "full", GEN_ITERS, max_len=GEN_MAX_LEN)
+    want = generate_launches(False)
+    want["fused_layer_norm"] -= 1                    # no EncVideo norm in this layout
+    m32 = VioletCaptioning(cfg, dtype=torch.float32, device=dev)
+    m32.load_state_dict(model.state_dict())
+    full32 = m32.generate(img, GEN_MAX_LEN).cpu()
+    diff = capbench.first_difference_margin(m32, img, full32,
+                                            m32.generate_cached(img, GEN_MAX_LEN).cpu())
+    print(json.dumps({"slice": "caption_generation_swinbert", "batch": b, "max_len": GEN_MAX_LEN,
+                      "record": rec, "fp32_identical": diff is None,
+                      "fp32_first_difference": diff}), flush=True)
+    ended = (tokens == model.sep_token_id).cumsum(1) > 0
+    require(rec["launches"] == want,
+            f"launches of one SwinBERT decode {rec['launches']}, not {want}")
+    require(tokens.shape == (b, GEN_MAX_LEN) and bool((tokens[:, 0] == model.cls_token_id).all())
+            and bool((tokens[ended & (tokens != model.sep_token_id)]
+                      == model.pad_token_id).all()), f"SwinBERT captions {tokens.tolist()}")
+    require(diff is None or diff["margin"] < GREEDY_TIE_MARGIN,
+            f"fp32 greedy decoders differ beyond a tie: {diff}")
+    out["generate_swinbert_uncached"] = rec["launches"]
+    del m32, model
+    torch.cuda.empty_cache()
+
+    data_dir = phase40_data()
+    src = VioletCaptioning(cfg, dtype=torch.float32, device=dev, seed=TRAIN_SEED + 1)
+    seeded_biases(src, TRAIN_SEED + 1)
+    pt = data_dir / "swinbert_caption_SwinBERT.pt"
+    torch.save(swinbert_names({k: v.cpu() for k, v in src.state_dict().items()}), pt)
+    expected = set(src.state_dict())
+    del src
+    torch.cuda.empty_cache()
+    cli_cfg = _cli_config(CAPTION_CONFIG, "caption_swinbert", data_dir=str(data_dir),
+                          path_output=str(data_dir / "runs_swinbert"), swinbert=True)
+    probe = StepProbe()
+    t0 = time.perf_counter()
+    with probe_steps(probe):
+        res = caption_cli.main(["--config", cli_cfg, "--path_ckpt", str(pt), "--size_epoch", "1"],
+                               device=dev)
+    log = json.loads((Path(res["run_dir"]) / "log.json").read_text())
+    print(json.dumps({"cli": "caption_swinbert", "seconds": time.perf_counter() - t0,
+                      "log": log, "load": {k: len(v) for k, v in res["load"].items()}}),
+          flush=True)
+    _load_complete("caption_swinbert", res["load"])
+    require(set(res["load"]["loaded"]) == expected and not res["load"]["kept"],
+            f"caption_swinbert: kept at init {res['load']['kept'][:5]}")
+    for split in ("ac_vl", "ac_ts"):
+        sc = log[split][-1]
+        require(all(0.0 <= sc[k] <= 100.0 for k in ("bleu4", "rouge_l", "meteor"))
+                and sc["cider"] >= 0.0, f"caption_swinbert {split} scores {sc}")
+    out["cli_caption_swinbert"] = _cli_step_line(
+        "caption_swinbert", res, probe, CAPTION_SWINBERT_LAUNCHES, STEP_MS["caption_swinbert"],
+        "phase 50 (synthetic)")
+    torch.cuda.empty_cache()
+    finetune_whole_step_phase(dev, "caption_swinbert", run,
+                              lambda c, dt, d: VioletCaptioning(c, dtype=dt, device=d, seed=1),
+                              "caption", "caption")
+    torch.cuda.empty_cache()
+    return out
+
+
+def swin_dropout_phase(dev, run, pixel):
+    """Phase 51: the pixel step with the Video Swin's ``drop_rate`` at
+    ``SWIN_DROP`` (the direct kernels on, ``TRAIN_LAUNCHES``), then with
+    ``attn_drop_rate`` too (every window attention on window_attention_xla,
+    ``TRAIN_SWIN_ATTN_DROP_LAUNCHES``), each beside phase 6's (``pixel``)
+    with the route each block took; the dropout sites' keep fraction
+    (``swin_keep_fraction``); each whole step as phase 7 with the same
+    dropout masks on card and CPU (``SameDraws``). Returns the launches."""
+    out = {}
+    for name, attn_drop, want in (("swin_drop", 0.0, TRAIN_LAUNCHES),
+                                  ("swin_attn_drop", SWIN_DROP, TRAIN_SWIN_ATTN_DROP_LAUNCHES)):
+        r, rec = with_swin_rates(run, SWIN_DROP, attn_drop), {}
+        routes = swin_routes(r.model.swin, r.model.size_frame, r.model.size_img)
+        out[f"train_step_{name}"] = train_phase(dev, r, want, record=rec)
+        _beside_pixel(name, rec, pixel, routes=routes, launches=out[f"train_step_{name}"])
+        require(set(routes) == ({"xla"} if attn_drop else {"direct"}), f"{name} routes {routes}")
+        torch.cuda.empty_cache()
+        swin_keep_fraction(dev, r.model.swin, r.model.size_frame, r.model.size_img)
+        torch.cuda.empty_cache()
+        with mock.patch.object(video_swin_module, "dropout", SameDraws(16)):
+            whole_step_phase(dev, r)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5366,10 +5901,11 @@ def main() -> None:
     # 3. kernels against plain versions, at the main-path shapes; a limit
     # exceeded fails the run after the later phases have printed theirs
     gen = torch.Generator(dev).manual_seed(0)
-    pool = concurrent.futures.ThreadPoolExecutor(1)
-    # the planted row-stride copy (the seq2seq records' check) builds while
-    # the earlier records run
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    # the planted row-stride and suffix-mask copies (the seq2seq and SwinBERT
+    # records' checks) build while the earlier records run
     row_stride = pool.submit(planted_row_stride_library)
+    suffix_mask = pool.submit(planted_suffix_library)
     recs = (direct_cases(dev, gen, ITEMS * CLIPS, 5, "eval") + lane_case(dev, gen)
             + ln_cases(dev, gen, EVAL_LN, "eval")
             + direct_cases(dev, gen, TRAIN_B, TRAIN_T, "train")
@@ -5407,7 +5943,11 @@ def main() -> None:
             + lane_window_cases(dev, gen, "tiny", (2, 3), "2d swin-tiny")
             + lane_window_bwd_cases(dev, gen, "tiny", (2, 3), "2d swin-tiny")
             + merlot_lane_cases(dev, gen) + ln_cases(dev, gen, MERLOT_LN, "merlot")
-            + ln_bwd_cases(dev, gen, MERLOT_LN, "merlot ", planted=False))
+            + ln_bwd_cases(dev, gen, MERLOT_LN, "merlot ", planted=False)
+            + lane_train_cases(dev, gen, *TEXT_STACK_LANE, path="text stack ")
+            + ln_cases(dev, gen, TEXT_STACK_LN, "train")
+            + ln_bwd_cases(dev, gen, TEXT_STACK_LN, "train ", planted=False)
+            + swinbert_lane_cases(dev, gen, suffix_mask))
     pool.shutdown()
     failures = [f for r in recs for f in r.pop("failures")]
     print(json.dumps({"kernel_shapes": recs}), flush=True)
@@ -5627,6 +6167,14 @@ def main() -> None:
     backbone_launches = backbone_phases(dev, run, synthetic)
     print(f"phases 45-48 done in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 49-51. the text encoder stack, the SwinBERT layout, the Swin's in-block
+    # dropouts: their steps, whole steps and CLI flows
+    t0 = time.perf_counter()
+    variant_launches = text_stack_phase(dev, run, synthetic)
+    variant_launches.update(swinbert_phase(dev))
+    variant_launches.update(swin_dropout_phase(dev, run, synthetic))
+    print(f"phases 49-51 done in {time.perf_counter() - t0:.1f} s", flush=True)
+
     require(not failures, "kernel checks failed:\n" + "\n".join(failures))
 
     line = kernels_line(recs, {
@@ -5634,7 +6182,8 @@ def main() -> None:
         "train_step_swin2d": train_swin2d_launches, "train_step_violet": train_violet_launches,
         "train_step_qamc": ft.pop("train_step_qamc"), "eval": eval_launches,
         "eval_qamc": ft.pop("eval_qamc"), **step_launches, "lanebench": lanebench_launches,
-        **ft, **caption_launches, **loader_launches, **cli_launches, **backbone_launches})
+        **ft, **caption_launches, **loader_launches, **cli_launches, **backbone_launches,
+        **variant_launches})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -10,7 +10,8 @@ the seq2seq-masked MLM training pass and three autoregressive decoders
 * :meth:`~VioletCaptioning.generate` re-encodes the whole caption at every
   position (the [MASK]-append trick: [MASK] at position i, the logits read
   there): one fusion pass a position, through the fusion's kernels.
-* :meth:`~VioletCaptioning.generate_cached` (JAX's default decoder) runs the
+* :meth:`~VioletCaptioning.generate_cached` (JAX's default decoder for the
+  embeddings-only text encoder; it refuses a text stack, as JAX does) runs the
   fusion layers once over the video, keeps each layer's video K/V, and then
   runs one two-token step a position ([the token at i-1, [MASK] at i])
   against that cache and the text K/V committed so far. As in JAX this is
@@ -131,7 +132,8 @@ class VioletCaptioning(_Task):
         cur[:, i] = torch.where(done, self.pad_token_id, self.mask_token_id).to(cur.dtype)
         b, max_len = tokens.shape
         mask_txt = (torch.arange(max_len, device=tokens.device) <= i).to(torch.int32)
-        out = self.go_cross(feat_img, mask_img, self.enc_txt(cur), mask_txt.expand(b, max_len),
+        mask_txt = mask_txt.expand(b, max_len)
+        out = self.go_cross(feat_img, mask_img, self.enc_txt(cur, mask_txt=mask_txt), mask_txt,
                             None, "seq2seq")
         return self.fc_mtm(out[:, feat_img.shape[1] + i])
 
@@ -170,7 +172,12 @@ class VioletCaptioning(_Task):
         the cache it equals the full pass's. Each position runs one
         two-token forward, [the committed token at i-1, [MASK] at i],
         commits the first token's K/V at i-1 and samples token i from the
-        second's logits."""
+        second's logits. It needs the embeddings-only text encoder, as JAX
+        asserts: a text stack re-encodes every earlier token at each
+        position."""
+        if self.enc_txt.txt_trsfr is not None:
+            raise ValueError("the K/V-cached decoder needs the embeddings-only text encoder "
+                             "(txt_backbone_embed_only); use generate")
         layers = self.trsfr.layer
         nh = self.config.fusion.num_attention_heads
         dtype = self.dtype

@@ -416,12 +416,18 @@ def _vit_blocks(m: _Map, fp: str, tp: str) -> None:
 
 
 def _enc_img(m: _Map, fp: str, tp: str) -> None:
-    """``EncVideo`` (swin, optional ``fc``, the embeddings and ``norm``),
-    ``EncImgSwin`` (swin, ``swin2bert`` and the ``embeds`` block, whose
-    ``emb_odr`` exists for concat fusion only), ``EncImgR50`` (``res``,
-    ``proj``, ``embeds``) or ``EncImgMerlot`` (those, the ViT blocks and
-    ``out_norm``)."""
+    """``EncVideo`` (swin, optional ``fc``, the embeddings and ``norm``; in
+    the SwinBERT layout swin, ``fc`` and ``img_embedding``, which the JAX
+    importer does not read), ``EncImgSwin`` (swin, ``swin2bert`` and the
+    ``embeds`` block, whose ``emb_odr`` exists for concat fusion only),
+    ``EncImgR50`` (``res``, ``proj``, ``embeds``) or ``EncImgMerlot``
+    (those, the ViT blocks and ``out_norm``)."""
     embs = ("emb_cls", "emb_pos", "emb_len", "emb_odr")
+    if m.has(f"{fp}img_embedding", f"{tp}img_embedding"):
+        _swin3d(m, f"{fp}swin.", f"{tp}swin.")
+        _linear(m, f"{fp}fc", f"{tp}fc")
+        _linear(m, f"{fp}img_embedding", f"{tp}img_embedding")
+        return
     if m.has(f"{fp}res", f"{tp}res"):
         _resnet50(m, f"{fp}res.", f"{tp}res.")
         _linear(m, f"{fp}proj", f"{tp}proj")
@@ -476,9 +482,12 @@ def _top_names(m: _Map) -> list[str]:
     return list(dict.fromkeys(k.split(".")[0] for k in m.sd))
 
 
-def _violet(m: _Map, heads: Mapping[str, str] | None, fusion_layers: int | None) -> None:
+def _violet(m: _Map, heads: Mapping[str, str] | None, fusion_layers: int | None,
+            text_layers: int | None) -> None:
     _enc_img(m, "enc_img.", "enc_img.")
     _bert_embeddings(m, "enc_txt.emb_txt.", "enc_txt.emb_txt.")
+    if m.has("enc_txt.txt_trsfr", "enc_txt.txt_trsfr"):
+        _bert_encoder(m, "enc_txt.txt_trsfr.", "enc_txt.txt_trsfr.", text_layers)
     _bert_encoder(m, "trsfr.", "trsfr.", fusion_layers)
     if m.has("emb_task", "emb_task"):
         m.leaf("emb_task", "emb_task")
@@ -651,8 +660,10 @@ def state_dict_from_flax(params: Tree, cfg: ModelConfig | None = None,
     the tree is carried under ``feature_model.`` (its depths read from the
     tree; a 2D teacher has no final norm, the 3D one has), a ``clip_model``
     under ``clip_model.``, and the ``dpt``, ``dvae`` and ``raft`` teachers
-    under their names."""
-    return _forward(params, _violet, heads, cfg.fusion.num_hidden_layers if cfg else None)
+    under their names. A text stack (``enc_txt.txt_trsfr``) is carried in
+    HF ``BertEncoder`` names, its depth ``cfg.text``'s (else counted), and
+    the SwinBERT video layout's ``fc`` and ``img_embedding``."""
+    return _forward(params, _violet, heads, *_depths(cfg))
 
 
 def flax_from_state_dict(sd: Mapping[str, Any], cfg: ModelConfig | None = None,
@@ -660,7 +671,13 @@ def flax_from_state_dict(sd: Mapping[str, Any], cfg: ModelConfig | None = None,
     """The inverse of :func:`state_dict_from_flax`: a port ``state_dict``
     (a model's, or a checkpoint's in its names) -> the JAX package's flax
     param tree, in the per-layer layout (no scan stacking)."""
-    return _inverse(sd, _violet, heads, cfg.fusion.num_hidden_layers if cfg else None)
+    return _inverse(sd, _violet, heads, *_depths(cfg))
+
+
+def _depths(cfg: ModelConfig | None) -> tuple[int | None, int | None]:
+    """The fusion's and the text stack's depths, or None (counted)."""
+    return (None, None) if cfg is None else (cfg.fusion.num_hidden_layers,
+                                             cfg.text.num_hidden_layers)
 
 
 # -------------------------------------------------------------------------

@@ -104,7 +104,9 @@ class EncImgSwin(nn.Module):
 
     Input ``img (B, T, H, W, 3)`` normalized float (the train step normalizes
     uint8 clips first). Output ``feat (B, t * (1 + h * w), D)`` and ``mask``
-    of ones, t = T for concat and 1 for mean.
+    of ones, t = T for concat and 1 for mean. As in JAX, ``odr`` is not
+    read and ``vt_mask`` ((B, T * (1 + h * w)) in any shape of that size)
+    multiplies the mask under concat fusion only.
     """
 
     def __init__(self, cfg: ModelConfig, fusion: str = "concat", dtype=torch.float32):
@@ -118,7 +120,7 @@ class EncImgSwin(nn.Module):
         self.embeds = _PosEmbeds(cfg.hidden_size, cfg.max_size_frame, cfg.max_size_patch,
                                 with_odr=fusion == "concat")
 
-    def forward(self, img, generator=None):
+    def forward(self, img, generator=None, *, odr=None, vt_mask=None):
         b, t, hh, ww, _ = img.shape
         hw = (hh // 32) * (ww // 32)
         f = self.swin(img, generator)
@@ -128,6 +130,8 @@ class EncImgSwin(nn.Module):
             t = 1
         f = self.embeds(f)
         m = torch.ones((b, t * (1 + hw)), dtype=torch.int32, device=f.device)
+        if vt_mask is not None and self.fusion == "concat":
+            m = m * vt_mask.reshape(b, -1).to(m.dtype)
         return f.reshape(b, t * (1 + hw), f.shape[-1]), m
 
 
@@ -195,7 +199,8 @@ class EncImgR50(nn.Module):
     normalizes by batch statistics on a training pass (a generator given).
 
     Input ``img (B, T, H, W, 3)`` float; output ``feat (B, t * (1 + h * w),
-    D)`` and a mask of ones, t = T for concat and 1 for mean."""
+    D)`` and a mask of ones, t = T for concat and 1 for mean. ``odr`` and
+    ``vt_mask`` are taken and not read, as in JAX."""
 
     def __init__(self, cfg: ModelConfig, fusion: str = "concat", train_bn: bool = False,
                  dtype=torch.float32):
@@ -212,7 +217,7 @@ class EncImgR50(nn.Module):
         f = self.res(img.reshape(b * t, hh, ww, 3), self.train_bn and generator is not None)
         return torch.relu(self.proj(f)).reshape(b, t, (hh // 32) * (ww // 32), -1)
 
-    def forward(self, img, generator=None):
+    def forward(self, img, generator=None, *, odr=None, vt_mask=None):
         f = self.features(img, generator)
         b, t, hw = f.shape[:3]
         if self.fusion == "mean":
@@ -236,7 +241,8 @@ class EncImgMerlot(EncImgR50):
     :func:`vit_self_attention` (p = 0, a zero mask: row 5 and its backward,
     row 6, where ``lane_sa_attention_fits``, else row 11), where the JAX
     package computes it in XLA (``ViTBlock(use_pallas=False)``): the
-    kernels are the port's choice."""
+    kernels are the port's choice. ``odr`` and ``vt_mask`` are taken and
+    not read, as in JAX."""
 
     def __init__(self, cfg: ModelConfig, train_bn: bool = False, vit_depth: int = 12,
                  dtype=torch.float32):
@@ -246,7 +252,7 @@ class EncImgMerlot(EncImgR50):
                                   for _ in range(vit_depth)])
         self.out_norm = LayerNorm(d, 1e-5)
 
-    def forward(self, img, generator=None):
+    def forward(self, img, generator=None, *, odr=None, vt_mask=None):
         f = self.embeds(self.features(img, generator), add_len=False)
         b, t, l, d = f.shape
         x = f.reshape(b * t, l, d)

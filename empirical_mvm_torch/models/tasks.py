@@ -87,7 +87,7 @@ class VioletRetrieval(_Task):
             mi = mi.reshape(b, clips, -1)[:, 0]
         else:
             fi, mi = self.enc_img(img)
-        return fi, mi, self.enc_txt(txt), mask
+        return fi, mi, self.enc_txt(txt, mask_txt=mask), mask
 
     def score_pairs(self, feat_img, mask_img, feat_txt, mask_txt):
         """Stage-2 cross scores of prepared (text, video) rows, read at the

@@ -30,13 +30,16 @@ LayerNorms are the plain :class:`LayerNorm`, as the JAX package keeps flax
 ``use_pallas_layernorm=True``). Parameter names are the reference checkpoint's
 (``layers.0.blocks.0.attn.qkv.weight``, ``patch_embed.proj.weight``, ...).
 Training: stochastic depth at the reference's rates
-(``np.linspace(0, drop_path_rate, sum(depths))``), drawn from the generator
-passed to ``forward`` (none: the deterministic pass). The relative-position
-bias table gets its gradient through autograd of the index gather (the JAX
-package's ``rel_pos_bias`` custom VJP is an XLA op). Dropout inside the
-blocks (``drop_rate``, ``attn_drop_rate``) is not ported: every reference
-config sets both to 0, and the direct attention kernel needs
-``attn_drop_rate == 0``. ``remat`` recomputes each block in the backward
+(``np.linspace(0, drop_path_rate, sum(depths))``) and dropout at the JAX
+package's sites (``drop_rate`` after the patch embedding, after each
+attention's ``proj`` and twice in each MLP; ``attn_drop_rate`` on the
+attention probabilities), all drawn from the generator passed to
+``forward`` (none: the deterministic pass). A nonzero ``attn_drop_rate``
+sends every window attention to :func:`window_attention_xla`, as it sends
+the JAX package's to its XLA branch: no kernel drops probabilities there.
+The relative-position bias table gets its gradient through autograd of
+the index gather (the JAX package's ``rel_pos_bias`` custom VJP is an XLA
+op). ``remat`` recomputes each block in the backward
 (``models/common.remat``); scan is not ported.
 """
 
@@ -51,7 +54,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from empirical_mvm_torch.core.config import SwinConfig
-from empirical_mvm_torch.models.common import Linear, remat
+from empirical_mvm_torch.models.common import Linear, dropout, remat
 from empirical_mvm_torch.ops.layernorm import FusedLayerNorm, LayerNorm
 from empirical_mvm_torch.ops.patch_embed import patch_embed_3d
 from empirical_mvm_torch.ops.window_attention import (direct_window_attention,
@@ -127,15 +130,41 @@ def drop_path(x: torch.Tensor, rate: float,
 
 
 class Mlp(nn.Module):
-    """fc1 -> exact GELU -> fc2 (ref: visbackbone/video_swin.py:65-81)."""
+    """fc1 -> exact GELU -> dropout -> fc2 -> dropout (ref:
+    visbackbone/video_swin.py:65-81); the dropout at ``drop`` draws from the
+    generator."""
 
-    def __init__(self, dim: int, hidden: int, dtype: torch.dtype):
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype, drop: float = 0.0):
         super().__init__()
+        self.drop = drop
         self.fc1 = Linear(dim, hidden, compute_dtype=dtype)
         self.fc2 = Linear(hidden, dim, compute_dtype=dtype)
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+    def forward(self, x, generator=None):
+        x = dropout(F.gelu(self.fc1(x)), self.drop, generator)
+        return dropout(self.fc2(x), self.drop, generator)
+
+
+def window_attention_xla(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor | None,
+                         n_heads: int, scale: float, p_drop: float = 0.0,
+                         generator: torch.Generator | None = None) -> torch.Tensor:
+    """The JAX package's XLA window attention (``WindowAttention3D``'s einsum
+    branch, video_swin.py:453-470), which it runs wherever ``attn_drop_rate``
+    is not 0: qkv (B_, N, 3C) of the partitioned windows, bias (nH, N, N),
+    mask (nW, N, N) with the windows innermost in B_ or None. fp32 scores of
+    q * scale (rounded to qkv's dtype) and k, the bias and the mask added,
+    an fp32 softmax; the probabilities cast to qkv's dtype and dropped at
+    ``p_drop`` (drawn from ``generator``) weight v. Returns (B_, N, C)."""
+    b_, n, c3 = qkv.shape
+    c = c3 // 3
+    q, k, v = qkv.reshape(b_, n, 3, n_heads, c // n_heads).permute(2, 0, 3, 1, 4)
+    s = torch.matmul((q * scale).float(), k.float().transpose(-1, -2)) + bias[None]
+    if mask is not None:
+        nw = mask.shape[0]
+        s = (s.reshape(b_ // nw, nw, n_heads, n, n) + mask[None, :, None]).reshape(s.shape)
+    p = dropout(torch.softmax(s, dim=-1).to(qkv.dtype), p_drop, generator)
+    out = torch.matmul(p.float(), v.float()).to(qkv.dtype)
+    return out.transpose(1, 2).reshape(b_, n, c)
 
 
 def _to_packed(qkv: torch.Tensor, window: Sequence[int], n_heads: int) -> torch.Tensor:
@@ -164,9 +193,11 @@ class WindowAttention3D(nn.Module):
 
     def __init__(self, dim: int, window_size: tuple[int, int, int],
                  num_heads: int, qkv_bias: bool = True,
-                 qk_scale: float | None = None, dtype=torch.float32):
+                 qk_scale: float | None = None, dtype=torch.float32,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         self.dim = dim
+        self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.window_size = tuple(window_size)
         self.num_heads = num_heads
         self.scale = qk_scale or (dim // num_heads) ** -0.5
@@ -187,36 +218,59 @@ class WindowAttention3D(nn.Module):
         bias = self.relative_position_bias_table[idx].reshape(n, n, -1)
         return bias.permute(2, 0, 1).float().contiguous()
 
-    def forward(self, x, mask, window_eff):
-        """x (B, Dp, Hp, Wp, C) padded and rolled; mask (nW, N, N) fp32 over
-        all (Dp/wd) * nW_hw windows, or None.
+    def route(self, dp: int, wd: int) -> str:
+        """The attention of a map of Dp frames under a temporal window wd:
+        ``"xla"`` (:func:`window_attention_xla`) where ``attn_drop`` is not
+        0, as the JAX package routes it; else ``"direct"`` (C % 128 == 0 and
+        one temporal window, D == wd), ``"lane_window"`` (C % 128 == 0) or
+        ``"packed"`` (any other C)."""
+        if self.attn_drop > 0.0:
+            return "xla"
+        if self.dim % 128:
+            return "packed"
+        return "direct" if dp == wd else "lane_window"
 
-        The kernel: for C % 128 == 0, the direct kernel with one temporal
-        window (D == wd), else the lane window kernel on the partitioned
-        windows; for any other C the packed kernel, its (B_, 3nH, N, hd)
-        input one copy of the qkv map (:func:`_to_packed`; the JAX package
-        partitions before the qkv GEMM and transposes after it, two copies)
-        and its output one copy back to the map. The C % 128 rule is the
-        JAX package's (its ``direct_attention_fits`` and
+    def forward(self, x, mask, window_eff, generator=None):
+        """x (B, Dp, Hp, Wp, C) padded and rolled; mask (nW, N, N) fp32 over
+        all (Dp/wd) * nW_hw windows, or None; ``generator`` draws the
+        dropouts (none: the deterministic pass).
+
+        The kernel (:meth:`route`): for C % 128 == 0, the direct kernel with
+        one temporal window (D == wd), else the lane window kernel on the
+        partitioned windows; for any other C the packed kernel, its (B_,
+        3nH, N, hd) input one copy of the qkv map (:func:`_to_packed`; the
+        JAX package partitions before the qkv GEMM and transposes after it,
+        two copies) and its output one copy back to the map. The C % 128
+        rule is the JAX package's (its ``direct_attention_fits`` and
         ``lane_attention_fits`` refuse such C: the TPU's 128-lane blocks),
         kept so that both packages run the same kernel in each stage; the
         CUDA kernels take any C. The JAX checks' VMEM budgets have no
-        counterpart."""
+        counterpart. With ``attn_drop`` the partitioned windows take
+        :func:`window_attention_xla`, the probabilities dropped there."""
         b, dp, hp, wp, c = x.shape
         wd, wh, ww = window_eff
         n = wd * wh * ww
         nh, nw = self.num_heads, 1 if mask is None else mask.shape[0]
         bias, scale = self.rel_pos_bias(n), float(self.scale)
-        if c % 128 == 0 and dp == wd:
-            return self.proj(direct_window_attention(self.qkv(x), bias, mask, window_eff,
-                                                     nh, scale))
-        if c % 128:
+        route = self.route(dp, wd)
+
+        def proj(t):
+            return dropout(self.proj(t), self.proj_drop, generator)
+
+        if route == "direct":
+            return proj(direct_window_attention(self.qkv(x), bias, mask, window_eff, nh, scale))
+        if route == "packed":
             out = packed_window_attention(_to_packed(self.qkv(x), window_eff, nh), bias, mask,
                                           nw, nh, scale)
-            return self.proj(_from_packed(out, window_eff, b, dp, hp, wp))
+            return proj(_from_packed(out, window_eff, b, dp, hp, wp))
         xw = self.qkv(window_partition(x, window_eff))              # (B_, N, 3C)
-        out = lane_window_attention(xw, bias, mask, nw, nh, scale)
-        return window_reverse(self.proj(out), window_eff, b, dp, hp, wp)
+        if route == "xla":
+            out = window_attention_xla(xw, bias, mask, nh, scale,
+                                       self.attn_drop if generator is not None else 0.0,
+                                       generator)
+        else:
+            out = lane_window_attention(xw, bias, mask, nw, nh, scale)
+        return window_reverse(proj(out), window_eff, b, dp, hp, wp)
 
 
 class SwinTransformerBlock3D(nn.Module):
@@ -224,16 +278,17 @@ class SwinTransformerBlock3D(nn.Module):
 
     def __init__(self, dim, num_heads, window_size, shift_size, mlp_ratio=4.0,
                  qkv_bias=True, qk_scale=None, dtype=torch.float32,
-                 drop_path_rate: float = 0.0, norm=LayerNorm):
+                 drop_path_rate: float = 0.0, norm=LayerNorm, drop: float = 0.0,
+                 attn_drop: float = 0.0):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.window_size = tuple(window_size)
         self.shift_size = tuple(shift_size)
         self.norm1 = norm(dim)
         self.attn = WindowAttention3D(dim, self.window_size, num_heads,
-                                      qkv_bias, qk_scale, dtype)
+                                      qkv_bias, qk_scale, dtype, attn_drop, drop)
         self.norm2 = norm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, drop)
 
     def forward(self, x, attn_mask, generator=None):
         b, d, h, w, c = x.shape
@@ -248,12 +303,12 @@ class SwinTransformerBlock3D(nn.Module):
         shifted = any(s > 0 for s in shift)
         if shifted:
             x = torch.roll(x, shifts=tuple(-s for s in shift), dims=(1, 2, 3))
-        x = self.attn(x, attn_mask if shifted else None, window)
+        x = self.attn(x, attn_mask if shifted else None, window, generator)
         if shifted:
             x = torch.roll(x, shifts=shift, dims=(1, 2, 3))
         rate = self.drop_path_rate
         x = shortcut + drop_path(x[:, :d, :h, :w, :], rate, generator)
-        return x + drop_path(self.mlp(self.norm2(x)), rate, generator)
+        return x + drop_path(self.mlp(self.norm2(x), generator), rate, generator)
 
 
 class PatchMerging(nn.Module):
@@ -279,7 +334,8 @@ class BasicLayer(nn.Module):
     def __init__(self, dim, depth, num_heads, window_size, mlp_ratio=4.0,
                  qkv_bias=True, qk_scale=None, downsample=False,
                  dtype=torch.float32, drop_path_rates: Sequence[float] = (),
-                 norm=LayerNorm, remat: bool = False):
+                 norm=LayerNorm, remat: bool = False, drop: float = 0.0,
+                 attn_drop: float = 0.0):
         super().__init__()
         self.remat = remat
         self.window_size = tuple(window_size)
@@ -288,7 +344,8 @@ class BasicLayer(nn.Module):
         self.blocks = nn.ModuleList([
             SwinTransformerBlock3D(dim, num_heads, self.window_size,
                                    (0, 0, 0) if i % 2 == 0 else half,
-                                   mlp_ratio, qkv_bias, qk_scale, dtype, rates[i], norm)
+                                   mlp_ratio, qkv_bias, qk_scale, dtype, rates[i], norm,
+                                   drop, attn_drop)
             for i in range(depth)])
         self.downsample = PatchMerging(dim, dtype, norm) if downsample else None
         self._masks: dict = {}      # shift masks on the device, by shape
@@ -343,8 +400,7 @@ class SwinTransformer3D(nn.Module):
 
     def __init__(self, cfg: SwinConfig, dtype=torch.float32, fused_norms: bool = False):
         super().__init__()
-        if cfg.drop_rate or cfg.attn_drop_rate:
-            raise NotImplementedError("swin drop_rate / attn_drop_rate are not ported")
+        self.drop_rate = cfg.drop_rate
         norm = FusedLayerNorm if fused_norms else LayerNorm
         self.patch_embed = PatchEmbed3D(cfg.patch_size, 3, cfg.embed_dim,
                                         cfg.patch_norm, dtype, norm)
@@ -356,14 +412,14 @@ class SwinTransformer3D(nn.Module):
                        cfg.window_size, cfg.mlp_ratio, cfg.qkv_bias,
                        cfg.qk_scale, downsample=i < n - 1, dtype=dtype,
                        drop_path_rates=dpr[starts[i]:starts[i] + depth], norm=norm,
-                       remat=cfg.remat)
+                       remat=cfg.remat, drop=cfg.drop_rate, attn_drop=cfg.attn_drop_rate)
             for i, depth in enumerate(cfg.depths)])
         self.norm = norm(cfg.num_features) if cfg.final_norm else None
 
     def forward(self, x, generator=None):
-        """``generator`` drives stochastic depth; None is the deterministic
-        pass."""
-        x = self.patch_embed(x)
+        """``generator`` drives stochastic depth and dropout; None is the
+        deterministic pass."""
+        x = dropout(self.patch_embed(x), self.drop_rate, generator)
         for layer in self.layers:
             x = layer(x, generator)
         return x if self.norm is None else self.norm(x)

@@ -1,16 +1,18 @@
 """VIOLET trunk (counterpart of ``empirical_mvm_tpu/models/violet.py``):
 video encoder, text embeddings, cross-modal fusion, and the score head.
 
-Covers what the retrieval eval and the pretrain step run: the ``vidswin``
-backbone (:class:`EncVideo`), the trained 2D Swin backbone
-(``vis_backbone`` ``"swin"`` / ``"swin2d"``: ``encoders2d.EncImgSwin``, mean
-or concat fusion), the ResNet-50 (``"r50"``, mean or concat:
-``encoders2d.EncImgR50``) and the MERLOT encoder (``"merlot"``, concat:
-``encoders2d.EncImgMerlot``), the embeddings-only text encoder, the ``full`` and
-``seq2seq`` joint attention masks, and the QA heads' text prefixes (a
-learned task token or an encoded prompt, :meth:`VioletBase.prepend_pretxt`). Names are the reference
-checkpoint's (``enc_img.swin.*``, ``enc_img.emb_pos``, ``enc_txt.emb_txt.*``,
-``trsfr.layer.*``).
+Covers every variant the JAX package builds: the ``vidswin`` backbone
+(:class:`EncVideo`, in VIOLET's layout or, with ``swinbert``, SwinBERT's),
+the trained 2D Swin backbone (``vis_backbone`` ``"swin"`` / ``"swin2d"``:
+``encoders2d.EncImgSwin``, mean or concat fusion), the ResNet-50 (``"r50"``,
+mean or concat: ``encoders2d.EncImgR50``) and the MERLOT encoder
+(``"merlot"``, concat: ``encoders2d.EncImgMerlot``), the text encoder
+(embeddings only, or with ``txt_backbone_embed_only`` false a BERT stack over
+them), the ``full`` and ``seq2seq`` joint attention masks, and the QA heads'
+text prefixes (a learned task token or an encoded prompt,
+:meth:`VioletBase.prepend_pretxt`). Names are the reference checkpoint's
+(``enc_img.swin.*``, ``enc_img.emb_pos``, ``enc_txt.emb_txt.*``,
+``enc_txt.txt_trsfr.layer.*``, ``trsfr.layer.*``).
 
 ``go_feat``, ``go_cross`` and :class:`ScoreHead` take a ``generator``: with
 one they run the training pass (stochastic depth, dropout, attention
@@ -38,57 +40,85 @@ class EncVideo(nn.Module):
     (ref: model.py:8-78).
 
     Input ``img (B, T, H, W, 3)``, uint8 or normalized float. Output
-    ``feat (B, T*(1+h*w), D)`` and ``mask (B, T*(1+h*w))`` with h = H/32,
-    w = W/32.
+    ``feat (B, T*(1+h*w), D)`` and ``mask (B, T*(1+h*w))`` int32 with h =
+    H/32, w = W/32. ``odr`` (B, T), the frame-order pretext's permutation,
+    gives a frame at its own slot its temporal embedding ``emb_len`` and a
+    moved frame ``emb_odr`` (ref: model.py:61-68); ``vt_mask``, broadcast
+    over (B, T, 1+h*w), multiplies the mask.
+
+    With ``swinbert`` the layout is SwinBERT's (ref: model.py:27-29, 44-56):
+    ``fc`` maps the latent to 512 and ``img_embedding`` 512 to the hidden
+    size, and each frame's first token is a zero "fake CLS" whose mask is 0;
+    there are no embeddings and no norm, and ``odr`` is not read.
     """
 
     def __init__(self, cfg: ModelConfig, dtype=torch.float32):
         super().__init__()
-        if cfg.swinbert:
-            raise NotImplementedError("the SwinBERT video layout is not ported")
         d = cfg.hidden_size
+        self.swinbert = cfg.swinbert
         self.swin = SwinTransformer3D(cfg.swin, dtype)
         self.latent = cfg.swin.num_features
+        if cfg.swinbert:
+            self.fc = Linear(self.latent, 512, compute_dtype=dtype)
+            self.img_embedding = Linear(512, d, compute_dtype=dtype)
+            return
         self.fc = (Linear(self.latent, d, compute_dtype=dtype)
                    if self.latent != d else None)
         self.emb_cls = nn.Parameter(torch.zeros(1, 1, 1, d))
         self.emb_pos = nn.Parameter(torch.zeros(1, 1, 1 + cfg.max_size_patch ** 2, d))
         self.emb_len = nn.Parameter(torch.zeros(1, cfg.max_size_frame, 1, d))
-        # frame-order embedding of the pretrain pretext task: kept so that
-        # checkpoints load, unused by the eval forward
         self.emb_odr = nn.Parameter(torch.zeros(1, 1, 1, d))
         self.norm = FusedLayerNorm(d, 1e-5)
 
-    def forward(self, img, generator=None):
+    def forward(self, img, generator=None, *, odr=None, vt_mask=None):
         img = maybe_normalize(img)
         b, t, hh, ww, _ = img.shape
         hw = (hh // 32) * (ww // 32)
         f = self.swin(img, generator).reshape(b, t, hw, self.latent)
-        if self.fc is not None:
-            f = self.fc(f)
-        d = f.shape[-1]
-        cls = self.emb_cls.to(f.dtype).expand(b, t, 1, d)
-        f = torch.cat([cls, f], dim=2)                          # (B, T, 1+hw, D)
-        f = f + self.emb_pos[:, :, :1 + hw].to(f.dtype)
-        f = f + self.emb_len[:, :t].to(f.dtype)
-        f = self.norm(f).reshape(b, t * (1 + hw), d)
-        m = torch.ones((b, t * (1 + hw)), dtype=torch.int32, device=f.device)
-        return f, m
+        m = torch.ones((b, t, 1 + hw), dtype=torch.int32, device=f.device)
+        if self.swinbert:
+            f = self.img_embedding(self.fc(f))
+            f = torch.cat([f.new_zeros(b, t, 1, f.shape[-1]), f], dim=2)
+            m[:, :, 0] = 0
+        else:
+            if self.fc is not None:
+                f = self.fc(f)
+            cls = self.emb_cls.to(f.dtype).expand(b, t, 1, f.shape[-1])
+            f = torch.cat([cls, f], dim=2)                      # (B, T, 1+hw, D)
+            f = f + self.emb_pos[:, :, :1 + hw].to(f.dtype)
+            emb = self.emb_len[:, :t]
+            if odr is not None:
+                in_place = odr == torch.arange(t, device=odr.device)       # (B, T)
+                emb = torch.where(in_place[:, :, None, None], emb, self.emb_odr)
+            f = self.norm(f + emb.to(f.dtype))
+        if vt_mask is not None:
+            m = m * vt_mask.to(m.dtype)
+        return f.reshape(b, t * (1 + hw), f.shape[-1]), m.reshape(b, t * (1 + hw))
 
 
 class EncTxt(nn.Module):
-    """Text encoder: BERT embeddings only (ref: model.py:80-115, the
-    ``txt_backbone_embed_only`` default)."""
+    """Text encoder (ref: model.py:80-115): BERT embeddings and, with
+    ``txt_backbone_embed_only`` false, a ``BertEncoder(cfg.text)`` stack over
+    them (``txt_trsfr``). The stack attends under ``mask_txt`` (all ones if
+    None) for ``full``, and causally (``tril`` over the text, the mask not
+    read) for ``seq2seq``, as the JAX ``EncTxt`` builds it."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.float32):
         super().__init__()
-        if not cfg.txt_backbone_embed_only:
-            raise NotImplementedError("a text encoder stack is not ported; "
-                                      "txt_backbone_embed_only must be true")
         self.emb_txt = BertEmbeddings(cfg.text, dtype)
+        self.txt_trsfr = None if cfg.txt_backbone_embed_only else BertEncoder(cfg.text, dtype)
 
-    def forward(self, txt, generator=None):
-        return self.emb_txt(txt, generator)
+    def forward(self, txt, generator=None, *, mask_txt=None, attn_mask_type="full"):
+        f = self.emb_txt(txt, generator)
+        if self.txt_trsfr is None:
+            return f
+        if attn_mask_type == "seq2seq":
+            lt = txt.shape[1]
+            m = torch.ones((lt, lt), dtype=torch.int32, device=txt.device).tril()
+            m = m.expand(txt.shape[0], lt, lt)
+        else:
+            m = torch.ones_like(txt) if mask_txt is None else mask_txt
+        return self.txt_trsfr(f, extended_attention_mask(m), generator)
 
 
 ATTN_MASK_TYPES = ("full", "seq2seq")
@@ -160,10 +190,14 @@ class VioletBase(nn.Module):
         if cfg.enable_task_token:
             self.emb_task = nn.Parameter(torch.zeros(cfg.num_task_tokens, cfg.hidden_size))
 
-    def go_feat(self, img, txt, mask, generator=None):
-        """(ref: model.py:174-178)"""
-        feat_img, mask_img = self.enc_img(img, generator)
-        return feat_img, mask_img, self.enc_txt(txt, generator), mask
+    def go_feat(self, img, txt, mask, generator=None, *, odr=None, vt_mask=None,
+                attn_mask_type="full"):
+        """(ref: model.py:174-178) The video tokens and their mask (``odr``
+        and ``vt_mask`` to the image encoder) and the text features, the
+        text stack attending under ``mask`` and ``attn_mask_type``."""
+        feat_img, mask_img = self.enc_img(img, generator, odr=odr, vt_mask=vt_mask)
+        feat_txt = self.enc_txt(txt, generator, mask_txt=mask, attn_mask_type=attn_mask_type)
+        return feat_img, mask_img, feat_txt, mask
 
     def prepend_pretxt(self, mask_txt, feat_txt, prompt=None, generator=None):
         """Prepend the task token's row (``enable_task_token``) or an encoded
@@ -183,7 +217,7 @@ class VioletBase(nn.Module):
             p_txt, p_mask = prompt
             if p_txt.ndim == 1:
                 p_txt, p_mask = p_txt.expand(b, -1), p_mask.expand(b, -1)
-            pre_feat = self.enc_txt(p_txt, generator).to(feat_txt.dtype)
+            pre_feat = self.enc_txt(p_txt, generator, mask_txt=p_mask).to(feat_txt.dtype)
             pre_mask = p_mask.to(mask_txt.dtype)
         else:
             return mask_txt, feat_txt, 0

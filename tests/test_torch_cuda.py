@@ -21,9 +21,10 @@ import pytest
 import torch
 
 from chip_smoke import (FP32_LIMITS, LARGE_MEAN, OUTPUTS, PLANTED_LN, PLANTED_ROW_STRIDE,
-                        PLANTED_TILED, ROW_STRIDE_SOURCES, SEQ2SEQ_TILED, _excess, _lane_calls, _lane_fwd_kind,
+                        PLANTED_SUFFIX_MASK, PLANTED_TILED, ROW_STRIDE_SOURCES, SEQ2SEQ_TILED,
+                        SWINBERT_LANE, TEXT_STACK_LANE, _excess, _lane_calls, _lane_fwd_kind,
                         _padding_mask, _sa_calls, _tuple, _window_bwd_kind, _window_fwd_kind,
-                        bf16_check, full_check, plant, seq2seq_mask)
+                        bf16_check, full_check, plant, seq2seq_mask, swinbert_mask)
 from empirical_mvm_torch.models.video_swin import _shift_attn_mask
 from empirical_mvm_torch.ops import _build
 from empirical_mvm_torch.ops import layernorm as tln
@@ -103,10 +104,12 @@ def test_lane_self_attention_kernel(cuda, dtype, b, l, c, nh):
 
 # LayerNorm shapes (rows, C, eps): the fusion width, the paths' other widths
 # (the 2D teacher's 128-2048, each on the vectorized body in bf16; fp32 runs
-# it at 768 alone, the scalar body at the others), a ragged row count, and
-# C = 96 (the scalar body in both dtypes)
+# it at 768 alone, the scalar body at the others), a ragged row count, C =
+# 96 (the scalar body in both dtypes), and the text stack's 20 captions of
+# 32 tokens
 LN_SHAPES = [(40, 768, 1e-12), (250, 768, 1e-5), (7, 96, 1e-5), (333, 128, 1e-5),
-             (300, 256, 1e-5), (300, 512, 1e-5), (130, 1024, 1e-5), (70, 2048, 1e-5)]
+             (300, 256, 1e-5), (300, 512, 1e-5), (130, 1024, 1e-5), (70, 2048, 1e-5),
+             (640, 768, 1e-12)]
 
 
 def _ln_inputs(rs, rows, c, cuda, mean=0.0, std=2.0):
@@ -1238,6 +1241,81 @@ def test_planted_row_stride_fault_fails_only_under_the_seq2seq_mask(cuda, tmp_pa
             else:
                 assert any(" fp32 max err" in f for f in failures), row
                 assert any(" bf16" in f for f in failures), row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lane_kernels_at_the_text_stack_shape(cuda, dtype):
+    """Rows 5 (p = 0.1) and 6 at the text stack's shape, 20 captions of 32
+    tokens under their padding mask (BERT-base heads): fewer keys than one
+    64-key tile, two 16-row tiles of queries; against their plain versions."""
+    b, l, text = TEXT_STACK_LANE
+    gen = torch.Generator(cuda).manual_seed(32)
+    mask = _padding_mask(cuda, gen, b, l, text, 6)
+    x3 = torch.randn(b, l, 3 * 768, device=cuda, generator=gen) * 0.5
+    do = torch.randn(b, l, 768, device=cuda, generator=gen).to(torch.bfloat16).float()
+    seed = torch.tensor([2026, 20], dtype=torch.int32, device=cuda)
+    (fwd, fwd_plain, _), (bwd, bwd_plain, _) = _lane_calls(mask, 12, 0.125, 0.1, seed, do)
+    _check(fwd, fwd_plain, x3, dtype, _lane_fwd_kind(64))
+    _check(bwd, bwd_plain, x3, dtype, "attention_bwd")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,kind", [(0, "seq2seq"), (0, "full"), (1, "seq2seq")])
+def test_lane_fwd_and_bwd_under_the_swinbert_masks(cuda, dtype, case, kind):
+    """Rows 5 and 6 under the SwinBERT masks (``chip_smoke.swinbert_mask``:
+    each frame's first video key masked, the fake CLS) at the caption
+    step's shape (p = 0.1; ``seq2seq``, and ``full`` with padded captions)
+    and the greedy decoder's (p = 0, forward only); against their plain
+    versions, each output bit-identical over two runs."""
+    label, b, l, text, p_drop, _ = SWINBERT_LANE[case]
+    gen = torch.Generator(cuda).manual_seed(l)
+    mask = swinbert_mask(cuda, gen, b, l, text, kind)
+    assert (mask[:, :, ::50][:, :, :(l - text) // 50] < 0).all()
+    x3 = torch.randn(b, l, 3 * 768, device=cuda, generator=gen) * 0.5
+    do = torch.randn(b, l, 768, device=cuda, generator=gen).to(torch.bfloat16).float()
+    seed = torch.tensor([2026, 21], dtype=torch.int32, device=cuda) if p_drop else None
+    (fwd, fwd_plain, _), (bwd, bwd_plain, _) = _lane_calls(mask, 12, 0.125, p_drop, seed, do)
+    _check(fwd, fwd_plain, x3, dtype, _lane_fwd_kind(64))
+    a = x3.to(dtype)
+    assert torch.equal(fwd(a), fwd(a))
+    if p_drop:
+        _check(bwd, bwd_plain, x3, dtype, "attention_bwd")
+        assert torch.equal(bwd(a), bwd(a))
+
+
+@pytest.mark.cuda
+def test_planted_suffix_mask_fault_fails_only_under_the_swinbert_masks(cuda, tmp_path,
+                                                                      monkeypatch):
+    """A copy of the self-attention sources whose tensor-core body reads each
+    row's mask as suffix padding (``PLANTED_SUFFIX_MASK``): under a padding
+    mask and the seq2seq one, whose rows allow a prefix of the keys, rows 5
+    and 6 pass the bf16 limits; under the SwinBERT masks, with a hole at
+    each frame's first key, they fail them. The readings are printed (run
+    with -s)."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for name in ROW_STRIDE_SOURCES:
+        shutil.copy(_build.CSRC / name, src / name)
+    plant(src, *PLANTED_SUFFIX_MASK)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_lib", _build.load(_build.build(csrc=src), False))
+    gen = torch.Generator(cuda).manual_seed(6)
+    b, l, text = 4, 275, 25
+    x3 = torch.randn(b, l, 3 * 768, device=cuda, generator=gen) * 0.5
+    do = torch.randn(b, l, 768, device=cuda, generator=gen).to(torch.bfloat16).float()
+    seed = torch.tensor([81, 6], dtype=torch.int32, device=cuda)
+    for kind, mask in (("padding", _padding_mask(cuda, gen, b, l, text, 6)),
+                       ("seq2seq", seq2seq_mask(cuda, b, l, text)),
+                       ("swinbert full", swinbert_mask(cuda, gen, b, l, text, "full")),
+                       ("swinbert seq2seq", swinbert_mask(cuda, gen, b, l, text, "seq2seq"))):
+        (fwd, fwd_plain, _), (bwd, bwd_plain, _) = _lane_calls(mask, 12, 0.125, 0.1, seed, do)
+        for row, kernel, plain, limits in (("row 5", fwd, fwd_plain, _lane_fwd_kind(64)),
+                                           ("row 6", bwd, bwd_plain, "attention_bwd")):
+            readings, failures = bf16_check(kernel, plain, x3, limits)
+            print(f"planted suffix mask [{row}, {kind} mask]: {readings} failures={failures}")
+            assert bool(failures) == kind.startswith("swinbert"), (row, kind, failures)
 
 
 # ---------------------------------------------------------------------------

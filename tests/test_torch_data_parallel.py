@@ -138,6 +138,11 @@ def runs(slice_, tmp_path_factory):
     }
     jobs["drawn_am"] = dict(base, batches=[batch], seed=11,
                             kwargs={"pretrain_masks": ("am", "rm")})
+    stack_cfg = dataclasses.replace(tm.config, txt_backbone_embed_only=False)
+    stack = dict(base, config=stack_cfg, batches=[batch],
+                 state_dict=VioletPretrain(stack_cfg, device="cpu", seed=3).state_dict())
+    jobs["fsdp_text_stack"] = dict(stack, fsdp=True)
+    jobs["replicated_text_stack"] = stack
     rs = np.random.RandomState(7)
     jobs["batch_norm"] = {"kind": "batch_norm",
                           "x": torch.from_numpy(rs.randn(4, 8, 8, 16).astype(np.float32)),
@@ -314,6 +319,22 @@ def test_fsdp_matches_replicated_with_smaller_shards_and_the_same_checkpoint(run
     # every rank resumes the train state into a fresh model sharded alike
     for r in range(2):
         assert two[r]["fsdp"]["resumed_equal"] and two[r]["replicated"]["resumed_equal"], r
+
+
+def test_fsdp_shards_the_text_stack_and_matches_replicated(runs):
+    """With the text stack (``txt_backbone_embed_only`` false) ``shard_model``
+    also shards its two layers (``fsdp_min_size`` 0), which the pretrain
+    step's ``losses`` reaches through ``forward``: two steps at two ranks
+    match the replicated run as the model without the stack does."""
+    two, _ = runs
+    fs, rep = two[0]["fsdp_text_stack"], two[0]["replicated_text_stack"]
+    assert fs["sharded"] == two[0]["fsdp"]["sharded"] + 2 and rep["sharded"] == 0
+    assert fs["local_numel"] < fs["numel"] == rep["local_numel"]
+    for lf, lr_ in zip(fs["losses"], rep["losses"]):
+        for k in lr_:
+            np.testing.assert_allclose(lf[k], lr_[k], err_msg=k, **RANK_LOSS)
+    assert_steps_close(fs["params"], rep["params"], rep["grads0"], fs["grads0"],
+                       "fsdp text stack")
 
 
 def _ckpt(runs, name):
