@@ -39,12 +39,18 @@ Data parallel (``parallel.mesh.data_parallel``), the negatives are drawn for
 the global batch and index the captions of every rank, gathered in global
 order with their gradient, and O = min(global B, num_options), as one
 process over the global batch does.
+
+``losses`` opens the tracer's spans (``core/tracing.py``): ``pretrain.masking``
+around the draws (the ``am`` pass included) and the masking, and
+``pretrain.teacher`` around each no-grad target pass (the feature teacher,
+DPT, CLIP, RAFT and the dVAE).
 """
 
 from __future__ import annotations
 
 import torch
 
+from empirical_mvm_torch.core import tracing
 from empirical_mvm_torch.core.config import ModelConfig, RunConfig, SwinConfig
 from empirical_mvm_torch.data.masking import MaskDraws, apply_masking, draw_masks
 from empirical_mvm_torch.models.bert import BertMLMHead
@@ -204,7 +210,7 @@ class VioletPretrain(VioletBase):
         (ref: main_pretrain.py:480-491)."""
         b, t, hh, ww = img.shape[:4]
         if vq is None:
-            with torch.no_grad():
+            with torch.no_grad(), tracing.span("pretrain.teacher"):
                 vq = self.dvae.extract_vq_tokens(img.reshape(b * t, hh, ww, 3))
         p = self.vq_patch
         cells = mvm_mask[..., 0].reshape(b, t, hh // p, p, ww // p, p).amax(dim=(3, 5))
@@ -215,7 +221,7 @@ class VioletPretrain(VioletBase):
         decoded flow, masked L1 over the pixels either frame covers, pairs
         whose flow reaches 50 pixels left out (ref: main_pretrain.py:386-419)."""
         b, t, hh, ww = img.shape[:4]
-        with torch.no_grad():
+        with torch.no_grad(), tracing.span("pretrain.teacher"):
             target = self.raft(img[:, :-1].reshape(-1, hh, ww, 3),
                                img[:, 1:].reshape(-1, hh, ww, 3)).reshape(b, t - 1, hh, ww, 2)
         keep = target.abs().amax(dim=(2, 3, 4)) < 50.0                      # (B, T-1)
@@ -299,18 +305,20 @@ class VioletPretrain(VioletBase):
         ps = self.config.size_patch
         h, w = img.shape[2] // ps, img.shape[3] // ps
         vq_tokens = None if self.vq_on_the_fly else vq
-        if draws is None:
-            # am: one more no-grad pass over the unmasked batch (ref: :321-323)
-            scores = self.get_att(img, txt, mask) if "am" in self.pretrain_masks else None
-            draws = draw_masks(mask_generator, txt, t, h, w,
-                               special_token_ids=self.special_token_ids,
-                               mask_token_id=self.mask_token_id, p_mask=self.p_mask,
-                               mask_types=self.pretrain_masks, att_scores=scores, vq=vq_tokens)
-        mb = apply_masking(draws, img, txt, vq_tokens, mask_token_id=self.mask_token_id,
-                           patch_size=ps)
         o = min(global_rows(b), self.num_options)
-        if neg_idx is None and o > 1:
-            neg_idx = local_rows(draw_negatives(mask_generator, global_rows(b), o - 1))
+        with tracing.span("pretrain.masking"):
+            if draws is None:
+                # am: one more no-grad pass over the unmasked batch (ref: :321-323)
+                scores = self.get_att(img, txt, mask) if "am" in self.pretrain_masks else None
+                draws = draw_masks(mask_generator, txt, t, h, w,
+                                   special_token_ids=self.special_token_ids,
+                                   mask_token_id=self.mask_token_id, p_mask=self.p_mask,
+                                   mask_types=self.pretrain_masks, att_scores=scores,
+                                   vq=vq_tokens)
+            mb = apply_masking(draws, img, txt, vq_tokens, mask_token_id=self.mask_token_id,
+                               patch_size=ps)
+            if neg_idx is None and o > 1:
+                neg_idx = local_rows(draw_negatives(mask_generator, global_rows(b), o - 1))
         out = self(mb.img, mb.txt, mask, neg_idx, generator)
         ls = {"mtm": cross_entropy_ignore(out["out_mtm"], mb.ans_mtm),
               "vtm": cross_entropy_ignore(out["out_vtm"] / self.temp,
@@ -343,7 +351,7 @@ class VioletPretrain(VioletBase):
             if "depth" in self.mvm_target:
                 # the reference's /3 channel quirk (main_pretrain.py:433-452
                 # divides by _in_C though depth has one channel)
-                with torch.no_grad():
+                with torch.no_grad(), tracing.span("pretrain.teacher"):
                     target = self.dpt(img.reshape(b * t, *img.shape[2:]))
                 ls["mvm_depth"] = masked_l1(self.decode_depth(grid),
                                             target.reshape(b, t, *target.shape[1:]),
@@ -351,14 +359,14 @@ class VioletPretrain(VioletBase):
             if "optical_flow" in self.mvm_target and t > 1:
                 ls["mvm_flow"] = self.flow_loss(img, grid, mb.mvm_mask)
             if {"3d_feature", "2d_feature"} & set(self.mvm_target):
-                with torch.no_grad():               # the frozen teacher, unmasked clip
+                with torch.no_grad(), tracing.span("pretrain.teacher"):  # unmasked clip
                     target = self.feature_model(img)
                 for name in ("3d_feature", "2d_feature"):
                     if name in self.mvm_target:
                         ls[f"mvm_{name}"] = masked_l1(self.fc_mvm(grid, generator), target,
                                                       cov, channel_div=3.0)
             if "2d_clip" in self.mvm_target:
-                with torch.no_grad():               # frame by frame, CLIP-normalized
+                with torch.no_grad(), tracing.span("pretrain.teacher"):  # CLIP-normalized
                     frames = renormalize_imagenet_to_clip(img.reshape(b * t, *img.shape[2:]))
                     target = self.clip_model.features(frames)
                 ls["mvm_2d_clip"] = masked_l1(self.fc_mvm_clip(grid, generator),

@@ -17,7 +17,8 @@ text prefixes (a learned task token or an encoded prompt,
 ``go_feat``, ``go_cross`` and :class:`ScoreHead` take a ``generator``: with
 one they run the training pass (stochastic depth, dropout, attention
 dropout, all drawn from it), without one the deterministic pass, the JAX
-package's ``deterministic`` switch.
+package's ``deterministic`` switch. They open the tracer's spans
+``violet.feat`` and ``violet.cross`` (``core/tracing.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from empirical_mvm_torch.core import tracing
 from empirical_mvm_torch.core.config import ModelConfig
 from empirical_mvm_torch.models.bert import (BertEmbeddings, BertEncoder,
                                              extended_attention_mask)
@@ -195,8 +197,9 @@ class VioletBase(nn.Module):
         """(ref: model.py:174-178) The video tokens and their mask (``odr``
         and ``vt_mask`` to the image encoder) and the text features, the
         text stack attending under ``mask`` and ``attn_mask_type``."""
-        feat_img, mask_img = self.enc_img(img, generator, odr=odr, vt_mask=vt_mask)
-        feat_txt = self.enc_txt(txt, generator, mask_txt=mask, attn_mask_type=attn_mask_type)
+        with tracing.span("violet.feat"):
+            feat_img, mask_img = self.enc_img(img, generator, odr=odr, vt_mask=vt_mask)
+            feat_txt = self.enc_txt(txt, generator, mask_txt=mask, attn_mask_type=attn_mask_type)
         return feat_img, mask_img, feat_txt, mask
 
     def prepend_pretxt(self, mask_txt, feat_txt, prompt=None, generator=None):
@@ -228,5 +231,7 @@ class VioletBase(nn.Module):
                  attn_mask_type="full"):
         """(ref: model.py:204-214) The fusion over [video ; text] under the
         ``attn_mask_type`` joint mask (:func:`joint_attn_bias`)."""
-        feat = torch.cat([feat_img.to(self.dtype), feat_txt.to(self.dtype)], dim=1)
-        return self.trsfr(feat, joint_attn_bias(mask_img, mask_txt, attn_mask_type), generator)
+        with tracing.span("violet.cross"):
+            feat = torch.cat([feat_img.to(self.dtype), feat_txt.to(self.dtype)], dim=1)
+            return self.trsfr(feat, joint_attn_bias(mask_img, mask_txt, attn_mask_type),
+                              generator)

@@ -37,13 +37,14 @@ import numpy as np
 import torch
 
 from empirical_mvm_torch.core.config import RunConfig
+from empirical_mvm_torch.core.tracing import profiler, write_trace
 from empirical_mvm_torch.data.loader import DevicePrefetcher
 from empirical_mvm_torch.parallel.mesh import (barrier, data_parallel, default_data_parallel,
                                                is_main_process, pad_batch, per_rank_batch,
                                                reduce_losses, shard_model)
 from empirical_mvm_torch.train.checkpoint import (load_train_state, save_params,
                                                   save_train_state)
-from empirical_mvm_torch.train.metrics import MetricsLogger, profiler, write_trace
+from empirical_mvm_torch.train.metrics import MetricsLogger
 from empirical_mvm_torch.train.optimizer import build_optimizer
 from empirical_mvm_torch.train.train_step import (create_train_state, make_eval_step,
                                                   make_pretrain_train_step,

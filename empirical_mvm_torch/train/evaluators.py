@@ -12,14 +12,18 @@ Stage 1 encodes every (caption, video) item; stage 2 cross-scores every
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from empirical_mvm_torch.core import tracing
 from empirical_mvm_torch.parallel.mesh import (DataParallel, all_gather_objects,
                                                all_reduce_coalesced)
+
+_EVALS = itertools.count()      # the request id of each two-stage eval's spans
 
 
 def rank_metrics(score_matrix: np.ndarray, gt_idx: Sequence[int]) -> dict:
@@ -106,6 +110,12 @@ def retrieval_two_stage_eval(model, dataset, *, chunk_size: int = 512,
     each stage (``_stage1_s``, ``_stage2_s``, each ending in a device
     synchronise) and the work done (``_clips``, ``_pairs``).
 
+    It opens the tracer's spans (``core/tracing.py``): ``eval`` around it
+    (request id: the process's count of evals), ``eval.stage1`` and
+    ``eval.stage2`` around the timed stages, and in each stage-1 input's
+    copy ``eval.stack`` (the host's ``torch.stack``) and ``eval.h2d`` (its
+    copy to ``device``).
+
     With ``dp``, rank r encodes the stage-1 batches and scores the stage-2
     chunks whose index is r modulo W, each the batch or chunk one process
     makes; the banks and the score matrix are summed over the ranks from
@@ -113,7 +123,12 @@ def retrieval_two_stage_eval(model, dataset, *, chunk_size: int = 512,
     scores (JAX pads the pair list to the mesh instead). Every rank reads
     every item.
     """
-    device = torch.device(device)
+    tracing.request(next(_EVALS))
+    with tracing.span("eval"):
+        return _two_stage_eval(model, dataset, chunk_size, encode_batch, torch.device(device), dp)
+
+
+def _two_stage_eval(model, dataset, chunk_size, encode_batch, device, dp) -> dict:
     rank, world = (0, 1) if dp is None else (dp.rank, dp.world)
     n = len(dataset)
     items = [dataset.multi_clip_item(i) for i in range(n)]
@@ -124,59 +139,64 @@ def retrieval_two_stage_eval(model, dataset, *, chunk_size: int = 512,
                for c0 in range(0, len(idxs), encode_batch)]
 
     def put(arrays):
-        return torch.stack([torch.as_tensor(a) for a in arrays]).to(device)
+        with tracing.span("eval.stack"):
+            host = torch.stack([torch.as_tensor(a) for a in arrays])
+        with tracing.span("eval.h2d"):
+            return host.to(device)
 
     with torch.inference_mode():
-        _sync(device)
-        t0 = time.perf_counter()
-        banks: list[torch.Tensor] | None = None          # per output, (n, ...)
-        for j, sel in enumerate(batches):
-            if j % world != rank:
-                continue
-            outs = model.encode(put([items[i]["img"] for i in sel]),
-                                put([items[i]["txt"] for i in sel]),
-                                put([items[i]["mask"] for i in sel]))
-            if banks is None:
-                banks = [torch.zeros((n, *o.shape[1:]), dtype=o.dtype, device=device)
-                         for o in outs]
-            rows = torch.as_tensor(sel, device=device)
-            for bank, o in zip(banks, outs):
-                bank[rows] = o
-        if dp is not None:
-            banks = _assemble(banks, device)
-        _sync(device)
-        t1 = time.perf_counter()
+        with tracing.span("eval.stage1"):
+            _sync(device)
+            t0 = time.perf_counter()
+            banks: list[torch.Tensor] | None = None          # per output, (n, ...)
+            for j, sel in enumerate(batches):
+                if j % world != rank:
+                    continue
+                outs = model.encode(put([items[i]["img"] for i in sel]),
+                                    put([items[i]["txt"] for i in sel]),
+                                    put([items[i]["mask"] for i in sel]))
+                if banks is None:
+                    banks = [torch.zeros((n, *o.shape[1:]), dtype=o.dtype, device=device)
+                             for o in outs]
+                rows = torch.as_tensor(sel, device=device)
+                for bank, o in zip(banks, outs):
+                    bank[rows] = o
+            if dp is not None:
+                banks = _assemble(banks, device)
+            _sync(device)
+            t1 = time.perf_counter()
 
-        vids = sorted({it["vid"] for it in items})
-        first = {}                                   # first item of each video
-        for i, it in enumerate(items):
-            first.setdefault(it["vid"], i)
-        vrows = torch.as_tensor([first[v] for v in vids], device=device)
-        fi, mi = banks[0][vrows], banks[1][vrows]
-        ft, mt = banks[2], banks[3]
+        with tracing.span("eval.stage2"):
+            vids = sorted({it["vid"] for it in items})
+            first = {}                                   # first item of each video
+            for i, it in enumerate(items):
+                first.setdefault(it["vid"], i)
+            vrows = torch.as_tensor([first[v] for v in vids], device=device)
+            fi, mi = banks[0][vrows], banks[1][vrows]
+            ft, mt = banks[2], banks[3]
 
-        n_txt, n_vid = n, len(vids)
-        ti_all, vj_all = np.meshgrid(np.arange(n_txt), np.arange(n_vid), indexing="ij")
-        ti_all, vj_all = ti_all.ravel(), vj_all.ravel()
-        n_pairs = n_txt * n_vid
-        scores = torch.zeros((n_txt, n_vid), dtype=torch.float32, device=device)
-        for j, c0 in enumerate(range(0, n_pairs, chunk_size)):
-            if j % world != rank:
-                continue
-            ti = ti_all[c0:c0 + chunk_size]
-            vj = vj_all[c0:c0 + chunk_size]
-            k = len(ti)
-            if k < chunk_size:      # pad the tail chunk to the full shape
-                ti = np.concatenate([ti, np.full(chunk_size - k, ti[-1])])
-                vj = np.concatenate([vj, np.full(chunk_size - k, vj[-1])])
-            ti_d = torch.from_numpy(ti).to(device)
-            vj_d = torch.from_numpy(vj).to(device)
-            out = model.score_pairs(fi[vj_d], mi[vj_d], ft[ti_d], mt[ti_d])
-            scores[ti_d[:k], vj_d[:k]] = out[:k].float()
-        if dp is not None:
-            scores = _assemble([scores], device)[0]
-        scores = scores.cpu().numpy()
-        t2 = time.perf_counter()
+            n_txt, n_vid = n, len(vids)
+            ti_all, vj_all = np.meshgrid(np.arange(n_txt), np.arange(n_vid), indexing="ij")
+            ti_all, vj_all = ti_all.ravel(), vj_all.ravel()
+            n_pairs = n_txt * n_vid
+            scores = torch.zeros((n_txt, n_vid), dtype=torch.float32, device=device)
+            for j, c0 in enumerate(range(0, n_pairs, chunk_size)):
+                if j % world != rank:
+                    continue
+                ti = ti_all[c0:c0 + chunk_size]
+                vj = vj_all[c0:c0 + chunk_size]
+                k = len(ti)
+                if k < chunk_size:      # pad the tail chunk to the full shape
+                    ti = np.concatenate([ti, np.full(chunk_size - k, ti[-1])])
+                    vj = np.concatenate([vj, np.full(chunk_size - k, vj[-1])])
+                ti_d = torch.from_numpy(ti).to(device)
+                vj_d = torch.from_numpy(vj).to(device)
+                out = model.score_pairs(fi[vj_d], mi[vj_d], ft[ti_d], mt[ti_d])
+                scores[ti_d[:k], vj_d[:k]] = out[:k].float()
+            if dp is not None:
+                scores = _assemble([scores], device)[0]
+            scores = scores.cpu().numpy()
+            t2 = time.perf_counter()
 
     vid2col = {v: j for j, v in enumerate(vids)}
     gt = [vid2col[dataset.gt_txt2vid[it["tid"]]] for it in items]

@@ -15,6 +15,10 @@ over the ranks after backward (the sharded ones by their reduce-scatter),
 every rank applies the same update, and the returned losses are the global
 ones. ``state.step`` counts micro-steps (the generators' fold-in), and the
 optimizer accumulates ``grad_accum`` of them into one update.
+
+A step opens the tracer's spans (``core/tracing.py``): ``step`` around it,
+its request id ``state.step``, and in it ``step.forward`` (the model's
+forward and losses), ``step.backward`` and ``step.update``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from empirical_mvm_torch.core import tracing
 from empirical_mvm_torch.models.common import bn_buffers, fold_bn_stats
 from empirical_mvm_torch.parallel.mesh import (DataParallel, data_parallel, reduce_gradients,
                                                reduce_losses)
@@ -62,12 +67,13 @@ def _update(model: nn.Module, optimizer: AdamW, state: TrainState,
             dp: DataParallel | None) -> TrainState:
     """The update after backward, then the train-mode BatchNorms' batch
     statistics folded into their running ones (JAX: ``fold_bn_stats`` after
-    ``apply_updates``, every micro-step)."""
-    reduce_gradients(state.params.values(), dp)
-    opt_state = optimizer.update(state.params, {n: p.grad for n, p in state.params.items()},
-                                 state.opt_state)
-    if state.buffers:
-        fold_bn_stats(model)
+    ``apply_updates``, every micro-step): the span ``step.update``."""
+    with tracing.span("step.update"):
+        reduce_gradients(state.params.values(), dp)
+        opt_state = optimizer.update(state.params, {n: p.grad for n, p in state.params.items()},
+                                     state.opt_state)
+        if state.buffers:
+            fold_bn_stats(model)
     return TrainState(state.params, opt_state, state.step + 1, state.buffers)
 
 
@@ -88,16 +94,19 @@ def make_pretrain_train_step(model: nn.Module, optimizer: AdamW,
     device = next(model.parameters()).device
 
     def step(state: TrainState, batch: dict, seed: int):
-        drop_gen, mask_gen = step_generators(seed, state.step, device)
-        for p in state.params.values():
-            p.grad = None
-        with data_parallel(dp):
-            ls = model.losses(batch["img"], batch["txt"], batch["mask"], generator=drop_gen,
-                              mask_generator=mask_gen, draws=batch.get("draws"),
-                              neg_idx=batch.get("neg_idx"), hog=batch.get("hog"),
-                              vq=batch.get("vq"), corrupt=batch.get("corrupt"))
-        ls["total"].backward()
-        return _update(model, optimizer, state, dp), reduce_losses(ls, dp)
+        tracing.request(state.step)
+        with tracing.span("step"):
+            drop_gen, mask_gen = step_generators(seed, state.step, device)
+            for p in state.params.values():
+                p.grad = None
+            with tracing.span("step.forward"), data_parallel(dp):
+                ls = model.losses(batch["img"], batch["txt"], batch["mask"], generator=drop_gen,
+                                  mask_generator=mask_gen, draws=batch.get("draws"),
+                                  neg_idx=batch.get("neg_idx"), hog=batch.get("hog"),
+                                  vq=batch.get("vq"), corrupt=batch.get("corrupt"))
+            with tracing.span("step.backward"):
+                ls["total"].backward()
+            return _update(model, optimizer, state, dp), reduce_losses(ls, dp)
 
     return step
 
@@ -136,15 +145,18 @@ def make_supervised_train_step(model: nn.Module, optimizer: AdamW, loss_kind: st
         return cross_entropy_ignore(out, batch["mask_ans" if loss_kind == "mlm" else "ans"])
 
     def step(state: TrainState, batch: dict, seed: int):
-        drop_gen, _ = step_generators(seed, state.step, device)
-        for p in state.params.values():
-            p.grad = None
-        extra = {"gumbel_noise": batch["gumbel_noise"]} if "gumbel_noise" in batch else {}
-        with data_parallel(dp):
-            loss = loss_fn(model(batch["img"], batch["txt"], batch["mask"],
-                                 generator=drop_gen, **extra), batch)
-        loss.backward()
-        return _update(model, optimizer, state, dp), reduce_losses({"total": loss}, dp)
+        tracing.request(state.step)
+        with tracing.span("step"):
+            drop_gen, _ = step_generators(seed, state.step, device)
+            for p in state.params.values():
+                p.grad = None
+            extra = {"gumbel_noise": batch["gumbel_noise"]} if "gumbel_noise" in batch else {}
+            with tracing.span("step.forward"), data_parallel(dp):
+                loss = loss_fn(model(batch["img"], batch["txt"], batch["mask"],
+                                     generator=drop_gen, **extra), batch)
+            with tracing.span("step.backward"):
+                loss.backward()
+            return _update(model, optimizer, state, dp), reduce_losses({"total": loss}, dp)
 
     return step
 

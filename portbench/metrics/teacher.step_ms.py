@@ -1,0 +1,9 @@
+"""The device ms a pretrain step launches inside its spans ``pretrain.teacher``
+(the frozen teacher's no-grad passes inside ``VioletPretrain.losses``), median over the
+traced steps, from a profile of the host and the device (``harness/spans.py``)."""
+
+from portbench.harness import spans
+
+
+def read(ctx):
+    return spans.device_ms(ctx, "train", "pretrain.teacher")

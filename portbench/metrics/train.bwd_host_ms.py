@@ -1,0 +1,8 @@
+"""The host ms of the pretrain step's span ``step.backward``, median over the
+traced steps with the tracer on (``harness/spans.py``)."""
+
+from portbench.harness import spans
+
+
+def read(ctx):
+    return spans.host_ms(ctx, "train", "step.backward")

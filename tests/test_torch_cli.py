@@ -9,7 +9,8 @@ build the port's models in fp32 through each CLI's own builder: the
 retrieval eval on a JAX-written checkpoint, checkpoints crossing between the
 packages' ``load_initial_params``, and the dVAE tokens of ``extract_vq``.
 The agent's meters, best epoch and logging cadence are held to the JAX
-agent's on the same loss sequences.
+agent's on the same loss sequences; the metrics log and the loop's profiler
+window (``core/tracing.py``) write their files.
 """
 
 import json
@@ -49,6 +50,7 @@ from empirical_mvm_torch.cli import qa as tqa
 from empirical_mvm_torch.cli import retrieval as tretrieval
 from empirical_mvm_torch.cli import retrieval_eval as tretrieval_eval
 from empirical_mvm_torch.core import config as tcfg
+from empirical_mvm_torch.core import tracing as ttracing
 from empirical_mvm_torch.data import datasets as tdata
 from empirical_mvm_torch.data.loader import ShardedBatchLoader
 from empirical_mvm_torch.data.tokenizer import load_tokenizer
@@ -464,19 +466,20 @@ def test_logging_cadence_matches_jax(tmp_path, monkeypatch, loop):
 
 
 def test_metrics_logger_and_profiler(tmp_path, monkeypatch, caplog):
-    """The wandb gate warns where wandb does not import (as JAX's does); a
-    profiled window writes its Chrome trace; no card, no memory stats."""
+    """The wandb gate warns where wandb does not import (as JAX's does); the
+    run loop's profiler (``core/tracing.py``) writes its Chrome trace."""
     monkeypatch.setitem(__import__("sys").modules, "wandb", None)     # wandb fails to import
     log = tmetrics.MetricsLogger(str(tmp_path), "run", use_wandb=True)
     log.log({"a": 1}, 3)
     log.close()
     assert _records(tmp_path) == [{"step": 3, "a": 1.0}]
     assert any("wandb unavailable" in r.message for r in caplog.records)
-    with tmetrics.profile_steps(str(tmp_path / "prof"), device="cpu"):
-        torch.ones(4).sum()
-    assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
-    if not torch.cuda.is_available():
-        assert tmetrics.device_memory_stats() == {}
+    prof = ttracing.profiler("cpu")
+    prof.start()
+    torch.ones(4).sum()
+    prof.stop()
+    path = ttracing.write_trace(prof, str(tmp_path / "prof"))
+    assert path == str(tmp_path / "prof" / "trace.json") and os.path.getsize(path) > 0
 
 
 def test_profile_n_steps_window(tmp_path):
@@ -488,7 +491,7 @@ def test_profile_n_steps_window(tmp_path):
     a.device = torch.device("cpu")
     a.train_step = lambda state, batch, seed: (state, {"total": torch.ones(()) * 2})
     seen = []
-    real = tmetrics.profiler
+    real = ttracing.profiler
 
     def spy(device):
         seen.append(a.global_step)
