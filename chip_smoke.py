@@ -10,9 +10,11 @@ on one card, times in turns (``compare_builds``): the forwards whose bf16
 runs a tensor-core body (rows 3, 7, 9, 10 and 12 on
 csrc/attention_fwd_mma.cuh, row 5 on row 11's forward), fp32 bit for bit
 and each build's bf16 held to the bf16 limits; the backwards whose bf16
-runs a tensor-core body (rows 4, 8, 9 and 10 on csrc/attention_bwd_mma.cuh,
-row 6 on row 11's body) and row 11 (the tiled self-attention) at the
-multiple-choice shape, fp32 and bf16 bit for bit; the LayerNorm forward
+runs a tensor-core body (rows 8, 9 and 10 on csrc/attention_bwd_mma.cuh,
+row 4 on csrc/attention_bwd_onepass.cuh, row 6 on row 11's body) and row
+11 (the tiled self-attention) at the multiple-choice shape, fp32 and bf16
+bit for bit (row 4's bf16 held to its limits instead where the base build
+lacks attention_bwd_onepass.cuh); the LayerNorm forward
 and backward (rows 1 and 2) at every site of the paths, each build held to
 the LayerNorm limits, new / base per site; and the pixel, violet,
 2d_feature and swin2d train steps and the multiple-choice step at full
@@ -876,8 +878,9 @@ BF16_LIMITS["sa"] = {"out": (BF16_VS_FP32["attention"],
                              dict(atol=1e-5, rtol=2.0 ** -7, scale=1e-3), SA_MISMATCH)}
 BF16_LIMITS["sa_bwd"] = {"dqkv": BF16_LIMITS["attention_bwd"]["dx3"][:2] + (SA_MISMATCH,)}
 BF16_LIMITS["sa_bwd_qkv"] = {g: BF16_LIMITS["sa_bwd"]["dqkv"] for g in ("dq", "dk", "dv")}
-# The window-attention backward's tensor-core body (rows 4, 8, 9, 10 in
-# bf16 at hd 32, csrc/attention_bwd_mma.cuh; kind "window_bwd_tc"): against
+# The window-attention backward's tensor-core bodies (rows 8, 9, 10 in bf16
+# at hd 32, csrc/attention_bwd_mma.cuh, and row 4's one-pass body,
+# csrc/attention_bwd_onepass.cuh; kind "window_bwd_tc"): against
 # plain bf16 one bf16 step plus WINDOW_TC_STEP_SCALE of the output's scale.
 # Its scores and dp sum on the tensor cores, in another order than the plain
 # version's fp32 chains (and with the tensor cores' own alignment of the
@@ -1435,21 +1438,41 @@ def _direct_bwd_inputs(dev, gen, swin=SwinConfig.base(), stages=range(4), b=TRAI
             yield stage, win, nh, x3, do, bias, mask
 
 
+def _direct_bwd_kernel(bias, mask, do, win, nh, scale):
+    """``kernel(a)``: ``wa._direct_bwd`` on a with do cast to a's dtype and
+    the forward's row statistics, which the one-pass body reads, formed once
+    an input and kernel library (``--compare-build`` swaps the library),
+    outside the calls that time it; ``kernel.saved`` holds the latest."""
+    n = bias.shape[-1]
+
+    def kernel(a):
+        key = id(_build.library())
+        if kernel.saved.get(key, (None,))[0] is not a:
+            hd = a.shape[-1] // 3 // nh
+            one_pass = wa._direct_bwd_body(a.dtype, hd, n) == "one_pass"
+            kernel.saved[key] = (a, wa._direct_stats(a, bias, mask, win, nh, scale)
+                                 if one_pass else None)
+        return wa._direct_bwd(a, bias, mask, do.to(a.dtype), win, nh, scale,
+                              kernel.saved[key][1])
+
+    kernel.saved = {}
+    return kernel
+
+
 def direct_bwd_cases(dev, gen, path="", swin=SwinConfig.base(), stages=range(4), b=TRAIN_B,
                      t=TRAIN_T):
     """The direct backward at the train step's swin stages
     (``_direct_bwd_inputs``): every stage of Swin-base, the violet swin's
     stages 2 and 3, or every stage of the multiple-choice step's Swin-base
-    (b = 8 clips of t = 5 frames)."""
+    (b = 8 clips of t = 5 frames). The one-pass body's input, the forward's
+    row statistics, is formed once an input, outside the timed calls."""
     recs = []
     for stage, win, nh, x3, do, bias, mask in _direct_bwd_inputs(dev, gen, swin, stages, b, t):
         b, t, hp, _, c3 = x3.shape
         c, n = c3 // 3, bias.shape[-1]
         hd, nw = c // nh, (hp // win[1]) * (hp // win[2])
         scale = hd ** -0.5
-
-        def kernel(a):
-            return wa._direct_bwd(a, bias, mask, do.to(a.dtype), win, nh, scale)
+        kernel = _direct_bwd_kernel(bias, mask, do, win, nh, scale)
 
         def plain(a):
             return wa.direct_window_attention_backward_plain(a, bias, mask, do.to(a.dtype),
@@ -1472,7 +1495,9 @@ def direct_bwd_cases(dev, gen, path="", swin=SwinConfig.base(), stages=range(4),
         recs.append(measure("direct_window_attention_bwd", label, x3, kernel, plain,
                             library, torch.bfloat16, _window_bwd_kind(hd), ops,
                             "bf16_tensor", nbytes))
-        recs[-1]["body"] = _bodies(wa._window_bwd_body, hd)
+        recs[-1]["body"] = _bodies(wa._direct_bwd_body, hd, n)
+        recs[-1]["dbias"] = wa._direct_dbias_placement(n)
+        kernel.saved.clear()
     return recs
 
 
@@ -1987,12 +2012,13 @@ def c128_cases(dev, gen):
 # fail too. Backward: dk from q as stored, the scale applied to the fp32
 # product, so q * scale is not rounded before dk (a fault only where the scale
 # is inexact in bf16: hd 32, not 64, whose scale 0.125 is a power of two).
-# The window backward's body: ds rounded to bf16 before it enters dbias (the
-# JAX kernels sum the fp32 ds). Row 6 on row 11's backward: the keep mask
+# The window backward's bodies: ds rounded to bf16 before it enters dbias
+# (the JAX kernels sum the fp32 ds), in attention_bwd_mma.cuh (rows 8-10)
+# and in row 4's one-pass body. Row 6 on row 11's backward: the keep mask
 # dropped from dp in the rows kernel (D, ds and dq of every dropped score).
 # The window forward's body (rows 3, 7, 9, 10, 12): e = exp(s - max) rounded
 # to bf16 before it is normalised (and p rounded again). The first two are planted in
-# one copy, the last three in another (the keep-mask fault would also fail
+# one copy, the last four in another (the keep-mask fault would also fail
 # row 11's backward check, whose own fault it must not hide; each of the
 # others moves only its own kernels).
 PLANTED_TILED = {
@@ -2021,6 +2047,11 @@ PLANTED_TILED = {
         "attention_fwd_mma.cuh",
         "const float p = sa_mma::div_rn(sv[u], sum, rcp);",
         "const float p = __fdiv_rn(__bfloat162float(__float2bfloat16(sv[u])), sum);"),
+    "direct backward ds rounded before dbias": (
+        "attention_bwd_onepass.cuh",
+        "const float d0 = dp[nt][2 * r], d1 = dp[nt][2 * r + 1];",
+        "const float d0 = __bfloat162float(__float2bfloat16(dp[nt][2 * r])),\n"
+        "                          d1 = __bfloat162float(__float2bfloat16(dp[nt][2 * r + 1]));"),
 }
 # the faults of each planted copy of csrc/
 PLANTED_COPIES = (tuple(PLANTED_TILED)[:2], tuple(PLANTED_TILED)[2:])
@@ -2243,8 +2274,10 @@ def planted_tiled_check(dev, gen):
     the multiple-choice shape in small (8 rows of 350, 12 heads of 64, p =
     0.1) and row 5 at the fusion's (8 rows of 232, p = 0.1); row 11's
     backward at the multiple-choice rows with 24 heads of 32 (where q * scale
-    rounds); the direct window backward at a Video Swin stage-2 shape in
-    small (2 clips, N = 196, 16 heads of 32, shifted); row 6 at the fusion's
+    rounds); the lane window backward (row 8) at the 2D swin's stage 2 in
+    small (the row-7 case below) and the direct window backward (row 4's
+    one-pass body) at a Video Swin stage-2 shape in small (2 clips, N = 196,
+    16 heads of 32, shifted); row 6 at the fusion's
     shape in small (8 rows of 232, 12 heads of 64, p = 0.1); the direct
     window forward at the eval's stage 2 in small (2 clips, N = 245, 16 heads
     of 32, shifted), the packed forward at the violet stage 0 (2 clips,
@@ -2314,11 +2347,18 @@ def planted_tiled_check(dev, gen):
     row12 = (lambda a: wa._lane_attention_fwd(a, rbias, rmask, nh, 32 ** -0.5),
              lambda a: wa.lane_attention_reference(a, rbias, rmask, nh, 32 ** -0.5),
              xr, _window_fwd_kind(32, 196))
+    dw2d = _bf16_values(torch.randn(32, 49, c, device=dev, generator=gen))
+    row8 = (lambda a: wa._lane_window_bwd(a, wbias, wmask2d, dw2d.to(a.dtype), 16, nh,
+                                          32 ** -0.5),
+            lambda a: wa.lane_window_attention_backward_plain(a, wbias, wmask2d,
+                                                              dw2d.to(a.dtype), 16, nh,
+                                                              32 ** -0.5),
+            xw, _window_bwd_kind(32))
     checks = ((row11, {"row 11 forward": (fwd, fwd_plain, q64, "sa"), "row 5": row5},
                {"row 11 backward": (bwd, bwd_plain, q32, "sa_bwd")}),
-              (rest, {"direct backward": window}, {"row 6": lane},
+              (rest, {"row 8": row8}, {"row 6": lane},
                {"direct forward": direct_fwd, "packed forward": packed_fwd, "row 7": row7,
-                "row 12": row12}))
+                "row 12": row12}, {"direct backward": window}))
     real = _build.library()
     caught = {}
     try:
@@ -4868,19 +4908,21 @@ def lanebench_phase():
 
 def _shared_bwd_calls(dev, gen):
     """(kernel, label, x3, call, plain, kind) of each backward whose bf16 runs
-    a tensor-core body, at the shapes phase 3 times it: the window backwards
-    of attention_bwd_mma.cuh (rows 4 and 8: ``_direct_bwd_inputs``,
-    ``_window_bwd_inputs``; rows 9 and 10: ``_packed_shapes``, the split
-    entry at the violet stage-0 shifted shape) and row 6 (the fusion of the
-    train step, p = 0.1); ``call(a)`` launches the kernel on a (a dtype of
-    x3) with the shape's do, bias and mask, ``plain(a)`` its plain version,
-    ``kind`` names the bf16 limits."""
+    a tensor-core body, at the shapes phase 3 times it: the direct backward
+    on attention_bwd_onepass.cuh (row 4: ``_direct_bwd_inputs``, the
+    forward's row statistics formed outside the timed calls by
+    ``_direct_bwd_kernel``), the window backwards of attention_bwd_mma.cuh
+    (row 8: ``_window_bwd_inputs``; rows 9 and 10: ``_packed_shapes``, the
+    split entry at the violet stage-0 shifted shape) and row 6 (the fusion
+    of the train step, p = 0.1); ``call(a)`` launches the kernel on a (a
+    dtype of x3) with the shape's do, bias and mask, ``plain(a)`` its plain
+    version, ``kind`` names the bf16 limits."""
     for stage, win, nh, x3, do, bias, mask in _direct_bwd_inputs(dev, gen):
         hd = x3.shape[-1] // 3 // nh
         args = (bias, mask, do, win, nh, hd ** -0.5)
         yield ("direct_window_attention_bwd",
                f"stage{stage} {'shifted' if mask is not None else 'unshifted'}", x3,
-               functools.partial(_with_do, wa._direct_bwd, args),
+               _direct_bwd_kernel(*args),
                functools.partial(_with_do, wa.direct_window_attention_backward_plain, args),
                _window_bwd_kind(hd))
     for stage, nw, nh, x3, do, bias, mk, _ in _window_bwd_inputs(dev, gen):
@@ -5115,7 +5157,9 @@ def compare_builds(base_csrc: Path) -> None:
       that neither build changed reads true);
     * the backwards whose bf16 runs a tensor-core body (``_shared_bwd_calls``:
       rows 4, 6, 8, 9, 10) and row 11 forward and backward (``_tiled_calls``):
-      fp32 and bf16 bit-identical, each build's bf16 held to its limits;
+      fp32 and bf16 bit-identical, each build's bf16 held to its limits
+      (row 4's bf16 only held, where the base build lacks the one-pass body
+      of attention_bwd_onepass.cuh: its sum order is new);
     * the LayerNorm forward and backward (rows 1 and 2) at every site of the
       paths (``_ln_sites``), timed in the site's dtype: each build's fp32
       and bf16 held to the ``layer_norm`` / ``layer_norm_bwd`` limits (the
@@ -5192,6 +5236,7 @@ def compare_builds(base_csrc: Path) -> None:
                fp32_bit_identical=same[torch.float32], bf16_bit_identical=same[torch.bfloat16],
                bf16=readings)
         differ += [] if same[torch.float32] else [f"{kernel} [{label}] fp32"]
+    onepass_base = (base_csrc / "attention_bwd_onepass.cuh").exists()
     for kernel, label, x3, call, plain, kind in _shared_bwd_calls(dev, gen):
         calls = {w: call for w in libs}
         same = same_in(calls, x3, both)
@@ -5199,7 +5244,10 @@ def compare_builds(base_csrc: Path) -> None:
         record(kernel, label, in_turns(calls, x3.to(torch.bfloat16)),
                fp32_bit_identical=same[torch.float32], bf16_bit_identical=same[torch.bfloat16],
                bf16=readings)
-        differ += [f"{kernel} [{label}] {str(dt)[6:]}" for dt, ok in same.items() if not ok]
+        bits = both if onepass_base or kernel != "direct_window_attention_bwd" else (
+            torch.float32,)
+        differ += [f"{kernel} [{label}] {str(dt)[6:]}" for dt in bits if not same[dt]]
+        getattr(call, "saved", {}).clear()
     for kernel, label, qkv, calls, kind in _tiled_calls(dev, gen):
         pairs = {w: calls() for w in libs}        # each build's backward from its own stats
         kernel_calls = {w: c for w, (c, _) in pairs.items()}

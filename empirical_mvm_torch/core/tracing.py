@@ -216,6 +216,11 @@ def request(i) -> None:
     _TRACER.request = i
 
 
+def recording() -> bool:
+    """Whether spans and counters are being recorded (:func:`enable`)."""
+    return _TRACER.on
+
+
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to counter ``name`` while recording."""
     if _TRACER.on:

@@ -13,7 +13,9 @@
 // array; the packed kernel the three (N, hd) head tiles of its
 // (B_, 3nH, N, hd) array, or three separate arrays. The callers run this
 // body for fp32 and for bf16 at hd other than 32; bf16 at hd 32 runs the
-// tensor-core body of attention_bwd_mma.cuh, which has the same interface.
+// tensor-core body of attention_bwd_mma.cuh, which has the same interface
+// (the direct kernel's own one-pass body up to 256 keys:
+// attention_bwd_onepass.cuh).
 //
 // Algebra and roundings of the JAX backward kernels (`_direct_bwd_kernel`,
 // `_lane_bwd_kernel`, `_attn_bwd_kernel`): qs = q * scale in T; p =

@@ -2,12 +2,13 @@
 // body of attention_bwd.cuh and with its interface: one block walks a fixed
 // sequence of windows that share one head and one mask slot, computes dq, dk
 // and dv of each, and adds its ds into the block's own fp32 dbias slice; the
-// caller's `addr(seg, step, t)` gives each token's head row. The direct
-// (window_attention.cu), lane window (lane_window_attention.cu) and packed
-// (packed_window_attention.cu) backwards take it for bf16 at hd = 32, the
-// head width of every Swin on their paths (Swin-base, the C = 96 swin,
-// Swin-tiny, the 2D Swin-base: C / nH = 32); fp32, and bf16 at any other hd,
-// keep attention_bwd.cuh.
+// caller's `addr(seg, step, t)` gives each token's head row. The lane
+// window (lane_window_attention.cu) and packed (packed_window_attention.cu)
+// backwards take it for bf16 at hd = 32, the head width of every Swin on
+// their paths (Swin-base, the C = 96 swin, Swin-tiny, the 2D Swin-base: C /
+// nH = 32); fp32, and bf16 at any other hd, keep attention_bwd.cuh. The
+// direct backward (window_attention.cu) runs its own one-pass body
+// (attention_bwd_onepass.cuh) from the forward's statistics.
 //
 // Same algebra and rounding points as the JAX kernels (`_direct_bwd_kernel`,
 // `_lane_bwd_kernel`, `_attn_bwd_kernel`) and the CUDA-core body: qs =

@@ -98,12 +98,14 @@ __device__ __forceinline__ float half_sum(float v) {
 // The body; KI = key_iters(n). bias_h (n, n) is the head's bias, mask_w
 // (n, n) the window's mask or null. scale_t is the scale rounded to bf16
 // that multiplies q, or with kScoreScale the fp32 scale that multiplies the
-// scores. Inlined into each caller's kernel.
+// scores. stats, where not null, takes each row's max (n floats) and then
+// its sum (n floats), from which attention_bwd_onepass.cuh forms p again.
+// Inlined into each caller's kernel.
 template <int KI, bool kScoreScale = false, typename Addr>
 __device__ __forceinline__ void attention_fwd_block(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const float* __restrict__ bias_h, const float* __restrict__ mask_w, bf16* __restrict__ out,
-    int n, Addr addr, float scale_t) {
+    int n, Addr addr, float scale_t, float* __restrict__ stats = nullptr) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int np = padded(n), blocks16 = np / 16, ss = score_stride(n);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -243,6 +245,10 @@ __device__ __forceinline__ void attention_fwd_block(
       }
       sum = half_sum(sum);
       const float rcp = __frcp_rn(sum);
+      if (stats != nullptr && hl == 0 && r0 + r < n) {
+        stats[r0 + r] = mx;
+        stats[n + r0 + r] = sum;
+      }
       // every lane has read score rows r0 + 2 t and r0 + 2 t + 1 (half_max):
       // P rows 2 t and 2 t + 1 may cover them
 #pragma unroll

@@ -55,11 +55,12 @@ _SIGNATURES = {
     "emvm_layer_norm_bwd_scratch": ((_LL, _I), _LL),
     "emvm_layer_norm_bwd_smem_bytes": ((_I, _I), _SZ),
     "emvm_direct_window_attention_fwd": (
-        (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P), _I),
+        (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P), _I),
     "emvm_direct_window_attention_bwd": (
-        (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P), _I),
-    "emvm_direct_window_attention_bwd_scratch": ((_I, _I, _I, _I, _I, _I, _I), _LL),
+        (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P), _I),
+    "emvm_direct_window_attention_bwd_scratch": ((_I, _I, _I, _I, _I, _I, _I, _I), _LL),
     "emvm_direct_window_attention_bwd_smem_bytes": ((_I, _I, _I), _SZ),
+    "emvm_direct_window_attention_bwd_onchip": ((_I,), _I),
     "emvm_lane_self_attention_fwd": (
         (_I, _P, _P, _LL, _LL, _P, _I, _I, _I, _I, _F, _P, _U, _F, _P), _I),
     "emvm_lane_self_attention_bwd": (

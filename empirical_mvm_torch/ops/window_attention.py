@@ -45,7 +45,10 @@ share one body: bf16 at hd 32 (N up to 256) runs on the tensor cores
 (``attend_row``, :func:`_window_fwd_body`). Their backwards (all but row
 12's, which has none) share another: bf16 at hd 32 on the tensor cores
 (``csrc/attention_bwd_mma.cuh``), fp32 and other hd on the CUDA cores
-(:func:`_window_bwd_body`). The lane self-attention in bf16 runs the tiled
+(:func:`_window_bwd_body`), but for the direct backward (row 4): bf16
+at hd 32 and N <= 256 runs its own one-pass body from the row statistics
+its forward keeps (``csrc/attention_bwd_onepass.cuh``), the rest the
+CUDA-core body (:func:`_direct_bwd_body`). The lane self-attention in bf16 runs the tiled
 self-attention's tensor-core kernels on x3's strides, forward and backward
 (:func:`_sa_body`).
 
@@ -65,6 +68,7 @@ from typing import Sequence
 
 import torch
 
+from empirical_mvm_torch.core import tracing
 from empirical_mvm_torch.ops import _build
 
 
@@ -289,7 +293,10 @@ def _window_fwd_body(dtype: torch.dtype, hd: int, n: int) -> str:
     return "tensor_core" if tc else "cuda_core"
 
 
-def _direct_fwd(x3, bias, mask, window_eff, n_heads, scale):
+def _direct_fwd(x3, bias, mask, window_eff, n_heads, scale, stats=None):
+    """The direct forward's launch; ``stats``, a (B, nW, nH, 2, N) fp32 tensor
+    or None, takes each row's max and sum where the tensor-core body runs,
+    for the one-pass backward."""
     tensors = (x3, bias) if mask is None else (x3, bias, mask)
     if any(t.dtype != torch.float32 for t in tensors[1:]):
         raise TypeError("bias and mask must be float32")
@@ -308,11 +315,37 @@ def _direct_fwd(x3, bias, mask, window_eff, n_heads, scale):
             code, x3.data_ptr(), bias.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
             b, d, hp, wp, c, n_heads, wh, ww, _scale_in(x3.dtype, scale),
-            _build.stream_ptr(dev)), "direct_window_attention")
+            _build.stream_ptr(dev), None if stats is None else stats.data_ptr()),
+            "direct_window_attention")
     return out
 
 
-def _direct_bwd(x3, bias, mask, do, window_eff, n_heads, scale):
+def _direct_bwd_body(dtype: torch.dtype, hd: int, n: int) -> str:
+    """The body of the direct backward (row 4) by the rule of its C entry:
+    bf16 at hd 32 and N <= 256 (49, 196 and 245 on the paths) takes the
+    one-pass body from the forward's row statistics
+    (``csrc/attention_bwd_onepass.cuh``); fp32, and bf16 at other hd or N,
+    the CUDA-core body (``csrc/attention_bwd.cuh``)."""
+    if dtype == torch.bfloat16 and hd == 32 and 1 <= n <= 256:
+        return "one_pass"
+    return "cuda_core"
+
+
+def _direct_dbias_placement(n: int) -> str:
+    """Where the one-pass body sums a block's dbias at N = ``n``, as the
+    kernel library places it: ``"onchip"``, in shared memory beside the
+    window where both fit in one block's 227 KB (N = 49 and 196), else
+    ``"global"``, the block's slice in device memory (N = 245)."""
+    return "onchip" if _build.library().emvm_direct_window_attention_bwd_onchip(n) else "global"
+
+
+def _direct_bwd(x3, bias, mask, do, window_eff, n_heads, scale, stats=None):
+    """The direct backward's launch: (dx3, dbias). The one-pass body
+    (:func:`_direct_bwd_body`) reads the forward's row statistics ``stats``;
+    without them it runs the forward once to form them. While the tracer
+    records, each launch counts under ``window_bwd.<placement>`` for the
+    one-pass body (:func:`_direct_dbias_placement`), else
+    ``window_bwd.cuda_core``."""
     tensors = (x3, bias, do) if mask is None else (x3, bias, do, mask)
     dev = _build.check_tensors(*tensors)
     if do.dtype != x3.dtype:
@@ -322,42 +355,74 @@ def _direct_bwd(x3, bias, mask, do, window_eff, n_heads, scale):
     wd, wh, ww = window_eff
     c = c3 // 3
     n = wd * wh * ww
+    body = _direct_bwd_body(x3.dtype, c // n_heads, n)
+    one_pass = body == "one_pass"
+    if one_pass and stats is None:
+        stats = _direct_stats(x3, bias, mask, window_eff, n_heads, scale)
     lib = _build.library()
     _build.check_smem(lib.emvm_direct_window_attention_bwd_smem_bytes(code, n, c // n_heads),
                       f"the backward of a window of {n} tokens")
     dx3 = torch.empty_like(x3)
     dbias = torch.empty((n_heads, n, n), dtype=torch.float32, device=dev)
-    part = torch.empty(lib.emvm_direct_window_attention_bwd_scratch(b, d, hp, wp, n_heads,
-                                                                    wh, ww),
-                       dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        floats = lib.emvm_direct_window_attention_bwd_scratch(b, d, hp, wp, n_heads, wh, ww,
+                                                              int(one_pass))
+        if floats < 0:
+            raise RuntimeError("direct_window_attention_bwd: no launch plan for the one-pass "
+                               "body")
+        part = torch.empty(floats, dtype=torch.float32, device=dev)
         _build.record_launch(lib.emvm_direct_window_attention_bwd(
             code, x3.data_ptr(), bias.data_ptr(),
             None if mask is None else mask.data_ptr(), do.data_ptr(), dx3.data_ptr(),
             dbias.data_ptr(), part.data_ptr(), b, d, hp, wp, c, n_heads, wh, ww,
-            _scale_in(x3.dtype, scale), _scale_f32(scale), _build.stream_ptr(dev)),
+            _scale_in(x3.dtype, scale), _scale_f32(scale), _build.stream_ptr(dev),
+            stats.data_ptr() if one_pass else None),
             "direct_window_attention_bwd")
+    if tracing.recording():
+        tracing.count("window_bwd." + (_direct_dbias_placement(n) if one_pass else body))
     return dx3, dbias
+
+
+def _empty_stats(x3, window_eff, n_heads):
+    """Room for a direct forward's row statistics: (B, nW, nH, 2, N) fp32,
+    each row's max, then its sum."""
+    b, _, hp, wp, _ = x3.shape
+    wd, wh, ww = window_eff
+    return torch.empty((b, (hp // wh) * (wp // ww), n_heads, 2, wd * wh * ww),
+                       dtype=torch.float32, device=x3.device)
+
+
+def _direct_stats(x3, bias, mask, window_eff, n_heads, scale):
+    """The forward's row statistics of a direct call, from a forward whose
+    output is dropped."""
+    stats = _empty_stats(x3, window_eff, n_heads)
+    _direct_fwd(x3, bias, mask, window_eff, n_heads, scale, stats)
+    return stats
 
 
 class _DirectWindowAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x3, bias, mask, window_eff, n_heads, scale):
         _check_direct(x3, bias, mask, window_eff, n_heads)
-        ctx.save_for_backward(x3, bias, mask)
         ctx.config = (tuple(window_eff), n_heads, scale)
         if x3.device.type == "cpu":
+            ctx.save_for_backward(x3, bias, mask, None)
             return direct_window_attention_plain(x3, bias, mask, window_eff, n_heads, scale)
-        return _direct_fwd(x3, bias, mask, window_eff, n_heads, scale)
+        one_pass = _direct_bwd_body(x3.dtype, x3.shape[-1] // 3 // n_heads,
+                                    bias.shape[-1]) == "one_pass"
+        wanted = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
+        stats = _empty_stats(x3, window_eff, n_heads) if wanted and one_pass else None
+        ctx.save_for_backward(x3, bias, mask, stats)
+        return _direct_fwd(x3, bias, mask, window_eff, n_heads, scale, stats)
 
     @staticmethod
     def backward(ctx, do):
-        x3, bias, mask = ctx.saved_tensors
+        x3, bias, mask, stats = ctx.saved_tensors
         if x3.device.type == "cpu":
             dx3, dbias = direct_window_attention_backward_plain(x3, bias, mask, do,
                                                                 *ctx.config)
         else:
-            dx3, dbias = _direct_bwd(x3, bias, mask, do.contiguous(), *ctx.config)
+            dx3, dbias = _direct_bwd(x3, bias, mask, do.contiguous(), *ctx.config, stats)
         return dx3, dbias, None, None, None, None
 
 
@@ -376,6 +441,10 @@ def direct_window_attention(x3: torch.Tensor, bias: torch.Tensor,
             None for an unshifted block. It gets no gradient.
     Returns:
       (B, D, Hp, Wp, C) in x3's dtype.
+
+    Where x3 or bias needs a gradient, the forward keeps its row
+    statistics (each row's max and sum, B nW nH 2 N fp32) for the one-pass
+    backward; under ``torch.no_grad`` (where neither does) it keeps none.
     """
     return _DirectWindowAttention.apply(x3, bias, mask, tuple(window_eff), n_heads, scale)
 
@@ -622,8 +691,9 @@ def _lane_window_fwd(x3, bias, mask, n_windows, n_heads, scale):
 
 
 def _window_bwd_body(dtype: torch.dtype, hd: int) -> str:
-    """The body of the window-attention backward (rows 4, 8, 9 and 10) that
-    a launch runs, by the rule of the C entry points: bf16 at hd 32 (every
+    """The body of the window-attention backward (rows 8, 9 and 10; row 4
+    takes :func:`_direct_bwd_body`) that a launch runs, by the rule of the C
+    entry points: bf16 at hd 32 (every
     Swin's head) on the tensor cores (``csrc/attention_bwd_mma.cuh``), fp32
     and bf16 at any other hd on the CUDA cores (``csrc/attention_bwd.cuh``)."""
     return "tensor_core" if dtype == torch.bfloat16 and hd == 32 else "cuda_core"

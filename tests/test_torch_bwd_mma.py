@@ -1,6 +1,8 @@
-"""The tensor-core backwards of the window attention (rows 4, 8, 9, 10:
-``csrc/attention_bwd_mma.cuh``) and of the lane self-attention (row 6: row
-11's ``csrc/self_attention_mma.cuh`` on x3's strides), checked on the CPU.
+"""The tensor-core backwards of the window attention (rows 8, 9, 10:
+``csrc/attention_bwd_mma.cuh``; row 4, the direct backward: its one-pass
+body ``csrc/attention_bwd_onepass.cuh``) and of the lane self-attention (row
+6: row 11's ``csrc/self_attention_mma.cuh`` on x3's strides), checked on the
+CPU.
 
 A CUDA kernel cannot run here, so each body's fp32 arithmetic is emulated in
 torch on bf16 inputs: the scores and dp summed over d in 16-wide k-steps, the
@@ -10,10 +12,13 @@ k-steps of keys or queries. The emulation is held, with ``chip_smoke``'s
 ``bf16_check``, to the limits the chip run holds the kernels to, against the
 plain backward run in fp32 and in bf16, at one head of the train step's
 shapes: a Video Swin window of N = 196 with bias and shift mask, and the
-fusion's L = 232 with its padding mask and dropout. The planted faults of
-``chip_smoke.PLANTED_TILED`` for these bodies, emulated, fail them. Also:
-the body rules, and the stride triples the tensor-core launchers use for the
-lane and packed layouts against index arithmetic.
+fusion's L = 232 with its padding mask and dropout; the one-pass body from
+the forward's row max and sum at N = 196, 245 and 49. The planted faults of
+``chip_smoke.PLANTED_TILED`` for these bodies, and the one-pass body's
+(statistics of another window or row, a dbias tile under the wrong owner),
+emulated, fail them. Also: the body rules, and the
+stride triples the tensor-core launchers use for the lane and packed
+layouts against index arithmetic.
 """
 
 import numpy as np
@@ -177,6 +182,118 @@ def _window_check(fault=False):
     return readings, failures
 
 
+def _onepass_emulated(qkv16, bias, mask, do16, scale, fault=None):
+    """The direct backward's one-pass body (attention_bwd_onepass.cuh) on W
+    windows (W, 3, N, 32) of one head and one mask slot: (dqkv, dbias).
+    The forward's row statistics, each row's max and its sum over each
+    half-warp's lanes then the xor butterfly (attention_fwd_mma.cuh); p =
+    exp(s - max) / sum, the forward's p; D: per 16 x 16 tile each thread's
+    four dp * p, then the quad's (xor 1, 2), then the tiles of a row in
+    key-block order; dq, dk, dv
+    summed tile by tile in the main pass's order (warp j, owning key block j,
+    takes query block (j + t) mod N/16 at step t); dbias the fp32 ds summed
+    over the windows in order. ``fault``: ``"stale"``, each window reads the
+    previous window's statistics; ``"wrong_row"``, each row the next row's;
+    ``"wrong_owner"``, each ds tile (i, j) added into dbias tile (i, j + 1)."""
+    from test_torch_fwd_mma import _lane_sums
+    q, k, v = qkv16.unbind(1)
+    w, n = q.shape[0], q.shape[-2]
+    nb = -(-n // 16)
+    np_ = 16 * nb
+    qs = (q * twa._scale_in(q.dtype, scale)).float()
+    s = _ksteps(qs, k.float().transpose(-1, -2)) + bias + mask
+    mx = s.max(-1, keepdim=True).values
+    total = _lane_sums(torch.exp(s - mx), n)[..., None]
+    if fault == "stale":
+        mx, total = mx.roll(1, 0), total.roll(1, 0)
+    elif fault == "wrong_row":
+        mx, total = mx.roll(-1, 1), total.roll(-1, 1)
+    p = torch.exp(s - mx) / total
+    dp = _ksteps(do16.float(), v.float().transpose(-1, -2))
+    terms = torch.nn.functional.pad(dp * p, (0, np_ - n)).view(w, n, nb, 2, 4, 2)
+    d = torch.zeros(w, n)
+    for j in range(nb):
+        t = terms[:, :, j]                                     # (W, N, nt, tq, u)
+        per = ((t[:, :, 0, :, 0] + t[:, :, 0, :, 1]) + t[:, :, 1, :, 0]) + t[:, :, 1, :, 1]
+        d = d + ((per[..., 0] + per[..., 1]) + (per[..., 2] + per[..., 3]))
+    ds = p * (dp - d[..., None])
+
+    def tiles(t):
+        return torch.nn.functional.pad(t, (0, np_ - n, 0, np_ - n))
+
+    def rows(t):
+        return torch.nn.functional.pad(t, (0, 0, 0, np_ - n))
+
+    ds16, p16 = tiles(_r16(ds)), tiles(_r16(p))
+    kf, qf, dof = rows(k.float()), rows(qs), rows(do16.float())
+    dq, dk, dv = (torch.zeros(w, np_, 32) for _ in range(3))
+    into = torch.zeros(np_, np_)
+    dsp = tiles(ds)
+    for step in range(nb):
+        for j in range(nb):
+            i = (j + step) % nb
+            ri, rj = slice(16 * i, 16 * i + 16), slice(16 * j, 16 * j + 16)
+            dq[:, ri] = dq[:, ri] + ds16[:, ri, rj] @ kf[:, rj]
+            dk[:, rj] = dk[:, rj] + ds16[:, ri, rj].transpose(-1, -2) @ qf[:, ri]
+            dv[:, rj] = dv[:, rj] + p16[:, ri, rj].transpose(-1, -2) @ dof[:, ri]
+            if fault == "wrong_owner":
+                into[ri, rj] = dsp[:, ri, 16 * ((j - 1) % nb):16 * ((j - 1) % nb) + 16].sum(0)
+    dq = _r16(dq[:, :n] * twa._scale_f32(scale))
+    dbias = torch.zeros(n, n)
+    for x in range(w):
+        dbias = dbias + ds[x]
+    if fault == "wrong_owner":
+        dbias = into[:n, :n]
+    return torch.stack([dq, _r16(dk[:, :n]), _r16(dv[:, :n])], 1), dbias
+
+
+def _onepass_check(n, fault=None):
+    """The one-pass body, emulated on 4 windows of one Swin head at window
+    (n // 49, 7, 7) with bias and the last shift-mask slot of a 14 x 14 map,
+    held against the plain backward in fp32 and bf16."""
+    rs = np.random.RandomState(n)
+    qkv = T((rs.randn(4, 3, n, 32) * 0.5).astype(np.float32))
+    bias = T((rs.randn(1, n, n) * 0.02).astype(np.float32))
+    wd = n // 49
+    mask = T(_shift_attn_mask((wd, 14, 14), (wd, 7, 7), (0, 3, 3))[-1:].copy())
+    do = _r16(T(rs.randn(4, 1, n, 32).astype(np.float32)))
+    scale = 32 ** -0.5
+
+    def emulated(a):
+        dqkv, dbias = _onepass_emulated(a, bias[0], mask[0], do.to(a.dtype)[:, 0], scale, fault)
+        return dqkv, dbias[None]
+
+    def plain(a):
+        return twa.packed_window_attention_backward_plain(a, bias, mask, do.to(a.dtype), 1, 1,
+                                                          scale)
+
+    readings, failures = bf16_check(emulated, plain, qkv, "window_bwd_tc")
+    print(n, fault, readings, failures)
+    return readings, failures
+
+
+@pytest.mark.parametrize("n", [196, 245, 49])
+def test_direct_onepass_arithmetic_fits_its_bf16_limits(n):
+    """The direct backward's one-pass body, emulated from the forward's
+    statistics at N = 196 (bias and shift mask; dbias on chip), 245 (the
+    slice in device memory: the same sum order) and 49, against plain bf16
+    and fp32: within the ``window_bwd_tc`` limits the card holds it to."""
+    readings, failures = _onepass_check(n)
+    assert not failures, failures
+    assert readings["mismatch_bf16[dbias]"] > 0          # the order is not plain's
+
+
+@pytest.mark.parametrize("fault", ["stale", "wrong_row", "wrong_owner"])
+def test_direct_onepass_planted_faults_break_the_limits(fault):
+    """Planted faults of the one-pass body, emulated at N = 196: the
+    statistics of another window or of the next row move dx3 and dbias past
+    their limits; a ds tile added under the wrong owner moves dbias."""
+    readings, failures = _onepass_check(196, fault)
+    assert any(f.startswith("dbias") for f in failures), failures
+    if fault != "wrong_owner":
+        assert any(f.startswith("dx3") for f in failures), failures
+
+
 def _lane_case(seed=1, rows=2):
     """Rows of the fusion at the train step's shape: L = 232 (200 video + a
     caption of 6 to 32 tokens), 12 heads of 64; the (B, L, L) view of the
@@ -246,6 +363,23 @@ def test_window_and_lane_backward_body_rules():
         assert twa._window_bwd_body(torch.float32, hd) == "cuda_core"
         assert twa._sa_body(torch.bfloat16, hd) == (
             "tensor_core" if hd in (32, 64, 128) else "cuda_core"), hd
+
+
+def test_direct_backward_body_and_dbias_placement():
+    """The direct backward takes the one-pass body for bf16 at hd 32 and N
+    <= 256 and the CUDA-core body otherwise (fp32, another hd, more keys);
+    the lane and packed backwards keep the window rule. The one-pass body's
+    dbias placement is the kernel library's (on chip at N = 49 and 196, in
+    device memory at 245), held on the card by
+    ``test_torch_cuda.py::test_direct_onepass_backward``."""
+    for hd in (16, 32, 64):
+        for n in (49, 196, 245, 256, 257, 300):
+            one_pass = hd == 32 and n <= 256
+            assert twa._direct_bwd_body(torch.bfloat16, hd, n) == (
+                "one_pass" if one_pass else "cuda_core")
+            assert twa._direct_bwd_body(torch.float32, hd, n) == "cuda_core"
+    assert twa._window_bwd_body(torch.bfloat16, 32) == "tensor_core"
+    assert twa._window_bwd_body(torch.float32, 32) == "cuda_core"
 
 
 @pytest.mark.parametrize("b,l,nh,hd", [(2, 232, 12, 64), (3, 24, 4, 32)])

@@ -15,6 +15,7 @@ limits catch.
 
 import dataclasses
 import shutil
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ from chip_smoke import (FP32_LIMITS, LARGE_MEAN, OUTPUTS, PLANTED_LN, PLANTED_RO
                         SWINBERT_LANE, TEXT_STACK_LANE, _excess, _lane_calls, _lane_fwd_kind,
                         _padding_mask, _sa_calls, _tuple, _window_bwd_kind, _window_fwd_kind,
                         bf16_check, full_check, plant, seq2seq_mask, swinbert_mask)
+from empirical_mvm_torch.core import tracing
 from empirical_mvm_torch.models.video_swin import _shift_attn_mask
 from empirical_mvm_torch.ops import _build
 from empirical_mvm_torch.ops import layernorm as tln
@@ -490,11 +492,14 @@ def _window_bwd_call(caller, n, nh, masked, rs, cuda):
 @pytest.mark.parametrize("n", [49, 196, 245])
 @pytest.mark.parametrize("masked", [True, False])
 def test_window_bwd_tensor_core_body(cuda, caller, n, masked):
-    """The window backward's tensor-core body (bf16, hd 32) through each of
-    its three callers at N = 49, 196 and 245 (none a multiple of 16), with
+    """The window backward's tensor-core bodies (bf16, hd 32) through each
+    of the three callers at N = 49, 196 and 245 (none a multiple of 16), with
     and without the shift mask, against the plain version at chip_smoke's
-    ``window_bwd_tc`` limits; fp32 (the CUDA-core body) at FP32_LIMITS; dx3
-    and dbias bit-identical over two runs (fixed-order sums, no atomics)."""
+    ``window_bwd_tc`` limits: attention_bwd_mma.cuh for the lane window and
+    packed callers, the one-pass body (from the forward's statistics, which
+    ``_direct_bwd`` forms) for the direct one; fp32 (the CUDA-core body) at
+    FP32_LIMITS; dx3 and dbias bit-identical over two runs (fixed-order sums,
+    no atomics)."""
     x, kernel, plain, args = _window_bwd_call(caller, n, 3, masked, n + masked, cuda)
     assert twa._window_bwd_body(torch.bfloat16, 32) == "tensor_core"
 
@@ -505,6 +510,70 @@ def test_window_bwd_tensor_core_body(cuda, caller, n, masked):
         _check(run(kernel), run(plain), x, dtype, _window_bwd_kind(32))
     first, second = run(kernel)(x.to(torch.bfloat16)), run(kernel)(x.to(torch.bfloat16))
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,placement", [(49, "onchip"), (196, "onchip"), (245, "global")])
+def test_direct_onepass_backward(cuda, n, placement):
+    """The direct backward's one-pass body through autograd (the forward
+    keeps its row statistics) at N = 49 and 196 (dbias on chip) and 245
+    (dbias in device memory), 2 clips, 4 heads of 32, shifted: the library's
+    placement; dx3 and dbias against the plain backward at chip_smoke's
+    ``window_bwd_tc`` limits; two backwards bit-identical; the backward
+    after a ``torch.utils.checkpoint`` recomputation bit-identical to the
+    one without; one launch counted under its placement; no statistics
+    kept under ``torch.no_grad``; the C entry refuses the one-pass body
+    without statistics."""
+    wd, nh, b, hp = n // 49, 4, 2, 14
+    win, c, scale = (wd, 7, 7), 4 * 32, 32 ** -0.5
+    rs = np.random.RandomState(n)
+    x3 = _randn(rs, b, wd, hp, hp, 3 * c, scale=0.5).to(cuda)
+    do = _randn(rs, b, wd, hp, hp, c).to(cuda).to(torch.bfloat16)
+    bias = _randn(rs, nh, n, n, scale=0.1).to(cuda)
+    mask = torch.from_numpy(_shift_attn_mask((wd, hp, hp), win, (0, 3, 3))).to(cuda)
+    assert twa._direct_dbias_placement(n) == placement
+    assert twa._direct_bwd_body(torch.bfloat16, 32, n) == "one_pass"
+
+    def grads(a, remat=False):
+        xg = a.detach().requires_grad_(True)
+        bg = bias.clone().requires_grad_(True)
+
+        def fwd(x, bb):
+            return twa.direct_window_attention(x, bb, mask, win, nh, scale)
+
+        out = (torch.utils.checkpoint.checkpoint(fwd, xg, bg, use_reentrant=False) if remat
+               else fwd(xg, bg))
+        out.backward(do.to(a.dtype))
+        return xg.grad, bg.grad
+
+    readings, failures = bf16_check(
+        grads, lambda a: twa.direct_window_attention_backward_plain(a, bias, mask,
+                                                                    do.to(a.dtype), win, nh,
+                                                                    scale),
+        x3, _window_bwd_kind(32))
+    assert not failures, failures
+    a = x3.to(torch.bfloat16)
+    first, second = grads(a), grads(a)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    remat = grads(a, remat=True)
+    assert torch.equal(first[0], remat[0]) and torch.equal(first[1], remat[1])
+    tracing.enable()
+    try:
+        grads(a)
+    finally:
+        record = tracing.collect()
+    counts = {name: k for (name, _), k in record.counters.items() if name.startswith("window_bwd")}
+    assert counts == {f"window_bwd.{placement}": 1}, counts
+    kept, real = [], twa._direct_fwd
+    with mock.patch.object(twa, "_direct_fwd", lambda *args: kept.append(args[-1]) or real(*args)):
+        with torch.no_grad():                            # the eval: nothing needs a gradient
+            twa.direct_window_attention(a, bias, mask, win, nh, scale)
+        twa.direct_window_attention(a.detach().requires_grad_(True), bias, mask, win, nh, scale)
+    assert kept[0] is None and kept[1].shape == (b, 4, nh, 2, n)
+    assert _build.library().emvm_direct_window_attention_bwd(
+        1, a.data_ptr(), bias.data_ptr(), mask.data_ptr(), a.data_ptr(), a.data_ptr(),
+        bias.data_ptr(), bias.data_ptr(), b, wd, hp, hp, c, nh, 7, 7, 1.0, 1.0,
+        _build.stream_ptr(a.device), None) != 0         # no statistics: refused, nothing run
 
 
 @pytest.mark.cuda
@@ -1034,6 +1103,15 @@ PLANTED_BWD = {
     # chip_smoke's planted faults of the window backward's tensor-core body
     # and of row 6
     "window_ds_rounded_into_dbias": PLANTED_TILED["window backward ds rounded before dbias"],
+    # the direct backward's one-pass body: ds rounded before dbias (chip_smoke's
+    # planted fault), and each row read with the next row's max and sum
+    "onepass_ds_rounded_into_dbias": PLANTED_TILED["direct backward ds rounded before dbias"],
+    "onepass_next_row_statistics": (
+        "attention_bwd_onepass.cuh",
+        ("row_max = __ldg(stats + b * stats_step + threadIdx.x);",
+         "row_sum = __ldg(stats + b * stats_step + n + threadIdx.x);"),
+        ("row_max = __ldg(stats + b * stats_step + (threadIdx.x + 1) % n);",
+         "row_sum = __ldg(stats + b * stats_step + n + (threadIdx.x + 1) % n);")),
     "lane_keep_dropped_in_rows": PLANTED_TILED[
         "lane backward keep mask dropped from dp in the rows kernel"],
     # the LayerNorm backward: the m2 term dropped from dx, and the first
@@ -1052,14 +1130,16 @@ def test_bf16_check_catches_planted_backward_faults(cuda, tmp_path, monkeypatch,
     """Each planted backward fault, built from a copy of the sources, fails
     chip_smoke's bf16 backward limits at a train-path shape, on the body
     that runs it: a window fault at swin stage 2, shifted (N = 196, the
-    direct backward), at the trained 2D swin's stage 2 (lane window, 4
+    direct backward: the CUDA-core body's faults at hd 64 and the one-pass
+    body's at hd 32), at the trained 2D swin's stage 2 (lane window, 4
     frames of 4 windows of 49 tokens, shifted) and at the violet swin's
     stage 0 (the packed backward, where a fault of the packed kernel alone
-    is planted); a lane fault at the fusion shape L = 232 with dropout; a
-    fault of the tiled self-attention's tensor-core body at the
-    multiple-choice rows (N = 350) with 24 heads of 32, p = 0.1; a LayerNorm
-    fault at the train fusion site (18,560 rows of 768), held to the fp32
-    and the bf16 limits. The readings are printed (run with -s)."""
+    is planted) for the CUDA-core body and attention_bwd_mma.cuh; a lane
+    fault at the fusion shape L = 232 with dropout; a fault of the tiled
+    self-attention's tensor-core body at the multiple-choice rows (N = 350)
+    with 24 heads of 32, p = 0.1; a LayerNorm fault at the train fusion site
+    (18,560 rows of 768), held to the fp32 and the bf16 limits. The readings
+    are printed (run with -s)."""
     name = PLANTED_BWD[fault][0]
     src = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, src)
@@ -1082,7 +1162,7 @@ def test_bf16_check_catches_planted_backward_faults(cuda, tmp_path, monkeypatch,
             lambda a: twa.packed_window_attention_backward_plain(a, pbias, pmask, dp.to(a.dtype),
                                                                  64, ph, pscale),
             xp, _window_bwd_kind(window_hd))
-    if name in ("attention_bwd.cuh", "attention_bwd_mma.cuh"):
+    if name in ("attention_bwd.cuh", "attention_bwd_mma.cuh", "attention_bwd_onepass.cuh"):
         win, c, hp = (4, 7, 7), 512, 14
         nh = c // window_hd
         x3 = torch.randn(2, 4, hp, hp, 3 * c, device=cuda, generator=gen) * 0.5
@@ -1090,11 +1170,13 @@ def test_bf16_check_catches_planted_backward_faults(cuda, tmp_path, monkeypatch,
         bias = torch.randn(nh, 196, 196, device=cuda, generator=gen) * 0.02
         mask = torch.from_numpy(_shift_attn_mask((4, hp, hp), win, (0, 3, 3))).to(cuda)
         scale = window_hd ** -0.5
-        cases["direct"] = bf16_check(
-            lambda a: twa._direct_bwd(a, bias, mask, do.to(a.dtype), win, nh, scale),
-            lambda a: twa.direct_window_attention_backward_plain(a, bias, mask, do.to(a.dtype),
-                                                                 win, nh, scale),
-            x3, _window_bwd_kind(window_hd))
+        if name != "attention_bwd_mma.cuh":          # the direct route's bodies
+            cases["direct"] = bf16_check(
+                lambda a: twa._direct_bwd(a, bias, mask, do.to(a.dtype), win, nh, scale),
+                lambda a: twa.direct_window_attention_backward_plain(
+                    a, bias, mask, do.to(a.dtype), win, nh, scale),
+                x3, _window_bwd_kind(window_hd))
+    if name in ("attention_bwd.cuh", "attention_bwd_mma.cuh"):
         wb, wn = 64, 49                              # stage 2 of the 2D swin: nW = 4 x 4
         wmask = torch.from_numpy(_shift_attn_mask((4, hp, hp), (1, 7, 7), (0, 3, 3))
                                  ).to(cuda)
