@@ -14,7 +14,10 @@ set-up, through the window's own step and feed:
 * ``delta_gap``: the same for the norm of each leaf's change over the
   steps;
 * ``vtm_score_gap``: the first step's VTM scores (positive rows, then
-  negative rows) against the reference's, as the eval's ``score_gap``.
+  negative rows) against the reference's, as the eval's ``score_gap``;
+* each checked number of the run's MVM targets (``reference/targets/``):
+  the first-step output of the program module the target names, against
+  the reference's with its scale, as ``vtm_score_gap``.
 
 Leaves whose reference gradient is under a thousandth of the median
 leaf's (a rule on the reference's gradient, not on names) move under Adam
@@ -52,26 +55,31 @@ def _ref_model(cell, numerics: str, device):
 
 def reference_train(cell, seed: int, device, numerics: str = "fp32", batch_rows=None):
     """The reference's readings of the first ``check_steps`` steps: losses,
-    first-gradient norms and change norms by leaf. ``batch_rows`` keeps
-    only that many rows of each batch (a planted fault)."""
+    first-gradient norms and change norms by leaf, the first step's VTM
+    scores and each checked output, in the program's shape (``kept``), with
+    their scales apart (``scales``, ``kept_scales``), so that the readings
+    can stand in the program's place. ``batch_rows`` keeps only that many
+    rows of each batch (a planted fault)."""
     from portbench.reference.steps import train_steps
     t, run = cell.traffic, cell.config["run"]
     dims = cell.config["dims"]
     model = _ref_model(cell, numerics, device)
     specs = inputs.param_specs(model)
-    weights = inputs.make_weights(specs, seed, device)
+    weights = inputs.make_weights(specs, seed, device, model.weight_rules)
     inputs.load_weights(model, weights)
     pool = inputs.train_pool(seed, t["pool"], t["batch"], run["size_frame"], run["size_img"],
                              run["size_txt"], dims["text"]["vocab_size"], device)
     batches = pool[:t["check_steps"]]
     if batch_rows is not None:
         batches = [{k: v[:batch_rows] for k, v in b.items()} for b in batches]
-    losses, first_grad, params, (scores, scales) = train_steps(
+    losses, first_grad, params, (scores, scales), kept = train_steps(
         model, batches, seed, run, cell.config["assumed"]["max_iter"])
     names = sorted(params)
     deltas = torch.stack(torch._foreach_norm([params[n].detach() - weights[n] for n in names]))
     return {"losses": losses, "first_grad": first_grad, "delta": dict(zip(names, deltas.tolist())),
-            "scores": scores, "scales": scales}
+            "scores": scores, "scales": scales,
+            "kept": {name: out for name, (out, _) in kept.items()},
+            "kept_scales": {name: scale for name, (_, scale) in kept.items()}}
 
 
 def scaled_score_gap(prog_scores, ref_scores, ref_scales) -> float:
@@ -88,7 +96,8 @@ def scaled_score_gap(prog_scores, ref_scores, ref_scales) -> float:
 
 def train_numbers(prog: dict, ref: dict) -> dict:
     if len(prog["losses"]) != len(ref["losses"]):
-        return dict.fromkeys(("loss_gap", "grad_gap", "delta_gap", "vtm_score_gap"), math.inf)
+        return dict.fromkeys(("loss_gap", "grad_gap", "delta_gap", "vtm_score_gap",
+                              *ref["kept"]), math.inf)
 
     loss_gap = 0.0
     for p_step, r_step in zip(prog["losses"], ref["losses"]):
@@ -110,7 +119,12 @@ def train_numbers(prog: dict, ref: dict) -> dict:
 
     g = gaps(prog["first_grad"], rg, med)
     d = gaps(prog["delta"], ref["delta"], med_d)
-    return {"vtm_score_gap": (scaled_score_gap(prog["scores"], ref["scores"], ref["scales"])
+    kept = prog.get("kept", {})
+    checked = {name: (scaled_score_gap(kept[name], out, ref["kept_scales"][name])
+                      if name in kept else math.inf)
+               for name, out in ref["kept"].items()}
+    return {**checked,
+            "vtm_score_gap": (scaled_score_gap(prog["scores"], ref["scores"], ref["scales"])
                               if "scores" in prog else math.inf),
             "loss_gap": loss_gap, "grad_gap": max(g.values()), "delta_gap": max(d.values()),
             "worst_leaves": f"grad {max(g, key=g.get)}, change {max(d, key=d.get)}; "
@@ -166,7 +180,9 @@ class exact_fp32:
 
 
 def verdict(numbers: dict, limits: dict, failed: int) -> tuple[bool, dict]:
-    """``correct`` and each number beside its limit."""
+    """``correct`` and each number beside its limit; a limit whose number
+    was not computed reads inf and fails."""
+    numbers = {k: numbers.get(k, math.inf) for k in limits}
     shown = {k: {"value": numbers[k], "limit": limits[k]} for k in limits}
     ok = failed == 0 and all(math.isfinite(numbers[k]) and numbers[k] <= limits[k]
                              for k in limits)

@@ -20,6 +20,7 @@ import time
 import torch
 
 from portbench.harness import inputs, work
+from portbench.reference import targets
 
 
 def _sync(device):
@@ -50,8 +51,8 @@ class Entry:
         self.split.append((phase, now - self._mark_t))
         self._mark_t = now
 
-    def _weights(self, model):
-        return inputs.make_weights(inputs.param_specs(model), self.seed, self.device)
+    def _weights(self, model, rules=()):
+        return inputs.make_weights(inputs.param_specs(model), self.seed, self.device, rules)
 
     def release(self):
         """Drop the program's objects and cached blocks."""
@@ -65,7 +66,9 @@ class Entry:
 
 
 class PretrainEntry(Entry):
-    """The pretrain step fed from a pool of seeded batches, cycled."""
+    """The pretrain step fed from a pool of seeded batches, cycled. The run's
+    MVM targets (``reference/targets/``) give the weight rules, the checked
+    outputs of the first step and the teacher call ``teacher_ms`` times."""
 
     kind = "train"
 
@@ -84,7 +87,8 @@ class PretrainEntry(Entry):
         self.model = VioletPretrain.from_run_config(self.run_cfg, dtype=self.dtype,
                                                     device=self.device)
         self.mark("model")
-        weights = self._weights(self.model)
+        self.targets = targets.ordered(self.config["run"]["mvm_target"])
+        weights = self._weights(self.model, targets.weight_rules(self.targets))
         inputs.load_weights(self.model, weights)
         self.mark("weights")
         self.opt = build_optimizer(self.model, self.run_cfg.train, self.config["assumed"]["max_iter"])
@@ -96,7 +100,7 @@ class PretrainEntry(Entry):
         losses = []
         for i in range(t["check_steps"]):
             if i == 0:
-                with self.keep_vtm_scores():
+                with self.keep_first_outputs():
                     ls = self.one_step()
             else:
                 ls = self.one_step()
@@ -117,18 +121,27 @@ class PretrainEntry(Entry):
         self.mark("warm-up steps")
 
     @contextlib.contextmanager
-    def keep_vtm_scores(self):
-        """The VTM score head's outputs of one step (its positive rows, then
-        its negative rows), kept by a forward hook that is gone before the
-        window."""
-        kept = []
-        handle = self.model.fc.register_forward_hook(
-            lambda module, args, out: kept.append(out.detach().float().reshape(-1).clone()))
+    def keep_first_outputs(self):
+        """The outputs of one step that the check compares, kept by forward
+        hooks that are gone before the window: the VTM score head's (its
+        positive rows, then its negative rows) and, with the ``mvm`` task,
+        each module that a target's checked number names."""
+        modules = {"scores": self.model.fc}
+        if "mvm" in self.config["run"]["pretrain_tasks"]:
+            modules.update({name: self.model.get_submodule(where)
+                            for name, where in targets.checked(self.targets).items()})
+        kept = {name: [] for name in modules}
+        handles = [module.register_forward_hook(
+            lambda module, args, out, into=kept[name]:
+                into.append(out.detach().float().reshape(-1).clone()))
+            for name, module in modules.items()]
         try:
             yield
         finally:
-            handle.remove()
-        self.checks["scores"] = torch.cat(kept)
+            for handle in handles:
+                handle.remove()
+        self.checks["scores"] = torch.cat(kept.pop("scores"))
+        self.checks["kept"] = {name: torch.cat(outs) for name, outs in kept.items() if outs}
 
     def one_step(self):
         batch = self.pool[self.next_batch % len(self.pool)]
@@ -185,16 +198,22 @@ class PretrainEntry(Entry):
         return steps * work.self_attention_calls(self.dims["fusion"], rows, length, True)
 
     def teacher_ms(self) -> float | None:
-        """Device ms of one no-grad call of the frozen teacher on the
-        normalized clips of one batch (CUDA events)."""
+        """Device ms of one no-grad call of the frozen teachers of the run's
+        MVM targets on the normalized clips of one batch (CUDA events);
+        None where no target names a teacher call."""
         from empirical_mvm_torch.ops.preprocess import maybe_normalize
+        calls = [t.teacher_call for t in self.targets if t.teacher_call is not None]
+        if "mvm" not in self.config["run"]["pretrain_tasks"] or not calls:
+            return None
         img = maybe_normalize(self.pool[0]["img"])
         with torch.no_grad():
-            self.model.feature_model(img)                  # the same shapes as the step's
+            for call in calls:
+                call(self.model, img)                      # the same shapes as the step's
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            self.model.feature_model(img)
+            for call in calls:
+                call(self.model, img)
             end.record()
             torch.cuda.synchronize(self.device)
         return start.elapsed_time(end)

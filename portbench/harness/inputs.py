@@ -6,11 +6,15 @@ large calls; the same seed gives the same values.
 Weights: LayerNorm weights 1, biases 0, every other parameter N(0, 0.02),
 drawn as one flat buffer over the parameters in sorted name order, so that
 two models with the same names and shapes get the same values whatever
-order they hold them in. The names alone decide which is which.
+order they hold them in. The names alone decide which is which. An MVM
+target's weight rules (``reference/targets/``) replace that for the names
+they match: a fixed value, or the same draw scaled to another std; the
+other parameters keep their values bit for bit.
 """
 
 from __future__ import annotations
 
+import math
 import re
 
 import numpy as np
@@ -34,8 +38,11 @@ def weight_kind(name: str) -> str:
     return "normal"
 
 
-def make_weights(specs: dict[str, tuple[int, ...]], seed: int, device) -> dict[str, torch.Tensor]:
-    """fp32 weights for ``specs`` (name -> shape): views into one buffer."""
+def make_weights(specs: dict[str, tuple[int, ...]], seed: int, device,
+                 rules=()) -> dict[str, torch.Tensor]:
+    """fp32 weights for ``specs`` (name -> shape): views into one buffer.
+    The first of ``rules`` (``targets.Rule``) whose pattern a name matches
+    replaces that name's default."""
     names = sorted(specs)
     sizes = [int(np.prod(specs[n])) for n in names]
     gen = torch.Generator(device).manual_seed(stream_seed(seed, 1))
@@ -44,12 +51,27 @@ def make_weights(specs: dict[str, tuple[int, ...]], seed: int, device) -> dict[s
     out, off = {}, 0
     for name, size in zip(names, sizes):
         view = flat[off:off + size].view(specs[name])
+        rule = next((r for r in rules if re.search(r.pattern, name)), None)
         kind = weight_kind(name)
-        if kind != "normal":
+        if rule is not None:
+            _apply(rule, name, view)
+        elif kind != "normal":
             view.fill_(1.0 if kind == "one" else 0.0)
         out[name] = view
         off += size
     return out
+
+
+def _apply(rule, name: str, view: torch.Tensor) -> None:
+    if rule.kind == "value":
+        view.fill_(rule.number)
+    elif rule.kind == "std":
+        view.mul_(rule.number / STD)
+    elif rule.kind == "fan_in" and view.dim() >= 2:
+        view.mul_(rule.number / math.sqrt(view[0].numel()) / STD)
+    else:
+        raise ValueError(f"weight rule {rule} on {name} {tuple(view.shape)}: kind is value, "
+                         "std, or fan_in on a weight of two or more dimensions")
 
 
 def param_specs(model) -> dict[str, tuple[int, ...]]:

@@ -4,7 +4,9 @@ its traffic mix (``traffic/<traffic>.json``), its limits
 (``cells/<workload>.json``) and the reader of each metric it reports
 (``metrics/<metric>.py``, a ``read(ctx)`` returning a number or None).
 A pretrain configuration that the reference does not define, or whose
-step the FLOP count does not cover, is refused here, before any run."""
+step the FLOP count does not cover, is refused here, before any run: an
+MVM target is defined by its file ``reference/targets/<mvm_target>.py``,
+and each of its checked numbers needs a limit in the cell's file."""
 
 from __future__ import annotations
 
@@ -45,8 +47,15 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     if traffic["entry"] == "pretrain_step":
         from portbench.harness.work import pretrain_step_flops
         from portbench.reference.steps import check_supported
+        from portbench.reference import targets
         check_supported(config["run"])
         pretrain_step_flops(config["dims"], config["run"], traffic["batch"])
+        if "mvm" in config["run"]["pretrain_tasks"]:
+            unjudged = sorted(set(targets.checked(targets.ordered(config["run"]["mvm_target"])))
+                              - set(limits))
+            if unjudged:
+                raise ValueError(f"workload {name!r}: checked numbers {unjudged} of its MVM "
+                                 f"targets have no limit in portbench/cells/{name}.json")
     return Cell(name=name, workload=w, config=config, traffic=traffic, limits=limits,
                 end_to_end=[m for m in bench["end_to_end"] if _reports(m, name)],
                 per_layer=[m for m in bench["per_layer"] if _reports(m, name)])

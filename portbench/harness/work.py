@@ -1,7 +1,8 @@
 """The work a cell asks of the model, counted from its shapes: matrix-product
-FLOPs of the Video Swin, the BERT fusion, the heads and the 2D Swin teacher,
-and the operations and bytes of each attention call, from which the
-rooflines take their least time.
+FLOPs of the Video Swin, the BERT fusion, the heads and each MVM target's
+head and teacher (counted in its file under ``reference/targets/``), and
+the operations and bytes of each attention call, from which the rooflines
+take their least time.
 
 Conventions: a multiply-add is 2 FLOPs; a trained part costs 3x its
 forward (forward, and the backward's two products), a frozen teacher its
@@ -13,6 +14,7 @@ once (bf16 activations, fp32 bias and mask).
 
 from __future__ import annotations
 
+import sys
 from dataclasses import dataclass
 
 
@@ -93,19 +95,20 @@ def pretrain_step_flops(dims: dict, run: dict, batch: int, options: int = 4) -> 
     """One pretrain step of the run configuration ``run``: the fusion over
     ``options`` rows a clip (VTM's positive and ``options`` - 1 negatives)
     with the VTM and MTM heads, which the program computes whatever
-    ``pretrain_tasks`` says, and with the ``mvm`` task each target of
-    ``mvm_target``: ``2d_feature``'s head and its frozen teacher's forward,
-    ``pixel``'s decoder. The trained parts count 3x, the teacher 1x. Any
-    other task or target is refused, not left out."""
-    tasks, targets = set(run["pretrain_tasks"]), set(run["mvm_target"])
-    if not tasks <= {"vtm", "mtm", "mvm"} or ("mvm" in tasks
-                                               and not targets <= {"2d_feature", "pixel"}):
-        raise ValueError(f"pretrain_tasks {sorted(tasks)}, mvm_target {sorted(targets)}: "
-                         "the FLOP count covers vtm, mtm and mvm with 2d_feature or pixel")
+    ``pretrain_tasks`` says, and with the ``mvm`` task what each target of
+    ``mvm_target`` counts in its file under ``reference/targets/``: its head
+    (trained) and its frozen teacher's forward. The trained parts count 3x,
+    the teacher 1x. Any other task, or a target with no file, is refused,
+    not left out."""
+    from portbench.reference import targets
+    tasks = set(run["pretrain_tasks"])
+    if not tasks <= {"vtm", "mtm", "mvm"}:
+        raise ValueError(f"pretrain_tasks {sorted(tasks)}: the FLOP count covers vtm, mtm "
+                         "and mvm")
+    mvm = targets.ordered(run["mvm_target"]) if "mvm" in tasks else []
     t, size, x = run["size_frame"], run["size_img"], run["size_txt"]
-    f, d, ps = dims["fusion"], dims["fusion"]["hidden_size"], dims["size_patch"]
+    f, d = dims["fusion"], dims["fusion"]["hidden_size"]
     lv = video_tokens(dims, t, size)
-    rows = batch * t * (size // ps) ** 2                                     # MVM's tokens
     trained = batch * (swin_forward_flops(dims["swin"], t, size, size)
                        + video_fc_flops(dims, t, size))
     o = min(batch, options)
@@ -113,12 +116,10 @@ def pretrain_step_flops(dims: dict, run: dict, batch: int, options: int = 4) -> 
     trained += score_head_flops(d, 1, batch * o)                             # VTM
     trained += batch * x * 2.0 * (d * d + d * f["vocab_size"])               # MTM head
     teacher = 0.0
-    if "mvm" in tasks and "2d_feature" in targets:
-        teacher_out = dims["teacher"]["embed_dim"] * 2 ** (len(dims["teacher"]["depths"]) - 1)
-        trained += score_head_flops(d, teacher_out, rows)
-        teacher = batch * swin_forward_flops(dims["teacher"], t, size, size)
-    if "mvm" in tasks and "pixel" in targets:
-        trained += 2.0 * rows * d * ps * ps * 3
+    for target in mvm:
+        head, frozen = target.flops(dims, run, batch, sys.modules[__name__])
+        trained += head
+        teacher += frozen
     return 3.0 * trained + teacher
 
 

@@ -1,7 +1,6 @@
 """The plain reference of the VIOLET-base models the benchmark runs: the Video
-Swin, the BERT embeddings and fusion, the pretrain heads (with the 2D Swin
-teacher of the ``2d_feature`` target, or the ``pixel`` target's decoder),
-and the retrieval head.
+Swin, the BERT embeddings and fusion, the pretrain heads (each MVM target's head
+and teacher from its file under ``targets/``), and the retrieval head.
 
 Plain PyTorch in float32 (the caller turns TF32 off), no kernels, no cache,
 no batching tricks. The semantics follow ``empirical_mvm_torch`` as of
@@ -32,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from portbench.reference import targets
 from portbench.reference.philox import dropout_keep
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -525,36 +525,26 @@ class VioletBase(nn.Module):
 
 
 class VioletPretrain(VioletBase):
-    """VTM + MTM + MVM, each MVM target with its head: ``2d_feature``, a
-    frozen 2D Swin teacher's features regressed through ``fc_mvm``;
-    ``pixel``, the clip's normalized pixels decoded by ``decoder_pixel``."""
+    """VTM + MTM + MVM. Each MVM target of ``mvm_target`` brings its head and
+    its frozen teacher, if it has one, from its file under ``targets/``,
+    which registers them under the program's state-dict names."""
 
     num_options = 4
-    mvm_targets = ("2d_feature", "pixel")
 
-    def __init__(self, cfg, num: Numerics = FP32, mvm_target=("2d_feature",)):
+    def __init__(self, cfg, num: Numerics, mvm_target):
         super().__init__(cfg, num)
-        if not set(mvm_target) <= set(self.mvm_targets):
-            raise ValueError(f"mvm_target {list(mvm_target)}: the reference defines "
-                             f"{list(self.mvm_targets)}")
-        d, ps = cfg["fusion"]["hidden_size"], cfg["size_patch"]
+        d = cfg["fusion"]["hidden_size"]
         self.fc = ScoreHead(d, 1, num)
         self.fc_mtm = BertMLMHead(cfg["fusion"], num)
-        if "pixel" in mvm_target:
-            self.decoder_pixel = Linear(d, ps * ps * 3, num=num)
-        if "2d_feature" in mvm_target:
-            self.fc_mvm = ScoreHead(d, cfg["teacher"]["embed_dim"] * 8, num)
-            self.feature_model = SwinTransformer3D(cfg["teacher"], num)
-            self.feature_model.requires_grad_(False)
-        self.mvm_target = tuple(mvm_target)
+        self.targets = targets.ordered(mvm_target)
+        for target in self.targets:
+            target.build(self, cfg, num)
+        self.frozen_prefixes = tuple(p for target in self.targets for p in target.FROZEN)
+        self.weight_rules = targets.weight_rules(self.targets)
 
-    def decode_pixel(self, grid):
-        """(B, T, h, w, D) -> (B, T, h ps, w ps, 3): each token's ps x ps x 3
-        outputs laid out channel-major, as torch's PixelShuffle does."""
-        b, t, h, w, _ = grid.shape
-        r = self.cfg["size_patch"]
-        x = self.decoder_pixel(grid).reshape(b, t, h, w, 3, r, r).permute(0, 1, 2, 5, 3, 6, 4)
-        return x.reshape(b, t, h * r, w * r, 3)
+    def frozen(self, name: str) -> bool:
+        """A teacher's parameter, which no step moves."""
+        return name.startswith(self.frozen_prefixes)
 
     def forward(self, img, txt, mask, neg_idx, generator=None):
         b = img.shape[0]
@@ -590,7 +580,3 @@ class VioletRetrieval(VioletBase):
         out, scale = self.fc.score_terms(self.go_cross(fi, mi, ft, mt)[:, fi.shape[1]])
         return out[..., 0], scale
 
-
-def frozen(name: str) -> bool:
-    """The teacher's parameters, which no step moves."""
-    return name.startswith("feature_model.")

@@ -11,10 +11,13 @@ dropouts are the program's; nothing else of the program enters.
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+
 import numpy as np
 import torch
 
-from portbench.reference.model import LayerNorm, frozen, normalize
+from portbench.reference import targets
+from portbench.reference.model import LayerNorm, normalize
 
 SPECIAL_TOKENS = (101, 102, 0)      # [CLS], [SEP], [PAD]
 MASK_TOKEN = 103
@@ -25,14 +28,14 @@ MASKS = ("rm", "bm")
 
 def check_supported(run: dict) -> None:
     """Refuse a pretrain run configuration that the reference does not
-    define, naming what it does define. The program computes the VTM and
-    MTM losses whatever ``pretrain_tasks`` says; ``mvm`` adds one loss a
-    target of ``mvm_target``."""
-    from portbench.reference.model import VioletPretrain
-    for key, known in (("pretrain_tasks", TASKS), ("pretrain_masks", MASKS),
-                       ("mvm_target", VioletPretrain.mvm_targets)):
+    define, naming what it does define: an MVM target without a file under
+    ``targets/`` is refused naming the path looked for. The program computes
+    the VTM and MTM losses whatever ``pretrain_tasks`` says; ``mvm`` adds
+    each target's losses."""
+    for key, known in (("pretrain_tasks", TASKS), ("pretrain_masks", MASKS)):
         if not set(run[key]) <= set(known):
             raise ValueError(f"{key} {list(run[key])}: the reference defines {list(known)}")
+    targets.ordered(run["mvm_target"])
 
 
 def step_generators(seed: int, step: int, device) -> tuple[torch.Generator, torch.Generator]:
@@ -116,9 +119,25 @@ def masked_l1(pred, target, mask, channel_div=1.0):
     return ((pred - target).abs() * m).sum() / (m.sum() + 1e-5) / channel_div
 
 
+@dataclass
+class MVMInputs:
+    """What a target's ``losses`` reads: the normalized unmasked clip (B, T,
+    H, W, 3), the fused patch tokens (B, T, h, w, D), the patch cover (B,
+    T, h, w) and the pixel cover (B, T, H, W, 1) of the masking, and the
+    dropout generator; ``kept`` takes the reference's outputs of the
+    target's checked numbers, each with its scale."""
+    img: torch.Tensor
+    grid: torch.Tensor
+    cov: torch.Tensor
+    pix: torch.Tensor
+    drop_gen: torch.Generator | None
+    kept: dict = field(default_factory=dict)
+
+
 def pretrain_losses(model, batch, drop_gen, mask_gen, train: dict) -> dict:
     """Masking, forward, the VTM and MTM losses and, with the ``mvm`` task,
-    one loss a target (the program's order: pixel, then 2d_feature)."""
+    each target's losses in the program's order. ``_vtm`` holds the VTM
+    scores and scales, ``_kept`` the targets' checked outputs."""
     img = normalize(batch["img"])
     txt, mask = batch["txt"], batch["mask"]
     b, t = img.shape[:2]
@@ -132,17 +151,15 @@ def pretrain_losses(model, batch, drop_gen, mask_gen, train: dict) -> dict:
     ls = {"mtm": cross_entropy_ignore(out["out_mtm"], ans_mtm),
           "vtm": cross_entropy_ignore(out["out_vtm"] / train["temp"],
                                       torch.zeros(b, dtype=torch.int64, device=img.device))}
+    mvm = None
     if "mvm" in train["pretrain_tasks"]:
         grid = out["out_mvm"].reshape(b, t, 1 + h * w, -1)[:, :, 1:].reshape(b, t, h, w, -1)
-        if "pixel" in model.mvm_target:
-            ls["mvm_pixel"] = masked_l1(model.decode_pixel(grid), img, pix, channel_div=3.0)
-        if "2d_feature" in model.mvm_target:
-            with torch.no_grad():
-                target = model.feature_model(img)
-            ls["mvm_2d_feature"] = masked_l1(model.fc_mvm(grid, drop_gen), target,
-                                             cov[..., None], channel_div=3.0)
+        mvm = MVMInputs(img, grid, cov, pix, drop_gen)
+        for target in model.targets:
+            ls.update(target.losses(model, mvm))
     ls["total"] = sum(ls.values())
     ls["_vtm"] = (out["vtm_scores"], out["vtm_scales"])
+    ls["_kept"] = mvm.kept if mvm is not None else {}
     return ls
 
 
@@ -156,7 +173,7 @@ class AdamW:
 
     def __init__(self, model, train: dict, max_iter: int):
         norms = {id(m.weight) for m in model.modules() if isinstance(m, LayerNorm)}
-        self.params = {n: p for n, p in model.named_parameters() if not frozen(n)}
+        self.params = {n: p for n, p in model.named_parameters() if not model.frozen(n)}
         self.decay = {n: 0.0 if ("bias" in n.rsplit(".", 1)[-1] or id(p) in norms)
                       else train["decay"] for n, p in self.params.items()}
         self.lr, self.max_iter = train["lr"], max_iter
@@ -199,25 +216,25 @@ class AdamW:
 def train_steps(model, batches, seed: int, train: dict, max_iter: int):
     """``len(batches)`` pretrain steps. Returns each step's losses (floats),
     the per-leaf norms of the first step's clipped gradient, the parameters
-    after the last step, and the first step's VTM scores (positive rows,
-    then negative rows) with their scales."""
+    after the last step, the first step's VTM scores (positive rows, then
+    negative rows) with their scales, and its targets' checked outputs."""
     opt = AdamW(model, train, max_iter)
     device = next(model.parameters()).device
-    losses, first_grad, first_vtm = [], None, None
+    losses, first_grad, first_vtm, first_kept = [], None, None, None
     for i, batch in enumerate(batches):
         drop_gen, mask_gen = step_generators(seed, i, device)
         for p in model.parameters():
             p.grad = None
         ls = pretrain_losses(model, batch, drop_gen, mask_gen, train)
-        vtm = ls.pop("_vtm")
+        vtm, kept = ls.pop("_vtm"), ls.pop("_kept")
         ls["total"].backward()
         g = opt.step()
         losses.append({k: float(v.detach()) for k, v in ls.items()})
         if i == 0:
             first_grad = {n: float(x.norm()) for n, x in g.items()}
-            first_vtm = vtm
+            first_vtm, first_kept = vtm, kept
         del ls, g
-    return losses, first_grad, opt.params, first_vtm
+    return losses, first_grad, opt.params, first_vtm, first_kept
 
 
 @torch.no_grad()
